@@ -1,0 +1,307 @@
+"""Crash flight recorder: dump the last N spans/events/metrics on the way
+down.
+
+A wedged or dying distributed run is only postmortem-able if the telemetry
+that explains it survives the crash.  This module keeps no state of its
+own — it snapshots what the obs layer already buffers (the span ring from
+obs/trace.py, the event log's in-memory ring, the default registry plus
+any registries long-lived services registered) and writes one timestamped
+JSONL bundle, atomically (tmp + rename), from:
+
+  - ``sys.excepthook`` — any uncaught exception,
+  - SIGTERM — the orchestrator/operator killing the run,
+  - SIGUSR1 — a live inspection poke (dump and keep running).
+
+Install explicitly (``flight.install(dir)``) or via the environment:
+``LIGHTCTR_FLIGHT=<dir>`` arms the recorder at obs import in every
+process that inherits the variable — which is exactly what a multi-
+process PS run wants.  Read a bundle back with
+``python -m tools.trace_report --flight <bundle>``.
+
+Bundle layout (one JSON object per line)::
+
+    {"kind": "flight", "v": 1, "reason": ..., "ts": ..., "pid": ...}
+    {"kind": "metrics", "registry": "default", "snapshot": {...}}
+    {"kind": "span", ...}          # trace ring, oldest first
+    {"kind": "flight_event", "record": {...}}   # event ring, oldest first
+
+Everything here is defensive: a dump failure must never mask the original
+crash, so every step swallows its own errors.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import signal
+import sys
+import threading
+import time
+from typing import Callable, Dict, Optional
+
+from lightctr_tpu_torch.obs import events as events_mod
+from lightctr_tpu_torch.obs import trace as trace_mod
+from lightctr_tpu_torch.obs.registry import MetricsRegistry, default_registry
+
+FLIGHT_SCHEMA_VERSION = 1
+
+_LOG = logging.getLogger(__name__)
+
+_state = {
+    "dir": None,            # destination directory once installed
+    "prev_excepthook": None,
+    "prev_handlers": {},    # signum -> previous handler
+    "installed": False,
+    "dying": False,         # lethal signal seen; next delivery is final
+}
+_extra_registries: Dict[str, MetricsRegistry] = {}
+_health_providers: Dict[str, Callable[[], Dict]] = {}
+_reg_lock = threading.Lock()
+# ONE re-entrancy guard for every dump path — signal/excepthook dumps AND
+# health-anomaly dumps: a dump triggered while another is mid-write is
+# COALESCED (returns None, counted), never interleaved or queued behind it
+# (the in-progress bundle captures ~the same rings anyway)
+_dump_lock = threading.Lock()
+_dump_seq = [0]  # same-second dumps (SIGUSR1 pokes) must not collide
+_coalesced = [0]
+
+
+def register_registry(name: str, registry: MetricsRegistry) -> None:
+    """Have ``dump`` snapshot an extra registry (PS shards own theirs, so
+    the process-default registry alone would miss the interesting one).
+    Long-lived services register on start and unregister on close."""
+    with _reg_lock:
+        _extra_registries[str(name)] = registry
+
+
+def unregister_registry(name: str) -> None:
+    with _reg_lock:
+        _extra_registries.pop(str(name), None)
+
+
+def registered_registries() -> Dict[str, MetricsRegistry]:
+    """Copy of the extra-registry map (the ops exporter scrapes these
+    alongside the default registry)."""
+    with _reg_lock:
+        return dict(_extra_registries)
+
+
+def register_health_provider(name: str,
+                             provider: Callable[[], Dict]) -> None:
+    """Register a zero-arg callable returning a JSON-ready health verdict
+    (``HealthMonitor.verdict``); every bundle — and the ops exporter's
+    ``/healthz`` — includes one ``health`` record per provider."""
+    with _reg_lock:
+        _health_providers[str(name)] = provider
+
+
+def unregister_health_provider(name: str) -> None:
+    with _reg_lock:
+        _health_providers.pop(str(name), None)
+
+
+def health_verdicts() -> Dict[str, Dict]:
+    """Current verdict per registered provider; a failing provider is
+    skipped (a sick monitor must not take the health plane down)."""
+    with _reg_lock:
+        providers = dict(_health_providers)
+    out: Dict[str, Dict] = {}
+    for name, provider in providers.items():
+        try:
+            out[name] = provider()
+        except Exception:
+            continue
+    return out
+
+
+def armed() -> bool:
+    """True when a bundle destination is configured (``install`` ran or
+    ``LIGHTCTR_FLIGHT`` was set) — anomaly triggers check this so an
+    unarmed process never litters its cwd with bundles."""
+    return _state["dir"] is not None
+
+
+def coalesced_dumps() -> int:
+    """How many dump requests were dropped because one was in progress."""
+    return _coalesced[0]
+
+
+def dump(reason: str, dir: Optional[str] = None) -> Optional[str]:
+    """Write one flight bundle; returns its path (None on failure, or
+    when COALESCED with a dump already in progress).  Safe to call from
+    signal handlers, excepthooks, and health-anomaly triggers — never
+    raises."""
+    if not _dump_lock.acquire(blocking=False):
+        _coalesced[0] += 1
+        return None
+    try:
+        dest = dir or _state["dir"] or "."
+        os.makedirs(dest, exist_ok=True)
+        ts = time.time()
+        _dump_seq[0] += 1
+        path = os.path.join(
+            dest,
+            f"flight-{int(ts)}-{os.getpid()}-{_dump_seq[0]}.jsonl",
+        )
+        tmp = path + ".tmp"
+        with open(tmp, "w") as f:
+            f.write(json.dumps({
+                "kind": "flight", "v": FLIGHT_SCHEMA_VERSION,
+                "reason": str(reason), "ts": round(ts, 6),
+                "pid": os.getpid(), "argv": list(sys.argv),
+            }, sort_keys=True) + "\n")
+            regs = [("default", default_registry())]
+            with _reg_lock:
+                regs.extend(_extra_registries.items())
+                providers = dict(_health_providers)
+            for name, reg in regs:
+                try:
+                    snap = reg.snapshot()
+                except Exception:
+                    continue
+                f.write(json.dumps({
+                    "kind": "metrics", "registry": name,
+                    "snapshot": snap,
+                }, sort_keys=True) + "\n")
+            # health verdicts ride every bundle, so an anomaly-triggered
+            # dump says WHICH detector tripped without cross-referencing
+            # the event ring (tools/trace_report.py --flight prints them)
+            for name, provider in providers.items():
+                try:
+                    verdict = provider()
+                except Exception:
+                    continue
+                f.write(events_mod.EventLog._dump_record({
+                    "kind": "health", "component": name,
+                    "verdict": verdict,
+                }) + "\n")
+            # per-record tolerance: ONE unserializable span/event must
+            # not cost the whole postmortem (registry snapshots and
+            # every other record) on the crash it exists to explain
+            for rec in trace_mod.finished():
+                f.write(events_mod.EventLog._dump_record(rec) + "\n")
+            for rec in events_mod.get_event_log().records():
+                f.write(events_mod.EventLog._dump_record(
+                    {"kind": "flight_event", "record": rec}) + "\n")
+        os.replace(tmp, path)  # atomic: readers never see a torn bundle
+        # flush the streaming sinks too — the bundle holds the rings, the
+        # JSONL files hold everything already emitted
+        try:
+            trace_mod.flush()
+        except Exception:
+            pass
+        try:
+            events_mod.get_event_log().flush()
+        except Exception:
+            pass
+        return path
+    except Exception:
+        return None
+    finally:
+        _dump_lock.release()
+
+
+def _on_signal(signum, frame):
+    """NEVER dumps on the handler's own (main) thread: the interrupted
+    frame may hold one of the non-reentrant locks dump() needs (a
+    registry inc mid-step, a trace-ring append), and a signal handler
+    blocking on it would deadlock the very wedge it should record.  The
+    dump runs on a fresh thread; the handler returns so the interrupted
+    frame resumes and releases its locks.  For lethal signals the dump
+    thread re-delivers the signal when done — the second delivery (dying
+    flag set) restores the previous disposition and lets the process die
+    with the right wait status."""
+    del frame
+    try:
+        name = signal.Signals(signum).name
+    except (ValueError, AttributeError):
+        name = str(signum)
+    if signum == getattr(signal, "SIGUSR1", None):
+        threading.Thread(
+            target=dump, args=(f"signal:{name}",), daemon=True,
+        ).start()
+        return  # inspection poke: keep running
+    if _state.get("dying"):
+        # second delivery: the dump already ran (or the operator insists)
+        try:
+            prev = _state["prev_handlers"].get(signum, signal.SIG_DFL)
+            signal.signal(signum, prev if callable(prev) or prev in
+                          (signal.SIG_DFL, signal.SIG_IGN)
+                          else signal.SIG_DFL)
+            os.kill(os.getpid(), signum)
+            return
+        except (OSError, ValueError):
+            os._exit(128 + signum)
+    _state["dying"] = True
+
+    def _dump_and_redeliver():
+        dump(f"signal:{name}")
+        try:
+            os.kill(os.getpid(), signum)
+        except OSError:
+            os._exit(128 + signum)
+
+    threading.Thread(target=_dump_and_redeliver, daemon=True).start()
+
+
+def _on_exception(exc_type, exc, tb):
+    dump(f"exception:{exc_type.__name__}")
+    prev = _state["prev_excepthook"] or sys.__excepthook__
+    prev(exc_type, exc, tb)
+
+
+def install(dir: str = ".", catch_signals: bool = True) -> None:
+    """Arm the recorder: bundles land in ``dir``.  Idempotent.  Signal
+    handlers attach only from the main thread (Python's rule); elsewhere
+    the excepthook still arms."""
+    _state["dir"] = dir
+    if _state["installed"]:
+        return
+    _state["prev_excepthook"] = sys.excepthook
+    sys.excepthook = _on_exception
+    if catch_signals:
+        for signame in ("SIGTERM", "SIGUSR1"):
+            signum = getattr(signal, signame, None)
+            if signum is None:
+                continue
+            try:
+                _state["prev_handlers"][signum] = signal.signal(
+                    signum, _on_signal
+                )
+            except ValueError:
+                # not the main thread: excepthook-only installation
+                _LOG.warning(
+                    "flight recorder: cannot catch %s outside the main "
+                    "thread; exception dumps only", signame,
+                )
+                break
+    _state["installed"] = True
+
+
+def uninstall() -> None:
+    """Detach handlers and restore what install() replaced (tests)."""
+    if not _state["installed"]:
+        return
+    if sys.excepthook is _on_exception:
+        sys.excepthook = _state["prev_excepthook"] or sys.__excepthook__
+    for signum, prev in _state["prev_handlers"].items():
+        try:
+            signal.signal(signum, prev)
+        except (ValueError, TypeError):
+            pass
+    _state["prev_handlers"].clear()
+    _state["installed"] = False
+    _state["dir"] = None
+    _state["dying"] = False
+
+
+def maybe_install_from_env() -> None:
+    """Arm from ``LIGHTCTR_FLIGHT=<dir>`` (obs/__init__ calls this once at
+    import, so every process of a launched run records for free)."""
+    dest = os.environ.get("LIGHTCTR_FLIGHT")
+    if dest:
+        try:
+            install(dest)
+        except Exception:
+            _LOG.warning("flight recorder: env install failed", exc_info=True)

@@ -1,0 +1,888 @@
+"""Training-dynamics health monitoring: detectors + verdict state machine.
+
+PR 2 made the system *measurable* and PR 3 made it *traceable*; this module
+makes it able to say it is sick while the run is still in flight.  A
+:class:`HealthMonitor` holds a set of pluggable **detectors** — each one
+watches one live signal (loss, gradient norm, per-table touched-uid
+density, SSP staleness, heartbeat gaps) and classifies every observation as
+``ok`` / ``degraded`` / ``unhealthy`` — and wraps each of them in a
+hysteresis state machine so one bad step never flips the verdict (and one
+good step never clears it).
+
+Every *effective* state transition:
+
+  - sets ``health_status{component=...,detector=...}`` (severity 0/1/2) and
+    bumps ``health_transitions_total{...,to=...}`` in the monitor's
+    registry,
+  - emits a ``health`` event through the obs event log,
+  - and, when the AGGREGATE verdict rises to ``flight_severity`` (default
+    ``unhealthy``) while the crash flight recorder is armed
+    (``LIGHTCTR_FLIGHT``), triggers :func:`obs.flight.dump` — the
+    postmortem bundle is captured *at anomaly time*, not only on crash.
+
+Monitors register themselves as flight **health providers**, so every
+bundle (and the ops exporter's ``/healthz``) sees every monitor in the
+process: the trainer's process monitor, a hosted PS shard's, the master's.
+
+``LIGHTCTR_HEALTH=0`` disables all monitors (observe becomes a no-op);
+``LIGHTCTR_TELEMETRY=0`` disables them too (the obs gate is checked
+first).  Signal producers should call :meth:`HealthMonitor.wants` before
+building an expensive signal (e.g. per-table unique-id counts).
+
+See docs/OBSERVABILITY.md "Health plane" for detector defaults and the
+event/metric schema.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import logging
+import math
+import os
+import threading
+import time
+from typing import Callable, Dict, Optional, Tuple
+
+from lightctr_tpu_torch.obs import events as events_mod
+from lightctr_tpu_torch.obs import flight as flight_mod
+from lightctr_tpu_torch.obs import gate
+from lightctr_tpu_torch.obs.registry import MetricsRegistry, default_registry, labeled
+
+_LOG = logging.getLogger(__name__)
+
+OK = "ok"
+DEGRADED = "degraded"
+UNHEALTHY = "unhealthy"
+
+#: status -> numeric severity (the value the status gauges carry)
+SEVERITY = {OK: 0, DEGRADED: 1, UNHEALTHY: 2}
+
+#: every gauge/counter series this module writes — the AST lint in
+#: tests/test_obs.py asserts the set matches the labeled() calls below, so
+#: a new detector metric cannot ship dark (unregistered, undocumented)
+HEALTH_SERIES = (
+    "health_status",             # gauge, {component, detector}
+    "health_component_status",   # gauge, {component} — the aggregate
+    "health_transitions_total",  # counter, {component, detector, to}
+    "health_flight_dumps_total",  # counter, {component}
+)
+
+
+def worst(statuses) -> str:
+    """The most severe of an iterable of statuses (OK for an empty one)."""
+    out = OK
+    for s in statuses:
+        if SEVERITY.get(s, 0) > SEVERITY[out]:
+            out = s
+    return out
+
+
+# -- anomaly listeners -------------------------------------------------------
+#
+# Process-wide hooks fired on every EFFECTIVE detector transition (after
+# hysteresis), outside the monitor lock: fn(component, detector, prev,
+# new, detail).  The device plane's anomaly-coupled profiler capture
+# subscribes here; listeners must never raise into observe() — failures
+# are swallowed at debug level.
+
+_anomaly_lock = threading.Lock()
+_anomaly_listeners: list = []
+
+
+def register_anomaly_listener(fn: Callable) -> None:
+    with _anomaly_lock:
+        if fn not in _anomaly_listeners:
+            _anomaly_listeners.append(fn)
+
+
+def unregister_anomaly_listener(fn: Callable) -> None:
+    with _anomaly_lock:
+        if fn in _anomaly_listeners:
+            _anomaly_listeners.remove(fn)
+
+
+def anomaly_listeners() -> list:
+    with _anomaly_lock:
+        return list(_anomaly_listeners)
+
+
+# -- process gate ------------------------------------------------------------
+
+_enabled: bool = os.environ.get("LIGHTCTR_HEALTH", "1").strip().lower() not in (
+    "0", "false", "off", "no",
+)
+
+
+def enabled() -> bool:
+    """True when health monitoring is on: the obs gate AND the
+    ``LIGHTCTR_HEALTH`` switch (telemetry off hard-disables monitors)."""
+    return _enabled and gate.enabled()
+
+
+def set_enabled(on: bool) -> bool:
+    """Flip the health switch; returns the PREVIOUS state."""
+    global _enabled
+    prev = _enabled
+    _enabled = bool(on)
+    return prev
+
+
+@contextlib.contextmanager
+def override(on: bool):
+    """Scoped enable/disable (tests, benchmark on/off comparisons)."""
+    prev = set_enabled(on)
+    try:
+        yield
+    finally:
+        set_enabled(prev)
+
+
+# -- detectors ---------------------------------------------------------------
+
+
+class Detector:
+    """One health check over one (or a few) live signals.
+
+    Subclasses declare ``name`` (unique, the metric label) and ``signals``
+    (the keyword names :meth:`HealthMonitor.observe` routes to them) and
+    implement :meth:`check`, returning ``(status, detail)`` for ONE
+    observation — raw, no hysteresis: flapping suppression belongs to the
+    monitor's state machine.  ``trip_after``/``recover_after`` override the
+    monitor's hysteresis for detectors whose single observation is already
+    conclusive (a NaN loss is never a fluke)."""
+
+    name: str = ""
+    signals: Tuple[str, ...] = ()
+    trip_after: Optional[int] = None
+    recover_after: Optional[int] = None
+
+    def check(self, signals: Dict) -> Tuple[str, Dict]:
+        raise NotImplementedError
+
+
+class NaNLossDetector(Detector):
+    """Non-finite loss: the run is training garbage from this step on."""
+
+    name = "nan_loss"
+    signals = ("loss",)
+    trip_after = 1  # a NaN is conclusive on sight
+
+    def check(self, signals):
+        loss = float(signals["loss"])
+        if math.isfinite(loss):
+            return OK, {}
+        return UNHEALTHY, {"loss": str(loss)}
+
+
+class LossSpikeDetector(Detector):
+    """EWMA z-score on the loss: a spike far outside the recent
+    distribution (diverging LR, poisoned batch) degrades the verdict
+    before the loss goes NaN.  Spiky observations are NOT absorbed into
+    the baseline, so a divergence cannot normalize itself."""
+
+    name = "loss_spike"
+    signals = ("loss",)
+
+    def __init__(self, z_threshold: float = 6.0, alpha: float = 0.1,
+                 warmup: int = 20, min_std: float = 1e-6):
+        self.z_threshold = float(z_threshold)
+        self.alpha = float(alpha)
+        self.warmup = int(warmup)
+        self.min_std = float(min_std)
+        self._mean = 0.0
+        self._var = 0.0
+        self._n = 0
+
+    def _update(self, x: float) -> None:
+        if self._n == 0:
+            self._mean = x
+        d = x - self._mean
+        self._mean += self.alpha * d
+        self._var = (1.0 - self.alpha) * (self._var + self.alpha * d * d)
+        self._n += 1
+
+    def check(self, signals):
+        loss = float(signals["loss"])
+        if not math.isfinite(loss):
+            # the NaN detector's finding; a non-finite sample must not
+            # poison the EWMA this detector recovers with
+            return OK, {"skipped": "non-finite"}
+        if self._n < self.warmup:
+            self._update(loss)
+            return OK, {"warmup": self._n}
+        std = max(math.sqrt(max(self._var, 0.0)), self.min_std)
+        z = (loss - self._mean) / std
+        status = OK
+        if z > 2.0 * self.z_threshold:
+            status = UNHEALTHY
+        elif z > self.z_threshold:
+            status = DEGRADED
+        detail = {"z": round(z, 3), "loss": round(loss, 6),
+                  "mean": round(self._mean, 6)}
+        if status == OK:
+            self._update(loss)
+        return status, detail
+
+
+class GradNormDetector(Detector):
+    """Gradient global-norm explosion.  The norm is ONE scalar computed
+    inside the jitted step (see CTRTrainer), so feeding it costs a single
+    device->host fetch; here it is compared against an EWMA baseline
+    (ratio blow-up) and an optional absolute ceiling."""
+
+    name = "grad_norm"
+    signals = ("grad_norm",)
+
+    def __init__(self, explode_ratio: float = 50.0, alpha: float = 0.1,
+                 warmup: int = 20, abs_limit: Optional[float] = None,
+                 min_norm: float = 1e-12):
+        self.explode_ratio = float(explode_ratio)
+        self.alpha = float(alpha)
+        self.warmup = int(warmup)
+        self.abs_limit = abs_limit
+        self.min_norm = float(min_norm)
+        self._ewma = 0.0
+        self._n = 0
+
+    def check(self, signals):
+        g = float(signals["grad_norm"])
+        if not math.isfinite(g):
+            return UNHEALTHY, {"grad_norm": str(g)}
+        if self.abs_limit is not None and g > self.abs_limit:
+            return UNHEALTHY, {"grad_norm": g, "abs_limit": self.abs_limit}
+        if self._n < self.warmup:
+            self._ewma += (g - self._ewma) * self.alpha if self._n else g
+            self._n += 1
+            return OK, {"warmup": self._n}
+        ratio = g / max(self._ewma, self.min_norm)
+        status = OK
+        if ratio > 10.0 * self.explode_ratio:
+            status = UNHEALTHY
+        elif ratio > self.explode_ratio:
+            status = DEGRADED
+        detail = {"grad_norm": round(g, 6), "ratio": round(ratio, 3),
+                  "ewma": round(self._ewma, 6)}
+        if status == OK:
+            self._ewma += (g - self._ewma) * self.alpha
+        return status, detail
+
+
+class TableSkewDetector(Detector):
+    """Per-sparse-table touched-row skew, from the SAME per-table id
+    streams the sparse exchange dedups (Parallax's observation: hot/cold
+    key skew dominates CTR workloads — and it is exactly what decides the
+    sparse/dense exchange switch, so it must be visible live).
+
+    Per observation, ``table_touch`` maps table -> {unique, ids, vocab}:
+    ``unique <= dead_unique`` (every id in the batch collapsed onto one
+    row) means the table is effectively DEAD — the feature pipeline is
+    feeding a constant; touched density ``unique/ids`` below
+    ``hot_density`` means a few hot rows dominate the batch."""
+
+    name = "table_skew"
+    signals = ("table_touch",)
+
+    def __init__(self, hot_density: float = 0.05, dead_unique: int = 1):
+        self.hot_density = float(hot_density)
+        self.dead_unique = int(dead_unique)
+
+    def check(self, signals):
+        status = OK
+        detail: Dict = {}
+        for table, t in signals["table_touch"].items():
+            ids = int(t.get("ids", 0))
+            uniq = int(t.get("unique", 0))
+            if ids <= 0:
+                continue
+            density = uniq / ids
+            if uniq <= self.dead_unique and ids > self.dead_unique:
+                st, why = UNHEALTHY, "dead"
+            elif density < self.hot_density:
+                st, why = DEGRADED, "hot"
+            else:
+                continue
+            detail[str(table)] = {
+                "why": why, "unique": uniq, "ids": ids,
+                "density": round(density, 5),
+            }
+            status = worst((status, st))
+        return status, detail
+
+
+class StalenessDetector(Detector):
+    """SSP staleness SLO: the async PS ledger's slowest-worker drift
+    (``ps_store_staleness``) past the SLO means the bounded-staleness
+    guarantee the trajectory was tuned for no longer holds."""
+
+    name = "staleness"
+    signals = ("staleness",)
+
+    def __init__(self, slo: float = 10.0, hard_factor: float = 2.0):
+        self.slo = float(slo)
+        self.hard_factor = float(hard_factor)
+
+    def check(self, signals):
+        s = float(signals["staleness"])
+        detail = {"staleness": s, "slo": self.slo}
+        if s > self.slo * self.hard_factor:
+            return UNHEALTHY, detail
+        if s > self.slo:
+            return DEGRADED, detail
+        return OK, detail
+
+
+class HeartbeatGapDetector(Detector):
+    """Cluster liveness as the master sees it: any peer past the
+    degraded (stale) threshold degrades the verdict, any declared-dead
+    peer makes it unhealthy.  The heartbeat monitor already applies its
+    own time hysteresis, so this detector trips and recovers in one
+    observation."""
+
+    name = "heartbeat_gap"
+    signals = ("peers",)
+    trip_after = 1
+    recover_after = 1
+
+    def check(self, signals):
+        peers = signals["peers"]
+        stale = sorted(str(w) for w in peers.get("stale", ()))
+        dead = sorted(str(w) for w in peers.get("dead", ()))
+        detail = {"stale": stale, "dead": dead}
+        if dead:
+            return UNHEALTHY, detail
+        if stale:
+            return DEGRADED, detail
+        return OK, detail
+
+
+class LatencySLODetector(Detector):
+    """Serve-side latency SLO: the prediction server feeds the p50/p99 of
+    its request-latency histogram over the WINDOW since the last feed
+    (``lightctr_tpu_torch.serve.server.PredictionServer._feed_slo`` computes the
+    bucket delta — a regression must not hide under a long healthy
+    history).  p99 past the SLO degrades the verdict, past
+    ``hard_factor`` x the SLO it is unhealthy; an optional p50 SLO
+    catches a median-wide slowdown the tail SLO would lag on.  Windows
+    with fewer than ``min_count`` requests are skipped (the quantile of
+    five samples is noise, and an idle server is not a slow one)."""
+
+    name = "latency_slo"
+    signals = ("latency_quantiles",)
+
+    def __init__(self, p99_slo_s: float = 0.05,
+                 p50_slo_s: Optional[float] = None,
+                 hard_factor: float = 2.0, min_count: int = 16):
+        self.p99_slo_s = float(p99_slo_s)
+        self.p50_slo_s = p50_slo_s
+        self.hard_factor = float(hard_factor)
+        self.min_count = int(min_count)
+
+    def check(self, signals):
+        q = signals["latency_quantiles"]
+        n = int(q.get("count", 0))
+        if n < self.min_count:
+            return OK, {"skipped": f"window count {n} < {self.min_count}"}
+        p50 = float(q.get("p50", 0.0))
+        p99 = float(q.get("p99", 0.0))
+        detail = {"p50_s": round(p50, 6), "p99_s": round(p99, 6),
+                  "count": n, "p99_slo_s": self.p99_slo_s}
+        status = OK
+        if p99 > self.p99_slo_s * self.hard_factor:
+            status = UNHEALTHY
+        elif p99 > self.p99_slo_s:
+            status = DEGRADED
+        if self.p50_slo_s is not None:
+            detail["p50_slo_s"] = self.p50_slo_s
+            if p50 > self.p50_slo_s * self.hard_factor:
+                status = UNHEALTHY
+            elif p50 > self.p50_slo_s:
+                status = worst((status, DEGRADED))
+        return status, detail
+
+
+class FreshnessSLODetector(Detector):
+    """Online-serving freshness SLO: the age of the NEWEST update this
+    serving replica has applied (``lightctr_tpu.online.freshness`` feeds
+    ``now - server-stamped write time`` of the last applied write-log
+    entry, or the instant of the last full refresh).  In a continuous
+    train-and-serve deployment updates never stop arriving, so a growing
+    age means serving lags training — the subscriber wedged, the shard
+    unreachable, or the trainer itself stalled (docs/ONLINE.md).  Past
+    the SLO the verdict degrades; past ``hard_factor`` x it is
+    unhealthy.  The age signal carries its own time hysteresis (it must
+    GROW past the budget), so the detector trips and recovers in one
+    observation — like the heartbeat detector."""
+
+    name = "freshness_slo"
+    signals = ("freshness",)
+    trip_after = 1
+    recover_after = 1
+
+    def __init__(self, slo_s: float = 10.0, hard_factor: float = 3.0):
+        self.slo_s = float(slo_s)
+        self.hard_factor = float(hard_factor)
+
+    def check(self, signals):
+        f = signals["freshness"]
+        age = float(f.get("age_s", 0.0))
+        detail = {"age_s": round(age, 3), "slo_s": self.slo_s}
+        for k in ("applied", "full_refreshes"):
+            if k in f:
+                detail[k] = int(f[k])
+        if age > self.slo_s * self.hard_factor:
+            return UNHEALTHY, detail
+        if age > self.slo_s:
+            return DEGRADED, detail
+        return OK, detail
+
+
+class StallDetector(Detector):
+    """Step stall: the watchdog (obs/stepwatch.py) feeds wall time since
+    the last COMPLETED step against its EWMA-derived deadline — the one
+    signal a wedged rendezvous cannot suppress, because it needs no step
+    to fire.  Past the deadline the verdict DEGRADES; past
+    ``hard_factor`` times it the process is UNHEALTHY (503 — the cluster
+    is wedged, not slow).  The wait signal already carries the time
+    hysteresis (it must GROW past a deadline derived from history), so
+    the detector trips and recovers in one observation — the watchdog
+    observes ``stalled=False`` the moment a step completes."""
+
+    name = "stall"
+    signals = ("stall",)
+    trip_after = 1
+    recover_after = 1
+
+    def __init__(self, hard_factor: float = 2.0):
+        self.hard_factor = float(hard_factor)
+
+    def check(self, signals):
+        s = signals["stall"]
+        if not s.get("stalled"):
+            return OK, {}
+        detail = {
+            "phase": s.get("phase"),
+            "wait_s": round(float(s.get("wait_s", 0.0)), 3),
+            "deadline_s": round(float(s.get("deadline_s", 0.0)), 3),
+        }
+        if float(s.get("ratio", 0.0)) >= self.hard_factor:
+            return UNHEALTHY, detail
+        return DEGRADED, detail
+
+
+class TierThrashDetector(Detector):
+    """Tiered-store thrash: the hot tier cycling rows in and out faster
+    than it serves them means the working set no longer fits the fast
+    tier (embed/tiered.py feeds ``tier_flow`` deltas — promotions and
+    demotions since the last feed, over ``batches`` push batches).
+
+    Demotion churn per batch relative to the hot budget is the signal:
+    past ``thrash_ratio`` of the budget turning over EVERY batch the
+    verdict degrades (each fault pays a warm/cold round trip), past
+    ``hard_factor`` x that it is unhealthy — raise ``hot_rows`` or shrink
+    the touched set.  Windows with fewer than ``min_batches`` batches are
+    skipped (a single preload burst is not thrash)."""
+
+    name = "tier_thrash"
+    signals = ("tier_flow",)
+
+    def __init__(self, thrash_ratio: float = 0.5, hard_factor: float = 2.0,
+                 min_batches: int = 4):
+        self.thrash_ratio = float(thrash_ratio)
+        self.hard_factor = float(hard_factor)
+        self.min_batches = int(min_batches)
+
+    def check(self, signals):
+        flow = signals["tier_flow"]
+        batches = int(flow.get("batches", 0))
+        if batches < self.min_batches:
+            return OK, {"skipped": f"window {batches} < {self.min_batches}"}
+        budget = max(1, int(flow.get("budget", 1)))
+        churn = (int(flow.get("demotions", 0))
+                 + int(flow.get("promotions", 0))) / 2.0
+        per_batch = churn / batches / budget
+        detail = {"churn_per_batch": round(per_batch, 4),
+                  "thrash_ratio": self.thrash_ratio,
+                  "hot_rows": flow.get("hot_rows"), "budget": budget}
+        if per_batch > self.thrash_ratio * self.hard_factor:
+            return UNHEALTHY, detail
+        if per_batch > self.thrash_ratio:
+            return DEGRADED, detail
+        return OK, detail
+
+
+#: detector name -> class; the registry the lint in tests/test_obs.py
+#: checks every Detector subclass into (no silent dark detectors)
+KNOWN_DETECTORS = {
+    cls.name: cls
+    for cls in (
+        NaNLossDetector, LossSpikeDetector, GradNormDetector,
+        TableSkewDetector, StalenessDetector, HeartbeatGapDetector,
+        LatencySLODetector, TierThrashDetector, FreshnessSLODetector,
+        StallDetector,
+    )
+}
+
+
+# -- monitor -----------------------------------------------------------------
+
+
+class _DetState:
+    """One detector's hysteresis state inside a monitor."""
+
+    __slots__ = (
+        "det", "status", "raw", "detail", "transitions", "checks",
+        "worse_streak", "better_streak", "pending_worse", "pending_better",
+        "trip_after", "recover_after",
+    )
+
+    def __init__(self, det: Detector, trip_after: int, recover_after: int):
+        self.det = det
+        self.status = OK
+        self.raw = OK
+        self.detail: Dict = {}
+        self.transitions = 0
+        self.checks = 0
+        self.worse_streak = 0
+        self.better_streak = 0
+        self.pending_worse: Optional[str] = None
+        self.pending_better: Optional[str] = None
+        self.trip_after = trip_after
+        self.recover_after = recover_after
+
+
+class HealthMonitor:
+    """Pluggable-detector health verdict with flap suppression.
+
+    ``trip_after`` consecutive observations worse than the current
+    effective status are needed to latch a worse verdict (detectors may
+    override — NaN trips on sight); ``recover_after`` consecutive better
+    observations to improve it, and the improvement lands on the WORST
+    status seen during the streak (unhealthy steps down through degraded,
+    never straight to ok on mixed evidence).
+
+    Monitors register themselves as flight-recorder health providers
+    under their ``component`` name, so ``/healthz`` and flight bundles
+    aggregate every monitor in the process.  ``close()`` unregisters.
+    """
+
+    def __init__(
+        self,
+        component: str = "process",
+        registry: Optional[MetricsRegistry] = None,
+        trip_after: int = 2,
+        recover_after: int = 3,
+        flight_severity: Optional[str] = UNHEALTHY,
+        flight_min_interval_s: float = 60.0,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        if flight_severity is not None and flight_severity not in SEVERITY:
+            raise ValueError(f"unknown flight_severity {flight_severity!r}")
+        self.component = str(component)
+        self.registry = registry if registry is not None else default_registry()
+        self.trip_after = int(trip_after)
+        self.recover_after = int(recover_after)
+        self.flight_severity = flight_severity
+        self.flight_min_interval_s = float(flight_min_interval_s)
+        self.observations = 0
+        self._clock = clock
+        # flight-dump rate limiting is PER TRIGGER (detector name), not
+        # per monitor: a quality detector tripping every minute on one
+        # drifting tenant must not consume the shared window and mask the
+        # NaN dump another detector owes
+        self._last_dump: Dict[str, float] = {}
+        self._last_dump_attempt: Dict[str, float] = {}
+        # trigger names of anomaly dumps that failed/coalesced: retried
+        # on later observations while the verdict stays past the
+        # threshold, so the promised at-anomaly-time bundle still lands
+        self._flight_pending: Dict[str, bool] = {}
+        self._lock = threading.Lock()
+        self._states: Dict[str, _DetState] = {}
+        self._signals: set = set()
+        self._status = OK
+        # seed the aggregate gauge too: scraping "0" must mean healthy,
+        # absence must mean not monitored (same rule as the per-detector
+        # gauges seeded in add_detector)
+        self.registry.gauge_set(
+            labeled("health_component_status", component=self.component),
+            SEVERITY[OK],
+        )
+        flight_mod.register_health_provider(self.component, self.verdict)
+
+    # -- detector management -------------------------------------------------
+
+    def add_detector(
+        self,
+        det: Detector,
+        trip_after: Optional[int] = None,
+        recover_after: Optional[int] = None,
+    ) -> Detector:
+        """Install (or replace, by ``name``) a detector.  Hysteresis:
+        explicit argument > detector class attribute > monitor default."""
+        if not det.name or not det.signals:
+            raise ValueError(
+                f"{type(det).__name__} must declare name and signals"
+            )
+        ta = trip_after or det.trip_after or self.trip_after
+        ra = recover_after or det.recover_after or self.recover_after
+        with self._lock:
+            self._states[det.name] = _DetState(det, int(ta), int(ra))
+            self._signals = set()
+            for st in self._states.values():
+                self._signals.update(st.det.signals)
+        # seed the status gauge so every installed detector has a visible
+        # series from step 0 (a detector that never tripped still scrapes)
+        self.registry.gauge_set(
+            labeled("health_status", component=self.component,
+                    detector=det.name),
+            SEVERITY[OK],
+        )
+        return det
+
+    def ensure_detector(self, det: Detector, **kw) -> Detector:
+        """``add_detector`` only when no detector with that name is
+        installed yet (idempotent trainer/service wiring)."""
+        with self._lock:
+            st = self._states.get(det.name)
+        if st is not None:
+            return st.det
+        return self.add_detector(det, **kw)
+
+    def detector(self, name: str) -> Optional[Detector]:
+        """The installed detector with that name, or None — services that
+        retune a detector in place (e.g. the SSP staleness SLO widening
+        with the store's rebalance grace window) reach it here instead of
+        poking monitor internals."""
+        with self._lock:
+            st = self._states.get(str(name))
+        return st.det if st is not None else None
+
+    def wants(self, *signals: str) -> bool:
+        """True when any installed detector consumes one of ``signals`` —
+        producers check this before building an expensive signal."""
+        if not enabled():
+            return False
+        with self._lock:
+            return any(s in self._signals for s in signals)
+
+    # -- observation ---------------------------------------------------------
+
+    @staticmethod
+    def _advance(st: _DetState, raw: str) -> Optional[str]:
+        """Hysteresis step; returns the new effective status when a
+        transition latched, else None.  Caller holds the lock."""
+        s_raw, s_eff = SEVERITY[raw], SEVERITY[st.status]
+        if s_raw > s_eff:
+            st.better_streak, st.pending_better = 0, None
+            st.worse_streak += 1
+            if (st.pending_worse is None
+                    or SEVERITY[st.pending_worse] < s_raw):
+                st.pending_worse = raw
+            if st.worse_streak >= st.trip_after:
+                new = st.pending_worse
+                st.worse_streak, st.pending_worse = 0, None
+                return new
+        elif s_raw < s_eff:
+            st.worse_streak, st.pending_worse = 0, None
+            st.better_streak += 1
+            if (st.pending_better is None
+                    or SEVERITY[st.pending_better] < s_raw):
+                st.pending_better = raw
+            if st.better_streak >= st.recover_after:
+                new = st.pending_better
+                st.better_streak, st.pending_better = 0, None
+                return new
+        else:
+            st.worse_streak = st.better_streak = 0
+            st.pending_worse = st.pending_better = None
+        return None
+
+    def observe(self, **signals) -> None:
+        """Feed one observation; routes each signal to the detectors that
+        declared it.  No-op when health monitoring is disabled.  Never
+        raises — a detector bug must not kill the training step."""
+        if not signals or not enabled():
+            return
+        transitions = []
+        with self._lock:
+            self.observations += 1
+            for st in self._states.values():
+                needed = st.det.signals
+                if not all(k in signals for k in needed):
+                    continue
+                try:
+                    raw, detail = st.det.check(
+                        {k: signals[k] for k in needed}
+                    )
+                except Exception:
+                    _LOG.debug("health detector %r failed", st.det.name,
+                               exc_info=True)
+                    continue
+                st.raw, st.detail, st.checks = raw, detail, st.checks + 1
+                new = self._advance(st, raw)
+                if new is not None and new != st.status:
+                    transitions.append((st.det.name, st.status, new, detail))
+                    st.status = new
+                    st.transitions += 1
+            old_agg = self._status
+            if transitions:
+                self._status = worst(
+                    s.status for s in self._states.values()
+                )
+            new_agg = self._status
+        # emission outside the lock: the registry/event log have their own
+        # locks, and a flight dump (file write) must not block observe()
+        # calls from other threads
+        for name, prev, new, detail in transitions:
+            self._emit_transition(name, prev, new, detail)
+        if transitions and new_agg != old_agg:
+            trigger = max(transitions, key=lambda t: SEVERITY[t[2]])[0]
+            self._emit_aggregate(old_agg, new_agg, trigger)
+        elif (self._flight_pending
+              and self.flight_severity is not None
+              and SEVERITY[new_agg] >= SEVERITY[self.flight_severity]):
+            # dumps owed from earlier transitions (coalesced with one
+            # in progress, or a transient write failure): retry while the
+            # verdict still warrants it
+            for trigger in tuple(self._flight_pending):
+                self._maybe_flight(trigger)
+
+    # -- emission ------------------------------------------------------------
+
+    def _emit_transition(self, name, prev, new, detail) -> None:
+        reg = self.registry
+        reg.gauge_set(
+            labeled("health_status", component=self.component,
+                    detector=name),
+            SEVERITY[new],
+        )
+        reg.inc(labeled("health_transitions_total",
+                        component=self.component, detector=name, to=new))
+        events_mod.emit("health", component=self.component, detector=name,
+                        status=new, prev=prev, detail=detail)
+        _LOG.warning("health: %s/%s %s -> %s %s", self.component, name,
+                     prev, new, detail)
+        for fn in anomaly_listeners():
+            try:
+                fn(self.component, name, prev, new, detail)
+            except Exception:
+                _LOG.debug("anomaly listener failed", exc_info=True)
+
+    def _emit_aggregate(self, prev, new, trigger) -> None:
+        self.registry.gauge_set(
+            labeled("health_component_status", component=self.component),
+            SEVERITY[new],
+        )
+        bundle = None
+        if (self.flight_severity is not None
+                and SEVERITY[new] > SEVERITY[prev]
+                and SEVERITY[new] >= SEVERITY[self.flight_severity]):
+            bundle = self._maybe_flight(trigger)
+        events_mod.emit(
+            "health", component=self.component, detector="aggregate",
+            status=new, prev=prev,
+            **({"flight_bundle": bundle} if bundle else {}),
+        )
+
+    #: minimum seconds between flight-dump ATTEMPTS for a pending retry
+    #: (a persistently failing disk must not be hammered every step)
+    _FLIGHT_RETRY_S = 1.0
+
+    def _maybe_flight(self, trigger: str) -> Optional[str]:
+        """Anomaly-time flight dump: only when the recorder is armed
+        (``LIGHTCTR_FLIGHT``/``flight.install``), rate-limited per
+        monitor.  A dump that coalesced with one already in progress (or
+        failed transiently) is kept PENDING and retried on later
+        observations — the rate limit only starts counting from a dump
+        that actually landed.  Both windows are keyed by ``trigger`` so
+        one noisy detector cannot exhaust the window for the others."""
+        if not flight_mod.armed():
+            return None
+        now = self._clock()
+        last = self._last_dump.get(trigger)
+        if last is not None and now - last < self.flight_min_interval_s:
+            self._flight_pending.pop(trigger, None)
+            return None
+        attempt = self._last_dump_attempt.get(trigger)
+        if attempt is not None and now - attempt < self._FLIGHT_RETRY_S:
+            self._flight_pending[trigger] = True
+            return None
+        self._last_dump_attempt[trigger] = now
+        path = flight_mod.dump(f"health:{self.component}:{trigger}")
+        if path is None:
+            self._flight_pending[trigger] = True
+            return None
+        self._flight_pending.pop(trigger, None)
+        self._last_dump[trigger] = now
+        self.registry.inc(labeled("health_flight_dumps_total",
+                                  component=self.component))
+        return path
+
+    # -- reads ---------------------------------------------------------------
+
+    def status(self) -> str:
+        with self._lock:
+            return self._status
+
+    def verdict(self) -> Dict:
+        """JSON-ready aggregate verdict with per-detector detail — the
+        shape ``/healthz``, ``MSG_STATS["health"]``, and flight bundles
+        carry."""
+        with self._lock:
+            return {
+                "component": self.component,
+                "status": self._status,
+                "observations": self.observations,
+                "detectors": {
+                    name: {
+                        "status": st.status,
+                        "raw": st.raw,
+                        "detail": st.detail,
+                        "transitions": st.transitions,
+                        "checks": st.checks,
+                    }
+                    for name, st in self._states.items()
+                },
+            }
+
+    def close(self) -> None:
+        """Unregister from the flight recorder (service shutdown)."""
+        flight_mod.unregister_health_provider(self.component)
+
+
+# -- process default + trainer wiring ----------------------------------------
+
+_default_lock = threading.Lock()
+_default: Optional[HealthMonitor] = None
+
+
+def default_monitor() -> HealthMonitor:
+    """The process-wide monitor (trainers feed it; the ops exporter and
+    flight bundles read it).  Created lazily on first use."""
+    global _default
+    with _default_lock:
+        if _default is None:
+            _default = HealthMonitor(component="process")
+        return _default
+
+
+def reset_default_monitor() -> None:
+    """Drop the process monitor (tests): the next ``default_monitor``
+    call builds a fresh one."""
+    global _default
+    with _default_lock:
+        if _default is not None:
+            _default.close()
+            _default = None
+
+
+def ensure_trainer_detectors(monitor: HealthMonitor,
+                             tables: bool = False) -> HealthMonitor:
+    """Install the standard training-dynamics detectors (idempotent):
+    NaN loss, loss-spike z-score, gradient-norm explosion, and — for
+    sparse-table trainers — per-table touch skew."""
+    monitor.ensure_detector(NaNLossDetector())
+    monitor.ensure_detector(LossSpikeDetector())
+    monitor.ensure_detector(GradNormDetector())
+    if tables:
+        monitor.ensure_detector(TableSkewDetector())
+    return monitor

@@ -1,0 +1,443 @@
+"""Hot-embedding row cache: LFU admission in front of PS pulls.
+
+CTR id streams are power-law skewed — the health plane's hot/dead-key
+detector (obs/health.py TableSkewDetector) watches exactly that skew, and
+the cache rides the SAME touched-uid streams: every request batch's deduped
+ids bump a frequency ledger, and that ledger drives **admission** (a missed
+row enters a full cache only when its touch count beats the coldest
+resident's — TinyLFU's insight: admission, not eviction policy, is what
+keeps one-hit wonders from flushing the hot set) and **eviction** (the
+minimum-frequency resident leaves).
+
+Invalidation is versioned: the PS store counts writes
+(``AsyncParamServer.write_version``, riding ``MSG_STATS``), and
+:meth:`HotEmbeddingCache.set_version` drops the whole cache when the
+observed version tuple moves — serving reads are then bounded-stale by the
+server's version poll interval, never unbounded (docs/SERVING.md).
+
+Metrics land in the registry the server owns (``serve_cache_*`` series),
+so hit rate is a first-class scrape, not a log line.
+
+The port's counterpart of ``lightctr_tpu/serve/cache.py``: the same
+admission, eviction, decay and invalidation policy; the resident rows are
+one ``[capacity, dim]`` fp32 tensor on ``device`` and a hit batch is one
+``ops.sparse_kernels.gather_rows`` launch off it.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from lightctr_tpu_torch.core.device import resolve_device
+from lightctr_tpu_torch.obs import gate as obs_gate
+from lightctr_tpu_torch.obs.registry import MetricsRegistry, default_registry
+from lightctr_tpu_torch.ops import sparse_kernels
+
+
+def _pad_slots(slots: np.ndarray, n: int) -> np.ndarray:
+    """``slots[:n]`` in an int32 block padded to the next power of two
+    (the kernel layer's shared pad policy, as in the JAX package)."""
+    sp = np.zeros(sparse_kernels.next_pow2(n), np.int32)
+    sp[:n] = slots[:n]
+    return sp
+
+
+class HotEmbeddingCache:
+    """Frequency-admission row cache (uid -> [dim] fp32 row).
+
+    ``capacity``: max resident rows.  ``admit_min_freq``: a missed row is
+    admitted to a FULL cache only when its touch count is at least this
+    AND strictly beats the current minimum resident frequency (below
+    capacity everything is admitted — an empty cache should warm, not
+    gatekeep).  ``decay_every``/``decay_factor``: every N touch batches
+    the ledger halves (by default), so frequencies track the recent
+    stream, not all of history — yesterday's hot keys age out.
+
+    ``device_rows`` (default True, on every device): resident rows live
+    in ONE slot-recycled ``[capacity, dim]`` fp32 tensor on ``device``
+    and a hit batch is ONE ``ops.sparse_kernels.gather_rows`` off it —
+    the hand-written kernel on a CUDA device, its plain version on the
+    CPU.  ``device_rows=False`` keeps rows in a host dict instead; only
+    an explicit argument selects it.  The admission/eviction/invalidation
+    policy is IDENTICAL in both modes; only row residence changes.
+    ``device``: ``"cuda"`` by default (raises on a host without CUDA
+    unless ``"cpu"`` is passed); on CUDA the gather kernel is built at
+    construction, so a build failure raises here and not mid-request.
+    """
+
+    def __init__(
+        self,
+        dim: int,
+        capacity: int = 65536,
+        admit_min_freq: int = 2,
+        decay_every: int = 1000,
+        decay_factor: float = 0.5,
+        registry: Optional[MetricsRegistry] = None,
+        device_rows: bool = True,
+        device="cuda",
+    ):
+        if capacity < 1:
+            raise ValueError("capacity must be >= 1")
+        self.dim = int(dim)
+        self.capacity = int(capacity)
+        self.admit_min_freq = int(admit_min_freq)
+        self.decay_every = int(decay_every)
+        self.decay_factor = float(decay_factor)
+        self.registry = registry if registry is not None else default_registry()
+        self._lock = threading.Lock()
+        self.device = resolve_device(device)
+        self.device_rows = bool(device_rows)
+        # ONE membership map either way: uid -> [dim] row (host mode) or
+        # uid -> block slot (device mode).  Admission, eviction, decay
+        # retention and the min-frequency scan all walk its keys, so the
+        # policy code below is mode-blind.
+        self._rows: Dict = {}
+        self._block = None
+        self._free: list = []
+        if self.device_rows:
+            if self.device.type == "cuda":
+                sparse_kernels.load("gather_rows")
+            self._block = torch.zeros((self.capacity, self.dim),
+                                      dtype=torch.float32,
+                                      device=self.device)
+            self._free = list(range(self.capacity - 1, -1, -1))
+        self._freq: Dict[int, float] = {}
+        self._version: Optional[tuple] = None
+        self._touch_batches = 0
+        # min resident frequency, recomputed lazily (None = stale): an
+        # O(size) scan per insert would dominate the miss path; instead
+        # the floor is cached and only re-scanned after it is consumed
+        # by an eviction or invalidated by a decay
+        self._min_freq: Optional[Tuple[int, float]] = None  # (uid, freq)
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.rejected = 0
+        self.invalidations = 0
+        self.invalidated_rows = 0
+        self.delta_invalidations = 0
+
+    # -- the touched-uid ledger ---------------------------------------------
+
+    def note_touched(self, uids: np.ndarray) -> None:
+        """Bump the frequency ledger for one request batch's DEDUPED ids
+        (the same per-batch unique stream the skew detector consumes)."""
+        with self._lock:
+            freq = self._freq
+            for u in np.asarray(uids, np.int64).tolist():
+                freq[u] = freq.get(u, 0.0) + 1.0
+            self._touch_batches += 1
+            if self.decay_every and \
+                    self._touch_batches % self.decay_every == 0:
+                self._freq = {
+                    u: f * self.decay_factor
+                    for u, f in freq.items()
+                    if f * self.decay_factor >= 0.5 or u in self._rows
+                }
+                self._min_freq = None
+
+    # -- lookup / insert -----------------------------------------------------
+
+    def lookup(self, uids: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+        """Vectorized read -> ``(rows [n, dim] fp32, present bool [n])``;
+        missing slots are zero (the caller overwrites them from the PS
+        pull).  Counts hits/misses."""
+        uids = np.asarray(uids, np.int64)
+        rows = np.zeros((len(uids), self.dim), np.float32)
+        present = np.zeros(len(uids), bool)
+        with self._lock:
+            store = self._rows
+            if self.device_rows:
+                slots = np.zeros(len(uids), np.int64)
+                for i, u in enumerate(uids.tolist()):
+                    s = store.get(u)
+                    if s is not None:
+                        slots[i] = s
+                        present[i] = True
+                if present.any():
+                    rows[present] = self._gather_locked(slots[present])
+            else:
+                for i, u in enumerate(uids.tolist()):
+                    r = store.get(u)
+                    if r is not None:
+                        rows[i] = r
+                        present[i] = True
+            n_hit = int(present.sum())
+            self.hits += n_hit
+            self.misses += len(uids) - n_hit
+        if obs_gate.enabled():
+            reg = self.registry
+            reg.inc("serve_cache_hits_total", n_hit)
+            reg.inc("serve_cache_misses_total", len(uids) - n_hit)
+        return rows, present
+
+    def _slots_tensor(self, slots: np.ndarray, n: int) -> torch.Tensor:
+        return torch.from_numpy(_pad_slots(slots, n)).to(self.device)
+
+    def _gather_locked(self, slots: np.ndarray) -> np.ndarray:
+        """One registry-kernel gather off the device block (device mode;
+        caller holds the lock).  The slot array is padded to a power of
+        two, as in the JAX package."""
+        n = len(slots)
+        rows = sparse_kernels.gather_rows(self._block,
+                                          self._slots_tensor(slots, n))
+        return rows[:n].cpu().numpy()
+
+    def lookup_device(self, uids: np.ndarray):
+        """Device-mode read for consumers that keep computing on device
+        (the serving scorer): ``(rows [n, dim] tensor on device, present
+        bool [n])`` with missing slots ZERO — the hit rows never
+        round-trip through host memory; the caller scatters its PS pulls
+        over the miss positions and hands the block straight to the
+        scorer.  Host mode (``device_rows=False``, never the default)
+        takes :meth:`lookup` + one upload."""
+        if not self.device_rows:
+            rows, present = self.lookup(uids)
+            return torch.from_numpy(rows).to(self.device), present
+        uids = np.asarray(uids, np.int64)
+        n = len(uids)
+        present = np.zeros(n, bool)
+        slots = np.zeros(n, np.int64)
+        with self._lock:
+            store = self._rows
+            for i, u in enumerate(uids.tolist()):
+                s = store.get(u)
+                if s is not None:
+                    slots[i] = s
+                    present[i] = True
+            n_hit = int(present.sum())
+            self.hits += n_hit
+            self.misses += n - n_hit
+            rows = sparse_kernels.gather_rows(
+                self._block, self._slots_tensor(slots, n))[:n]
+        # miss positions read slot 0's bytes — zero them so a miss can
+        # never leak another uid's row into the scorer
+        rows = rows * torch.from_numpy(
+            present.astype(np.float32)).to(self.device)[:, None]
+        if obs_gate.enabled():
+            reg = self.registry
+            reg.inc("serve_cache_hits_total", n_hit)
+            reg.inc("serve_cache_misses_total", n - n_hit)
+        return rows, present
+
+    def _write_locked(self, u: int, r: np.ndarray, i: int,
+                      pending: list) -> None:
+        """Land offer row ``i`` for uid ``u`` (insert or overwrite) —
+        host mode copies the row in; device mode allocates/reuses the
+        uid's slot and defers the block write to the caller's batch."""
+        if self.device_rows:
+            s = self._rows.get(u)
+            if s is None:
+                s = self._free.pop()
+                self._rows[u] = s
+            pending.append((s, i))
+        else:
+            self._rows[u] = r[i].copy()
+
+    def _drop_locked(self, u: int) -> None:
+        """Evict uid ``u`` (present by contract) — device mode recycles
+        its slot; the block row goes stale in place and is unreachable
+        once the membership entry dies."""
+        s = self._rows.pop(u)
+        if self.device_rows:
+            self._free.append(s)
+
+    def _find_min_locked(self) -> Optional[Tuple[int, float]]:
+        if not self._rows:
+            return None
+        freq = self._freq
+        uid = min(self._rows, key=lambda u: freq.get(u, 0.0))
+        return uid, freq.get(uid, 0.0)
+
+    def insert(self, uids: np.ndarray, rows: np.ndarray) -> int:
+        """Offer pulled rows; returns how many were admitted.  Below
+        capacity every offer lands; at capacity the frequency-admission
+        gate decides (see class docstring)."""
+        uids = np.asarray(uids, np.int64)
+        r = np.asarray(rows, np.float32).reshape(-1, self.dim)
+        admitted = 0
+        # device mode batches slot writes: the policy loop only collects
+        # (slot, offer index) pairs; ONE block index_copy_ lands them at
+        # the end (one upload, not one per row)
+        pending: list = []
+        with self._lock:
+            for i, u in enumerate(uids.tolist()):
+                if u in self._rows:
+                    self._write_locked(u, r, i, pending)
+                    continue
+                if len(self._rows) < self.capacity:
+                    self._write_locked(u, r, i, pending)
+                    admitted += 1
+                    continue
+                f = self._freq.get(u, 0.0)
+                if f < self.admit_min_freq:
+                    self.rejected += 1
+                    continue
+                if self._min_freq is None:
+                    self._min_freq = self._find_min_locked()
+                if self._min_freq is None or f <= self._min_freq[1]:
+                    self.rejected += 1
+                    continue
+                self._drop_locked(self._min_freq[0])
+                self.evictions += 1
+                self._min_freq = None
+                self._write_locked(u, r, i, pending)
+                admitted += 1
+            if pending:
+                # duplicate uids in one offer batch repeat a slot: keep
+                # the LAST offer per slot (the host-mode loop's
+                # last-write-wins) — index_copy_ with repeated indices
+                # applies in undefined order
+                last = dict(pending)
+                slots = np.fromiter(last.keys(), np.int64,
+                                    count=len(last))
+                idx = np.fromiter(last.values(), np.int64,
+                                  count=len(last))
+                self._block.index_copy_(
+                    0, torch.from_numpy(slots).to(self.device),
+                    torch.from_numpy(np.ascontiguousarray(r[idx])).to(
+                        self.device))
+            n_entries = len(self._rows)
+            evicted, rejected = self.evictions, self.rejected
+        if obs_gate.enabled():
+            reg = self.registry
+            reg.inc("serve_cache_admissions_total", admitted)
+            reg.gauge_set("serve_cache_entries", n_entries)
+            reg.gauge_set("serve_cache_bytes", n_entries * self.dim * 4)
+            reg.gauge_set("serve_cache_evictions", evicted)
+            reg.gauge_set("serve_cache_rejected", rejected)
+        return admitted
+
+    # -- serve-start warm-up (docs/TIERED_STORE.md follow-up) ----------------
+
+    def warm_from_ledger(self, ledger, pull_fn, k: Optional[int] = None
+                         ) -> int:
+        """Pre-pull the top-``k`` keys of a shared frequency ledger (any
+        object with the JAX package's ``FrequencyLedger`` reads:
+        ``top_k(k)`` and ``get(uids)``) so the first seconds of serve traffic hit a warm cache instead of
+        paying the cold-miss cliff.  ``pull_fn(sorted_uids)`` returns the
+        ``[n, dim]`` rows for the SORTED uid array (the read-only PS pull
+        the server wires in).  The ledger's counts are merged into this
+        cache's admission frequencies, so the warmed set also defends its
+        residency.  Returns rows warmed."""
+        k = self.capacity if k is None else min(int(k), self.capacity)
+        hot = ledger.top_k(k)
+        if not len(hot):
+            return 0
+        uids = np.sort(np.asarray(hot, np.int64))
+        rows = np.asarray(pull_fn(uids), np.float32).reshape(-1, self.dim)
+        if len(rows) != len(uids):
+            raise ValueError("warm-up pull returned misaligned rows")
+        counts = ledger.get(uids)
+        with self._lock:
+            freq = self._freq
+            for u, c in zip(uids.tolist(), counts.tolist()):
+                freq[u] = max(freq.get(u, 0.0), float(c))
+        warmed = self.insert(uids, rows)
+        if obs_gate.enabled():
+            self.registry.inc("serve_cache_warmed_rows_total", warmed)
+        return warmed
+
+    # -- versioned invalidation ---------------------------------------------
+
+    @property
+    def version(self):
+        """The last adopted write-version observation (None = unarmed)."""
+        with self._lock:
+            return self._version
+
+    def apply_delta(self, version, uids) -> int:
+        """Per-key invalidation (docs/SERVING.md): adopt a moved version
+        while dropping ONLY the listed uids — the rows whose server-side
+        values actually changed since the previous observation — instead
+        of the whole cache.  The caller (the serving server's version
+        poll) is responsible for ``uids`` COVERING the version range; when
+        the PS write log no longer covers it, call :meth:`set_version`
+        (full drop) instead.  Returns the rows dropped."""
+        version = tuple(version) if isinstance(version, (list, tuple)) \
+            else (version,)
+        dropped = 0
+        with self._lock:
+            if self._version is None:
+                self._version = version  # first observation arms only
+                return 0
+            if self._version == version:
+                return 0
+            self._version = version
+            store = self._rows
+            for u in np.asarray(uids, np.int64).reshape(-1).tolist():
+                s = store.pop(u, None)
+                if s is not None:
+                    if self.device_rows:
+                        self._free.append(s)
+                    dropped += 1
+            if dropped:
+                self._min_freq = None
+                self.invalidated_rows += dropped
+            self.delta_invalidations += 1
+            n_entries = len(store)
+        if obs_gate.enabled():
+            reg = self.registry
+            reg.inc("serve_cache_delta_invalidations_total")
+            reg.inc("serve_cache_invalidated_rows_total", dropped)
+            reg.gauge_set("serve_cache_entries", n_entries)
+            reg.gauge_set("serve_cache_bytes", n_entries * self.dim * 4)
+        return dropped
+
+    def set_version(self, version) -> bool:
+        """Adopt the PS write-version observation (any hashable — the
+        server passes the tuple of per-shard ``write_version``s).  A MOVED
+        version drops every resident row (the rows may have trained past
+        what we serve); the first observation only arms the baseline.
+        Returns True when an invalidation happened."""
+        version = tuple(version) if isinstance(version, (list, tuple)) \
+            else (version,)
+        with self._lock:
+            if self._version == version:
+                return False
+            first = self._version is None
+            self._version = version
+            if first:
+                return False
+            dropped = len(self._rows)
+            self._rows.clear()
+            if self.device_rows:
+                self._free = list(range(self.capacity - 1, -1, -1))
+            self._min_freq = None
+            self.invalidations += 1
+            self.invalidated_rows += dropped
+        if obs_gate.enabled():
+            reg = self.registry
+            reg.inc("serve_cache_invalidations_total")
+            reg.inc("serve_cache_invalidated_rows_total", dropped)
+            reg.gauge_set("serve_cache_entries", 0)
+            reg.gauge_set("serve_cache_bytes", 0)
+        return True
+
+    # -- reads ---------------------------------------------------------------
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._rows)
+
+    def stats(self) -> Dict:
+        with self._lock:
+            total = self.hits + self.misses
+            return {
+                "entries": len(self._rows),
+                "capacity": self.capacity,
+                "hits": self.hits,
+                "misses": self.misses,
+                "hit_rate": round(self.hits / total, 5) if total else 0.0,
+                "evictions": self.evictions,
+                "rejected": self.rejected,
+                "invalidations": self.invalidations,
+                "delta_invalidations": self.delta_invalidations,
+                "invalidated_rows": self.invalidated_rows,
+                "tracked_uids": len(self._freq),
+                "device_rows": bool(self.device_rows),
+            }

@@ -1,0 +1,108 @@
+"""Caller-side stub for the prediction service.
+
+One TCP connection, the PS framing (dist/ps_server.py), the predict frame
+codec (dist/wire.py).  ``predict`` is synchronous request/reply; callers
+that want concurrency open one client per thread (connections are cheap,
+and the server micro-batches across them — that is the point).
+
+An overload reply (the server's admission control shedding this request)
+raises :class:`ServerOverloaded` — the serving analogue of HTTP 503: the
+caller backs off or fails over, it does NOT retry hot.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+
+from lightctr_tpu_torch.dist import wire
+from lightctr_tpu_torch.dist.ps_server import (
+    MSG_CLOSE,
+    MSG_PREDICT,
+    MSG_PREDICT_BATCH,
+    MSG_STATS,
+    PSClient,
+    _recv_msg,
+    _send_msg,
+)
+from lightctr_tpu_torch.obs import gate as obs_gate
+from lightctr_tpu_torch.obs import trace as obs_trace
+from lightctr_tpu_torch.obs.registry import default_registry
+from lightctr_tpu_torch.serve.server import STATUS_OK, STATUS_OVERLOADED
+
+
+class ServerOverloaded(RuntimeError):
+    """The server shed this request (bounded queue / expired deadline).
+    Back off; do not retry hot."""
+
+
+class PredictClient:
+    """Synchronous predict stub.  ``arrays``: the model's batch layout
+    (``fids``/``vals`` pre-masked, optional ``rep_fids``/``rep_mask``).
+    Tracks wire bytes like :class:`~lightctr_tpu_torch.dist.ps_server.PSClient`.
+    """
+
+    def __init__(self, address: Tuple[str, int],
+                 timeout: Optional[float] = None):
+        self.address = tuple(address)
+        self.timeout = timeout
+        import socket
+
+        self._sock = socket.create_connection(self.address, timeout=timeout)
+        self._sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.bytes_sent = 0
+        self.bytes_received = 0
+        self.overloaded = 0
+
+    def _rpc(self, msg_type: int, payload: bytes) -> bytes:
+        self.bytes_sent += _send_msg(
+            self._sock, msg_type, payload,
+            trace_ctx=obs_trace.current_context(),
+        )
+        _, reply = _recv_msg(self._sock)
+        self.bytes_received += 5 + len(reply)
+        if reply[:1] == b"\xff":
+            raise RuntimeError(
+                f"predict server rejected message type {msg_type} "
+                "(protocol skew)"
+            )
+        return reply
+
+    def predict(self, arrays: Dict) -> np.ndarray:
+        """Score a batch -> [B] fp32 probabilities.  Raises
+        :class:`ServerOverloaded` when the server sheds the request."""
+        fids = np.asarray(arrays["fids"])
+        b = int(fids.shape[0])
+        op = MSG_PREDICT if b == 1 else MSG_PREDICT_BATCH
+        payload = wire.pack_predict_batch(arrays)
+        with obs_trace.span("serve_client/predict", rows=b):
+            reply = self._rpc(op, payload)
+        if reply[:1] == STATUS_OVERLOADED:
+            self.overloaded += 1
+            if obs_gate.enabled():
+                default_registry().inc("serve_client_overloaded_total")
+            raise ServerOverloaded(
+                f"server {self.address} shed a {b}-row predict"
+            )
+        if reply[:1] != STATUS_OK:
+            raise RuntimeError(
+                f"unexpected predict reply status {reply[:1]!r}"
+            )
+        return wire.unpack_values(reply[1:1 + 2 * b], (b,))
+
+    def stats(self) -> Dict:
+        return json.loads(self._rpc(MSG_STATS, b"").decode())
+
+    def close(self) -> None:
+        try:
+            _send_msg(self._sock, MSG_CLOSE, b"")
+        except OSError:
+            pass
+        self._sock.close()
+
+
+# re-exported convenience: serving deployments talk to BOTH planes (the
+# predict service and the PS shards), so the PS stub rides along
+__all__ = ["PredictClient", "PSClient", "ServerOverloaded"]
