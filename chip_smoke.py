@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``lightctr_tpu_torch``) on one
 NVIDIA GPU: builds the hand-written kernels from ``lightctr_tpu_torch/csrc``,
-holds each against its plain PyTorch version, then serves FM at Criteo
-width through the PS-backed ``PredictionServer`` and checks the scores.
+holds each against its plain PyTorch version, serves FM at Criteo width
+through the PS-backed ``PredictionServer`` and checks the scores, then
+trains FM at Criteo width with ``SparseTableCTRTrainer`` and
+``CTRTrainer(fused_adagrad=True)`` and checks the training.
 
     python3 chip_smoke.py [--seed N]
 
@@ -10,10 +12,17 @@ Phases, one JSON line each:
 
   build    nvcc of every kernel source (all started together) beside the
            g++ build of the native host codecs; seconds and ptxas summary.
-  kernels  every kernel against its plain version on the card, bit-exact
-           (``torch.equal``) over d in {1, 33, 128} x n in {1, 1000, 16384}
-           and the serve path's own shape, R = 65536, with negative and
-           >= R indices that exercise the clip.
+  kernels  every kernel against its plain version on the card:
+           gather_rows bit-exact (``torch.equal``) over d in {1, 33, 128}
+           x n in {1, 1000, 16384} and the serve path's own shape,
+           R = 65536, with negative and >= R indices that exercise the
+           clip; dedup_ids bit-exact (uids, inv, count) at K in {1, 1000,
+           159744} on Criteo id streams, negative ids and int32's limits,
+           all-equal and all-zero streams, and with size < count;
+           merge_apply within 2 ulp (table, accum) and rtol 1e-5 (sumsq)
+           at V = 2^20, d in {1, 32}, S = 159744, uids of a real dedup
+           with and without id 0, denom in {1, 4}; fused_adagrad within
+           2 ulp at N in {1, 1001, 2^20, 2^25} and at a misaligned start.
   serve    FM, 39 fields (26 categorical + 13 numeric), vocabulary 2^20,
            factor dim 32: a port ``AsyncParamServer`` (rows ``[w | v]`` of
            width 33) behind ``ParamServerService``, a ``PredictionServer``
@@ -24,15 +33,31 @@ Phases, one JSON line each:
            CUDA tensor, hits > 0 on the second pass, and ``gather_rows``
            launched at least once per scored micro-batch.
 
-Then a ``{"kernels": [...]}`` line: each kernel at the serve path's shape,
-its launches on the serve path, its device time (``ms``, CUDA graph of
-back-to-back calls), the plain version's, ``torch.index_select``'s (the
-yardstick; the port never calls it), the eager per-call time with the host
-(``call_ms``) and the bound from bytes at 3.35 TB/s.  Then the
-``nvidia-smi`` name and power limit, and the last line ``{"ok": true, "device": {...}}``.  Any failed
-phase raises and exits non-zero; without CUDA, or without the
-``lightctr_tpu_torch`` package beside this file, it exits 2 and prints no
-result.
+  train    FM at Criteo width on synthetic Criteo batches made in memory
+           (data/synth.py's recipe: u^4 head/tail ids, exponential numeric
+           values, a planted logistic label), batch 4096, lr 0.05,
+           lambda_l2 0.001, ``fm.logits_with_l2``.  (a) 50 steps of
+           ``SparseTableCTRTrainer`` (204,800 rows): dedup_ids launched
+           once a step and merge_apply twice, the last 5 losses below the
+           first 5, held-out AUC > 0.55 on 20,480 rows; (b) 10 steps of
+           ``CTRTrainer(fused_adagrad=True)``: fused_adagrad launched twice
+           a step, the loss falling; (c) the first 3 sparse and 2 fused
+           steps re-run on the CPU with the plain versions (losses rtol
+           1e-4, touched rows rtol 1e-4 / atol 1e-5), and the two trainers
+           on the card agreeing after 10 steps from one init.  Launch
+           counts are reset just before (a) and (b) and read just after.
+           Steady-state examples/s (after 3 warm-up steps, synchronised)
+           and a profiler window of the sparse step's device time.
+
+Then a ``{"kernels": [...]}`` line: each kernel at its main path's shape,
+its launches on that path, its device time (``ms``, CUDA graph of
+back-to-back calls), the plain version's, one PyTorch library call's where
+one computes the same function (the yardstick; the port never calls it),
+the eager per-call time with the host (``call_ms``) and the bound from
+bytes at 3.35 TB/s.  Then the ``nvidia-smi`` name and power limit, and the
+last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
+exits non-zero; without CUDA, or without the ``lightctr_tpu_torch`` package
+beside this file, it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -63,6 +88,25 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA's data sheet
 #: kernel shapes held against the plain version (plus the serve path's n)
 KERNEL_DS = (1, 33, 128)
 KERNEL_NS = (1, 1000, 16384)
+
+# -- the train phase: tools/criteo_scale.py's constants --
+TRAIN_BATCH = 4096
+TRAIN_K = TRAIN_BATCH * N_FIELDS   # ids deduped per step: 159,744
+SPARSE_STEPS = 50                  # 204,800 rows, criteo_scale's pass
+FUSED_STEPS = 10
+EVAL_ROWS = 20480
+LR = 0.05
+LAMBDA_L2 = 0.001
+EPS = 1e-7
+WARMUP_STEPS = 3
+CPU_SPARSE_STEPS = 3               # re-run on the CPU with plain versions
+CPU_FUSED_STEPS = 2
+PARITY_STEPS = 10                  # sparse vs fused trainer on the card
+TRAIN_RTOL, TRAIN_ATOL = 1e-4, 1e-5
+MIN_AUC = 0.55                     # tools/criteo_scale.py's gate
+MAX_ULP = 2                        # the Adagrad apply's bound (ROADMAP B.5)
+DEDUP_KS = (1, 1000, TRAIN_K)
+ADAGRAD_NS = (1, 1001, 1 << 20, 1 << 25)
 
 
 def emit(obj) -> None:
@@ -137,6 +181,134 @@ def phase_kernels(torch, sk, serve_ns) -> dict:
     return {"phase": "kernels", "gather_rows": {
         "bit_exact": True, "max_abs_err": max_err, "rows": CACHE_ROWS,
         "cases": checked}}
+
+
+def ulp_diff(torch, a, b) -> int:
+    """Largest distance in units in the last place between two float32
+    tensors (0 where they are bit-identical)."""
+    def ordered(x):
+        i = x.contiguous().view(torch.int32).to(torch.int64)
+        return torch.where(i < 0, -(1 << 31) - i, i)
+    if a.numel() == 0:
+        return 0
+    return int((ordered(a) - ordered(b)).abs().max())
+
+
+def criteo_fids(np, rng, rows):
+    """[rows, 39] int32 ids of the Criteo layout (data/synth.py): ids
+    ~ u^4 * vocab in the 26 categorical fields, one fixed id per numeric
+    field."""
+    fids = (rng.random((rows, N_FIELDS)) ** 4 * VOCAB).astype(np.int32)
+    fids[:, N_CAT:] = np.arange(N_CAT, N_FIELDS, dtype=np.int32)
+    return fids
+
+
+def dedup_streams(np, rng) -> dict:
+    """name -> int32 id stream: Criteo ids, random ids with negatives and
+    int32's limits, all-equal and all-zero, at each K in DEDUP_KS."""
+    out = {}
+    for k in DEDUP_KS:
+        rows = -(-k // N_FIELDS)
+        out[f"criteo_k{k}"] = criteo_fids(np, rng, rows).reshape(-1)[:k]
+        edge = rng.integers(-(1 << 31), 1 << 31, size=k, dtype=np.int64)
+        lim = [-(1 << 31), (1 << 31) - 1, -1, 0, -(1 << 31), (1 << 31) - 1]
+        edge[:min(k, len(lim))] = lim[:k]
+        out[f"edges_k{k}"] = edge.astype(np.int32)
+        out[f"all_equal_k{k}"] = np.full(k, -7, np.int32)
+        out[f"all_zero_k{k}"] = np.zeros(k, np.int32)
+    return out
+
+
+def check_dedup(np, torch, sk, rng) -> dict:
+    """dedup_ids kernel == plain version (torch.unique) bit for bit, at
+    size = K and at a size below the distinct count."""
+    cases = []
+    for name, ids in dedup_streams(np, rng).items():
+        t = torch.from_numpy(ids).cuda()
+        count = int(sk.dedup_ids_plain(t, ids.size)[2])
+        for size in sorted({ids.size, max(1, count // 2)}):
+            got = sk.dedup_ids(t, size)
+            torch.cuda.synchronize()
+            want = sk.dedup_ids_plain(t, size)
+            for a, b, what in zip(got, want, ("uids", "inv", "count")):
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(
+                        f"dedup_ids kernel != plain ({what}) on {name} "
+                        f"size={size}")
+            cases.append([name, size, count])
+    return {"bit_exact": True, "max_abs_err": 0, "cases": cases}
+
+
+def check_merge_apply(np, torch, sk, rng) -> dict:
+    """merge_apply kernel vs plain version at the train path's shapes:
+    V = 2^20, d in {1, 32}, S = 159744 uids of a real dedup (Criteo ids
+    hold id 0 about 3 % of the time; the other stream has none)."""
+    fids = criteo_fids(np, rng, TRAIN_BATCH).reshape(-1)
+    streams = {"with_id0": fids, "without_id0": np.where(fids == 0, 1, fids)}
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    max_ulp = {"table": 0, "accum": 0}
+    max_abs = 0.0
+    max_ssq_rel = 0.0
+    cases = []
+    for sname, ids in streams.items():
+        uids, _, count = sk.dedup_ids(torch.from_numpy(ids).cuda())
+        has0 = bool(uids[0] == 0)
+        for d in (1, DIM):
+            shape = (VOCAB,) if d == 1 else (VOCAB, d)
+            table = torch.randn(shape, generator=gen, device="cuda")
+            accum = torch.rand(shape, generator=gen, device="cuda")
+            rows = torch.randn((uids.numel(),) + shape[1:], generator=gen,
+                               device="cuda")
+            for denom in (1.0, 4.0):
+                t1, a1 = table.clone(), accum.clone()
+                _, _, s1 = sk.merge_apply(t1, a1, uids, rows, lr=LR, eps=EPS,
+                                          denom=denom)
+                torch.cuda.synchronize()
+                t2, a2 = table.clone(), accum.clone()
+                _, _, s2 = sk.merge_apply_plain(t2, a2, uids, rows, None, LR,
+                                                EPS, denom)
+                ut, ua = ulp_diff(torch, t1, t2), ulp_diff(torch, a1, a2)
+                rel = abs(float(s1) - float(s2)) / abs(float(s2))
+                if ut > MAX_ULP or ua > MAX_ULP or rel > 1e-5:
+                    raise AssertionError(
+                        f"merge_apply kernel vs plain: {ut} / {ua} ulp, "
+                        f"sumsq rel {rel} ({sname}, d={d}, denom={denom})")
+                max_ulp["table"] = max(max_ulp["table"], ut)
+                max_ulp["accum"] = max(max_ulp["accum"], ua)
+                max_abs = max(max_abs, float((t1 - t2).abs().max()),
+                              float((a1 - a2).abs().max()))
+                max_ssq_rel = max(max_ssq_rel, rel)
+                cases.append([sname, d, denom, int(count), has0])
+    return {"max_ulp": max_ulp, "max_abs_err": max_abs,
+            "max_sumsq_rel_err": max_ssq_rel, "cases": cases}
+
+
+def check_fused_adagrad(torch, fa) -> dict:
+    """fused_adagrad kernel vs plain version: N in ADAGRAD_NS (1001 is not
+    a multiple of 4: the scalar path) and 2^20 starting one float into
+    its buffers (misaligned: the scalar path)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    max_ulp, max_abs, cases = 0, 0.0, []
+    for n, off in [(n, 0) for n in ADAGRAD_NS] + [(1 << 20, 1)]:
+        w, a, g = (torch.randn(n + off, generator=gen, device="cuda")[off:]
+                   for _ in range(3))
+        a = a.abs()
+        w1, a1 = w.clone(), a.clone()
+        if off:
+            w1 = torch.empty(n + off, device="cuda")[off:].copy_(w)
+            a1 = torch.empty(n + off, device="cuda")[off:].copy_(a)
+        fa.fused_adagrad_update(w1, a1, g, LR, EPS)
+        torch.cuda.synchronize()
+        w2, a2 = fa.fused_adagrad_plain(w.clone(), a.clone(), g, LR, EPS)
+        u = max(ulp_diff(torch, w1, w2), ulp_diff(torch, a1, a2))
+        if u > MAX_ULP:
+            raise AssertionError(f"fused_adagrad kernel vs plain: {u} ulp "
+                                 f"at N={n} offset={off}")
+        max_ulp = max(max_ulp, u)
+        max_abs = max(max_abs, float((w1 - w2).abs().max()),
+                      float((a1 - a2).abs().max()))
+        cases.append([n, off])
+    return {"max_ulp": max_ulp, "max_abs_err": max_abs, "cases": cases}
 
 
 # -- phase: serve -------------------------------------------------------------
@@ -269,6 +441,273 @@ def phase_serve(np, torch, sk, seed, requests) -> dict:
                                             "misses", "device_rows")}}
 
 
+# -- phase: train -------------------------------------------------------------
+
+
+def criteo_rows(np, rng, n) -> dict:
+    """n synthetic Criteo rows in memory, data/synth.py's recipe: u^4
+    head/tail ids, exponential numeric values (rounded to 3 digits), and a
+    label planted as a logistic in two numeric fields plus a head-id
+    effect."""
+    fids = criteo_fids(np, rng, n)
+    vals = np.ones((n, N_FIELDS), np.float32)
+    vals[:, N_CAT:] = rng.exponential(
+        1.0, (n, N_FIELDS - N_CAT)).astype(np.float32).round(3)
+    z = ((vals[:, N_CAT] - 1.0) + (vals[:, N_CAT + 1] - 1.0)
+         + (fids[:, 0] % 2).astype(np.float32) - 0.5)
+    p = 1.0 / (1.0 + np.exp(-2.0 * z))
+    labels = (rng.random(n) < p).astype(np.float32)
+    return {"fids": fids, "vals": vals,
+            "mask": np.ones((n, N_FIELDS), np.float32), "labels": labels}
+
+
+def train_params(np, seed):
+    """FM's init at Criteo width from a seed (fm_algo_abst.h:53-67): W
+    zero, V ~ N(0, 1/k)."""
+    rng = np.random.default_rng(seed + 3)
+    v = rng.standard_normal((VOCAB, DIM), dtype=np.float32)
+    return {"w": np.zeros(VOCAB, np.float32),
+            "v": v * np.float32(1.0 / np.sqrt(DIM))}
+
+
+def run_steps(torch, tr, batches, snapshots=()):
+    """Step ``tr`` over ``batches``; returns the loss tensors, device
+    clones of (w, v) after each step count in ``snapshots``, the
+    synchronised wall time of the steps after the warm-up, and the median
+    host time to launch one such step."""
+    losses, snaps, host = [], {}, []
+    t0 = None
+    for i, b in enumerate(batches):
+        if i == WARMUP_STEPS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        th = time.perf_counter()
+        losses.append(tr.train_step(b))
+        if i >= WARMUP_STEPS:
+            host.append(time.perf_counter() - th)
+        if i + 1 in snapshots:
+            snaps[i + 1] = {k: tr.params[k].clone() for k in ("w", "v")}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return losses, snaps, wall, statistics.median(host)
+
+
+def cpu_rerun(np, torch, trainer_cls, params, batches, **kw):
+    """The same steps on the CPU at full width, with the plain versions."""
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import fm
+
+    tr = trainer_cls(fm.params_from_numpy(params, "cpu"), fm.logits,
+                     TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2),
+                     fused_fn=fm.logits_with_l2, device="cpu", **kw)
+    tr.health = None
+    losses = [float(tr.train_step(b)) for b in batches]
+    return losses, tr.params
+
+
+def compare_rows(np, torch, got, want, ids, what) -> float:
+    """Rows ``ids`` of (w, v) within TRAIN_RTOL / TRAIN_ATOL; returns the
+    max abs error."""
+    idx = torch.from_numpy(np.unique(ids).astype(np.int64))
+    err = 0.0
+    for k in ("w", "v"):
+        a = got[k].cpu().index_select(0, idx)
+        b = want[k].cpu().index_select(0, idx)
+        if not torch.allclose(a, b, rtol=TRAIN_RTOL, atol=TRAIN_ATOL):
+            raise AssertionError(f"{what}: {k} rows differ, max abs "
+                                 f"{float((a - b).abs().max())}")
+        err = max(err, float((a - b).abs().max()))
+    return err
+
+
+def profile_sparse_steps(torch, tr, batches) -> dict:
+    """Device time by kernel over a few sparse steps (torch.profiler).
+    The device's idle share rests on it, so a profile that shows no
+    device time fails the phase."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches:
+            tr.train_step(b)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        # device-side events only (kernels, copies), not the CPU ops that
+        # launched them nor the annotations' device ranges, each of which
+        # would count the same kernels again
+        if (str(e.device_type).endswith("CUDA")
+                and not getattr(e, "is_user_annotation", False)
+                and "/" not in e.key):
+            dev_us = getattr(e, "self_device_time_total", 0)
+            if dev_us > 0:
+                rows.append((dev_us, e.key, e.count))
+    if not rows:
+        raise AssertionError("torch.profiler recorded no device time")
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    return {"steps": len(batches), "profiled_wall_ms": wall_ms,
+            "device_ms_per_step": busy_ms / len(batches),
+            "device_ops_per_step": sum(r[2] for r in rows) / len(batches),
+            "top": [{"name": k[:60], "ms": us / 1e3, "calls": c}
+                    for us, k, c in rows[:14]]}
+
+
+def phase_train(np, torch, sk, seed) -> dict:
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import fm
+    from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
+    from lightctr_tpu_torch.models.sparse_trainer import \
+        SparseTableCTRTrainer
+
+    t_setup = time.perf_counter()
+    rng = np.random.default_rng(seed + 2)
+    data = criteo_rows(np, rng, SPARSE_STEPS * TRAIN_BATCH)
+    held_out = criteo_rows(np, rng, EVAL_ROWS)
+    batches = [{k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                for k, v in data.items()} for i in range(SPARSE_STEPS)]
+    params = train_params(np, seed)
+    cfg = TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2)
+    tables = {"w": ["fids"], "v": ["fids"]}
+    setup_s = time.perf_counter() - t_setup
+
+    # (a) the O(touched) sparse trainer
+    sparse = SparseTableCTRTrainer(
+        fm.params_from_numpy(params, "cuda"), fm.logits, cfg,
+        sparse_tables=tables, fused_fn=fm.logits_with_l2, device="cuda")
+    sk.reset_launches()
+    s_losses, s_snaps, s_wall, s_host = run_steps(
+        torch, sparse, batches, snapshots=(CPU_SPARSE_STEPS, PARITY_STEPS))
+    s_launch = sk.launches()
+    s_losses = [float(x) for x in s_losses]
+    if (s_launch["dedup_ids"] != SPARSE_STEPS
+            or s_launch["merge_apply"] != 2 * SPARSE_STEPS):
+        raise AssertionError(f"sparse trainer launches {s_launch} over "
+                             f"{SPARSE_STEPS} steps")
+    if not all(np.isfinite(s_losses)) or \
+            np.mean(s_losses[-5:]) >= np.mean(s_losses[:5]):
+        raise AssertionError(f"sparse trainer loss did not fall: {s_losses}")
+    ev = sparse.evaluate(held_out, batch_size=TRAIN_BATCH)
+    if not ev["auc"] > MIN_AUC:
+        raise AssertionError(f"held-out AUC {ev['auc']} <= {MIN_AUC}")
+    # untouched rows never move (the step is O(touched))
+    seen = np.unique(data["fids"])
+    untouched = np.setdiff1d(np.arange(VOCAB), seen)[:100000]
+    ut = torch.from_numpy(untouched).cuda()
+    if not torch.equal(sparse.params["v"].index_select(0, ut),
+                       torch.from_numpy(params["v"]).cuda().index_select(
+                           0, ut)):
+        raise AssertionError("sparse trainer moved untouched rows")
+    # the health feed's host share of the default step above: its touched-
+    # id count (np.unique per id stream) alone, on the same batches
+    t_sig = time.perf_counter()
+    for b in batches[:5]:
+        sparse._health_signals(b)
+    signals_ms = 1e3 * (time.perf_counter() - t_sig) / 5
+    # more steps with the health feed off
+    sparse.health = None
+    _, _, s_wall_nohealth, s_host_nohealth = run_steps(
+        torch, sparse, batches[:20])
+    prof = profile_sparse_steps(torch, sparse, batches[20:25])
+    # the profiler's own start-up inflates its window: the idle share is
+    # taken against the step time measured without it
+    prof["idle_share_health_off"] = 1.0 - prof["device_ms_per_step"] / (
+        1e3 * s_wall_nohealth / (20 - WARMUP_STEPS))
+
+    # (b) the dense trainer with the fused Adagrad kernel
+    fused = CTRTrainer(fm.params_from_numpy(params, "cuda"), fm.logits, cfg,
+                       fused_fn=fm.logits_with_l2, fused_adagrad=True,
+                       device="cuda")
+    sk.reset_launches()
+    f_losses, f_snaps, f_wall, f_host = run_steps(
+        torch, fused, batches[:FUSED_STEPS],
+        snapshots=(CPU_FUSED_STEPS, PARITY_STEPS))
+    f_launch = sk.launches()
+    f_losses = [float(x) for x in f_losses]
+    if f_launch["fused_adagrad"] != 2 * FUSED_STEPS:
+        raise AssertionError(f"fused trainer launches {f_launch} over "
+                             f"{FUSED_STEPS} steps")
+    if not all(np.isfinite(f_losses)) or \
+            np.mean(f_losses[-3:]) >= np.mean(f_losses[:3]):
+        raise AssertionError(f"fused trainer loss did not fall: {f_losses}")
+
+    # (c) cross-checks: the CPU's plain versions, and the two trainers
+    t_cpu = time.perf_counter()
+    c_losses, c_params = cpu_rerun(np, torch, SparseTableCTRTrainer, params,
+                                   batches[:CPU_SPARSE_STEPS],
+                                   sparse_tables=tables)
+    cf_losses, cf_params = cpu_rerun(np, torch, CTRTrainer, params,
+                                     batches[:CPU_FUSED_STEPS],
+                                     fused_adagrad=True)
+    cpu_s = time.perf_counter() - t_cpu
+    for got, want, what in ((s_losses[:CPU_SPARSE_STEPS], c_losses,
+                             "sparse"),
+                            (f_losses[:CPU_FUSED_STEPS], cf_losses,
+                             "fused")):
+        if not np.allclose(got, want, rtol=TRAIN_RTOL, atol=0):
+            raise AssertionError(f"{what} losses card {got} vs cpu {want}")
+    err_sparse_cpu = compare_rows(
+        np, torch, s_snaps[CPU_SPARSE_STEPS], c_params,
+        data["fids"][:CPU_SPARSE_STEPS * TRAIN_BATCH], "sparse card vs cpu")
+    err_fused_cpu = compare_rows(
+        np, torch, f_snaps[CPU_FUSED_STEPS], cf_params,
+        data["fids"][:CPU_FUSED_STEPS * TRAIN_BATCH], "fused card vs cpu")
+    err_sparse_fused = compare_rows(
+        np, torch, s_snaps[PARITY_STEPS], f_snaps[PARITY_STEPS],
+        data["fids"][:PARITY_STEPS * TRAIN_BATCH],
+        "sparse vs fused trainer on the card")
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(s_losses[:CPU_SPARSE_STEPS] + f_losses[
+                       :CPU_FUSED_STEPS], c_losses + cf_losses))
+    steady = SPARSE_STEPS - WARMUP_STEPS
+    return {
+        "phase": "train", "model": "fm", "fields": N_FIELDS, "vocab": VOCAB,
+        "factor_dim": DIM, "batch": TRAIN_BATCH, "lr": LR,
+        "lambda_l2": LAMBDA_L2, "setup_s": setup_s,
+        "sparse": {
+            "steps": SPARSE_STEPS, "launches": s_launch,
+            "loss_first5": s_losses[:5], "loss_last5": s_losses[-5:],
+            "heldout": ev, "heldout_rows": EVAL_ROWS,
+            "examples_per_s": steady * TRAIN_BATCH / s_wall,
+            "step_ms": 1e3 * s_wall / steady,
+            "host_launch_ms": 1e3 * s_host,
+            "health_signals_ms": signals_ms,
+            "examples_per_s_health_off":
+                (20 - WARMUP_STEPS) * TRAIN_BATCH / s_wall_nohealth,
+            "step_ms_health_off":
+                1e3 * s_wall_nohealth / (20 - WARMUP_STEPS),
+            "host_launch_ms_health_off": 1e3 * s_host_nohealth,
+            "distinct_ids_first_batch": int(np.unique(
+                batches[0]["fids"]).size),
+            "profile": prof,
+        },
+        "fused": {
+            "steps": FUSED_STEPS, "launches": f_launch,
+            "losses": f_losses,
+            "examples_per_s":
+                (FUSED_STEPS - WARMUP_STEPS) * TRAIN_BATCH / f_wall,
+            "step_ms": 1e3 * f_wall / (FUSED_STEPS - WARMUP_STEPS),
+            "host_launch_ms": 1e3 * f_host,
+        },
+        "cross_checks": {
+            "cpu_steps": {"sparse": CPU_SPARSE_STEPS,
+                          "fused": CPU_FUSED_STEPS},
+            "cpu_seconds": cpu_s,
+            "max_loss_rel_err_vs_cpu": loss_rel,
+            "max_abs_err_sparse_vs_cpu": err_sparse_cpu,
+            "max_abs_err_fused_vs_cpu": err_fused_cpu,
+            "max_abs_err_sparse_vs_fused_10_steps": err_sparse_fused,
+            "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
+        },
+        "train_launches": {"dedup_ids": s_launch["dedup_ids"],
+                           "merge_apply": s_launch["merge_apply"],
+                           "fused_adagrad": f_launch["fused_adagrad"]},
+    }
+
+
 # -- phase: timing ------------------------------------------------------------
 
 
@@ -316,7 +755,18 @@ def call_ms(torch, fn, reps: int = 200) -> float:
     return a.elapsed_time(b) / reps
 
 
-def phase_timing(torch, sk, serve_ns, launches, max_abs_err) -> list:
+def kernel_row(sk, name, **fields) -> dict:
+    kd = sk.KERNELS[name]
+    return {"name": name, "route": "cuda",
+            "source": os.path.join("lightctr_tpu_torch", "csrc", kd.source),
+            "replaces": kd.replaces, **fields}
+
+
+def bound_ms(nbytes) -> float:
+    return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def gather_timing(torch, sk, serve_ns, launches, max_abs_err) -> dict:
     n = max(serve_ns)
     gen = torch.Generator(device="cuda").manual_seed(99)
     block = torch.randn((CACHE_ROWS, ROW_DIM), generator=gen, device="cuda")
@@ -329,23 +779,112 @@ def phase_timing(torch, sk, serve_ns, launches, max_abs_err) -> list:
     # rows it writes
     n_read = int(torch.unique(idx).numel())
     nbytes = n_read * ROW_DIM * 4 + n * 4 + n * ROW_DIM * 4
-    kd = sk.KERNELS["gather_rows"]
     kernel_ms = graph_ms(torch, lambda: sk.gather_rows(block, idx))
-    return [{
-        "name": "gather_rows", "route": "cuda",
-        "source": os.path.join("lightctr_tpu_torch", "csrc", kd.source),
-        "replaces": kd.replaces,
-        "launches": launches["gather_rows"],
-        "max_abs_err": max_abs_err,
-        "shape": {"rows": CACHE_ROWS, "d": ROW_DIM, "n": n},
-        "ms": kernel_ms, "kernel_ms": kernel_ms,
-        "plain_ms": graph_ms(torch, lambda: sk.gather_rows_plain(block, idx)),
-        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
-        "bound_by": "bytes",
-        "library_ms": graph_ms(torch, lambda: block.index_select(0, idx)),
-        "call_ms": call_ms(torch, lambda: sk.gather_rows(block, idx)),
-        "bytes": nbytes,
-    }]
+    return kernel_row(
+        sk, "gather_rows", launches=launches["gather_rows"],
+        max_abs_err=max_abs_err,
+        shape={"rows": CACHE_ROWS, "d": ROW_DIM, "n": n},
+        ms=kernel_ms, kernel_ms=kernel_ms,
+        plain_ms=graph_ms(torch, lambda: sk.gather_rows_plain(block, idx)),
+        bound_ms=bound_ms(nbytes), bound_by="bytes",
+        library_ms=graph_ms(torch, lambda: block.index_select(0, idx)),
+        library_call="torch.index_select",
+        call_ms=call_ms(torch, lambda: sk.gather_rows(block, idx)),
+        bytes=nbytes)
+
+
+def train_timing(np, torch, sk, fa, seed, launches, kern) -> list:
+    """dedup_ids, merge_apply and fused_adagrad at the train path's shapes:
+    one batch's K = 159,744 ids, its uids against the 2^20-row tables, and
+    the flat w (2^20) and v (2^25) leaves."""
+    rng = np.random.default_rng(seed + 5)
+    ids = torch.from_numpy(criteo_fids(np, rng, TRAIN_BATCH).reshape(-1)) \
+        .cuda()
+    k = ids.numel()
+    uids, _, count = sk.dedup_ids(ids)
+    real = int(count)  # non-pad slots: the distinct ids, id 0 included
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def unique_call():
+        return torch.unique(ids, sorted=True, return_inverse=True)
+
+    dedup_ms = graph_ms(torch, lambda: sk.dedup_ids(ids))
+    rows = [kernel_row(
+        sk, "dedup_ids", launches=launches["dedup_ids"],
+        max_abs_err=kern["dedup_ids"]["max_abs_err"],
+        shape={"k": k, "size": k, "distinct": int(count)},
+        ms=dedup_ms, kernel_ms=dedup_ms,
+        plain_ms=call_ms(torch, lambda: sk.dedup_ids_plain(ids, k), reps=50),
+        plain_timing="eager between events: torch.unique syncs to size its "
+                     "output, so it cannot be graph-captured",
+        bound_ms=bound_ms(12 * k), bound_by="bytes",
+        bound_note="12*K bytes (ids read, inv and uids written): a lower "
+                   "bound that no sort reaches",
+        library_ms=call_ms(torch, unique_call, reps=50),
+        library_call="torch.unique(sorted=True, return_inverse=True), "
+                     "eager between events (it syncs)",
+        call_ms=call_ms(torch, lambda: sk.dedup_ids(ids)),
+        bytes=12 * k)]
+
+    per_shape = []
+    for d in (1, DIM):
+        shape = (VOCAB,) if d == 1 else (VOCAB, d)
+        table = torch.randn(shape, generator=gen, device="cuda")
+        accum = torch.rand(shape, generator=gen, device="cuda")
+        grads = torch.randn((k,) + shape[1:], generator=gen, device="cuda")
+        # touched rows' w and a read and written, their gradient rows and
+        # all S uids read; a pad slot (uid 0 past slot 0) reads its uid and
+        # skips its gradient row
+        nbytes = real * d * 4 * 4 + real * d * 4 + k * 4
+        per_shape.append({
+            "d": d, "vocab": VOCAB, "s": k, "s_real": real,
+            "ms": graph_ms(torch, lambda: sk.merge_apply(
+                table, accum, uids, grads, lr=LR, eps=EPS)),
+            "plain_ms": call_ms(torch, lambda: sk.merge_apply_plain(
+                table, accum, uids, grads, None, LR, EPS, 1.0), reps=50),
+            "call_ms": call_ms(torch, lambda: sk.merge_apply(
+                table, accum, uids, grads, lr=LR, eps=EPS)),
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes})
+    big = per_shape[-1]
+    rows.append(kernel_row(
+        sk, "merge_apply", launches=launches["merge_apply"],
+        max_abs_err=kern["merge_apply"]["max_abs_err"],
+        max_ulp=kern["merge_apply"]["max_ulp"],
+        shape={"vocab": VOCAB, "d": DIM, "s": k, "s_real": real},
+        ms=big["ms"], kernel_ms=big["ms"], plain_ms=big["plain_ms"],
+        plain_timing="eager between events: its dedup_grads runs "
+                     "torch.unique, which syncs",
+        bound_ms=big["bound_ms"], bound_by="bytes", library_ms=None,
+        library_note="no single PyTorch call computes a touched-row "
+                     "scatter Adagrad apply",
+        call_ms=big["call_ms"], bytes=big["bytes"], per_shape=per_shape))
+
+    per_shape = []
+    for n in (VOCAB, VOCAB * DIM):
+        w = torch.randn(n, generator=gen, device="cuda")
+        a = torch.rand(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda")
+        per_shape.append({
+            "n": n,
+            "ms": graph_ms(torch, lambda: fa.fused_adagrad_update(
+                w, a, g, LR, EPS)),
+            "plain_ms": graph_ms(torch, lambda: fa.fused_adagrad_plain(
+                w, a, g, LR, EPS)),
+            "call_ms": call_ms(torch, lambda: fa.fused_adagrad_update(
+                w, a, g, LR, EPS)),
+            "bound_ms": bound_ms(5 * n * 4), "bytes": 5 * n * 4})
+    big = per_shape[-1]
+    rows.append(kernel_row(
+        sk, "fused_adagrad", launches=launches["fused_adagrad"],
+        max_abs_err=kern["fused_adagrad"]["max_abs_err"],
+        max_ulp=kern["fused_adagrad"]["max_ulp"],
+        shape={"n": VOCAB * DIM},
+        ms=big["ms"], kernel_ms=big["ms"], plain_ms=big["plain_ms"],
+        bound_ms=big["bound_ms"], bound_by="bytes", library_ms=None,
+        library_note="no single PyTorch call computes Adagrad with eps "
+                     "inside the sqrt (torch.optim.Adagrad adds it outside)",
+        call_ms=big["call_ms"], bytes=big["bytes"], per_shape=per_shape))
+    return rows
 
 
 # -- main ---------------------------------------------------------------------
@@ -370,6 +909,7 @@ def main(argv=None) -> int:
 
     from lightctr_tpu_torch.native import bindings
     from lightctr_tpu_torch.ops import sparse_kernels as sk
+    from lightctr_tpu_torch.optim import fused_adagrad as fa
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -377,13 +917,21 @@ def main(argv=None) -> int:
     emit(phase_build(sk, bindings) | {"nvidia_smi": smi})
     requests = make_requests(np, args.seed)
     serve_ns = serve_gather_ns(np, sk, requests)
+    krng = np.random.default_rng(args.seed + 4)
     kern = phase_kernels(torch, sk, serve_ns)
+    kern["dedup_ids"] = check_dedup(np, torch, sk, krng)
+    kern["merge_apply"] = check_merge_apply(np, torch, sk, krng)
+    kern["fused_adagrad"] = check_fused_adagrad(torch, fa)
     emit(kern)
     serve_info = phase_serve(np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
-    emit({"kernels": phase_timing(torch, sk, serve_ns,
-                                  serve_info["launches"],
-                                  kern["gather_rows"]["max_abs_err"])})
+    train_info = phase_train(np, torch, sk, args.seed)
+    emit(train_info | {"nvidia_smi": smi})
+    rows = [gather_timing(torch, sk, serve_ns, serve_info["launches"],
+                          kern["gather_rows"]["max_abs_err"])]
+    rows += train_timing(np, torch, sk, fa, args.seed,
+                         train_info["train_launches"], kern)
+    emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Core helpers of the port: device resolution."""
+"""Core helpers of the port: device resolution and the training config."""

@@ -7,10 +7,11 @@
 // reads its row's index itself and applies the same int32 cast and clip as
 // _gather_pallas (sparse_kernels.py:740).  A grid-stride loop covers any n*d.
 //
-// Bound: bytes.  The call reads n*d*4 bytes of rows and n*sizeof(idx) of
-// indices and writes n*d*4 bytes.  At the serving shape (n padded to 16384,
-// d = 33) that is about 4.4 MB, about 1.3 us at the H100's 3.35 TB/s, so the
-// kernel is bound by its launch latency, not by the rows it moves.  The
+// Bound: bytes.  The call reads the distinct rows it gathers (d*4 bytes
+// each) and n*sizeof(idx) of indices and writes n*d*4 bytes.  At the
+// serving shape measured on an H100 (R = 65536, d = 33, n padded to 8192)
+// that is 2,130,512 B, 0.000636 ms at 3.35 TB/s, so the kernel is bound by
+// its launch latency, not by the rows it moves (PERF.md, chip_smoke.py).  The
 // simple design is right for that: rows of 33 floats are not 16-byte
 // aligned, so scalar 4-byte loads; no shared memory, no TMA, no vector
 // loads until a caller gathers wide enough rows for them to matter.

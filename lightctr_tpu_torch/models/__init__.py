@@ -1,1 +1,1 @@
-"""Models of the port (FM so far)."""
+"""Models of the port (FM so far) and the CTR trainers."""

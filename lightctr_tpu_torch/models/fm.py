@@ -9,7 +9,8 @@ the same batched sumVX formulation of ``train_fm_algo.cpp:63-88``:
     pred    = W[fids]·vals + 0.5 * (|sumvx|^2 - sum_p |vx|^2)
 
 Parameters are a plain dict ``{"w": [F], "v": [F, k]}`` of tensors;
-:func:`params_from_numpy` carries the JAX package's params (as numpy) in.
+:func:`params_from_numpy` carries the JAX package's params (as numpy) in,
+and :func:`opt_state_from_numpy` its trainers' optimizer state.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from lightctr_tpu_torch.optim.updaters import AdagradState
 
 
 def init(generator: torch.Generator, feature_cnt: int, factor_cnt: int,
@@ -36,8 +39,21 @@ def init(generator: torch.Generator, feature_cnt: int, factor_cnt: int,
 def params_from_numpy(np_params: Dict, device) -> Dict[str, torch.Tensor]:
     """``{"w": [F], "v": [F, k]}`` numpy arrays (e.g. the JAX package's
     params through ``np.asarray``) -> tensors on ``device``."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
             for k, v in np_params.items()}
+
+
+def opt_state_from_numpy(np_state, device):
+    """The JAX trainers' optimizer state (as numpy) -> the port's: an
+    ``AdagradState`` (anything with an ``accum`` dict, ``CTRTrainer``'s
+    state) or the sparse trainer's ``{"dense": AdagradState, "accum":
+    {table: [rows, ...]}}``."""
+    if hasattr(np_state, "accum"):
+        return AdagradState(accum=params_from_numpy(np_state.accum, device))
+    if isinstance(np_state, dict) and set(np_state) == {"dense", "accum"}:
+        return {"dense": opt_state_from_numpy(np_state["dense"], device),
+                "accum": params_from_numpy(np_state["accum"], device)}
+    raise ValueError(f"not an Adagrad optimizer state: {type(np_state)}")
 
 
 def logits(params: Dict[str, torch.Tensor],
@@ -63,4 +79,69 @@ def logits_with_l2(params: Dict[str, torch.Tensor],
         torch.sum(sumvx * sumvx, dim=-1) - torch.sum(vx * vx, dim=(1, 2))
     )
     l2 = 0.5 * (torch.sum(w * w * mask) + torch.sum(v * v * mask[..., None]))
+    return linear + second, l2
+
+
+def l2_penalty(params: Dict[str, torch.Tensor],
+               batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """L2 on the *touched* rows only, matching the reference which adds
+    ``L2Reg_ratio * W[fid]`` per occurrence (train_fm_algo.cpp:108-115)
+    rather than decaying the whole table."""
+    mask = batch["mask"]
+    fids = batch["fids"]
+    flat = fids.reshape(-1)
+    w = params["w"].index_select(0, flat).reshape(fids.shape)
+    v = params["v"].index_select(0, flat).reshape(
+        fids.shape + params["v"].shape[1:])
+    return 0.5 * (torch.sum(w * w * mask)
+                  + torch.sum(v * v * mask[..., None]))
+
+
+def densify(arrays: Dict, feature_cnt: int) -> Dict:
+    """Host-side one-time densification of a (small-vocab) sparse batch
+    into numpy ``x``, ``x2``, ``cnt`` and ``labels`` (the JAX package's
+    ``fm.densify``, see there for the exact-parity construction):
+
+      x[i,f]   = sum of vals over slots with that fid
+      x2[i,f]  = sum of vals^2 over slots (the per-slot self-interaction)
+      cnt[f]   = number of touched slots (per-occurrence L2)
+
+    Memory: 2 * B * F floats — the caller's job to check it fits."""
+    fids = np.asarray(arrays["fids"])
+    vals = np.asarray(arrays["vals"]) * np.asarray(arrays["mask"])
+    mask = np.asarray(arrays["mask"]) > 0
+    if mask.any():
+        lo, hi = fids[mask].min(), fids[mask].max()
+        if lo < 0 or hi >= feature_cnt:
+            raise ValueError(
+                f"fid out of range [{lo}, {hi}] for feature_cnt="
+                f"{feature_cnt}; negative/overflow ids would scatter into "
+                "the wrong dense column")
+    n, p = fids.shape
+    x = np.zeros((n, feature_cnt), np.float32)
+    x2 = np.zeros((n, feature_cnt), np.float32)
+    cnt = np.zeros((feature_cnt,), np.float32)
+    rows = np.broadcast_to(np.arange(n)[:, None], (n, p))
+    np.add.at(x, (rows[mask], fids[mask]), vals[mask])
+    np.add.at(x2, (rows[mask], fids[mask]), vals[mask] ** 2)
+    np.add.at(cnt, fids[mask], 1.0)
+    return {"x": x, "x2": x2, "cnt": cnt,
+            "labels": np.asarray(arrays["labels"])}
+
+
+def dense_logits(params: Dict[str, torch.Tensor],
+                 batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+    return dense_logits_with_l2(params, batch)[0]
+
+
+def dense_logits_with_l2(params: Dict[str, torch.Tensor],
+                         batch: Dict[str, torch.Tensor]):
+    """Matmul formulation of :func:`logits_with_l2` over a densified batch:
+    z = x @ w + 0.5 * (|x @ V|^2 - x2 @ (V*V) summed)."""
+    w, v = params["w"], params["v"]
+    linear = batch["x"] @ w                                   # [B]
+    sumvx = batch["x"] @ v                                    # [B, k]
+    self_term = batch["x2"] @ (v * v)                         # [B, k]
+    second = 0.5 * (torch.sum(sumvx * sumvx, -1) - torch.sum(self_term, -1))
+    l2 = 0.5 * (batch["cnt"] @ (w * w) + batch["cnt"] @ torch.sum(v * v, -1))
     return linear + second, l2

@@ -1,1 +1,2 @@
-"""Tensor ops of the port: activations and the hand-written kernels."""
+"""Tensor ops of the port: activations, losses, metrics and the
+hand-written kernels."""

@@ -23,9 +23,12 @@ Kernels are built at first use (or eagerly through :func:`load` /
 of the source and the compiler flags.  Importing this module builds
 nothing.
 
-Ported so far: ``gather_rows`` (``_gather_pallas``).  The JAX package's
-other Pallas kernels (dedup, merge, merge_apply, quantize_pack and its EF
-variants, fused Adagrad, flash attention) are still to be ported.
+Ported so far: ``gather_rows`` (``_gather_pallas``), ``dedup_ids``
+(``_dedup_pallas``), ``merge_apply`` in its apply mode (``_merge_apply_pallas``
+with ``inv=None``) and, registered from ``optim/fused_adagrad.py``,
+``fused_adagrad`` (``_adagrad_pallas``).  The JAX package's other Pallas
+kernels (merge_rows and merge_apply's merge mode, quantize_pack and its EF
+variants, flash attention) are still to be ported.
 """
 
 from __future__ import annotations
@@ -40,6 +43,12 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
+
+from lightctr_tpu_torch.embed.table import (
+    SparseAdagradState,
+    segment_sum,
+    sparse_adagrad_update,
+)
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -197,13 +206,50 @@ def build_all() -> Dict[str, str]:
     return paths
 
 
-def _dispatch(name: str, device: torch.device) -> Callable:
+def dispatch(name: str, device: torch.device) -> Callable:
+    """Kernel ``name``'s implementation for ``device``: the plain version
+    on the CPU, the CUDA wrapper on a CUDA device."""
     kd = KERNELS[name]
     if device.type == "cpu":
         return kd.plain
     if device.type == "cuda":
         return kd.cuda
     raise ValueError(f"{name}: no implementation for device {device}")
+
+
+def run_kernel(name: str, device: torch.device, entry, *args) -> None:
+    """Call the C entry ``entry(*args, stream)`` on ``device``'s current
+    stream (no synchronise); raise on a non-zero CUDA error, else count
+    one launch of kernel ``name``."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = entry(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _count_launch(name)
+
+
+def check_cuda_tensors(name: str, **tensors) -> torch.device:
+    """The device all ``tensors`` share, which must be a CUDA device, and
+    each must be contiguous; raises ``ValueError`` otherwise."""
+    devs = {t.device for t in tensors.values()}
+    dev = next(iter(devs))
+    if len(devs) != 1 or dev.type != "cuda":
+        raise ValueError(f"{name} kernel needs {', '.join(tensors)} on one "
+                         f"CUDA device, got {sorted(map(str, devs))}")
+    for what, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} kernel needs a contiguous {what}")
+    return dev
+
+
+def bind_entry(lib: ctypes.CDLL, sym: str, argtypes,
+               restype=ctypes.c_int) -> None:
+    """Set the ctypes signature of C entry ``sym``: pointers and the stream
+    as ``c_void_p``, so none is cut to a 32-bit int."""
+    fn = getattr(lib, sym)
+    fn.restype = restype
+    fn.argtypes = argtypes
 
 
 # =========================================================================
@@ -223,13 +269,12 @@ def gather_rows_plain(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return block.index_select(0, sel)
 
 
+_P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
+
+
 def _bind_gather_rows(lib: ctypes.CDLL) -> None:
     for sym in ("gather_rows_f32_i32", "gather_rows_f32_i64"):
-        fn = getattr(lib, sym)
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_longlong, ctypes.c_longlong,
-                       ctypes.c_longlong, ctypes.c_void_p]
+        bind_entry(lib, sym, [_P, _P, _P, _LL, _LL, _LL, _P])
 
 
 def _gather_rows_cuda(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -240,11 +285,7 @@ def _gather_rows_cuda(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if idx.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"gather_rows kernel takes int32/int64 indices, "
                         f"got {idx.dtype}")
-    if not (block.is_cuda and idx.device == block.device):
-        raise ValueError("gather_rows kernel needs block and idx on one "
-                         f"CUDA device, got {block.device} / {idx.device}")
-    if not (block.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("gather_rows kernel needs contiguous block and idx")
+    dev = check_cuda_tensors("gather_rows", block=block, idx=idx)
     rows = block.shape[0]
     n = idx.numel()
     out = torch.empty((n,) + tuple(block.shape[1:]), dtype=block.dtype,
@@ -255,13 +296,8 @@ def _gather_rows_cuda(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     lib = load("gather_rows")
     fn = (lib.gather_rows_f32_i32 if idx.dtype == torch.int32
           else lib.gather_rows_f32_i64)
-    with torch.cuda.device(block.device):
-        stream = torch.cuda.current_stream(block.device).cuda_stream
-        err = fn(block.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, d,
-                 n, stream)
-    if err != 0:
-        raise RuntimeError(f"gather_rows launch failed: CUDA error {err}")
-    _count_launch("gather_rows")
+    run_kernel("gather_rows", dev, fn, block.data_ptr(), idx.data_ptr(),
+               out.data_ptr(), rows, d, n)
     return out
 
 
@@ -284,4 +320,199 @@ def gather_rows(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return block.new_zeros((0,) + tuple(block.shape[1:]))
     if block.shape[0] == 0:
         raise ValueError("gather_rows: cannot gather from an empty block")
-    return _dispatch("gather_rows", block.device)(block, idx)
+    return dispatch("gather_rows", block.device)(block, idx)
+
+
+# =========================================================================
+# dedup_ids: unique + inverse over an id stream
+# =========================================================================
+#
+# The exact ``jnp.unique(ids, return_inverse=True, size=size,
+# fill_value=0)`` contract plus the distinct count — the sparse trainer's
+# per-step dedup of each id stream.  Replaces lightctr_tpu/ops/
+# sparse_kernels.py ``_dedup_pallas`` / ``_dedup_kernel``; csrc/dedup_ids.cu
+# has the kernel (a bitonic sort and a scan, not the TPU's O(K^2) rank
+# compare) and its design note.
+
+
+def dedup_ids_plain(ids: torch.Tensor, size: int):
+    """Plain version: sorted unique ids padded with 0 to ``size`` (cut at
+    ``size`` when there are more), the inverse at full rank (int32, it may
+    reach past ``size``), and the distinct count as a 0-d int32 tensor."""
+    u, inv = torch.unique(ids, sorted=True, return_inverse=True)
+    uids = ids.new_zeros((size,))
+    n = min(size, u.shape[0])
+    uids[:n] = u[:n]
+    inv = inv.reshape(-1).to(torch.int32)
+    return uids, inv, (inv.max() + 1).to(torch.int32)
+
+
+def _bind_dedup_ids(lib: ctypes.CDLL) -> None:
+    bind_entry(lib, "dedup_ids_workspace_bytes", [_LL], restype=_LL)
+    bind_entry(lib, "dedup_ids_i32", [_P, _LL, _LL, _P, _P, _P, _P, _P])
+
+
+def _dedup_ids_cuda(ids: torch.Tensor, size: int):
+    """Launch the CUDA dedup on the current stream; no synchronise.  The
+    count stays on the card."""
+    if ids.dtype != torch.int32:
+        raise TypeError(f"dedup_ids kernel takes int32 ids, got {ids.dtype} "
+                        "(cast first, as the sparse trainer does)")
+    dev = check_cuda_tensors("dedup_ids", ids=ids)
+    k = ids.numel()
+    lib = load("dedup_ids")
+    work = torch.empty((lib.dedup_ids_workspace_bytes(k),), dtype=torch.uint8,
+                       device=dev)
+    uids = torch.empty((size,), dtype=torch.int32, device=dev)
+    inv = torch.empty((k,), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    run_kernel("dedup_ids", dev, lib.dedup_ids_i32, ids.data_ptr(), k, size,
+               uids.data_ptr(), inv.data_ptr(), count.data_ptr(),
+               work.data_ptr())
+    return uids, inv, count
+
+
+register_kernel(
+    "dedup_ids", phase="dedup", plain=dedup_ids_plain, cuda=_dedup_ids_cuda,
+    source="dedup_ids.cu", bind=_bind_dedup_ids,
+    replaces="lightctr_tpu/ops/sparse_kernels.py:227",
+)
+
+
+def dedup_ids(ids: torch.Tensor, size: Optional[int] = None):
+    """Dispatch: unique+inverse over one id stream -> ``(uids, inv,
+    count)``.  ``size`` defaults to ``len(ids)`` (no truncation); with
+    ``size < count`` the unique array is cut while ``inv`` keeps full
+    ranks.  The plain version on a CPU tensor (any integer dtype), the CUDA
+    kernel on a CUDA tensor (int32 only: it raises ``TypeError`` for
+    int64)."""
+    ids = ids.reshape(-1)
+    k = ids.shape[0]
+    if size is None:
+        size = k
+    if k == 0:
+        return (ids.new_zeros((size,)),
+                torch.zeros((0,), dtype=torch.int32, device=ids.device),
+                torch.zeros((), dtype=torch.int32, device=ids.device))
+    return dispatch("dedup_ids", ids.device)(ids, size)
+
+
+# =========================================================================
+# merge_apply: scaled sparse Adagrad over the touched rows
+# =========================================================================
+#
+# ``table[uids] -= lr * g * rsqrt(accum[uids] + g^2 + eps)`` with
+# ``g = rows / denom``, in place, plus the rows' sum of squares.  Replaces
+# lightctr_tpu/ops/sparse_kernels.py ``_merge_apply_pallas`` in its apply
+# mode (``inv=None``); csrc/merge_apply.cu has the kernel and its design
+# note.  The merge mode (``inv`` given: duplicate rows segment-summed
+# first, TPU kernel ``_merge_pallas``) runs in the plain version only; its
+# kernel comes with the multi-GPU slice.
+
+
+def merge_apply_plain(table, accum, uids, rows, inv, lr, eps, denom):
+    """Plain version: the pad mask of the JAX dispatcher (for ``inv=None``:
+    padded id-0 slots past slot 0 carry no gradient), then literally
+    ``_merge_apply_reference`` — optional segment-sum, ``/denom``, the sum
+    of squares, then ``sparse_adagrad_update`` (in place here).  A uid
+    outside ``[0, len(table))`` is dropped, its row out of the update and
+    the sum, as the kernel drops it."""
+    k = uids.shape[0]
+    inside = (uids >= 0) & (uids < table.shape[0])
+    if inv is None:
+        valid = inside & ~((uids == 0) & (torch.arange(k, device=uids.device)
+                                          > 0))
+        merged = rows * valid.to(rows.dtype).reshape(
+            (-1,) + (1,) * (rows.ndim - 1))
+    else:
+        merged = segment_sum(rows, inv, k)
+        merged = merged * inside.to(merged.dtype).reshape(
+            (-1,) + (1,) * (merged.ndim - 1))
+    # a dropped slot becomes a zero row at id 0, like a pad
+    uids = torch.where(inside, uids, torch.zeros_like(uids))
+    if denom != 1.0:
+        # a 0-d tensor divisor keeps this a true division on the card too
+        # (a Python scalar divisor becomes a multiply by its reciprocal)
+        merged = merged / torch.tensor(denom, dtype=merged.dtype,
+                                       device=merged.device)
+    sumsq = torch.sum(merged * merged)
+    sparse_adagrad_update(table, SparseAdagradState(accum=accum), uids,
+                          merged, lr, eps=eps)
+    return table, accum, sumsq
+
+
+def _bind_merge_apply(lib: ctypes.CDLL) -> None:
+    bind_entry(lib, "merge_apply_workspace_bytes", [], restype=_LL)
+    bind_entry(lib, "merge_apply_f32",
+           [_P, _P, _P, _P, _LL, _LL, _LL, _F, _F, _F, _P, _P, _P])
+
+
+def _merge_apply_cuda(table, accum, uids, rows, inv, lr, eps, denom):
+    """Launch the CUDA apply on the current stream, in place on ``table``
+    and ``accum``; no synchronise.  ``sumsq`` stays on the card."""
+    if inv is not None:
+        raise NotImplementedError(
+            "merge_apply kernel: the merge mode (inv given, a segment-sum "
+            "of duplicate rows, the TPU kernel _merge_pallas) comes with "
+            "the multi-GPU slice; this kernel applies per-uid rows "
+            "(inv=None)")
+    if not (table.dtype == accum.dtype == rows.dtype == torch.float32):
+        raise TypeError("merge_apply kernel takes float32 table, accum and "
+                        f"rows, got {table.dtype}, {accum.dtype}, "
+                        f"{rows.dtype}")
+    if uids.dtype != torch.int32:
+        raise TypeError(f"merge_apply kernel takes int32 uids, got "
+                        f"{uids.dtype}")
+    if accum.shape != table.shape:
+        raise ValueError(f"merge_apply: accum {tuple(accum.shape)} != table "
+                         f"{tuple(table.shape)}")
+    vocab = table.shape[0]
+    d = table[0].numel() if vocab else 1
+    s = uids.numel()
+    rows = rows.reshape(s, d)
+    dev = check_cuda_tensors("merge_apply", table=table, accum=accum,
+                             uids=uids, rows=rows)
+    lib = load("merge_apply")
+    work = torch.empty((lib.merge_apply_workspace_bytes(),),
+                       dtype=torch.uint8, device=dev)
+    sumsq = torch.empty((), dtype=torch.float32, device=dev)
+    run_kernel("merge_apply", dev, lib.merge_apply_f32, table.data_ptr(),
+               accum.data_ptr(), uids.data_ptr(), rows.data_ptr(), vocab, d,
+               s, lr, eps, denom, sumsq.data_ptr(), work.data_ptr())
+    return table, accum, sumsq
+
+
+register_kernel(
+    "merge_apply", phase="apply", plain=merge_apply_plain,
+    cuda=_merge_apply_cuda, source="merge_apply.cu", bind=_bind_merge_apply,
+    replaces="lightctr_tpu/ops/sparse_kernels.py:593",
+)
+
+
+def merge_apply(
+    table: torch.Tensor,
+    accum: torch.Tensor,
+    uids: torch.Tensor,
+    rows: torch.Tensor,
+    inv: Optional[torch.Tensor] = None,
+    *,
+    lr: float,
+    eps: float = 1e-7,
+    denom: float = 1.0,
+):
+    """Dispatch: scaled sparse Adagrad over the touched rows of
+    ``table``/``accum``, **in place** -> ``(table, accum, sumsq)``.
+
+    ``uids`` [S] follow the dedup convention (sorted unique, padding
+    repeats id 0); ``rows`` is either per-uid rows [S, ...] (``inv=None``)
+    or the pre-merge [M, ...] payload with its segment map ``inv`` [M].
+    ``denom`` scales the merged rows before the apply; ``sumsq`` is their
+    sum of squares (the health gradient norm's share).  Padded id-0 slots
+    are zero-gradient by contract.  The plain version on CPU tensors (both
+    modes), the CUDA kernel on CUDA tensors (``inv=None`` only; it raises
+    ``NotImplementedError`` for the merge mode)."""
+    if uids.device != table.device:
+        raise ValueError(f"merge_apply: table on {table.device}, uids on "
+                         f"{uids.device}")
+    return dispatch("merge_apply", table.device)(
+        table, accum, uids, rows, inv, lr, eps, denom)

@@ -1,6 +1,8 @@
-"""The port stands alone: ``lightctr_tpu_torch`` and ``chip_smoke.py`` import
-neither ``jax`` nor ``lightctr_tpu`` (an AST walk of every file), importing
-the serving slice leaves ``jax`` out of ``sys.modules``, the copied native
+"""The port stands alone: ``lightctr_tpu_torch``, ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` import neither ``jax``, ``optax`` nor
+``lightctr_tpu`` (an AST walk of every file),
+importing the serving and training slices leaves them out of
+``sys.modules``, the copied native
 sources match the JAX package's, and ``chip_smoke.py`` refuses to run
 without CUDA or alone in a directory."""
 
@@ -15,13 +17,15 @@ import pytest
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO_ROOT, "lightctr_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "lightctr_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "lightctr_tpu")
 
 
 def _port_sources():
     files = sorted(glob.glob(os.path.join(PORT, "**", "*.py"),
                              recursive=True))
-    return files + [os.path.join(REPO_ROOT, "chip_smoke.py")]
+    # the card's tests run where JAX is not installed
+    return files + [os.path.join(REPO_ROOT, "chip_smoke.py"),
+                    os.path.join(REPO_ROOT, "tests", "test_torch_cuda.py")]
 
 
 def _imported_roots(path):
@@ -51,7 +55,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_importing_the_serving_slice_loads_no_jax():
     code = ("import sys; import lightctr_tpu_torch.serve, "
-            "lightctr_tpu_torch.ops.sparse_kernels; "
+            "lightctr_tpu_torch.ops.sparse_kernels, "
+            "lightctr_tpu_torch.models.sparse_trainer, "
+            "lightctr_tpu_torch.optim.fused_adagrad; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,
