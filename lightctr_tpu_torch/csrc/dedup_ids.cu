@@ -1,10 +1,11 @@
 // dedup_ids: (uids, inv, count) = unique(ids, return_inverse, size, fill 0)
 //
 // The contract of jnp.unique(ids, return_inverse=True, size=size,
-// fill_value=0) plus the distinct count: uids are the sorted distinct ids,
-// padded with 0 past the count and cut at `size`; inv[i] is the rank of
-// ids[i] among ALL distinct ids (so it may reach past `size` when the cut
-// truncates); count = last rank + 1, left on the device (no host sync).
+// fill_value=0) plus the distinct count, for int32 and int64 ids: uids are
+// the sorted distinct ids (in the ids' type), padded with 0 past the count
+// and cut at `size`; inv[i] is the rank of ids[i] among ALL distinct ids (so
+// it may reach past `size` when the cut truncates); count = last rank + 1,
+// left on the device (no host sync).
 //
 // Replaces the TPU kernel lightctr_tpu/ops/sparse_kernels.py
 // _dedup_pallas/_dedup_kernel.  That kernel is sort-free: it ranks each id
@@ -12,29 +13,31 @@
 // order.  At the trainer's K = 4096 x 39 = 159,744 ids that would be about
 // 2.5e10 compares, so this port sorts instead:
 //
-//   1. keys = (uint32(id) ^ 0x80000000) << 32 | slot, 64 bits, padded to a
-//      power of two P with all-ones keys that sort last (the xor maps int32
-//      order onto uint32 order, so negative ids and INT32_MIN/MAX sort right);
-//   2. a bitonic sort of the P keys: stages whose partner distance is under
-//      kSortChunk run in shared memory, one block per chunk; wider ones run
-//      as global compare-exchange passes (log2(P/kSortChunk) of them per
-//      stage);
+//   1. keys: for int32 ids (uint32(id) ^ 0x80000000) << 32 | slot, 64 bits;
+//      for int64 ids the pair (uint64(id) ^ 2^63, slot), 128 bits compared
+//      id first.  The xor maps signed order onto unsigned order, so negative
+//      ids and the type's limits sort right.  Padded to a power of two P
+//      with all-ones keys that sort last;
+//   2. a bitonic sort of the P keys (bitonic_sort.cuh);
 //   3. mark where each sorted run of equal ids starts, inclusive-scan the
 //      marks into ranks (a block scan per 4096-key tile, then one block
 //      that scans the tile sums);
 //   4. scatter inv[slot] = rank, and uids[rank] = id where a run starts and
 //      rank < size (uids were zeroed first).
 //
-// Bound: bytes.  The function must read K*4 bytes of ids and write K*4 of
-// inv plus size*4 of uids, about 12*K bytes: 1.9 MB at K = 159,744, 0.57 us
-// at 3.35 TB/s.  No sort reaches that bound: the bitonic sort makes
-// log2(P)*(log2(P)+1)/2 compare-exchange passes (171 at P = 2^18), most of
-// them in shared memory, about 36 launches in all.  Simple and right first;
-// a radix sort with one global pass per 8 bits is the faster design.
+// Bound: bytes.  The function must read K*w bytes of ids (w = 4 or 8) and
+// write K*4 of inv plus size*w of uids: about 12*K bytes for int32 ids,
+// 1.9 MB at K = 159,744, 0.57 us at 3.35 TB/s.  No sort reaches that
+// bound: the bitonic sort makes log2(P)*(log2(P)+1)/2 compare-exchange
+// passes (171 at P = 2^18), most of them in shared memory, about 36
+// launches in all; int64 keys move twice the bytes of int32 keys.  Simple
+// and right first; a radix sort with one global pass per 8 bits is the
+// faster design.
 //
 // The result is exact: integer compares and integer scans only, bit-identical
 // to the plain version (dedup_ids_plain in lightctr_tpu_torch/ops/
-// sparse_kernels.py, torch.unique padded with 0) for any int32 stream.
+// sparse_kernels.py, torch.unique padded with 0) for any int32 or int64
+// stream.
 //
 // Plain C interface for ctypes; each entry returns the first CUDA error of
 // its launches, which the Python wrapper turns into an exception.
@@ -42,89 +45,75 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "bitonic_sort.cuh"
+
 namespace {
 
-typedef unsigned long long u64;
+using lct::Key128;
+using lct::u64;
 
-constexpr int kThreads = 256;
-constexpr long long kMaxBlocks = 4096;
-constexpr int kSortChunk = 2048;             // keys per shared-memory sort block
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 4;
 constexpr int kTile = kScanThreads * kScanItems;  // keys per scan block
-constexpr u64 kPadKey = ~0ull;
 
-__device__ __forceinline__ u64 make_key(int32_t id, unsigned slot) {
-  return ((u64)((uint32_t)id ^ 0x80000000u) << 32) | (u64)slot;
+// The key layout of one id width: make a key, read its id and slot back,
+// and compare the id parts of two keys.
+template <typename Id>
+struct KeyOf;
+
+template <>
+struct KeyOf<int32_t> {
+  typedef u64 K;
+  __device__ static K make(int32_t id, unsigned slot) {
+    return ((u64)((uint32_t)id ^ 0x80000000u) << 32) | (u64)slot;
+  }
+  __device__ static K pad() { return ~0ull; }
+  __device__ static bool same_id(K a, K b) { return (a >> 32) == (b >> 32); }
+  __device__ static int32_t id(K k) {
+    return (int32_t)((uint32_t)(k >> 32) ^ 0x80000000u);
+  }
+  __device__ static unsigned slot(K k) {
+    return (unsigned)(k & 0xffffffffull);
+  }
+};
+
+template <>
+struct KeyOf<int64_t> {
+  typedef Key128 K;
+  __device__ static K make(int64_t id, unsigned slot) {
+    K k;
+    k.hi = (u64)id ^ (1ull << 63);
+    k.lo = (u64)slot;
+    return k;
+  }
+  __device__ static K pad() {
+    K k;
+    k.hi = ~0ull;
+    k.lo = ~0ull;
+    return k;
+  }
+  __device__ static bool same_id(const K& a, const K& b) {
+    return a.hi == b.hi;
+  }
+  __device__ static int64_t id(const K& k) {
+    return (int64_t)(k.hi ^ (1ull << 63));
+  }
+  __device__ static unsigned slot(const K& k) { return (unsigned)k.lo; }
+};
+
+template <typename Id>
+__device__ __forceinline__ bool run_starts(const typename KeyOf<Id>::K* keys,
+                                           long long i) {
+  return i == 0 || !KeyOf<Id>::same_id(keys[i], keys[i - 1]);
 }
 
-__device__ __forceinline__ int32_t key_id(u64 key) {
-  return (int32_t)((uint32_t)(key >> 32) ^ 0x80000000u);
-}
-
-__device__ __forceinline__ unsigned key_slot(u64 key) {
-  return (unsigned)(key & 0xffffffffull);
-}
-
-__device__ __forceinline__ bool run_starts(const u64* keys, long long i) {
-  return i == 0 || (keys[i] >> 32) != (keys[i - 1] >> 32);
-}
-
-__global__ void make_keys(const int32_t* __restrict__ ids, long long k,
-                          long long p, u64* __restrict__ keys) {
+template <typename Id>
+__global__ void make_keys(const Id* __restrict__ ids, long long k,
+                          long long p, typename KeyOf<Id>::K* __restrict__ keys) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < p;
        i += stride)
-    keys[i] = i < k ? make_key(ids[i], (unsigned)i) : kPadKey;
-}
-
-// One compare-exchange stage (k, j) with j >= the shared chunk: pair t
-// holds elements i and i + j, sorted ascending where bit k of i is clear.
-__global__ void bitonic_global(u64* __restrict__ keys, long long p,
-                               long long j, long long k) {
-  const long long half = p >> 1;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < half; t += stride) {
-    const long long i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-    const long long l = i + j;
-    const bool asc = (i & k) == 0;
-    const u64 a = keys[i], b = keys[l];
-    if ((a > b) == asc) {
-      keys[i] = b;
-      keys[l] = a;
-    }
-  }
-}
-
-// The stages whose partners lie within one chunk, in shared memory.
-// k_merge == 0: sort each chunk from scratch (stages k = 2 .. chunk);
-// otherwise finish stage k_merge (partner distances chunk/2 .. 1).
-__global__ void bitonic_local(u64* __restrict__ keys, int chunk,
-                              long long k_merge) {
-  extern __shared__ u64 s[];
-  const long long base = (long long)blockIdx.x * chunk;
-  for (int x = threadIdx.x; x < chunk; x += blockDim.x) s[x] = keys[base + x];
-  __syncthreads();
-  const int half = chunk >> 1;
-  const long long k_first = k_merge ? k_merge : 2;
-  const long long k_last = k_merge ? k_merge : chunk;
-  for (long long k = k_first; k <= k_last; k <<= 1) {
-    for (int j = (int)((k >> 1) < half ? (k >> 1) : half); j > 0; j >>= 1) {
-      for (int t = threadIdx.x; t < half; t += blockDim.x) {
-        const int i = ((t & ~(j - 1)) << 1) | (t & (j - 1));
-        const int l = i + j;
-        const bool asc = ((base + i) & k) == 0;
-        const u64 a = s[i], b = s[l];
-        if ((a > b) == asc) {
-          s[i] = b;
-          s[l] = a;
-        }
-      }
-      __syncthreads();
-    }
-  }
-  for (int x = threadIdx.x; x < chunk; x += blockDim.x) keys[base + x] = s[x];
+    keys[i] = i < k ? KeyOf<Id>::make(ids[i], (unsigned)i) : KeyOf<Id>::pad();
 }
 
 // Inclusive scan over the block of ITEMS consecutive values per thread;
@@ -162,8 +151,9 @@ __device__ int block_inclusive_scan(int (&v)[ITEMS], int* warp_sums) {
 }
 
 // Per tile: run-start marks, scanned within the tile; the tile's total.
-__global__ void rank_tiles(const u64* __restrict__ keys, long long k,
-                           int* __restrict__ ranks,
+template <typename Id>
+__global__ void rank_tiles(const typename KeyOf<Id>::K* __restrict__ keys,
+                           long long k, int* __restrict__ ranks,
                            int* __restrict__ tile_sums) {
   __shared__ int warp_sums[32];
   const long long first =
@@ -171,7 +161,7 @@ __global__ void rank_tiles(const u64* __restrict__ keys, long long k,
   int v[kScanItems];
   for (int it = 0; it < kScanItems; ++it) {
     const long long i = first + it;
-    v[it] = (i < k && run_starts(keys, i)) ? 1 : 0;
+    v[it] = (i < k && run_starts<Id>(keys, i)) ? 1 : 0;
   }
   const int total = block_inclusive_scan<kScanItems>(v, warp_sums);
   for (int it = 0; it < kScanItems; ++it)
@@ -196,84 +186,87 @@ __global__ void scan_tile_sums(const int* __restrict__ tile_sums, int n_tiles,
   if (threadIdx.x == 0) *count = carry;
 }
 
-__global__ void scatter_ranks(const u64* __restrict__ keys, long long k,
-                              long long size, const int* __restrict__ ranks,
+template <typename Id>
+__global__ void scatter_ranks(const typename KeyOf<Id>::K* __restrict__ keys,
+                              long long k, long long size,
+                              const int* __restrict__ ranks,
                               const int* __restrict__ tile_offsets,
-                              int32_t* __restrict__ uids,
+                              Id* __restrict__ uids,
                               int32_t* __restrict__ inv) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < k;
        i += stride) {
-    const u64 key = keys[i];
+    const typename KeyOf<Id>::K key = keys[i];
     const int rank = ranks[i] + tile_offsets[i / kTile] - 1;
-    inv[key_slot(key)] = rank;
-    if (rank < size && run_starts(keys, i)) uids[rank] = key_id(key);
+    inv[KeyOf<Id>::slot(key)] = rank;
+    if (rank < size && run_starts<Id>(keys, i)) uids[rank] = KeyOf<Id>::id(key);
   }
 }
 
-long long pow2_at_least(long long k) {
-  long long p = 2;
-  while (p < k) p <<= 1;
-  return p;
-}
-
-unsigned grid_for(long long n) {
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  return (unsigned)(blocks > kMaxBlocks ? kMaxBlocks : blocks);
-}
-
-}  // namespace
-
-// Bytes of device scratch dedup_ids_i32 needs for k ids: the padded keys,
-// the per-key tile ranks, the tile sums and the tile offsets.
-extern "C" long long dedup_ids_workspace_bytes(long long k) {
+template <typename Id>
+long long workspace_bytes(long long k) {
   const long long n_tiles = (k + kTile - 1) / kTile;
-  return pow2_at_least(k) * 8 + (k + 2 * n_tiles) * 4;
+  return lct::pow2_at_least(k) * (long long)sizeof(typename KeyOf<Id>::K) +
+         (k + 2 * n_tiles) * 4;
 }
 
-extern "C" int dedup_ids_i32(const void* ids, long long k, long long size,
-                             void* uids, void* inv, void* count,
-                             void* workspace, void* stream_ptr) {
+template <typename Id>
+int dedup(const Id* ids, long long k, long long size, Id* uids,
+          int32_t* inv, int32_t* count, void* workspace,
+          cudaStream_t stream) {
+  typedef typename KeyOf<Id>::K K;
   if (k <= 0) return (int)cudaSuccess;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long p = pow2_at_least(k);
+  const long long p = lct::pow2_at_least(k);
   const long long n_tiles = (k + kTile - 1) / kTile;
-  u64* keys = static_cast<u64*>(workspace);
+  K* keys = static_cast<K*>(workspace);
   int* ranks = reinterpret_cast<int*>(keys + p);
   int* tile_sums = ranks + k;
   int* tile_offsets = tile_sums + n_tiles;
   cudaError_t err;
   if (size > 0) {
-    err = cudaMemsetAsync(uids, 0, (size_t)size * 4, stream);
+    err = cudaMemsetAsync(uids, 0, (size_t)size * sizeof(Id), stream);
     if (err != cudaSuccess) return (int)err;
   }
-  make_keys<<<grid_for(p), kThreads, 0, stream>>>(
-      static_cast<const int32_t*>(ids), k, p, keys);
+  make_keys<Id><<<lct::sort_grid_for(p), lct::kSortThreads, 0, stream>>>(
+      ids, k, p, keys);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-
-  const int chunk = (int)(p < kSortChunk ? p : kSortChunk);
-  const unsigned n_chunks = (unsigned)(p / chunk);
-  const size_t smem = (size_t)chunk * sizeof(u64);
-  bitonic_local<<<n_chunks, chunk / 2, smem, stream>>>(keys, chunk, 0);
+  if ((err = lct::bitonic_sort<K>(keys, p, stream)) != cudaSuccess)
+    return (int)err;
+  rank_tiles<Id><<<(unsigned)n_tiles, kScanThreads, 0, stream>>>(
+      keys, k, ranks, tile_sums);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  for (long long kk = 2LL * chunk; kk <= p; kk <<= 1) {
-    for (long long j = kk >> 1; j >= chunk; j >>= 1) {
-      bitonic_global<<<grid_for(p / 2), kThreads, 0, stream>>>(keys, p, j, kk);
-      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    }
-    bitonic_local<<<n_chunks, chunk / 2, smem, stream>>>(keys, chunk, kk);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-
-  rank_tiles<<<(unsigned)n_tiles, kScanThreads, 0, stream>>>(keys, k, ranks,
-                                                            tile_sums);
+  scan_tile_sums<<<1, kScanThreads, 0, stream>>>(tile_sums, (int)n_tiles,
+                                                 tile_offsets, count);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  scan_tile_sums<<<1, kScanThreads, 0, stream>>>(
-      tile_sums, (int)n_tiles, tile_offsets, static_cast<int32_t*>(count));
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  scatter_ranks<<<grid_for(k), kThreads, 0, stream>>>(
-      keys, k, size, ranks, tile_offsets, static_cast<int32_t*>(uids),
-      static_cast<int32_t*>(inv));
+  scatter_ranks<Id><<<lct::sort_grid_for(k), lct::kSortThreads, 0, stream>>>(
+      keys, k, size, ranks, tile_offsets, uids, inv);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Bytes of device scratch a dedup of k ids needs (wide: int64 ids): the
+// padded keys, the per-key tile ranks, the tile sums and the tile offsets.
+extern "C" long long dedup_ids_workspace_bytes(long long k, int wide) {
+  return wide ? workspace_bytes<int64_t>(k) : workspace_bytes<int32_t>(k);
+}
+
+extern "C" int dedup_ids_i32(const void* ids, long long k, long long size,
+                             void* uids, void* inv, void* count,
+                             void* workspace, void* stream_ptr) {
+  return dedup<int32_t>(static_cast<const int32_t*>(ids), k, size,
+                        static_cast<int32_t*>(uids),
+                        static_cast<int32_t*>(inv),
+                        static_cast<int32_t*>(count), workspace,
+                        static_cast<cudaStream_t>(stream_ptr));
+}
+
+extern "C" int dedup_ids_i64(const void* ids, long long k, long long size,
+                             void* uids, void* inv, void* count,
+                             void* workspace, void* stream_ptr) {
+  return dedup<int64_t>(static_cast<const int64_t*>(ids), k, size,
+                        static_cast<int64_t*>(uids),
+                        static_cast<int32_t*>(inv),
+                        static_cast<int32_t*>(count), workspace,
+                        static_cast<cudaStream_t>(stream_ptr));
 }

@@ -1,22 +1,31 @@
-// merge_apply (apply mode): sparse Adagrad in place on the touched rows
+// merge_apply: sparse Adagrad in place on the touched rows
 //
 //   for every slot s with uid = uids[s] that is not a pad (uid 0 past slot 0):
-//     g           = rows[s] / denom
-//     accum[uid] += g*g
-//     table[uid] -= lr * g * rsqrt(accum[uid] + eps)
-//   sumsq = sum over those slots of g*g
+//     g           = merged[s] / denom
+//     sumsq      += g*g
+//     row         = uid < 0 ? uid + vocab : uid      (a uid in [-vocab, 0) wraps)
+//     if 0 <= row < vocab:                            (any other uid is dropped)
+//       accum[row] += g*g
+//       table[row] -= lr * g * rsqrt(accum[row] + eps)
+//
+// `merged` is the per-uid rows of the apply mode (inv=None), or, in the
+// merge mode, the [S, d] scratch that the merge_rows kernel (merge_rows.cu)
+// has just filled from the gathered rows and their inv: the Python wrapper
+// runs that kernel first, then this one.
 //
 // Replaces the TPU kernel lightctr_tpu/ops/sparse_kernels.py
-// _merge_apply_pallas in its apply-only form (inv=None): _apply_kernel,
-// _apply_block_kernel and _apply_block_dma_kernel, one touched row per grid
+// _merge_apply_pallas: _merge_kernel for the merge, then _apply_kernel,
+// _apply_block_kernel or _apply_block_dma_kernel, one touched row per grid
 // step (or rb rows), the row window steered by scalar-prefetched uids.  A
 // TPU grid runs in order, so that kernel rotates slot 0 to run last and
 // lets the pad slots (uid 0 past slot 0) write their no-op updates to row 0
 // before the one real write.  Here blocks run in parallel, so pad slots are
 // skipped outright (ROADMAP B.5): every other uid is distinct (the dedup
-// contract), nothing races, and the table needs no atomics.  The merge mode
-// (inv given, a segment-sum of duplicate rows first, TPU kernel
-// _merge_kernel) is not here; the Python wrapper refuses it.
+// contract), nothing races, and the table needs no atomics.  Pad slots
+// carry zero gradient by contract (the apply mode's dispatch zeroes them,
+// the merge leaves them at exact zeros), so skipping them leaves sumsq as
+// the JAX reference computes it, which counts every merged row, those of
+// uids outside the table too.
 //
 // Layout: the S*d gradient values are flattened over a grid-stride loop, so
 // neighbouring threads read neighbouring gradient floats and, for d = 32,
@@ -33,7 +42,7 @@
 // Bound: bytes.  The touched rows' table and accumulator are read and
 // written once (4 * S_real * d * 4 bytes for S_real distinct ids), their
 // S_real*d gradient floats read once, and all S uids read once; a pad slot
-// reads its uid and skips its gradient row.  At the trainer's shape
+// reads its uid and skips its gradient row.  At the one-card trainer's shape
 // (S = 159,744 slots, about 75,500 distinct, d = 32) that is about 49 MB,
 // so about 15 us at 3.35 TB/s; chip_smoke.py computes the bound from the
 // run's own uids.
@@ -79,15 +88,17 @@ __global__ void apply_rows(float* __restrict__ table, float* __restrict__ accum,
        t < total; t += stride) {
     const long long slot = t / d;
     const long long uid = uids[slot];
-    // pad slots (uid 0 past slot 0) carry no gradient; a uid outside the
-    // table is dropped rather than written out of bounds, as the plain
-    // version drops it
-    if ((uid == 0 && slot > 0) || uid < 0 || uid >= vocab) continue;
+    // pad slots (uid 0 past slot 0) carry no gradient
+    if (uid == 0 && slot > 0) continue;
     float g = rows[t];
     if (scale) g = __fdiv_rn(g, denom);
     const float g2 = __fmul_rn(g, g);
     ssq += (double)g2;
-    const long long e = uid * d + (t - slot * d);
+    // the JAX scatter's index rules: a negative uid wraps once, any other
+    // uid outside the table is dropped
+    const long long row = uid < 0 ? uid + vocab : uid;
+    if (row < 0 || row >= vocab) continue;
+    const long long e = row * d + (t - slot * d);
     const float a = __fadd_rn(accum[e], g2);
     accum[e] = a;
     table[e] = __fsub_rn(

@@ -3,7 +3,7 @@
 Replaces the reference's row-range thread partitioning
 (``train_fm_algo.cpp:46-54``): batches are dictionaries of
 equal-leading-dim arrays.  Only ``minibatches`` is here so far; the
-multi-host ``shard_for_hosts`` comes with the multi-GPU slice.
+multi-host ``shard_for_hosts`` is not ported yet (ROADMAP.md §A).
 """
 
 from __future__ import annotations

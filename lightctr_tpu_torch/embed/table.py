@@ -57,6 +57,17 @@ def dedup_grads(ids: torch.Tensor, grads: torch.Tensor
     return uids, summed, valid
 
 
+def jax_rows(ids: torch.Tensor, rows: int):
+    """The JAX package's index rules for a table of ``rows`` rows: an id in
+    ``[-rows, 0)`` wraps to ``id + rows``; any other id outside
+    ``[0, rows)`` is out (a ``.at[].add`` drops it, a ``jnp.take`` fills
+    it).  Returns the row index (clamped, so it can be gathered) and the
+    in-table mask."""
+    idx = torch.where(ids < 0, ids + rows, ids).to(torch.int64)
+    inside = (idx >= 0) & (idx < rows)
+    return idx.clamp(0, max(rows - 1, 0)), inside
+
+
 def sparse_adagrad_update(
     table: torch.Tensor,
     state: SparseAdagradState,
@@ -66,12 +77,17 @@ def sparse_adagrad_update(
     eps: float = 1e-7,
 ) -> Tuple[torch.Tensor, SparseAdagradState]:
     """PS Adagrad branch (paramserver.h:287-295), touched rows only, in
-    place: accum[k] += g^2 ; w[k] -= lr * g / sqrt(accum[k] + eps)."""
+    place: accum[k] += g^2 ; w[k] -= lr * g / sqrt(accum[k] + eps).  Ids
+    follow :func:`jax_rows`: a negative id wraps, an id past the table is
+    dropped."""
     uids, g, valid = dedup_grads(ids, grads)
     g = g.reshape((uids.shape[0],) + tuple(table.shape[1:]))
     vmask = _bcast(valid, g)
-    accum_rows = state.accum.index_select(0, uids) + g * g
+    idx, inside = jax_rows(uids, table.shape[0])
+    accum_rows = state.accum.index_select(0, idx) + g * g
     update = -lr * g * torch.rsqrt(accum_rows + eps)
-    state.accum.index_add_(0, uids, g * g * vmask)
-    table.index_add_(0, uids, update * vmask)
+    keep = inside.nonzero().reshape(-1)
+    idx = idx.index_select(0, keep)
+    state.accum.index_add_(0, idx, (g * g * vmask).index_select(0, keep))
+    table.index_add_(0, idx, (update * vmask).index_select(0, keep))
     return table, state

@@ -19,8 +19,13 @@ Differences from the JAX trainer, by design:
     ``lax.scan``.  The fused-Adagrad path updates params and state in
     place (what donation buys the JAX trainer); ``fit_fullbatch_scan`` is
     a loop over epochs.
-  - The multi-device paths (``mesh``, ``param_shardings``,
-    ``compress_bits``, ``zero_sharded``), the quality and resources
+  - Data parallelism is one process per rank (``core/mesh.py``): with
+    ``mesh=`` every rank builds the same trainer and is handed the same
+    global batch, takes its own rows, and the gradients are averaged over
+    the mesh (the plain mean, or the quantile-coded ring with
+    ``compress_bits``).  Evaluation and prediction run the whole input on
+    each rank (the params are replicated).
+  - ``param_shardings``, ``zero_sharded``, the quality and resources
     planes (``quality_bins``, ``resources``) and ``fit(prefetch=)`` or a
     shard-cache input are not ported yet: passing one raises
     ``ValueError``.
@@ -31,7 +36,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Callable, Dict, Optional
+from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -40,7 +45,9 @@ from lightctr_tpu_torch import obs
 from lightctr_tpu_torch import optim as optim_lib
 from lightctr_tpu_torch.core.config import TrainConfig
 from lightctr_tpu_torch.core.device import resolve_device
+from lightctr_tpu_torch.core.mesh import Mesh, shard_batch
 from lightctr_tpu_torch.data.batching import minibatches
+from lightctr_tpu_torch.dist import collectives
 from lightctr_tpu_torch.models._common import tree_copy
 from lightctr_tpu_torch.obs import health as health_mod
 from lightctr_tpu_torch.obs import stepwatch as stepwatch_mod
@@ -71,8 +78,26 @@ def _health_pack(loss: torch.Tensor, grad_norm: torch.Tensor) -> torch.Tensor:
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt of the sum of squares of every tensor in ``grads``
-    (``optax.global_norm``)."""
-    return torch.sqrt(sum(torch.sum(g * g) for g in tree_leaves(grads)))
+    (``optax.global_norm``); 0 for a tree without leaves."""
+    return torch.sqrt(sum_squares(grads))
+
+
+def sum_squares(tree, device=None) -> torch.Tensor:
+    """The sum of squares of every tensor in ``tree`` (a 0-d tensor, 0 for
+    a tree without leaves)."""
+    leaves = tree_leaves(tree)
+    if not leaves:
+        return torch.zeros((), device=device)
+    return sum(torch.sum(g * g) for g in leaves)
+
+
+class CompressedRingState(NamedTuple):
+    """Optimizer state of the wire-compressed data-parallel path: the inner
+    optimizer state (replicated) plus this rank's EF-SGD residual carry
+    (its row of the JAX package's [n_devices, padded_grad_len] stack)."""
+
+    inner: Any
+    residual: torch.Tensor
 
 
 def leaves_requiring_grad(tree):
@@ -114,11 +139,23 @@ class CTRTrainer:
         family's workhorse, gradientUpdater.h:127-154).
     fused_adagrad: apply Adagrad with the one-pass ``fused_adagrad`` kernel
         per parameter leaf, in place, instead of the optimizer transform.
+    mesh: a :class:`~lightctr_tpu_torch.core.mesh.Mesh` for data-parallel
+        execution: each rank steps on its rows of the global batch and the
+        gradients are averaged over the mesh; params are replicated.
+    compress_bits: when set (8 or 16) with a mesh, the gradient exchange
+        runs as an explicit ring all-reduce whose every hop is
+        quantile-coded to that width (``dist.collectives``).
+    compress_range: symmetric quantization range, or ``"dynamic"`` to
+        measure it per call (one MAX all-reduce).
+    compress_mode: quantile-table shape ("uniform" / "normal" / "log").
+        Default: "normal" for ``compress_bits <= 8``, "uniform" above.
+    error_feedback: carry each rank's quantization error into its next
+        encode (EF-SGD).  Default: on for ``compress_bits <= 8``.
     device: the torch device of params, state and batches (default
-        ``"cuda"``).
-    mesh, param_shardings, compress_bits, zero_sharded, quality_bins,
-    resources: the JAX trainer's multi-device and telemetry-plane options,
-        not yet ported; giving one raises ``ValueError``.
+        ``"cuda"``, or the mesh's device).
+    param_shardings, zero_sharded, quality_bins, resources: the JAX
+        trainer's sharded-parameter and telemetry-plane options, not yet
+        ported; giving one raises ``ValueError``.
     """
 
     def __init__(
@@ -132,19 +169,53 @@ class CTRTrainer:
         fused_fn: Optional[Callable] = None,
         param_shardings=None,
         compress_bits: Optional[int] = None,
+        compress_range=1.0,
+        compress_mode: Optional[str] = None,
+        error_feedback: Optional[bool] = None,
         fused_adagrad: bool = False,
         zero_sharded: bool = False,
         quality_bins: Optional[int] = None,
         resources: Optional[bool] = None,
-        device="cuda",
+        device=None,
     ):
-        not_yet_ported(type(self).__name__, mesh=mesh,
-                       param_shardings=param_shardings,
-                       compress_bits=compress_bits, zero_sharded=zero_sharded,
-                       quality_bins=quality_bins, resources=resources)
+        not_yet_ported(type(self).__name__, param_shardings=param_shardings,
+                       zero_sharded=zero_sharded, quality_bins=quality_bins,
+                       resources=resources)
         if fused_adagrad and optimizer is not None:
             raise ValueError("fused_adagrad replaces the optimizer argument")
-        self.device = resolve_device(device)
+        if fused_adagrad and compress_bits is not None:
+            raise ValueError(
+                "fused_adagrad is not supported with compress_bits (the "
+                "compressed ring step applies the optimizer transform)")
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise ValueError(f"mesh must be a lightctr_tpu_torch.core.mesh."
+                             f"Mesh (make_mesh), got {type(mesh).__name__}")
+        if compress_bits is not None and mesh is None:
+            raise ValueError("compress_bits requires a mesh (it compresses "
+                             "the cross-device gradient exchange)")
+        self.error_feedback = (
+            error_feedback if error_feedback is not None
+            else (compress_bits is not None and compress_bits <= 8))
+        if error_feedback and compress_bits is None:
+            raise ValueError("error_feedback rides the compressed ring; set "
+                             "compress_bits")
+        if isinstance(compress_range, str) and compress_range != "dynamic":
+            raise ValueError(f"compress_range must be a float or 'dynamic', "
+                             f"got {compress_range!r}")
+        self.compress_mode = (
+            compress_mode if compress_mode is not None
+            else ("normal" if (compress_bits is not None
+                               and compress_bits <= 8) else "uniform"))
+        self.mesh = mesh
+        self.compress_bits = compress_bits
+        self.compress_range = compress_range
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"device {mesh.device}")
+            device = mesh.device
+        self.device = resolve_device(device if device is not None
+                                     else "cuda")
         self.cfg = cfg
         self.logits_fn = logits_fn
         self.l2_fn = l2_fn
@@ -152,6 +223,14 @@ class CTRTrainer:
         self.fused_adagrad = fused_adagrad
         self.tx = optimizer or optim_lib.adagrad(cfg.learning_rate)
         self.params = self._own(params)
+        if compress_bits is not None:
+            # the compressed ring flattens the leaves _ring_tree keeps on it
+            # (hybrid subclasses exchange their table leaves sparsely) and
+            # pads them to a multiple of the ring size
+            n = mesh.size
+            length = collectives.ravel_tree(
+                self._ring_tree(self.params))[0].numel()
+            self._ring_pad = ((length + n - 1) // n) * n
         # live telemetry sink; reassign before training to isolate a run
         self.telemetry = obs.default_registry()
         # training-dynamics health: per-step loss + gradient global norm
@@ -169,7 +248,21 @@ class CTRTrainer:
         self.stepwatch = stepwatch_mod.maybe_from_env(self.health)
         self._steps_seen = 0
         self.opt_state = self._init_opt_state(self.params)
-        self._step = self._make_step()
+        self._step = self._build_step()
+
+    def _build_step(self):
+        """The training step: the compressed-ring data-parallel step when
+        ``compress_bits`` is set, else the plain one (with a mesh, its
+        gradients averaged over the mesh)."""
+        if self.compress_bits is not None:
+            return self._make_compressed_step()
+        return self._make_step()
+
+    def _ring_tree(self, params):
+        """The param subtree whose gradients ride the dense (compressed)
+        ring — everything, by default; hybrid subclasses keep their table
+        leaves off it."""
+        return params
 
     def _own(self, params):
         """The trainer's own copy of ``params`` on its device: steps update
@@ -205,12 +298,22 @@ class CTRTrainer:
         ``[loss, grad_norm]``, so the health feed costs one fetch."""
         loss_fn = self._make_loss_fn()
         tx = self.tx
+        mesh = self.mesh
 
         def grad_fn(params, batch):
             leaves = leaves_requiring_grad(params)
             loss = loss_fn(leaves, batch)
             loss.backward()
-            return loss.detach(), grads_of(leaves)
+            loss, grads = loss.detach(), grads_of(leaves)
+            if mesh is not None:
+                # the replicas' local means averaged: the global batch's
+                # mean loss and gradient (what XLA's psum gives the JAX
+                # trainer over a sharded batch)
+                with torch.no_grad():
+                    loss = collectives.pmean(mesh, loss)
+                    grads = tree_map(lambda g: collectives.pmean(mesh, g),
+                                     grads)
+            return loss, grads
 
         if self.fused_adagrad:
             from lightctr_tpu_torch.optim.fused_adagrad import \
@@ -241,6 +344,53 @@ class CTRTrainer:
 
         return step
 
+    def _make_compressed_step(self):
+        """Data-parallel step whose gradient exchange is an explicit ring
+        all-reduce with a quantile codec on every hop (the reference's
+        compress-all-wire-traffic policy, paramserver.h:161-163): each rank
+        computes its local gradient, the flattened tree rides the coded
+        ring (with this rank's EF residual when ``error_feedback``), and
+        every rank applies the identical decoded mean."""
+        loss_fn = self._make_loss_fn()
+        tx = self.tx
+        mesh = self.mesh
+        n = mesh.size
+        bits, crange = self.compress_bits, self.compress_range
+        cmode, use_ef = self.compress_mode, self.error_feedback
+        padded = self._ring_pad
+
+        def step(params, state, batch):
+            leaves = leaves_requiring_grad(params)
+            loss = loss_fn(leaves, batch)
+            loss.backward()
+            grads = grads_of(leaves)
+            with torch.no_grad():
+                flat, unravel = collectives.ravel_tree(grads,
+                                                       device=self.device)
+                length = flat.shape[0]
+                flat = torch.nn.functional.pad(flat, (0, padded - length))
+                if use_ef:
+                    flat, new_res = collectives._ring_all_reduce_local(
+                        flat, mesh, n, average=True, compress_bits=bits,
+                        compress_range=crange, residual=state.residual,
+                        compress_mode=cmode)
+                else:
+                    flat = collectives._ring_all_reduce_local(
+                        flat, mesh, n, average=True, compress_bits=bits,
+                        compress_range=crange, compress_mode=cmode)
+                    new_res = state.residual
+                grads = unravel(flat[:length])
+                # the decoded mean is the same on every rank: so is its norm
+                gnorm = global_norm(grads)
+                loss = collectives.pmean(mesh, loss.detach())
+                updates, inner = tx.update(grads, state.inner, params)
+                params = optim_lib.apply_updates(params, updates)
+            return (params, CompressedRingState(inner=inner,
+                                                residual=new_res),
+                    loss, _health_pack(loss, gnorm))
+
+        return step
+
     # ------------------------------------------------------------------
 
     def reset(self, params) -> None:
@@ -251,10 +401,25 @@ class CTRTrainer:
 
     def _init_opt_state(self, params):
         """Optimizer-state factory — subclasses with their own table state
-        override this."""
+        override this.  The compressed ring adds this rank's EF residual
+        (a 1-element placeholder without error feedback, as in the JAX
+        trainer)."""
+        if self.compress_bits is not None:
+            return CompressedRingState(
+                inner=self.tx.init(params),
+                residual=torch.zeros(
+                    self._ring_pad if self.error_feedback else 1,
+                    dtype=torch.float32, device=self.device))
         return self.tx.init(params)
 
     def _put(self, batch) -> Dict[str, torch.Tensor]:
+        """A training batch on this trainer's device: with a mesh, this
+        rank's rows of it."""
+        if self.mesh is not None:
+            return shard_batch(self.mesh, batch)
+        return self._put_whole(batch)
+
+    def _put_whole(self, batch) -> Dict[str, torch.Tensor]:
         return {k: torch.as_tensor(v).to(self.device)
                 for k, v in batch.items()}
 
@@ -450,7 +615,8 @@ class CTRTrainer:
 
     def predict_proba(self, arrays: Dict[str, np.ndarray]) -> np.ndarray:
         with torch.no_grad():
-            probs = sigmoid(self.logits_fn(self.params, self._put(arrays)))
+            probs = sigmoid(self.logits_fn(self.params,
+                                           self._put_whole(arrays)))
         return probs.cpu().numpy()
 
     def evaluate(self, arrays: Dict[str, np.ndarray],
@@ -483,7 +649,7 @@ class CTRTrainer:
             chunk = {k: v[s: s + batch_size] for k, v in arrays.items()}
             m = len(chunk["labels"])
             # stay on the device: logits -> sigmoid -> metrics
-            dev = self._put(chunk)
+            dev = self._put_whole(chunk)
             probs = sigmoid(self.logits_fn(self.params, dev))
             labels = dev["labels"]
             loss_sum += float(metrics_lib.logloss(probs, labels)) * m

@@ -43,17 +43,37 @@ def params_from_numpy(np_params: Dict, device) -> Dict[str, torch.Tensor]:
             for k, v in np_params.items()}
 
 
-def opt_state_from_numpy(np_state, device):
+def opt_state_from_numpy(np_state, device, rank: int = 0):
     """The JAX trainers' optimizer state (as numpy) -> the port's: an
     ``AdagradState`` (anything with an ``accum`` dict, ``CTRTrainer``'s
-    state) or the sparse trainer's ``{"dense": AdagradState, "accum":
-    {table: [rows, ...]}}``."""
+    state), the compressed ring's ``CompressedRingState`` (``inner`` and
+    ``residual``), or the sparse trainer's ``{"dense": AdagradState,
+    "accum": {table: [rows, ...]}}`` with, on a mesh, ``residual`` and
+    ``sres``.  The JAX mesh state stacks one EF residual per rank
+    (``[n, ...]``); rank ``rank`` takes its slice."""
+    if hasattr(np_state, "inner") and hasattr(np_state, "residual"):
+        from lightctr_tpu_torch.models.ctr_trainer import CompressedRingState
+
+        return CompressedRingState(
+            inner=opt_state_from_numpy(np_state.inner, device),
+            residual=_tensor(np_state.residual[rank], device))
     if hasattr(np_state, "accum"):
         return AdagradState(accum=params_from_numpy(np_state.accum, device))
-    if isinstance(np_state, dict) and set(np_state) == {"dense", "accum"}:
-        return {"dense": opt_state_from_numpy(np_state["dense"], device),
-                "accum": params_from_numpy(np_state["accum"], device)}
+    if isinstance(np_state, dict) and {"dense", "accum"} <= set(np_state) \
+            <= {"dense", "accum", "residual", "sres"}:
+        out = {"dense": opt_state_from_numpy(np_state["dense"], device),
+               "accum": params_from_numpy(np_state["accum"], device)}
+        if "residual" in np_state:
+            out["residual"] = _tensor(np_state["residual"][rank], device)
+        if "sres" in np_state:
+            out["sres"] = {k: _tensor(v[rank], device)
+                           for k, v in np_state["sres"].items()}
+        return out
     raise ValueError(f"not an Adagrad optimizer state: {type(np_state)}")
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def logits(params: Dict[str, torch.Tensor],

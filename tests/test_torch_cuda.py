@@ -15,6 +15,7 @@ from lightctr_tpu_torch.core.config import TrainConfig
 from lightctr_tpu_torch.models import fm
 from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
 from lightctr_tpu_torch.models.sparse_trainer import SparseTableCTRTrainer
+from lightctr_tpu_torch.ops import quantize as qz
 from lightctr_tpu_torch.ops import sparse_kernels as sk
 from lightctr_tpu_torch.optim import fused_adagrad as fa
 
@@ -62,9 +63,17 @@ def test_dedup_kernel_matches_plain(dev, name):
             assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
-def test_dedup_kernel_refuses_int64(dev):
-    with pytest.raises(TypeError, match="int32"):
-        sk.dedup_ids(torch.zeros(8, dtype=torch.int64, device=dev))
+@pytest.mark.parametrize("name", sorted(id_streams()))
+def test_dedup_kernel_int64_matches_plain(dev, name):
+    """int64 ids: each stream shifted past int32, with int64's limits."""
+    ids = id_streams()[name].astype(np.int64) * (1 << 33) - 5
+    ids[:2] = [np.iinfo(np.int64).min, np.iinfo(np.int64).max][:ids.size]
+    ids = torch.from_numpy(ids).to(dev)
+    count = int(sk.dedup_ids_plain(ids, ids.numel())[2])
+    for size in sorted({ids.numel(), max(1, count // 3)}):
+        got = sk.dedup_ids(ids, size)
+        for a, b in zip(got, sk.dedup_ids_plain(ids, size)):
+            assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 @pytest.mark.parametrize("d", [1, 8])
@@ -88,28 +97,105 @@ def test_merge_apply_kernel_matches_plain(dev, d, denom):
 
 
 def test_merge_apply_kernel_drops_uids_outside_the_table(dev):
-    """Both versions drop a uid outside the table, out of the update and
-    the sum of squares."""
+    """Both versions take out-of-table uids as the JAX reference does (the
+    plain version is held to it on the CPU): -2 wraps to row 6, 8 is
+    dropped, and the sum of squares counts every row."""
     uids = torch.tensor([0, 3, -2, 5, 8, 0], dtype=torch.int32, device=dev)
     gen = torch.Generator(device=dev).manual_seed(7)
     table = torch.randn((8, 3), generator=gen, device=dev)
     accum = torch.rand((8, 3), generator=gen, device=dev)
     rows = torch.randn((6, 3), generator=gen, device=dev)
+    for inv in (None, torch.tensor([0, 1, 2, 3, 4, 4], dtype=torch.int32,
+                                   device=dev)):
+        t1, a1, s1 = sk.merge_apply(table.clone(), accum.clone(), uids, rows,
+                                    inv, lr=0.1)
+        t2, a2, s2 = sk.merge_apply_plain(table.clone(), accum.clone(), uids,
+                                          rows, inv, 0.1, 1e-7, 1.0)
+        assert ulp(t1, t2) <= MAX_ULP and ulp(a1, a2) <= MAX_ULP
+        assert torch.equal(t1[[1, 2, 4, 7]], table[[1, 2, 4, 7]])
+        assert not torch.equal(t1[6], table[6])
+        torch.testing.assert_close(s1, s2, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("d", [1, 8])
+def test_merge_apply_merge_mode_kernel_matches_plain(dev, d):
+    """Merge mode: merge_rows into the [S, d] scratch, then the apply,
+    on two ranks' gathered ids; one launch of each kernel."""
+    rng = np.random.default_rng(d + 3)
+    ids = torch.from_numpy(
+        (rng.random(6000) ** 4 * 4096).astype(np.int32)).to(dev)
+    uids, inv, _ = sk.dedup_ids(ids)
+    shape = (4096,) if d == 1 else (4096, d)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    table = torch.randn(shape, generator=gen, device=dev)
+    accum = torch.rand(shape, generator=gen, device=dev)
+    rows = torch.randn((ids.numel(),) + shape[1:], generator=gen, device=dev)
+    sk.reset_launches()
     t1, a1, s1 = sk.merge_apply(table.clone(), accum.clone(), uids, rows,
-                                lr=0.1)
+                                inv, lr=0.05, denom=2.0)
+    assert sk.launches("merge_rows") == 1 and sk.launches("merge_apply") == 1
     t2, a2, s2 = sk.merge_apply_plain(table.clone(), accum.clone(), uids,
-                                      rows, None, 0.1, 1e-7, 1.0)
+                                      rows, inv, 0.05, 1e-7, 2.0)
     assert ulp(t1, t2) <= MAX_ULP and ulp(a1, a2) <= MAX_ULP
-    assert torch.equal(t1[[1, 2, 4, 6, 7]], table[[1, 2, 4, 6, 7]])
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=0)
 
 
-def test_merge_apply_on_card_refuses_merge_mode(dev):
-    t = torch.zeros((4, 2), device=dev)
-    i = torch.zeros(3, dtype=torch.int32, device=dev)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        sk.merge_apply(t, t.clone(), i, torch.zeros((3, 2), device=dev), i,
-                       lr=0.1)
+@pytest.mark.parametrize("d", [1, 32])
+def test_merge_rows_kernel_matches_plain(dev, d):
+    """Bit for bit (slot-order sums): heavy duplicates and out-of-range
+    segments of both signs."""
+    rng = np.random.default_rng(d)
+    m, nseg = 20000, 3000
+    inv = (rng.random(m) ** 4 * (nseg + 6)).astype(np.int32) - 3
+    inv[:50] = nseg // 2  # one heavy segment
+    inv = torch.from_numpy(inv).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    rows = torch.randn((m, d), generator=gen, device=dev) * 10
+    got = sk.merge_rows(rows, inv, nseg)
+    assert torch.equal(got, sk.merge_rows_plain(rows, inv, nseg))
+
+
+@pytest.mark.parametrize("bits, mode", [(4, "normal"), (8, "uniform"),
+                                        (8, "normal"), (16, "uniform")])
+def test_quantize_pack_kernel_matches_plain(dev, bits, mode):
+    """Bit for bit, NaN and +-inf included (NaN and +inf take the top
+    code)."""
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    x = torch.randn((5000, 7), generator=gen, device=dev)
+    x.view(-1)[:5] = torch.tensor([float("inf"), float("-inf"), float("nan"),
+                                   4.0, -4.0], device=dev)
+    table = qz.build_table(-2.0, 2.0, bits=bits, mode=mode, device=dev)
+    got = sk.quantize_pack(table, x)
+    want = sk.quantize_pack_plain(table, x)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    top = (1 << bits) - 1
+    assert got.view(-1)[:3].tolist() == [top, 0, top]
+
+
+@pytest.mark.parametrize("d", [1, 8])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_pack_ef_update_kernel_matches_plain(dev, d, bits):
+    """Codes, dec and the residual bit for bit: dedup uids with a real id
+    0 and masked pads, rows past the fixed range, a carry from before."""
+    rng = np.random.default_rng(d * bits)
+    ids = (rng.random(3000) ** 4 * 4096).astype(np.int32)
+    ids[0] = 0
+    uids, _, _ = sk.dedup_ids(torch.from_numpy(ids).to(dev))
+    k = uids.numel()
+    shape = (4096,) if d == 1 else (4096, d)
+    gen = torch.Generator(device=dev).manual_seed(d)
+    table = qz.build_table(-1.0, 1.0, bits=bits,
+                           mode="normal" if bits <= 8 else "uniform",
+                           device=dev)
+    mask = (~((uids == 0) & (torch.arange(k, device=dev) > 0))).float() \
+        .reshape((-1,) + (1,) * (len(shape) - 1))
+    rows = torch.randn((k,) + shape[1:], generator=gen, device=dev) * 3 * mask
+    residual = torch.randn(shape, generator=gen, device=dev) * 0.1
+    r1, r2 = residual.clone(), residual.clone()
+    c1, _, d1 = sk.quantize_pack_ef_update(table, rows, uids, r1, mask)
+    c2, _, d2 = sk.quantize_pack_ef_update_plain(table, rows, uids, r2, mask)
+    assert torch.equal(c1, c2) and torch.equal(d1, d2)
+    assert torch.equal(r1, r2)
 
 
 @pytest.mark.parametrize("n, offset", [(1, 0), (1001, 0), (4096, 0),

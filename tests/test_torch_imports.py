@@ -23,9 +23,11 @@ FORBIDDEN = ("jax", "jaxlib", "optax", "lightctr_tpu")
 def _port_sources():
     files = sorted(glob.glob(os.path.join(PORT, "**", "*.py"),
                              recursive=True))
-    # the card's tests run where JAX is not installed
+    # the card's tests run where JAX is not installed, and spawned ranks
+    # re-import the module of the program they run
     return files + [os.path.join(REPO_ROOT, "chip_smoke.py"),
-                    os.path.join(REPO_ROOT, "tests", "test_torch_cuda.py")]
+                    os.path.join(REPO_ROOT, "tests", "test_torch_cuda.py"),
+                    os.path.join(REPO_ROOT, "tests", "torch_dp_worlds.py")]
 
 
 def _imported_roots(path):
@@ -57,7 +59,9 @@ def test_importing_the_serving_slice_loads_no_jax():
     code = ("import sys; import lightctr_tpu_torch.serve, "
             "lightctr_tpu_torch.ops.sparse_kernels, "
             "lightctr_tpu_torch.models.sparse_trainer, "
-            "lightctr_tpu_torch.optim.fused_adagrad; "
+            "lightctr_tpu_torch.optim.fused_adagrad, "
+            "lightctr_tpu_torch.dist.collectives, "
+            "lightctr_tpu_torch.core.mesh; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

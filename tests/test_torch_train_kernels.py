@@ -106,10 +106,16 @@ def test_dedup_empty_stream_and_cpu_dispatch_counts_nothing():
 
 
 def test_dedup_kernel_refuses_int64_and_cpu_tensors():
-    with pytest.raises(TypeError, match="int32"):
-        tsk.KERNELS["dedup_ids"].cuda(torch.zeros(4, dtype=torch.int64), 4)
-    with pytest.raises(ValueError, match="CUDA device"):
-        tsk.KERNELS["dedup_ids"].cuda(torch.zeros(4, dtype=torch.int32), 4)
+    """The kernel's contract: int32 and int64 ids (a 96-bit sort key for
+    int64), on a CUDA device only; other dtypes are refused."""
+    cuda = tsk.KERNELS["dedup_ids"].cuda
+    for dtype in (torch.int32, torch.int64):
+        # the dtype passes; the CPU tensor is what is refused
+        with pytest.raises(ValueError, match="CUDA device"):
+            cuda(torch.zeros(4, dtype=dtype), 4)
+    for dtype in (torch.int16, torch.uint8, torch.float32):
+        with pytest.raises(TypeError, match="int32 or int64"):
+            cuda(torch.zeros(4, dtype=dtype), 4)
 
 
 # -- merge_apply -------------------------------------------------------------
@@ -202,30 +208,37 @@ def test_merge_apply_skips_pad_slots_and_counts_nothing():
 
 @pytest.mark.parametrize("inv", [None, np.arange(6, dtype=np.int32)])
 def test_merge_apply_drops_uids_outside_the_table(inv):
-    """A uid outside [0, rows) moves nothing and adds nothing to the sum
-    of squares, as the kernel drops it: the call equals one with those
-    slots made pads."""
+    """Uids outside [0, rows) as the JAX reference's scatter takes them: a
+    uid in [-rows, 0) wraps to uid + rows and updates that row; any other
+    is dropped from the update.  The sum of squares counts every merged
+    row (matches the reference)."""
     rng = np.random.default_rng(7)
     table = rng.normal(size=(8, 3)).astype(np.float32)
     accum = np.abs(rng.normal(size=(8, 3))).astype(np.float32)
     rows = rng.normal(size=(6, 3)).astype(np.float32)
     bad = np.array([0, 3, -2, 5, 8, 0], np.int32)
-    padded = np.array([0, 3, 0, 5, 0, 0], np.int32)
-    rows_padded = rows.copy()
-    rows_padded[[2, 4]] = 0.0
-    got = _run_merge_apply_torch(table, accum, bad, rows, inv, 0.1, 1.0)
-    want = _run_merge_apply_torch(table, accum, padded, rows_padded, inv,
-                                  0.1, 1.0)
-    for g, w in zip(got, want):
-        np.testing.assert_array_equal(g, w)
+    w0, a0, s0 = jsk.KERNELS["merge_apply"].reference(
+        jnp.asarray(table), jnp.asarray(accum), jnp.asarray(bad),
+        jnp.asarray(rows * np.array([1, 1, 1, 1, 1, 0], np.float32)[:, None]
+                    if inv is None else rows),
+        None if inv is None else jnp.asarray(inv), 0.1, 1e-7, 1.0)
+    w1, a1, s1 = _run_merge_apply_torch(table, accum, bad, rows, inv, 0.1,
+                                        1.0)
+    np.testing.assert_allclose(w1, np.asarray(w0), rtol=0, atol=2e-7)
+    np.testing.assert_allclose(a1, np.asarray(a0), rtol=2e-6, atol=0)
+    np.testing.assert_allclose(float(s1), float(s0), rtol=1e-6)
+    assert w1[6].tolist() != table[6].tolist()      # -2 wrapped to row 6
+    np.testing.assert_array_equal(w1[[1, 2, 4, 7]], table[[1, 2, 4, 7]])
 
 
 def test_merge_apply_kernel_refuses_merge_mode_and_bad_inputs():
+    """Merge mode launches (it gets past every check to the device, where
+    a CPU tensor is refused, as in apply mode); bad inputs are refused."""
     t = torch.zeros((4, 2))
     u = torch.zeros(3, dtype=torch.int32)
     r = torch.zeros((3, 2))
     cuda = tsk.KERNELS["merge_apply"].cuda
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match="CUDA device"):
         cuda(t, t.clone(), u, r, torch.zeros(3, dtype=torch.int32), 0.1,
              1e-7, 1.0)
     with pytest.raises(TypeError, match="int32 uids"):
