@@ -5,14 +5,17 @@ holds each against its plain PyTorch version, serves FM at Criteo width
 through the PS-backed ``PredictionServer`` and checks the scores, trains FM
 at Criteo width with ``SparseTableCTRTrainer`` and
 ``CTRTrainer(fused_adagrad=True)``, then trains it data-parallel over two
-ranks on the one card, and checks the training.
+ranks on the one card, and checks the training; runs the long-context
+attention path (flash attention on one card, ring attention over two
+ranks) and the port's two kernel benches.
 
     python3 chip_smoke.py [--seed N]
 
 Phases, one JSON line each:
 
-  build    nvcc of every kernel source (all started together) beside the
-           g++ build of the native host codecs; seconds and ptxas summary.
+  build    nvcc of every kernel source, nine (all started together),
+           beside the g++ build of the native host codecs; seconds and
+           ptxas summary.
   kernels  every kernel against its plain version on the card:
            gather_rows bit-exact (``torch.equal``) over d in {1, 33, 128}
            x n in {1, 1000, 16384} and the serve path's own shape,
@@ -30,7 +33,14 @@ Phases, one JSON line each:
            range) and 16 bits with +-inf and NaN; quantize_pack_ef_update
            bit-exact (codes, dec, residual) on a real dedup's uids with id 0
            at 8 and 16 bits; fused_adagrad within 2 ulp at N in {1, 1001,
-           2^20, 2^25} and at a misaligned start.
+           2^20, 2^25} and at a misaligned start; quantize_pack_ef
+           bit-exact (codes, delta) on the [79872, 32] payload at 8 and 16
+           bits with +-inf and NaN, masked and unmasked rows, a [P, 1] and
+           a [P, d] mask; flash_attention at the bench's causal bf16 shapes
+           (4, 1024, 8, 64), (2, 4096, 8, 64), (1, 8192, 8, 64) (max abs
+           error <= 2e-2, mean <= 2e-3), at (2, 256, 4, 32) and the graft
+           entry's (2, 32, 2, 8) in fp32, causal and not (rtol 2e-4, atol
+           2e-5).
   serve    FM, 39 fields (26 categorical + 13 numeric), vocabulary 2^20,
            factor dim 32: a port ``AsyncParamServer`` (rows ``[w | v]`` of
            width 33) behind ``ParamServerService``, a ``PredictionServer``
@@ -76,12 +86,25 @@ Phases, one JSON line each:
            set by gloo's host staging, and rank 0's device time over 5
            more steps (torch.profiler) for the card's idle share.
 
+  attention  the long-context path, counts reset just before it:
+           ``flash_attention`` at (2, 4096, 8, 64) bf16 causal on the card,
+           then ``ring_self_attention`` over a ``seq`` ring of 2 ranks
+           spawned on the same card (gloo, host-staged) on the same inputs.
+           Both ranks return the same tensor, within the bf16 tolerance
+           above of the flash output; flash_attention launched.  Ring
+           step time and a profile of two more calls on rank 0.
+  bench    counts reset, then ``lightctr_tpu_torch.tools.
+           sparse_kernel_bench.run`` and ``tools.kernel_bench.run`` (no
+           file written): every cell's kernel launched (quantize_pack_ef and
+           flash_attention included); their cells are printed.
+
 Then a ``{"kernels": [...]}`` line: each kernel at its main path's shape,
 its launches on that path, its device time (``ms``, CUDA graph of
 back-to-back calls), the plain version's, one PyTorch library call's where
 one computes the same function (the yardstick; the port never calls it),
-the eager per-call time with the host (``call_ms``) and the bound from
-bytes at 3.35 TB/s.  Then the ``nvidia-smi`` name and power limit, and the
+the eager per-call time with the host (``call_ms``) and the bound: bytes
+at 3.35 TB/s, or for flash_attention the larger of that and its FLOPs at
+989 TFLOP/s.  Then the ``nvidia-smi`` name and power limit, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 exits non-zero; without CUDA, or without the ``lightctr_tpu_torch`` package
 beside this file, it exits 2 and prints no result.
@@ -134,6 +157,15 @@ MIN_AUC = 0.55                     # tools/criteo_scale.py's gate
 MAX_ULP = 2                        # the Adagrad apply's bound (ROADMAP B.5)
 DEDUP_KS = (1, 1000, TRAIN_K)
 ADAGRAD_NS = (1, 1001, 1 << 20, 1 << 25)
+
+# -- attention: the JAX bench's causal bf16 shapes [B, T, H, D] --
+FLASH_BENCH_SHAPES = ((4, 1024, 8, 64), (2, 4096, 8, 64), (1, 8192, 8, 64))
+FLASH_PATH_SHAPE = (2, 4096, 8, 64)     # the attention phase's
+FLASH_F32_SHAPES = ((2, 256, 4, 32), (2, 32, 2, 8))  # the last: graft entry
+FLASH_16_MAX, FLASH_16_MEAN = 2e-2, 2e-3  # a few bf16 ulps at |o| < 2
+FLASH_F32_RTOL, FLASH_F32_ATOL = 2e-4, 2e-5  # the JAX flash test's
+RING_WORLD = 2
+BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16, NVIDIA's data sheet
 
 # -- the dp phase: the same model and global batch over DP_WORLD ranks --
 DP_WORLD = 2
@@ -523,6 +555,91 @@ def check_quantize_pack_ef_update(np, torch, sk, qz, rng) -> dict:
             "cases": cases}
 
 
+def check_quantize_pack_ef(np, torch, sk, qz) -> dict:
+    """quantize_pack_ef kernel == plain version bit for bit (codes, delta)
+    on the [79,872, 32] payload: rows with +-inf and NaN, a carry with inf
+    and NaN, masked and unmasked rows ([P, 1]) and values ([P, d]), 8 bits
+    normal and 16 bits uniform."""
+    gen = torch.Generator(device="cuda").manual_seed(37)
+    rows = qp_payload(torch, gen, (DP_LOCAL_K, DIM), scale=0.5)
+    carried = torch.randn((DP_LOCAL_K, DIM), generator=gen,
+                          device="cuda") * 0.05
+    carried.view(-1)[40:42] = torch.tensor([float("inf"), float("nan")],
+                                           device="cuda")
+    cases = []
+    for bits, mode in ((8, "normal"), (16, "uniform")):
+        table = qz.build_table(-1.0, 1.0, bits=bits, mode=mode,
+                               device="cuda")
+        for shape in ((DP_LOCAL_K, 1), (DP_LOCAL_K, DIM)):
+            mask = (torch.rand(shape, generator=gen, device="cuda")
+                    > 0.3).to(torch.float32)
+            mask[0] = 1.0   # the inf/NaN values of the first row unmasked
+            mask[1] = 0.0
+            c1, d1 = sk.quantize_pack_ef(table, rows, carried, mask)
+            torch.cuda.synchronize()
+            c2, d2 = sk.quantize_pack_ef_plain(table, rows, carried, mask)
+            if c1.dtype != c2.dtype or not torch.equal(c1, c2):
+                raise AssertionError(f"quantize_pack_ef kernel != plain "
+                                     f"(codes) at {bits} bits, mask {shape}")
+            if not torch.equal(d1.view(torch.int32), d2.view(torch.int32)):
+                raise AssertionError(f"quantize_pack_ef kernel != plain "
+                                     f"(delta) at {bits} bits, mask {shape}")
+            cases.append([bits, mode, list(shape),
+                          int((mask == 0).sum())])
+    return {"bit_exact": True, "max_abs_err": 0.0,
+            "payload": [DP_LOCAL_K, DIM], "nan_code": int(c1[0, 2]),
+            "cases": cases}
+
+
+def flash_inputs(torch, shape, dtype, seed):
+    """Unit-normal q, k, v of ``shape`` from a CPU generator (the same in
+    every process), on the card in ``dtype``."""
+    gen = torch.Generator().manual_seed(seed)
+    return [torch.randn(shape, generator=gen).to(dtype).cuda()
+            for _ in range(3)]
+
+
+def flash_error(torch, got, want, dtype):
+    """(max abs, mean abs) error of the kernel's output; raises past the
+    dtype's tolerance."""
+    err = (got.float() - want.float()).abs()
+    emax, emean = float(err.max()), float(err.mean())
+    if dtype == torch.float32:
+        ok = torch.allclose(got, want, rtol=FLASH_F32_RTOL,
+                            atol=FLASH_F32_ATOL)
+    else:
+        ok = emax <= FLASH_16_MAX and emean <= FLASH_16_MEAN
+    if not ok or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"flash_attention kernel vs plain: max {emax}, "
+                             f"mean {emean} ({dtype})")
+    return emax, emean
+
+
+def check_flash(torch, fl) -> dict:
+    """flash_attention kernel vs plain version (float32 full_attention):
+    the bench's causal bf16 shapes, and fp32 at (2, 256, 4, 32) and the
+    graft entry's (2, 32, 2, 8), causal and not."""
+    cases, max_err = [], {"bfloat16": 0.0, "float32": 0.0}
+    runs = [(shape, torch.bfloat16, True) for shape in FLASH_BENCH_SHAPES]
+    runs += [(shape, torch.float32, causal) for shape in FLASH_F32_SHAPES
+             for causal in (False, True)]
+    for i, (shape, dt, causal) in enumerate(runs):
+        q, k, v = flash_inputs(torch, shape, dt, 100 + i)
+        got = fl.flash_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        want = fl.flash_attention_plain(q, k, v, causal)
+        emax, emean = flash_error(torch, got, want, dt)
+        key = str(dt).replace("torch.", "")
+        max_err[key] = max(max_err[key], emax)
+        cases.append([list(shape), key, causal, emax, emean])
+        del q, k, v, got, want
+    return {"max_abs_err": max(max_err.values()), "max_abs_err_by_dtype":
+            max_err, "tolerance": {"16-bit": [FLASH_16_MAX, FLASH_16_MEAN],
+                                   "float32": [FLASH_F32_RTOL,
+                                               FLASH_F32_ATOL]},
+            "cases": cases}
+
+
 # -- phase: serve -------------------------------------------------------------
 
 
@@ -733,7 +850,13 @@ def compare_rows(np, torch, got, want, ids, what) -> float:
 
 
 def profile_sparse_steps(torch, tr, batches) -> dict:
-    """Device time by kernel over a few sparse steps (torch.profiler).
+    """Device time by kernel over a few sparse steps."""
+    return profile_calls(torch, [lambda b=b: tr.train_step(b)
+                                 for b in batches])
+
+
+def profile_calls(torch, calls) -> dict:
+    """Device time by kernel over ``calls``, each a step (torch.profiler).
     The device's idle share rests on it, so a profile that shows no
     device time fails the phase."""
     from torch.profiler import ProfilerActivity, profile
@@ -742,8 +865,8 @@ def profile_sparse_steps(torch, tr, batches) -> dict:
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for b in batches:
-            tr.train_step(b)
+        for call in calls:
+            call()
         torch.cuda.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0)
     rows = []
@@ -761,9 +884,9 @@ def profile_sparse_steps(torch, tr, batches) -> dict:
         raise AssertionError("torch.profiler recorded no device time")
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
-    return {"steps": len(batches), "profiled_wall_ms": wall_ms,
-            "device_ms_per_step": busy_ms / len(batches),
-            "device_ops_per_step": sum(r[2] for r in rows) / len(batches),
+    return {"steps": len(calls), "profiled_wall_ms": wall_ms,
+            "device_ms_per_step": busy_ms / len(calls),
+            "device_ops_per_step": sum(r[2] for r in rows) / len(calls),
             "top": [{"name": k[:60], "ms": us / 1e3, "calls": c}
                     for us, k, c in rows[:14]]}
 
@@ -1206,6 +1329,125 @@ def phase_dp(np, torch, sk, seed) -> dict:
             "dp_launches_rank0": launches}
 
 
+# -- phase: attention ---------------------------------------------------------
+
+
+def ring_rank(rank, world, out_dir, seed):
+    """One rank of the attention phase: ``ring_self_attention`` over a
+    ``seq`` mesh of the world on this rank's card, on the phase's inputs;
+    writes its output, its step time and (rank 0) a profile of two more
+    calls to ``out_dir``."""
+    import torch
+
+    from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from lightctr_tpu_torch.nn.ring_attention import ring_self_attention
+
+    mesh = make_mesh(MeshSpec(seq=world), device="cuda")
+    torch.cuda.set_device(mesh.device)
+    q, k, v = flash_inputs(torch, FLASH_PATH_SHAPE, torch.bfloat16, seed)
+    out = ring_self_attention(mesh, q, k, v, causal=True)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t = time.perf_counter()
+        ring_self_attention(mesh, q, k, v, causal=True)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    step_ms = 1e3 * statistics.median(times)
+    calls = [lambda: ring_self_attention(mesh, q, k, v, causal=True)] * 2
+    prof = None
+    if rank == 0:
+        prof = profile_calls(torch, calls)
+        prof["idle_share"] = 1.0 - prof["device_ms_per_step"] / step_ms
+    else:
+        for call in calls:
+            call()
+        torch.cuda.synchronize()
+    torch.save({"out": out.cpu(), "axis": mesh.axis, "device":
+                str(mesh.device), "backend": mesh.backend,
+                "step_ms": step_ms, "profile": prof},
+               os.path.join(out_dir, f"ring{rank}.pt"))
+
+
+def phase_attention(torch, sk, fl, seed) -> dict:
+    """The long-context path: flash attention on the card, then ring
+    attention over RING_WORLD ranks sharing it (gloo), on one input."""
+    import shutil
+    import tempfile
+
+    from lightctr_tpu_torch.core.mesh import spawn_world
+
+    q, k, v = flash_inputs(torch, FLASH_PATH_SHAPE, torch.bfloat16, seed)
+    sk.reset_launches()
+    flash = fl.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    launches = sk.launches()
+    if launches["flash_attention"] < 1:
+        raise AssertionError(f"attention: flash_attention launched "
+                             f"{launches['flash_attention']} times")
+    root = tempfile.mkdtemp(prefix="chip_smoke_ring_")
+    try:
+        t = time.perf_counter()
+        spawn_world(ring_rank, RING_WORLD, "gloo", deadline_s=DP_DEADLINE_S,
+                    args=(root, seed))
+        ring_s = time.perf_counter() - t
+        recs = [torch.load(os.path.join(root, f"ring{r}.pt"))
+                for r in range(RING_WORLD)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r, rec in enumerate(recs):
+        if not torch.equal(rec["out"], recs[0]["out"]):
+            raise AssertionError(f"attention: ring rank {r}'s output differs "
+                                 "from rank 0's")
+        if rec["axis"] != "seq" or not rec["device"].startswith("cuda"):
+            raise AssertionError(f"attention: ring rank {r}: {rec}")
+    ring = recs[0]["out"].cuda()
+    if ring.dtype != flash.dtype or ring.shape != flash.shape:
+        raise AssertionError(f"attention: ring {ring.dtype} "
+                             f"{tuple(ring.shape)} vs flash {flash.dtype} "
+                             f"{tuple(flash.shape)}")
+    err = (ring.float() - flash.float()).abs()
+    emax, emean = float(err.max()), float(err.mean())
+    if emax > FLASH_16_MAX or emean > FLASH_16_MEAN:
+        raise AssertionError(f"attention: ring vs flash max {emax}, mean "
+                             f"{emean}")
+    return {"phase": "attention", "shape": list(FLASH_PATH_SHAPE),
+            "dtype": "bfloat16", "causal": True, "launches": launches,
+            "ring": {"world": RING_WORLD, "backend": recs[0]["backend"],
+                     "devices": [rec["device"] for rec in recs],
+                     "step_ms_rank0": recs[0]["step_ms"],
+                     "profile_rank0": recs[0]["profile"],
+                     "world_seconds": ring_s},
+            "ring_vs_flash": {"max_abs_err": emax, "mean_abs_err": emean,
+                              "tolerance": [FLASH_16_MAX, FLASH_16_MEAN]},
+            "ranks_equal": True}
+
+
+# -- phase: bench -------------------------------------------------------------
+
+
+def phase_bench(torch, sk) -> dict:
+    """The port's two kernel benches, on the card, writing no file: every
+    cell's kernel launched, as its launch count says."""
+    from lightctr_tpu_torch.tools import kernel_bench, sparse_kernel_bench
+
+    sk.reset_launches()
+    sparse = sparse_kernel_bench.run(device="cuda", out=None)
+    kern = kernel_bench.run(device="cuda", out=None)
+    launches = sk.launches()
+    cells = sparse["cells"] + kern["adagrad"] + kern["flash"]
+    for c in cells:
+        name = c["kernel"]
+        if c.get("impl_kernel", c.get("impl")) != "cuda" or \
+                launches[name] < 1:
+            raise AssertionError(f"bench: {name} did not launch ({c})")
+    if launches["merge_rows"] < 1:
+        raise AssertionError("bench: merge_apply's merge mode launched no "
+                             "merge_rows")
+    return {"phase": "bench", "launches": launches,
+            "sparse_kernel_bench": sparse, "kernel_bench": kern}
+
+
 # -- phase: timing ------------------------------------------------------------
 
 
@@ -1262,6 +1504,14 @@ def kernel_row(sk, name, **fields) -> dict:
 
 def bound_ms(nbytes) -> float:
     return 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def bound_ms_ops(nbytes, flops):
+    """(bound in ms, what bounds it): the larger of the bytes at 3.35 TB/s
+    and the bf16 FLOPs at 989 TFLOP/s."""
+    by_bytes, by_ops = bound_ms(nbytes), 1e3 * flops / BF16_FLOPS_PER_S
+    return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes,
+                                                               "bytes")
 
 
 def gather_timing(torch, sk, serve_ns, launches, max_abs_err) -> dict:
@@ -1514,6 +1764,75 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
     return out, {"int64": dedup64}, {"merge_mode": merge_mode}
 
 
+def new_timing(torch, sk, fl, qz, seed, launches, kern) -> list:
+    """quantize_pack_ef on the [79,872, 32] payload (8 bits, a [P, 1]
+    mask: one dp rank's layout) and flash_attention at the attention
+    path's shape, with the bench's other shapes beside it."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    x = torch.randn((DP_LOCAL_K, DIM), generator=gen, device="cuda") * 0.05
+    car = torch.randn((DP_LOCAL_K, DIM), generator=gen, device="cuda") * 0.01
+    mask = torch.ones((DP_LOCAL_K, 1), device="cuda")
+    table = qz.build_table(-1.0, 1.0, bits=8, mode="normal", device="cuda")
+    n = x.numel()
+    nbytes = n * (4 + 4 + 1 + 4) + DP_LOCAL_K * 4
+    rows = [kernel_row(
+        sk, "quantize_pack_ef", launches=launches["quantize_pack_ef"],
+        launches_on="bench phase (its only caller, as in the JAX package)",
+        max_abs_err=kern["quantize_pack_ef"]["max_abs_err"],
+        shape={"p": DP_LOCAL_K, "d": DIM, "bits": 8, "mask": [DP_LOCAL_K, 1]},
+        ms=graph_ms(torch, lambda: sk.quantize_pack_ef(table, x, car, mask)),
+        plain_ms=graph_ms(torch, lambda: sk.quantize_pack_ef_plain(
+            table, x, car, mask)),
+        library_ms=None,
+        library_note="no single PyTorch call computes an EF-compensated "
+                     "quantile encode with its fresh error",
+        bound_ms=bound_ms(nbytes), bound_by="bytes", bytes=nbytes,
+        call_ms=call_ms(torch, lambda: sk.quantize_pack_ef(table, x, car,
+                                                           mask)))]
+
+    per_shape = []
+    for i, shape in enumerate(FLASH_BENCH_SHAPES):
+        b, t, h, d = shape
+        q, k, v = flash_inputs(torch, shape, torch.bfloat16, seed + 200 + i)
+        qt, kt, vt = (y.transpose(1, 2).contiguous() for y in (q, k, v))
+        flops = 4 * b * h * t * t * d / 2
+        nbytes = 4 * q.numel() * 2
+        bound, by = bound_ms_ops(nbytes, flops)
+        kms = graph_ms(torch, lambda: fl.flash_attention(q, k, v,
+                                                         causal=True),
+                       reps=20)
+        per_shape.append({
+            "shape": list(shape), "ms": kms,
+            "plain_ms": call_ms(torch, lambda: fl.flash_attention_plain(
+                q, k, v, True), reps=5),
+            "library_ms": graph_ms(
+                torch, lambda: torch.nn.functional
+                .scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                reps=20),
+            "call_ms": call_ms(torch, lambda: fl.flash_attention(
+                q, k, v, causal=True), reps=20),
+            "bound_ms": bound, "bound_by": by, "flops": flops,
+            "bytes": nbytes, "tflops": flops / (kms / 1e3) / 1e12})
+        del q, k, v, qt, kt, vt
+    main = per_shape[[tuple(p["shape"]) for p in per_shape].index(
+        FLASH_PATH_SHAPE)]
+    rows.append(kernel_row(
+        sk, "flash_attention", launches=launches["flash_attention"],
+        launches_on="attention phase",
+        max_abs_err=kern["flash_attention"]["max_abs_err"],
+        shape={"bthd": list(FLASH_PATH_SHAPE), "dtype": "bfloat16",
+               "causal": True},
+        ms=main["ms"], plain_ms=main["plain_ms"],
+        plain_timing="eager between events (float32 full_attention)",
+        library_ms=main["library_ms"],
+        library_call="torch.nn.functional.scaled_dot_product_attention("
+                     "is_causal=True) on [B, H, T, D] copies",
+        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+        flops=main["flops"], bytes=main["bytes"], tflops=main["tflops"],
+        call_ms=main["call_ms"], per_shape=per_shape))
+    return rows
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -1535,6 +1854,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from lightctr_tpu_torch.native import bindings
+    from lightctr_tpu_torch.nn import flash_attention as fl
     from lightctr_tpu_torch.ops import sparse_kernels as sk
     from lightctr_tpu_torch.optim import fused_adagrad as fa
 
@@ -1558,6 +1878,8 @@ def main(argv=None) -> int:
     kern["quantize_pack_ef_update"] = check_quantize_pack_ef_update(
         np, torch, sk, qz, krng)
     kern["fused_adagrad"] = check_fused_adagrad(torch, fa)
+    kern["quantize_pack_ef"] = check_quantize_pack_ef(np, torch, sk, qz)
+    kern["flash_attention"] = check_flash(torch, fl)
     emit(kern)
     serve_info = phase_serve(np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
@@ -1565,6 +1887,10 @@ def main(argv=None) -> int:
     emit(train_info | {"nvidia_smi": smi})
     dp_info = phase_dp(np, torch, sk, args.seed)
     emit(dp_info | {"nvidia_smi": smi})
+    attn_info = phase_attention(torch, sk, fl, args.seed)
+    emit(attn_info | {"nvidia_smi": smi})
+    bench_info = phase_bench(torch, sk)
+    emit(bench_info | {"nvidia_smi": smi})
     rows = [gather_timing(torch, sk, serve_ns, serve_info["launches"],
                           kern["gather_rows"]["max_abs_err"])]
     rows += train_timing(np, torch, sk, fa, args.seed,
@@ -1579,6 +1905,11 @@ def main(argv=None) -> int:
             row.update(merge_extra,
                        launches_dp=dp_info["dp_launches_rank0"]["merge_apply"])
     rows += new_rows
+    rows += new_timing(torch, sk, fl, qz, args.seed, {
+        "quantize_pack_ef": bench_info["launches"]["quantize_pack_ef"],
+        "flash_attention": attn_info["launches"]["flash_attention"]}, kern)
+    for row in rows:
+        row["launches_bench"] = bench_info["launches"].get(row["name"], 0)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,12 +1,20 @@
-"""Device meshes for data parallelism over ``torch.distributed``.
+"""Device meshes over ``torch.distributed``: the ``data`` and ``seq`` axes.
 
 The port's counterpart of ``lightctr_tpu/core/mesh.py``.  A JAX mesh lives
 in one process and names its devices; a PyTorch mesh is one process per
 rank.  Here a :class:`Mesh` wraps an initialised ``torch.distributed``
-process group whose world is the ``data`` axis, plus this rank's device:
-every rank builds the same trainer, is handed the same global batch, and
-takes its own contiguous rows (:func:`shard_batch`, the ``P("data")``
-layout).  The other axes (``model``, ``embed``, ``seq``) are not ported yet.
+process group that is ONE axis of the JAX mesh, plus this rank's device:
+
+  ``data``  every rank builds the same trainer, is handed the same global
+            batch, and takes its own contiguous rows (:func:`shard_batch`,
+            the ``P("data")`` layout);
+  ``seq``   the ring that ``nn.ring_attention.ring_self_attention`` walks:
+            rank r holds sequence block r (the ``P(None, "seq")`` layout).
+
+A mesh's group is one axis only: ``MeshSpec(data=n)`` or ``MeshSpec(seq=n)``.
+A function that needs the other axis raises (:meth:`Mesh.require_axis`).
+The ``model`` and ``embed`` axes, and meshes with two axes above 1, are not
+ported yet.
 
 :func:`spawn_world` starts such a world on one host: one process per rank
 (``torch.multiprocessing`` spawn), each with its process group initialised
@@ -26,6 +34,8 @@ from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
+
+from lightctr_tpu_torch.core.device import resolve_device
 
 #: seconds a rank waits at ``init_process_group`` and in any collective
 #: before it fails (the spawned world's own deadline is separate)
@@ -51,18 +61,25 @@ class MeshSpec:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's view of a data-parallel mesh: the process group whose
-    ranks are the ``data`` axis, this rank's index on it, and the device
-    its tensors live on."""
+    """This rank's view of a one-axis mesh: the process group whose ranks
+    are the ``axis`` (``"data"`` or ``"seq"``), this rank's index on it,
+    and the device its tensors live on."""
 
     group: object
     rank: int
     device: torch.device
+    axis: str = "data"
 
     @property
     def size(self) -> int:
-        """The ``data`` axis' size: the group's number of ranks."""
+        """The axis' size: the group's number of ranks."""
         return dist.get_world_size(self.group)
+
+    def require_axis(self, axis: str, owner: str) -> None:
+        """Raise ``ValueError`` unless this mesh's group is ``axis``."""
+        if self.axis != axis:
+            raise ValueError(f"{owner} needs a mesh over the {axis!r} axis, "
+                             f"got one over {self.axis!r}")
 
     @property
     def backend(self) -> str:
@@ -75,34 +92,36 @@ class Mesh:
         return dist.get_global_rank(self.group, r)
 
 
-def make_mesh(spec: MeshSpec, device=None, group=None) -> Mesh:
+def make_mesh(spec: MeshSpec, device="cuda", group=None) -> Mesh:
     """The mesh of ``spec`` over an initialised process group (the default
-    group unless ``group`` is given), whose size must be ``spec.data``.
-    ``device`` defaults to CUDA when it is available, else the CPU; a CUDA
-    device without an index is this rank's, ``cuda:<rank mod device
-    count>``."""
+    group unless ``group`` is given), whose size must be ``spec.size``.
+    The group is the ``seq`` axis when ``spec.seq > 1``, else the ``data``
+    axis; a spec with both above 1 is refused.  ``device`` goes through
+    :func:`~lightctr_tpu_torch.core.device.resolve_device`: CUDA by
+    default, which raises on a host without CUDA (pass ``device="cpu"``);
+    a CUDA device without an index is this rank's, ``cuda:<rank mod
+    device count>``."""
     from lightctr_tpu_torch.models.ctr_trainer import not_yet_ported
 
     not_yet_ported("make_mesh", model=spec.model > 1, embed=spec.embed > 1,
-                   seq=spec.seq > 1)
+                   data_and_seq=spec.data > 1 and spec.seq > 1)
+    device = resolve_device(device)
     if not dist.is_initialized():
         raise RuntimeError("make_mesh needs an initialised torch.distributed "
                            "process group (see spawn_world)")
     group = group if group is not None else dist.group.WORLD
+    axis = "seq" if spec.seq > 1 else "data"
     world = dist.get_world_size(group)
-    if world != spec.data:
-        raise ValueError(f"mesh spec data={spec.data} but the process group "
-                         f"has {world} ranks")
+    if world != spec.size:
+        raise ValueError(f"mesh spec {axis}={spec.size} but the process "
+                         f"group has {world} ranks")
     rank = dist.get_rank(group)
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", rank % torch.cuda.device_count())
-    return Mesh(group=group, rank=rank, device=device)
+    return Mesh(group=group, rank=rank, device=device, axis=axis)
 
 
-def local_mesh(n_data: Optional[int] = None, device=None) -> Mesh:
+def local_mesh(n_data: Optional[int] = None, device="cuda") -> Mesh:
     """Data-parallel mesh over every rank of the default process group (or
     check that it has ``n_data``)."""
     n = n_data if n_data is not None else dist.get_world_size()
@@ -113,6 +132,7 @@ def shard_batch(mesh: Mesh, batch) -> dict:
     """This rank's rows of a host batch, on its device: rows
     ``[r*B/W, (r+1)*B/W)`` of every field (``P("data")``).  Each field's
     leading size must divide by the world."""
+    mesh.require_axis("data", "shard_batch")
     w, r = mesh.size, mesh.rank
     out = {}
     for k, v in batch.items():

@@ -13,8 +13,9 @@ core.mesh.Mesh` in place of ``axis_name``.  The JAX collectives map so:
 
 On an NCCL group CUDA tensors go straight in.  On a gloo group the layer
 stages CUDA payloads through host memory itself, chosen by the group's
-backend (gloo's CUDA support is partial), and ships 2-byte codes as bytes
-(gloo has no 16-bit integer type).  Nothing retries or falls back.
+backend (gloo's CUDA support is partial), and ships 2-byte codes and
+16-bit floats as bytes (gloo has no 16-bit integer type).  Nothing
+retries or falls back.
 
 The byte accounting (``sparse_exchange_bytes``, ``dense_ring_bytes``,
 ``pick_exchange_algo`` and the rest) is the JAX package's pure Python,
@@ -36,9 +37,14 @@ from lightctr_tpu_torch.ops import quantize, sparse_kernels
 # -- the collectives over a mesh ---------------------------------------------
 
 
+#: 2-byte types sent as their bytes: gloo has no 16-bit integer type, and
+#: its 16-bit float support varies by version
+_AS_BYTES = (torch.uint16, torch.int16, torch.float16, torch.bfloat16)
+
+
 def _staged(mesh, x: torch.Tensor) -> torch.Tensor:
     """``x`` as the group's backend takes it: on gloo a CUDA tensor goes
-    to host memory, and 2-byte integers go as their bytes."""
+    to host memory, and 2-byte types go as their bytes."""
     if mesh.backend == "gloo" and x.is_cuda:
         x = x.cpu()
     return x.contiguous()
@@ -49,7 +55,7 @@ def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
     order along dim 0 -> [n*K, ...], on ``x``'s device."""
     n = mesh.size
     src = _staged(mesh, x)
-    as_bytes = src.dtype in (torch.uint16, torch.int16)
+    as_bytes = src.dtype in _AS_BYTES
     if as_bytes:
         src = src.view(torch.uint8)
     parts = [torch.empty_like(src) for _ in range(n)]
@@ -85,7 +91,7 @@ def ring_shift(mesh, x: torch.Tensor) -> torch.Tensor:
     if n == 1:
         return x.clone()
     src = _staged(mesh, x)
-    as_bytes = src.dtype in (torch.uint16, torch.int16)
+    as_bytes = src.dtype in _AS_BYTES
     if as_bytes:
         src = src.view(torch.uint8)
     recv = torch.empty_like(src)

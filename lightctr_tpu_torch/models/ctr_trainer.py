@@ -190,6 +190,8 @@ class CTRTrainer:
         if mesh is not None and not isinstance(mesh, Mesh):
             raise ValueError(f"mesh must be a lightctr_tpu_torch.core.mesh."
                              f"Mesh (make_mesh), got {type(mesh).__name__}")
+        if mesh is not None:
+            mesh.require_axis("data", type(self).__name__)
         if compress_bits is not None and mesh is None:
             raise ValueError("compress_bits requires a mesh (it compresses "
                              "the cross-device gradient exchange)")

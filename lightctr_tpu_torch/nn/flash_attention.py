@@ -1,0 +1,112 @@
+"""Flash attention — the hand-written CUDA kernel and its plain version.
+
+The port's counterpart of ``lightctr_tpu/nn/flash_attention.py``: exact
+attention over [B, T, H, D] computed tile by tile with an online softmax,
+never holding the [T, T] score matrix; optionally causal, skipping the key
+tiles above the diagonal.  The kernel (``csrc/flash_attention.cu``) takes
+float32, bfloat16 and float16 at any ``D <= 128``; its design note says how
+it differs from the TPU's grid.  Forward only, as in the JAX package.
+
+Dispatch follows the tensor's device (``ops.sparse_kernels``, phase
+``attention``): the plain version on a CPU tensor, the kernel on a CUDA
+tensor.  ``block_q``/``block_k`` are the JAX function's tuning caps: they
+go through :func:`validate_blocks`, so a caller's error surfaces as it
+does there, and the CUDA kernel then uses its own tiles.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from lightctr_tpu_torch.nn.ring_attention import full_attention
+from lightctr_tpu_torch.ops import sparse_kernels as sk
+
+NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+#: the widest head the kernel takes
+MAX_HEAD_DIM = 128
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
+
+def validate_blocks(t: int, block_q: int, block_k: int):
+    """Shrink requested blocks to divisors of T (callers pick tuning caps);
+    raise when none fits.  A copy of the JAX package's check."""
+    block_q = min(block_q, t)
+    block_k = min(block_k, t)
+    while block_q > 8 and t % block_q:
+        block_q //= 2
+    while block_k > 8 and t % block_k:
+        block_k //= 2
+    if t % block_q or t % block_k:
+        raise ValueError(
+            f"block sizes ({block_q}, {block_k}) must divide T={t}"
+        )
+    return block_q, block_k
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = False
+                          ) -> torch.Tensor:
+    """Plain version: :func:`full_attention` on float32 copies of ``q``,
+    ``k``, ``v``, cast to ``q``'s dtype (the JAX twin ``_flash_reference``,
+    upcast so that on the card a comparison measures the kernel, not
+    16-bit scores).  On the card it runs in full float32 only with TF32
+    off (``torch.backends.cuda.matmul.allow_tf32 = False``)."""
+    return full_attention(q.float(), k.float(), v.float(),
+                          causal=causal).to(q.dtype)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    sk.bind_entry(lib, "flash_attention_fwd",
+                  [p, p, p, p, i, ll, ll, ll, ll, i, p])
+
+
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = False) -> torch.Tensor:
+    """Launch the CUDA kernel on the current stream; no synchronise."""
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
+        raise TypeError("flash_attention kernel takes q, k, v of one dtype "
+                        "among float32, bfloat16, float16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or not (q.shape == k.shape == v.shape):
+        raise ValueError("flash_attention kernel takes q, k, v of one "
+                         f"[B, T, H, D] shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, t, h, d = q.shape
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention kernel takes D <= {MAX_HEAD_DIM}, "
+                         f"got {d}")
+    if b * h > 65535:
+        raise ValueError(f"flash_attention kernel takes B*H <= 65535, got "
+                         f"{b * h}")
+    dev = sk.check_cuda_tensors("flash_attention", q=q, k=k, v=v)
+    o = torch.empty_like(q)
+    if q.numel() == 0:
+        return o
+    lib = sk.load("flash_attention")
+    sk.run_kernel("flash_attention", dev, lib.flash_attention_fwd,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  _DTYPE_CODES[q.dtype], b, t, h, d, int(bool(causal)))
+    return o
+
+
+sk.register_kernel(
+    "flash_attention", phase="attention", plain=flash_attention_plain,
+    cuda=_flash_attention_cuda, source="flash_attention.cu", bind=_bind,
+    replaces="lightctr_tpu/nn/flash_attention.py:164",
+)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = False, block_q: int = 256,
+                    block_k: int = 512) -> torch.Tensor:
+    """Dispatch: exact attention over [B, T, H, D] -> [B, T, H, D] in
+    ``q``'s dtype.  The plain version on CPU tensors, the CUDA kernel on
+    CUDA tensors (float32, bfloat16 or float16; ``D <= 128``)."""
+    validate_blocks(q.shape[1], block_q, block_k)
+    if not (k.device == v.device == q.device):
+        raise ValueError(f"flash_attention: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}")
+    return sk.dispatch("flash_attention", q.device)(q, k, v, causal)

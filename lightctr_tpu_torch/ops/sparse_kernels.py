@@ -23,14 +23,14 @@ Kernels are built at first use (or eagerly through :func:`load` /
 of the source and the compiler flags.  Importing this module builds
 nothing.
 
-Ported so far: ``gather_rows`` (``_gather_pallas``), ``dedup_ids``
-(``_dedup_pallas``, int32 and int64 ids), ``merge_rows`` (``_merge_pallas``),
-``merge_apply`` in both modes (``_merge_apply_pallas``), ``quantize_pack``
-(``_qp_pallas``), ``quantize_pack_ef_update`` (``_qp_ef_update_pallas``)
-and, registered from ``optim/fused_adagrad.py``, ``fused_adagrad``
-(``_adagrad_pallas``).  Still to be ported: ``quantize_pack_ef``
-(``_qp_ef_pallas``, whose only caller is the JAX package's kernel bench)
-and flash attention.
+Every TPU kernel of the JAX package has its counterpart: ``gather_rows``
+(``_gather_pallas``), ``dedup_ids`` (``_dedup_pallas``, int32 and int64
+ids), ``merge_rows`` (``_merge_pallas``), ``merge_apply`` in both modes
+(``_merge_apply_pallas``), ``quantize_pack`` (``_qp_pallas``),
+``quantize_pack_ef`` (``_qp_ef_pallas``), ``quantize_pack_ef_update``
+(``_qp_ef_update_pallas``) and, registered from their own modules,
+``fused_adagrad`` (``optim/fused_adagrad.py``, ``_adagrad_pallas``) and
+``flash_attention`` (``nn/flash_attention.py``, ``_flash_pallas``).
 """
 
 from __future__ import annotations
@@ -723,6 +723,98 @@ def quantize_pack_packed(table, x: torch.Tensor) -> torch.Tensor:
     if table.bits <= 4:
         return quantize.pack_nibbles(codes)
     return codes
+
+
+# =========================================================================
+# quantize_pack_ef: EF-folded pack
+# =========================================================================
+#
+# ``val = rows + carried*mask``, ``codes = compress(val)``, ``delta = (val -
+# extract(codes) - carried)*mask`` in one pass — the EF encode whose caller
+# scatters ``delta`` back itself (the kernel bench, tools/
+# sparse_kernel_bench.py).  Replaces lightctr_tpu/ops/sparse_kernels.py
+# ``_qp_ef_pallas`` / ``_qp_ef_kernel``; csrc/quantize_pack_ef.cu has the
+# kernel and its design note.
+
+
+def quantize_pack_ef_plain(table, rows, carried, mask):
+    """Plain version, literally the JAX reference ``_qp_ef_reference``:
+    compensate with the carry, encode (NaN takes the top code), decode,
+    fresh error.  Returns ``(codes, delta)``."""
+    val = rows + carried * mask
+    codes = quantize.compress(table, val)
+    dec = quantize.extract(table, codes)
+    return codes, (val - dec - carried) * mask
+
+
+def _bind_quantize_pack_ef(lib: ctypes.CDLL) -> None:
+    for sym in ("quantize_pack_ef_u8", "quantize_pack_ef_u16"):
+        bind_entry(lib, sym, [_P, _LL, _P, _P, _P, _P, _LL, _LL, _P, _P,
+                              _P])
+
+
+def _quantize_pack_ef_cuda(table, rows, carried, mask):
+    """Launch the CUDA EF-folded pack on the current stream; no
+    synchronise.  A ``mask`` constant along every dim but the first goes
+    to the kernel as one value per row, any other as one per value."""
+    if not (rows.dtype == carried.dtype == torch.float32):
+        raise TypeError("quantize_pack_ef kernel takes float32 rows and "
+                        f"carried, got {rows.dtype}, {carried.dtype}")
+    if carried.shape != rows.shape:
+        raise ValueError(f"quantize_pack_ef: carried {tuple(carried.shape)} "
+                         f"!= rows {tuple(rows.shape)}")
+    try:
+        mb = torch.broadcast_to(mask.to(torch.float32), rows.shape)
+    except RuntimeError as e:
+        raise ValueError(f"quantize_pack_ef: mask {tuple(mask.shape)} does "
+                         f"not broadcast to rows {tuple(rows.shape)}") from e
+    n = rows.numel()
+    p = rows.shape[0] if rows.dim() else 1
+    per_row = rows.dim() > 1 and all(
+        st == 0 or sz == 1 for st, sz in zip(mb.stride()[1:], mb.shape[1:]))
+    m = (mb[(slice(None),) + (0,) * (rows.dim() - 1)] if per_row
+         else mb).contiguous()
+    dev = check_cuda_tensors("quantize_pack_ef", rows=rows, carried=carried,
+                             mask=m)
+    check_table("quantize_pack_ef", table, dev)
+    codes = torch.empty(rows.shape, dtype=quantize.code_dtype(table.bits),
+                        device=dev)
+    delta = torch.empty(rows.shape, dtype=torch.float32, device=dev)
+    if n == 0:
+        return codes, delta
+    lib = load("quantize_pack_ef")
+    fn = (lib.quantize_pack_ef_u8 if table.bits <= 8
+          else lib.quantize_pack_ef_u16)
+    run_kernel("quantize_pack_ef", dev, fn, table.boundaries.data_ptr(),
+               table.boundaries.numel(), table.values.data_ptr(),
+               rows.data_ptr(), carried.data_ptr(), m.data_ptr(), n,
+               n // p if per_row else 1, codes.data_ptr(), delta.data_ptr())
+    return codes, delta
+
+
+register_kernel(
+    "quantize_pack_ef", phase="pack", plain=quantize_pack_ef_plain,
+    cuda=_quantize_pack_ef_cuda, source="quantize_pack_ef.cu",
+    bind=_bind_quantize_pack_ef,
+    replaces="lightctr_tpu/ops/sparse_kernels.py:944",
+)
+
+
+def quantize_pack_ef(table, rows: torch.Tensor, carried: torch.Tensor,
+                     mask: torch.Tensor):
+    """Dispatch: EF-folded payload pack -> ``(codes, delta)`` where ``val =
+    rows + carried*mask``, ``codes = compress(val)`` and ``delta = (val -
+    extract(codes) - carried)*mask`` — the fresh error-feedback
+    contribution the caller scatters back at the rows' table slots.
+    ``mask`` is anything that broadcasts to ``rows.shape``.  The plain
+    version on CPU tensors, the CUDA kernel on CUDA tensors (float32 rows
+    and carry of one shape; 8 and 16 bits alike, bit-identical to the
+    plain version)."""
+    if carried.device != rows.device or mask.device != rows.device:
+        raise ValueError(f"quantize_pack_ef: rows on {rows.device}, carried "
+                         f"on {carried.device}, mask on {mask.device}")
+    return dispatch("quantize_pack_ef", rows.device)(table, rows, carried,
+                                                     mask)
 
 
 # =========================================================================

@@ -15,6 +15,7 @@ from lightctr_tpu_torch.core.config import TrainConfig
 from lightctr_tpu_torch.models import fm
 from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
 from lightctr_tpu_torch.models.sparse_trainer import SparseTableCTRTrainer
+from lightctr_tpu_torch.nn import flash_attention as fl
 from lightctr_tpu_torch.ops import quantize as qz
 from lightctr_tpu_torch.ops import sparse_kernels as sk
 from lightctr_tpu_torch.optim import fused_adagrad as fa
@@ -196,6 +197,71 @@ def test_quantize_pack_ef_update_kernel_matches_plain(dev, d, bits):
     c2, _, d2 = sk.quantize_pack_ef_update_plain(table, rows, uids, r2, mask)
     assert torch.equal(c1, c2) and torch.equal(d1, d2)
     assert torch.equal(r1, r2)
+
+
+@pytest.mark.parametrize("mask_kind", ["row", "value", "scalar"])
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_pack_ef_kernel_matches_plain(dev, bits, mask_kind):
+    """Codes and delta bit for bit: +-inf and NaN in the rows and in the
+    carry, masked and unmasked values, a mask of one value per row, per
+    value, or one for all."""
+    gen = torch.Generator(device=dev).manual_seed(bits)
+    rows = torch.randn((3000, 9), generator=gen, device=dev) * 0.8
+    rows.view(-1)[:3] = torch.tensor([float("inf"), float("-inf"),
+                                      float("nan")], device=dev)
+    carried = torch.randn((3000, 9), generator=gen, device=dev) * 0.05
+    carried.view(-1)[20:22] = torch.tensor([float("inf"), float("nan")],
+                                           device=dev)
+    shape = {"row": (3000, 1), "value": (3000, 9), "scalar": ()}[mask_kind]
+    mask = (torch.rand(shape, generator=gen, device=dev) > 0.3).float()
+    table = qz.build_table(-1.0, 1.0, bits=bits,
+                           mode="normal" if bits <= 8 else "uniform",
+                           device=dev)
+    before = sk.launches("quantize_pack_ef")
+    c1, d1 = sk.quantize_pack_ef(table, rows, carried, mask)
+    assert sk.launches("quantize_pack_ef") == before + 1
+    c2, d2 = sk.quantize_pack_ef_plain(table, rows, carried, mask)
+    assert c1.dtype == c2.dtype and torch.equal(c1, c2)
+    assert torch.equal(d1.view(torch.int32), d2.view(torch.int32))
+
+
+#: flash attention: float32 within the JAX test's tolerance; 16-bit types
+#: within a few ulps of theirs at |o| < 2 (max) and on average
+FLASH_F32 = (2e-4, 2e-5)
+FLASH_16_MAX, FLASH_16_MEAN = 2e-2, 2e-3
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
+@pytest.mark.parametrize("shape", [(2, 256, 4, 32), (2, 32, 2, 8),
+                                   (1, 100, 3, 72), (2, 130, 2, 128),
+                                   (1, 70, 2, 20)])
+def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
+    """Tiles past T and columns past D masked in the kernel (T = 100, 130,
+    70; D = 8, 20, 72); one launch a call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(sum(shape))
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    before = sk.launches("flash_attention")
+    got = fl.flash_attention(q, k, v, causal=causal)
+    assert sk.launches("flash_attention") == before + 1
+    want = fl.flash_attention_plain(q, k, v, causal)
+    assert got.dtype == dt and got.shape == q.shape
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FLASH_F32[0],
+                                   atol=FLASH_F32[1])
+    else:
+        err = (got.float() - want.float()).abs()
+        assert float(err.max()) <= FLASH_16_MAX
+        assert float(err.mean()) <= FLASH_16_MEAN
+
+
+def test_flash_attention_kernel_refuses_wide_heads(dev):
+    x = torch.zeros((1, 8, 1, 129), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="D <= 128"):
+        fl.flash_attention(x, x, x)
 
 
 @pytest.mark.parametrize("n, offset", [(1, 0), (1001, 0), (4096, 0),

@@ -1,8 +1,8 @@
 """The port stands alone: ``lightctr_tpu_torch``, ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` import neither ``jax``, ``optax`` nor
 ``lightctr_tpu`` (an AST walk of every file),
-importing the serving and training slices leaves them out of
-``sys.modules``, the copied native
+importing the serving, training and attention slices and the kernel
+benches leaves them out of ``sys.modules``, the copied native
 sources match the JAX package's, and ``chip_smoke.py`` refuses to run
 without CUDA or alone in a directory."""
 
@@ -61,7 +61,11 @@ def test_importing_the_serving_slice_loads_no_jax():
             "lightctr_tpu_torch.models.sparse_trainer, "
             "lightctr_tpu_torch.optim.fused_adagrad, "
             "lightctr_tpu_torch.dist.collectives, "
-            "lightctr_tpu_torch.core.mesh; "
+            "lightctr_tpu_torch.core.mesh, "
+            "lightctr_tpu_torch.nn.flash_attention, "
+            "lightctr_tpu_torch.nn.ring_attention, "
+            "lightctr_tpu_torch.tools.sparse_kernel_bench, "
+            "lightctr_tpu_torch.tools.kernel_bench; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

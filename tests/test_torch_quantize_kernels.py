@@ -1,9 +1,10 @@
 """The data-parallel slice's kernels in the port (``merge_rows``,
-``merge_apply``'s merge mode, ``quantize_pack``, ``quantize_pack_ef_update``)
-and the quantile codec (``ops/quantize.py``): each plain version against the
-JAX package's function on the same numpy inputs — the quantize kernels fed
-the SAME table arrays in both packages — plus dispatch, launch counts, the
-CUDA wrappers' refusals and the registry's pointers to the TPU kernels.
+``merge_apply``'s merge mode, ``quantize_pack``, ``quantize_pack_ef``,
+``quantize_pack_ef_update``) and the quantile codec (``ops/quantize.py``):
+each plain version against the JAX package's function on the same numpy
+inputs — the quantize kernels fed the SAME table arrays in both packages —
+plus dispatch, launch counts, the CUDA wrappers' refusals and the
+registry's pointers to the TPU kernels.
 The kernels themselves are held to these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 
@@ -158,6 +159,93 @@ def test_quantize_pack_plain_matches_the_interpreted_tpu_kernel(
     want = np.asarray(jsk.quantize_pack(jt, jnp.asarray(x)))
     got = tsk.quantize_pack(_same_table(jt), torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- quantize_pack_ef ----------------------------------------------------------
+
+
+def _qp_ef_case(seed, bits, mask_kind, nan=False, p=96, d=6):
+    """The JAX bench's layout at a small size: a payload with +-inf (and
+    NaN) past the table's edges, a carry from an earlier step, and a 0/1
+    mask of one value per row ([P, 1]) or per value ([P, d])."""
+    rng = np.random.default_rng(seed)
+    rows = (rng.normal(size=(p, d)) * 0.6).astype(np.float32)
+    rows.reshape(-1)[:2] = [np.inf, -np.inf]
+    if nan:
+        rows.reshape(-1)[2] = np.nan
+    carried = (rng.normal(size=(p, d)) * 0.05).astype(np.float32)
+    shape = (p, 1) if mask_kind == "row" else (p, d)
+    mask = (rng.random(shape) > 0.25).astype(np.float32)
+    return jquant.build_table(-1.0, 1.0, bits, "normal" if bits <= 8
+                              else "uniform"), rows, carried, mask
+
+
+@pytest.mark.parametrize("mask_kind", ["row", "value"])
+@pytest.mark.parametrize("bits", [4, 8, 16])
+def test_quantize_pack_ef_plain_matches_jax_reference(bits, mask_kind):
+    """Codes and delta bit for bit against ``_qp_ef_reference``, NaN and
+    +-inf in the rows included (NaN takes the top code there)."""
+    jt, rows, carried, mask = _qp_ef_case(bits, bits, mask_kind, nan=True)
+    jc, jd = jsk._qp_ef_reference(jt, jnp.asarray(rows),
+                                  jnp.asarray(carried), jnp.asarray(mask))
+    before = tsk.launches("quantize_pack_ef")
+    tc, td = tsk.quantize_pack_ef(_same_table(jt), torch.from_numpy(rows),
+                                  torch.from_numpy(carried),
+                                  torch.from_numpy(mask))
+    assert tsk.launches("quantize_pack_ef") == before
+    assert tc.dtype == tquant.code_dtype(bits) and td.dtype == torch.float32
+    assert tc.shape == rows.shape and td.shape == rows.shape
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    assert int(tc.reshape(-1)[2]) == (1 << bits) - 1
+
+
+@pytest.mark.parametrize("mask_kind", ["row", "value"])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_quantize_pack_ef_plain_matches_the_interpreted_tpu_kernel(
+        bits, mask_kind):
+    """``_qp_ef_pallas`` under the interpreter, bit for bit, on finite
+    values and +-inf (its compare-count gives NaN code 0, the reference
+    the top code: the same documented difference as quantize_pack's)."""
+    jt, rows, carried, mask = _qp_ef_case(10 + bits, bits, mask_kind)
+    jc, jd = jsk._qp_ef_pallas(jt, jnp.asarray(rows), jnp.asarray(carried),
+                               jnp.asarray(mask), interpret=True)
+    tc, td = tsk.quantize_pack_ef(_same_table(jt), torch.from_numpy(rows),
+                                  torch.from_numpy(carried),
+                                  torch.from_numpy(mask))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_quantize_pack_ef_fractional_mask_matches_jax_reference():
+    """A mask between 0 and 1 makes carried*mask a rounded product: the
+    plain version keeps the reference's order of operations."""
+    jt, rows, carried, _ = _qp_ef_case(7, 8, "row")
+    mask = np.random.default_rng(8).random((rows.shape[0], 1)).astype(
+        np.float32)
+    jc, jd = jsk._qp_ef_reference(jt, jnp.asarray(rows),
+                                  jnp.asarray(carried), jnp.asarray(mask))
+    tc, td = tsk.quantize_pack_ef(_same_table(jt), torch.from_numpy(rows),
+                                  torch.from_numpy(carried),
+                                  torch.from_numpy(mask))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+
+
+def test_quantize_pack_ef_wrapper_refuses_bad_inputs():
+    tt = _same_table(jquant.build_table(-1.0, 1.0, 8, "normal"))
+    x = torch.zeros((4, 3))
+    ef = tsk.KERNELS["quantize_pack_ef"].cuda
+    with pytest.raises(TypeError, match="float32 rows and carried"):
+        ef(tt, x.double(), x, torch.ones((4, 1)))
+    with pytest.raises(ValueError, match="carried"):
+        ef(tt, x, torch.zeros((4, 2)), torch.ones((4, 1)))
+    with pytest.raises(ValueError, match="does not broadcast"):
+        ef(tt, x, x, torch.ones((3, 1)))
+    with pytest.raises(ValueError, match="CUDA device"):
+        ef(tt, x, x, torch.ones((4, 1)))
+    with pytest.raises(ValueError, match="rows on"):
+        tsk.quantize_pack_ef(tt, x, x, torch.ones((4, 1), device="meta"))
 
 
 # -- quantize_pack_ef_update -----------------------------------------------------
@@ -335,6 +423,7 @@ def test_new_kernel_wrappers_refuse_bad_inputs():
 @pytest.mark.parametrize("name, phase, head", [
     ("merge_rows", "merge", "def _merge_pallas("),
     ("quantize_pack", "pack", "def _qp_pallas("),
+    ("quantize_pack_ef", "pack", "def _qp_ef_pallas("),
     ("quantize_pack_ef_update", "pack", "def _qp_ef_update_pallas("),
 ])
 def test_new_kernels_point_at_the_tpu_kernels(name, phase, head):

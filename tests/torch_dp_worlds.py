@@ -1,12 +1,13 @@
-"""Rank programs of the port's data-parallel tests, run in spawned worlds.
+"""Rank programs of the port's multi-rank tests, run in spawned worlds.
 
-``tests/test_torch_collectives.py`` and ``tests/test_torch_dp_trainer.py``
-start one world of W gloo ranks on the CPU per module (through the port's
-launcher, ``lightctr_tpu_torch.core.mesh.spawn_world``); every rank runs
-one of the programs below, which reads the scenario inputs the test wrote
-and saves what it computed as ``rank<r>.pt`` next to them.  The tests then
-hold rank 0's results against the JAX package on its 8-device CPU mesh,
-and every rank's against rank 0's.
+``tests/test_torch_collectives.py``, ``tests/test_torch_dp_trainer.py``
+and ``tests/test_torch_attention.py`` start one world of W gloo ranks on
+the CPU per module (through the port's launcher,
+``lightctr_tpu_torch.core.mesh.spawn_world``); every rank runs one of the
+programs below, which builds the scenario inputs from a numpy seed and
+saves what it computed as ``rank<r>.pt`` in the test's directory.  The
+tests then hold rank 0's results against the JAX package on its 8-device
+CPU mesh, and every rank's against rank 0's.
 
 Spawn re-imports this module in every child, so it imports neither JAX nor
 the JAX package (``tests/test_torch_imports.py`` checks).
@@ -20,11 +21,12 @@ import numpy as np
 import torch
 
 from lightctr_tpu_torch.core.config import TrainConfig
-from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh
+from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
 from lightctr_tpu_torch.dist import collectives as tcoll
 from lightctr_tpu_torch.models import fm as tfm
 from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
 from lightctr_tpu_torch.models.sparse_trainer import SparseTableCTRTrainer
+from lightctr_tpu_torch.nn.ring_attention import ring_self_attention
 
 TABLES = {"w": ["fids"], "v": ["fids"]}
 #: one world's deadline; a hang fails in this many seconds
@@ -217,4 +219,47 @@ def trainers_rank(rank, world, out_dir, carry_path):
     out["carry"] = {"loss": loss, "w": _np(tr.params["w"]),
                     "v": _np(tr.params["v"]),
                     "sres_v": _np(tr.opt_state["sres"]["v"])}
+    _save(out_dir, rank, out)
+
+
+# -- ring attention -----------------------------------------------------------
+
+#: [B, T, H, D] of the ring scenarios (tests/test_ring_attention.py's)
+ATTN_SHAPE = (2, 32, 2, 8)
+#: a sequence length no ring of 2 or 4 divides
+ATTN_BAD_T = 33
+
+
+def attention_inputs(seed=0):
+    """q, k, v of :data:`ATTN_SHAPE` from a numpy seed, unit normal."""
+    rng = np.random.default_rng(seed)
+    return [rng.normal(size=ATTN_SHAPE).astype(np.float32) for _ in range(3)]
+
+
+def attention_rank(rank, world, out_dir):
+    """``ring_self_attention`` over a ``seq`` mesh of every rank: float32
+    with and without the causal mask, bfloat16 causal (its blocks cross
+    gloo as bytes), the indivisible-T error, and the refusal of a function
+    that needs the ``data`` axis."""
+    mesh = make_mesh(MeshSpec(seq=world), device="cpu")
+    q, k, v = (torch.from_numpy(x) for x in attention_inputs())
+    out = {"axis": mesh.axis}
+    for causal in (False, True):
+        out[f"causal{int(causal)}"] = _np(
+            ring_self_attention(mesh, q, k, v, causal=causal))
+    bf = [x.to(torch.bfloat16) for x in (q, k, v)]
+    got = ring_self_attention(mesh, *bf, causal=True)
+    out["bf16_dtype"] = str(got.dtype)
+    out["bf16_causal"] = _np(got.float())
+    bad = torch.zeros((2, ATTN_BAD_T, 2, 8))
+    try:
+        ring_self_attention(mesh, bad, bad, bad)
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    try:
+        shard_batch(mesh, {"x": np.zeros(4 * world)})
+        out["data_axis"] = None
+    except ValueError as e:
+        out["data_axis"] = str(e)
     _save(out_dir, rank, out)
