@@ -22,8 +22,10 @@ Phases, one JSON line each:
            R = 65536, with negative and >= R indices that exercise the
            clip; dedup_ids bit-exact (uids, inv, count) at K in {1, 1000,
            159744} on Criteo id streams, negative ids and int32's limits,
-           all-equal and all-zero streams, and with size < count, and on
-           int64 streams across int64's range; merge_apply within 2 ulp
+           all-equal and all-zero streams, ids that differ only in the
+           lowest digit or only in the sign bit, and with size < count, and
+           on int64 streams across int64's range and ids that differ only
+           above bit 40; merge_apply within 2 ulp
            (table, accum) and rtol 1e-5 (sumsq) at V = 2^20, d in {1, 32},
            S = 159744, uids of a real dedup with and without id 0, denom in
            {1, 4}, and in merge mode on 159,744 gathered rows; merge_rows
@@ -37,10 +39,11 @@ Phases, one JSON line each:
            bit-exact (codes, delta) on the [79872, 32] payload at 8 and 16
            bits with +-inf and NaN, masked and unmasked rows, a [P, 1] and
            a [P, d] mask; flash_attention at the bench's causal bf16 shapes
-           (4, 1024, 8, 64), (2, 4096, 8, 64), (1, 8192, 8, 64) (max abs
-           error <= 2e-2, mean <= 2e-3), at (2, 256, 4, 32) and the graft
-           entry's (2, 32, 2, 8) in fp32, causal and not (rtol 2e-4, atol
-           2e-5).
+           (4, 1024, 8, 64), (2, 4096, 8, 64), (1, 8192, 8, 64), at bf16
+           heads of 128, 256 and 320 causal and not, and at B*H = 65,600
+           (max abs error <= 2e-2, mean <= 2e-3), at (2, 256, 4, 32) and the
+           graft entry's (2, 32, 2, 8) in fp32, causal and not (rtol 2e-4,
+           atol 2e-5); each case through the design ``flash_route`` names.
   serve    FM, 39 fields (26 categorical + 13 numeric), vocabulary 2^20,
            factor dim 32: a port ``AsyncParamServer`` (rows ``[w | v]`` of
            width 33) behind ``ParamServerService``, a ``PredictionServer``
@@ -91,7 +94,8 @@ Phases, one JSON line each:
            then ``ring_self_attention`` over a ``seq`` ring of 2 ranks
            spawned on the same card (gloo, host-staged) on the same inputs.
            Both ranks return the same tensor, within the bf16 tolerance
-           above of the flash output; flash_attention launched.  Ring
+           above of the flash output; flash_attention launched, through its
+           wgmma design.  Ring
            step time and a profile of two more calls on rank 0.
   bench    counts reset, then ``lightctr_tpu_torch.tools.
            sparse_kernel_bench.run`` and ``tools.kernel_bench.run`` (no
@@ -104,7 +108,8 @@ back-to-back calls), the plain version's, one PyTorch library call's where
 one computes the same function (the yardstick; the port never calls it),
 the eager per-call time with the host (``call_ms``) and the bound: bytes
 at 3.35 TB/s, or for flash_attention the larger of that and its FLOPs at
-989 TFLOP/s.  Then the ``nvidia-smi`` name and power limit, and the
+989 TFLOP/s (its ``per_shape`` adds the path shape non-causal and
+(2, 4096, 8, 128) causal, each beside SDPA).  Then the ``nvidia-smi`` name and power limit, and the
 last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
 exits non-zero; without CUDA, or without the ``lightctr_tpu_torch`` package
 beside this file, it exits 2 and prints no result.
@@ -162,6 +167,11 @@ ADAGRAD_NS = (1, 1001, 1 << 20, 1 << 25)
 FLASH_BENCH_SHAPES = ((4, 1024, 8, 64), (2, 4096, 8, 64), (1, 8192, 8, 64))
 FLASH_PATH_SHAPE = (2, 4096, 8, 64)     # the attention phase's
 FLASH_F32_SHAPES = ((2, 256, 4, 32), (2, 32, 2, 8))  # the last: graft entry
+# wide heads (bf16, causal and not) and B*H past gridDim.y's 65,535
+FLASH_WIDE_SHAPES = ((2, 1024, 8, 128), (2, 1024, 4, 256), (1, 1024, 4, 320))
+FLASH_MANY_HEADS_SHAPE = (32800, 16, 2, 64)
+# timed beside the path shape: (shape, causal)
+FLASH_EXTRA_TIMED = (((2, 4096, 8, 64), False), ((2, 4096, 8, 128), True))
 FLASH_16_MAX, FLASH_16_MEAN = 2e-2, 2e-3  # a few bf16 ulps at |o| < 2
 FLASH_F32_RTOL, FLASH_F32_ATOL = 2e-4, 2e-5  # the JAX flash test's
 RING_WORLD = 2
@@ -269,7 +279,8 @@ def criteo_fids(np, rng, rows):
 
 def dedup_streams(np, rng) -> dict:
     """name -> int32 id stream: Criteo ids, random ids with negatives and
-    int32's limits, all-equal and all-zero, at each K in DEDUP_KS."""
+    int32's limits, all-equal and all-zero, ids that differ only in the
+    lowest 8-bit digit or only in the sign bit, at each K in DEDUP_KS."""
     out = {}
     for k in DEDUP_KS:
         rows = -(-k // N_FIELDS)
@@ -280,6 +291,10 @@ def dedup_streams(np, rng) -> dict:
         out[f"edges_k{k}"] = edge.astype(np.int32)
         out[f"all_equal_k{k}"] = np.full(k, -7, np.int32)
         out[f"all_zero_k{k}"] = np.zeros(k, np.int32)
+        out[f"low_digit_k{k}"] = (rng.integers(0, 256, size=k)
+                                  + 0x3C3C3C00).astype(np.int32)
+        out[f"sign_bit_k{k}"] = np.where(rng.random(k) < 0.5, -(1 << 31),
+                                         0).astype(np.int32)
     return out
 
 
@@ -378,7 +393,9 @@ def check_fused_adagrad(torch, fa) -> dict:
 def check_dedup64(np, torch, sk, rng) -> dict:
     """dedup_ids on int64 id streams == plain version (torch.unique) bit
     for bit: Criteo ids shifted past int32, ids across int64's range with
-    its limits, and an all-equal stream, at K in DEDUP_KS."""
+    its limits, an all-equal stream, and ids that differ only above bit 40
+    (the radix sort's high digits, its low five skipped), at K in
+    DEDUP_KS."""
     cases = []
     i64 = np.iinfo(np.int64)
     for k in DEDUP_KS:
@@ -388,6 +405,8 @@ def check_dedup64(np, torch, sk, rng) -> dict:
             .astype(np.int64) * (1 << 33) - (1 << 40),
             "edges": rng.integers(i64.min, i64.max, size=k, dtype=np.int64),
             "all_equal": np.full(k, -(1 << 35), np.int64),
+            "high_digits": (rng.integers(0, 1 << 12, size=k)
+                            .astype(np.int64) << 41) - (1 << 62),
         }
         lim = [i64.min, i64.max, -1, 0, i64.min, i64.max]
         streams["edges"][:min(k, len(lim))] = lim[:k]
@@ -615,23 +634,33 @@ def flash_error(torch, got, want, dtype):
     return emax, emean
 
 
-def check_flash(torch, fl) -> dict:
+def check_flash(torch, sk, fl) -> dict:
     """flash_attention kernel vs plain version (float32 full_attention):
-    the bench's causal bf16 shapes, and fp32 at (2, 256, 4, 32) and the
-    graft entry's (2, 32, 2, 8), causal and not."""
+    the bench's causal bf16 shapes, bf16 heads of 128, 256 and 320 causal
+    and not, B*H = 65,600, and fp32 at (2, 256, 4, 32) and the graft
+    entry's (2, 32, 2, 8), causal and not.  Each case records the design
+    that ran (``flash_route``)."""
     cases, max_err = [], {"bfloat16": 0.0, "float32": 0.0}
     runs = [(shape, torch.bfloat16, True) for shape in FLASH_BENCH_SHAPES]
+    runs += [(shape, torch.bfloat16, causal) for shape in FLASH_WIDE_SHAPES
+             for causal in (False, True)]
+    runs.append((FLASH_MANY_HEADS_SHAPE, torch.bfloat16, True))
     runs += [(shape, torch.float32, causal) for shape in FLASH_F32_SHAPES
              for causal in (False, True)]
     for i, (shape, dt, causal) in enumerate(runs):
         q, k, v = flash_inputs(torch, shape, dt, 100 + i)
+        sk.reset_launches()
         got = fl.flash_attention(q, k, v, causal=causal)
         torch.cuda.synchronize()
+        route = sk.variant_launches("flash_attention")
+        if route != {fl.flash_route(q, k, v): 1}:
+            raise AssertionError(f"flash_attention {shape}: ran {route}")
         want = fl.flash_attention_plain(q, k, v, causal)
         emax, emean = flash_error(torch, got, want, dt)
         key = str(dt).replace("torch.", "")
         max_err[key] = max(max_err[key], emax)
-        cases.append([list(shape), key, causal, emax, emean])
+        cases.append([list(shape), key, causal, next(iter(route)), emax,
+                      emean])
         del q, k, v, got, want
     return {"max_abs_err": max(max_err.values()), "max_abs_err_by_dtype":
             max_err, "tolerance": {"16-bit": [FLASH_16_MAX, FLASH_16_MEAN],
@@ -1382,9 +1411,13 @@ def phase_attention(torch, sk, fl, seed) -> dict:
     flash = fl.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
     launches = sk.launches()
+    route = sk.variant_launches("flash_attention")
     if launches["flash_attention"] < 1:
         raise AssertionError(f"attention: flash_attention launched "
                              f"{launches['flash_attention']} times")
+    if route != {"wgmma": launches["flash_attention"]}:
+        raise AssertionError(f"attention: the path's bf16 call ran {route}, "
+                             "not the wgmma design")
     root = tempfile.mkdtemp(prefix="chip_smoke_ring_")
     try:
         t = time.perf_counter()
@@ -1413,6 +1446,7 @@ def phase_attention(torch, sk, fl, seed) -> dict:
                              f"{emean}")
     return {"phase": "attention", "shape": list(FLASH_PATH_SHAPE),
             "dtype": "bfloat16", "causal": True, "launches": launches,
+            "flash_route": route,
             "ring": {"world": RING_WORLD, "backend": recs[0]["backend"],
                      "devices": [rec["device"] for rec in recs],
                      "step_ms_rank0": recs[0]["step_ms"],
@@ -1764,7 +1798,7 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
     return out, {"int64": dedup64}, {"merge_mode": merge_mode}
 
 
-def new_timing(torch, sk, fl, qz, seed, launches, kern) -> list:
+def new_timing(torch, sk, fl, qz, seed, launches, kern, route) -> list:
     """quantize_pack_ef on the [79,872, 32] payload (8 bits, a [P, 1]
     mask: one dp rank's layout) and flash_attention at the attention
     path's shape, with the bench's other shapes beside it."""
@@ -1791,37 +1825,42 @@ def new_timing(torch, sk, fl, qz, seed, launches, kern) -> list:
                                                            mask)))]
 
     per_shape = []
-    for i, shape in enumerate(FLASH_BENCH_SHAPES):
+    timed = [(shape, True) for shape in FLASH_BENCH_SHAPES]
+    timed += list(FLASH_EXTRA_TIMED)
+    for i, (shape, causal) in enumerate(timed):
         b, t, h, d = shape
         q, k, v = flash_inputs(torch, shape, torch.bfloat16, seed + 200 + i)
         qt, kt, vt = (y.transpose(1, 2).contiguous() for y in (q, k, v))
-        flops = 4 * b * h * t * t * d / 2
+        # causal: the lower triangle's products (T^2/2 of them)
+        flops = 4 * b * h * t * t * d / (2 if causal else 1)
         nbytes = 4 * q.numel() * 2
         bound, by = bound_ms_ops(nbytes, flops)
         kms = graph_ms(torch, lambda: fl.flash_attention(q, k, v,
-                                                         causal=True),
+                                                         causal=causal),
                        reps=20)
         per_shape.append({
-            "shape": list(shape), "ms": kms,
+            "shape": list(shape), "causal": causal,
+            "design": fl.flash_route(q, k, v), "ms": kms,
             "plain_ms": call_ms(torch, lambda: fl.flash_attention_plain(
-                q, k, v, True), reps=5),
+                q, k, v, causal), reps=5),
             "library_ms": graph_ms(
                 torch, lambda: torch.nn.functional
-                .scaled_dot_product_attention(qt, kt, vt, is_causal=True),
+                .scaled_dot_product_attention(qt, kt, vt, is_causal=causal),
                 reps=20),
             "call_ms": call_ms(torch, lambda: fl.flash_attention(
-                q, k, v, causal=True), reps=20),
+                q, k, v, causal=causal), reps=20),
             "bound_ms": bound, "bound_by": by, "flops": flops,
             "bytes": nbytes, "tflops": flops / (kms / 1e3) / 1e12})
         del q, k, v, qt, kt, vt
-    main = per_shape[[tuple(p["shape"]) for p in per_shape].index(
-        FLASH_PATH_SHAPE)]
+    main = per_shape[[(tuple(p["shape"]), p["causal"]) for p in per_shape]
+                     .index((FLASH_PATH_SHAPE, True))]
     rows.append(kernel_row(
         sk, "flash_attention", launches=launches["flash_attention"],
         launches_on="attention phase",
         max_abs_err=kern["flash_attention"]["max_abs_err"],
         shape={"bthd": list(FLASH_PATH_SHAPE), "dtype": "bfloat16",
                "causal": True},
+        design=main["design"], design_launches=route,
         ms=main["ms"], plain_ms=main["plain_ms"],
         plain_timing="eager between events (float32 full_attention)",
         library_ms=main["library_ms"],
@@ -1879,7 +1918,7 @@ def main(argv=None) -> int:
         np, torch, sk, qz, krng)
     kern["fused_adagrad"] = check_fused_adagrad(torch, fa)
     kern["quantize_pack_ef"] = check_quantize_pack_ef(np, torch, sk, qz)
-    kern["flash_attention"] = check_flash(torch, fl)
+    kern["flash_attention"] = check_flash(torch, sk, fl)
     emit(kern)
     serve_info = phase_serve(np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
@@ -1907,7 +1946,8 @@ def main(argv=None) -> int:
     rows += new_rows
     rows += new_timing(torch, sk, fl, qz, args.seed, {
         "quantize_pack_ef": bench_info["launches"]["quantize_pack_ef"],
-        "flash_attention": attn_info["launches"]["flash_attention"]}, kern)
+        "flash_attention": attn_info["launches"]["flash_attention"]}, kern,
+        attn_info["flash_route"])
     for row in rows:
         row["launches_bench"] = bench_info["launches"].get(row["name"], 0)
     emit({"kernels": rows})

@@ -1,9 +1,9 @@
-// A bitonic sort of fixed-width keys in device memory, shared by the kernels
-// that sort (id, slot) or (segment, slot) pairs: dedup_ids.cu and
-// merge_rows.cu.
+// A bitonic sort of fixed-width keys in device memory, for the kernels that
+// sort (segment, slot) pairs: merge_rows.cu (dedup_ids.cu sorts on
+// radix_sort.cuh).
 //
-// Keys are 64-bit (u64) or 128-bit (Key128, compared hi first), padded by
-// the caller to a power of two P with keys that sort last.  Stages whose
+// Keys are 64-bit (u64), padded by the caller to a power of two P with keys
+// that sort last.  Stages whose
 // partner distance is under kSortChunk run in shared memory, one block per
 // chunk; wider ones run as global compare-exchange passes (log2(P/chunk) of
 // them per stage).  At P = 2^18 that is 171 compare-exchange passes, most of
@@ -19,15 +19,7 @@ namespace lct {
 
 typedef unsigned long long u64;
 
-struct __align__(16) Key128 {
-  u64 hi, lo;
-};
-
 __device__ __forceinline__ bool key_gt(u64 a, u64 b) { return a > b; }
-
-__device__ __forceinline__ bool key_gt(const Key128& a, const Key128& b) {
-  return a.hi > b.hi || (a.hi == b.hi && a.lo > b.lo);
-}
 
 constexpr int kSortThreads = 256;
 constexpr long long kSortMaxBlocks = 4096;

@@ -3,9 +3,11 @@
 The port's counterpart of ``lightctr_tpu/nn/flash_attention.py``: exact
 attention over [B, T, H, D] computed tile by tile with an online softmax,
 never holding the [T, T] score matrix; optionally causal, skipping the key
-tiles above the diagonal.  The kernel (``csrc/flash_attention.cu``) takes
-float32, bfloat16 and float16 at any ``D <= 128``; its design note says how
-it differs from the TPU's grid.  Forward only, as in the JAX package.
+tiles above the diagonal.  ``csrc/flash_attention.cu`` holds three kernels
+that together take float32, bfloat16 and float16 at any D and any B*H; its
+design note says how each differs from the TPU's grid, and
+:func:`flash_route` is the one rule that picks among them.  Forward only,
+as in the JAX package.
 
 Dispatch follows the tensor's device (``ops.sparse_kernels``, phase
 ``attention``): the plain version on a CPU tensor, the kernel on a CUDA
@@ -24,9 +26,35 @@ from lightctr_tpu_torch.nn.ring_attention import full_attention
 from lightctr_tpu_torch.ops import sparse_kernels as sk
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
-#: the widest head the kernel takes
-MAX_HEAD_DIM = 128
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: the kernel's designs, by the code its C entry takes
+ROUTES = {"fma": 0, "mma_sync": 1, "wgmma": 2}
+#: the widest head the wgmma kernel and the mma.sync kernel take
+WGMMA_MAX_HEAD_DIM = 256
+MMA_MAX_HEAD_DIM = 128
+
+
+def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which of the kernel's three designs a call takes: the one shape and
+    dtype rule, decided before the launch (never by a failed one).
+
+    - ``"wgmma"``: bfloat16 or float16 whose TMA tensor maps the card
+      accepts — D % 8 == 0 (so every row stride, D*2 and H*D*2 bytes, is a
+      multiple of 16) and q, k and v start 16-byte aligned — at D <= 256;
+    - ``"mma_sync"``: other bfloat16/float16 at D <= 128;
+    - ``"fma"``: float32 at any D (no TF32: the JAX reference is full
+      float32), and the 16-bit shapes the other two cannot take (wider
+      heads in 128-column output slices).
+    """
+    if q.dtype == torch.float32:
+        return "fma"
+    d = q.shape[-1]
+    tma_ok = d % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    if tma_ok and d <= WGMMA_MAX_HEAD_DIM:
+        return "wgmma"
+    if d <= MMA_MAX_HEAD_DIM:
+        return "mma_sync"
+    return "fma"
 
 
 def validate_blocks(t: int, block_q: int, block_k: int):
@@ -60,12 +88,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 def _bind(lib: ctypes.CDLL) -> None:
     p, ll, i = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     sk.bind_entry(lib, "flash_attention_fwd",
-                  [p, p, p, p, i, ll, ll, ll, ll, i, p])
+                  [p, p, p, p, i, ll, ll, ll, ll, i, i, p])
 
 
 def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False) -> torch.Tensor:
-    """Launch the CUDA kernel on the current stream; no synchronise."""
+    """Launch the CUDA kernel of :func:`flash_route`'s design on the
+    current stream; no synchronise.  Counts the launch under the kernel
+    and under its design (``sk.variant_launches("flash_attention")``)."""
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError("flash_attention kernel takes q, k, v of one dtype "
                         "among float32, bfloat16, float16, got "
@@ -75,20 +105,16 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"[B, T, H, D] shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, t, h, d = q.shape
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention kernel takes D <= {MAX_HEAD_DIM}, "
-                         f"got {d}")
-    if b * h > 65535:
-        raise ValueError(f"flash_attention kernel takes B*H <= 65535, got "
-                         f"{b * h}")
     dev = sk.check_cuda_tensors("flash_attention", q=q, k=k, v=v)
     o = torch.empty_like(q)
     if q.numel() == 0:
         return o
+    route = flash_route(q, k, v)
     lib = sk.load("flash_attention")
     sk.run_kernel("flash_attention", dev, lib.flash_attention_fwd,
                   q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                  _DTYPE_CODES[q.dtype], b, t, h, d, int(bool(causal)))
+                  _DTYPE_CODES[q.dtype], b, t, h, d, int(bool(causal)),
+                  ROUTES[route], variant=route)
     return o
 
 
@@ -104,7 +130,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     block_k: int = 512) -> torch.Tensor:
     """Dispatch: exact attention over [B, T, H, D] -> [B, T, H, D] in
     ``q``'s dtype.  The plain version on CPU tensors, the CUDA kernel on
-    CUDA tensors (float32, bfloat16 or float16; ``D <= 128``)."""
+    CUDA tensors (float32, bfloat16 or float16, any D; the design by
+    :func:`flash_route`)."""
     validate_blocks(q.shape[1], block_q, block_k)
     if not (k.device == v.device == q.device):
         raise ValueError(f"flash_attention: q on {q.device}, k on "

@@ -82,6 +82,9 @@ class KernelDef(NamedTuple):
 KERNELS: Dict[str, KernelDef] = {}
 
 _launches: Dict[str, int] = {}
+#: name -> {variant: launches}, for a kernel whose wrapper picks among
+#: designs (flash_attention's route)
+_variant_launches: Dict[str, Dict[str, int]] = {}
 _launch_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
@@ -108,16 +111,27 @@ def launches(name: Optional[str] = None):
         return dict(_launches) if name is None else _launches[name]
 
 
+def variant_launches(name: str) -> Dict[str, int]:
+    """Launches of kernel ``name`` by the design that ran (empty for a
+    kernel with one design)."""
+    with _launch_lock:
+        return dict(_variant_launches.get(name, {}))
+
+
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
+    """Set every kernel's launch count, and its counts by design, to 0."""
     with _launch_lock:
         for k in _launches:
             _launches[k] = 0
+        _variant_launches.clear()
 
 
-def _count_launch(name: str) -> None:
+def _count_launch(name: str, variant: Optional[str] = None) -> None:
     with _launch_lock:
         _launches[name] += 1
+        if variant is not None:
+            by = _variant_launches.setdefault(name, {})
+            by[variant] = by.get(variant, 0) + 1
 
 
 def next_pow2(n: int, floor: int = 8) -> int:
@@ -224,16 +238,18 @@ def dispatch(name: str, device: torch.device) -> Callable:
     raise ValueError(f"{name}: no implementation for device {device}")
 
 
-def run_kernel(name: str, device: torch.device, entry, *args) -> None:
+def run_kernel(name: str, device: torch.device, entry, *args,
+               variant: Optional[str] = None) -> None:
     """Call the C entry ``entry(*args, stream)`` on ``device``'s current
     stream (no synchronise); raise on a non-zero CUDA error, else count
-    one launch of kernel ``name``."""
+    one launch of kernel ``name`` (and of its design ``variant``, where the
+    wrapper picked one)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = entry(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    _count_launch(name)
+    _count_launch(name, variant)
 
 
 def check_cuda_tensors(name: str, **tensors) -> torch.device:
@@ -338,7 +354,7 @@ def gather_rows(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 # fill_value=0)`` contract plus the distinct count — the sparse trainer's
 # per-step dedup of each id stream.  Replaces lightctr_tpu/ops/
 # sparse_kernels.py ``_dedup_pallas`` / ``_dedup_kernel``; csrc/dedup_ids.cu
-# has the kernel (a bitonic sort and a scan, not the TPU's O(K^2) rank
+# has the kernel (a radix sort and a scan, not the TPU's O(K^2) rank
 # compare) and its design note.
 
 

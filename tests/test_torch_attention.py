@@ -101,6 +101,67 @@ def test_flash_attention_plain_matches_interpreted_tpu_kernel(shape, causal,
                                rtol=FLASH_RTOL, atol=FLASH_ATOL)
 
 
+@pytest.mark.parametrize("d", [192, 256])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_plain_matches_interpreted_tpu_kernel_wide_heads(
+        d, causal):
+    """Head widths past the mma.sync kernel's 128, which the JAX kernel
+    takes (VMEM tiles of (block, D)) and the port's kernels now take too:
+    the plain version against the interpreted Pallas kernel."""
+    t = 32 if causal else 64
+    q, k, v = qkv(7 + d + causal, 1, t, 2, d)
+    want = jflash.flash_attention(*map(jnp.asarray, (q, k, v)),
+                                  causal=causal, block_q=16, block_k=16,
+                                  interpret=True)
+    got = tflash.flash_attention(*map(torch.from_numpy, (q, k, v)),
+                                 causal=causal, block_q=16, block_k=16)
+    assert got.dtype == torch.float32 and got.shape == (1, t, 2, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=FLASH_RTOL, atol=FLASH_ATOL)
+
+
+def _shifted(shape, dtype, elems):
+    """A contiguous tensor of ``shape`` whose data starts ``elems`` elements
+    into its storage (2 bytes an element for 16-bit types)."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + elems, dtype=dtype)[elems:].view(shape)
+
+
+@pytest.mark.parametrize("dtype, shape, shift, route", [
+    # 16-bit with TMA-able strides and bases: the wgmma design to D = 256
+    (torch.bfloat16, (2, 4096, 8, 64), 0, "wgmma"),
+    (torch.float16, (1, 100, 3, 72), 0, "wgmma"),
+    (torch.bfloat16, (1, 32, 2, 8), 0, "wgmma"),
+    (torch.bfloat16, (1, 64, 2, 256), 0, "wgmma"),
+    (torch.float16, (1, 64, 2, 160), 0, "wgmma"),
+    # D % 8 != 0 (a row stride TMA refuses) or a base off 16 bytes: PR 4's
+    # mma.sync kernel to D = 128
+    (torch.bfloat16, (1, 70, 2, 20), 0, "mma_sync"),
+    (torch.float16, (1, 64, 1, 128), 4, "mma_sync"),
+    (torch.bfloat16, (2, 64, 2, 64), 1, "mma_sync"),
+    # float32 at any width, and 16-bit that neither tensor-core kernel
+    # takes: the FMA kernel (128-column output slices past D = 128)
+    (torch.float32, (2, 256, 4, 32), 0, "fma"),
+    (torch.float32, (1, 64, 2, 256), 0, "fma"),
+    (torch.bfloat16, (1, 64, 1, 129), 0, "fma"),
+    (torch.bfloat16, (1, 64, 2, 320), 0, "fma"),
+    (torch.float16, (1, 64, 2, 136), 4, "fma"),
+])
+def test_flash_route_rule(dtype, shape, shift, route):
+    """The one rule that picks a design from (dtype, shape, alignment),
+    decided on the tensors before any launch; every design is a kernel of
+    csrc/flash_attention.cu with its code in ``ROUTES``."""
+    q = _shifted(shape, dtype, shift)
+    k, v = torch.zeros(shape, dtype=dtype), torch.zeros(shape, dtype=dtype)
+    assert tflash.flash_route(q, k, v) == route
+    assert tflash.ROUTES[route] in (0, 1, 2)
+    # an aligned q with a misaligned k or v takes the same route as a
+    # misaligned q
+    if shift:
+        assert tflash.flash_route(k, q, v) == route
+        assert tflash.flash_route(k, v, q) == route
+
+
 def test_flash_attention_plain_keeps_the_input_dtype():
     q, k, v = (torch.from_numpy(x).to(torch.bfloat16) for x in qkv(5))
     got = tflash.flash_attention(q, k, v, causal=True)
@@ -147,9 +208,12 @@ def test_flash_attention_kernel_is_registered_and_refuses_bad_inputs():
         kd.cuda(x.double(), x.double(), x.double())
     with pytest.raises(ValueError, match="one .B, T, H, D. shape"):
         kd.cuda(x, x[:, :4], x)
-    wide = torch.zeros((1, 8, 1, 129))
-    with pytest.raises(ValueError, match="D <= 128"):
-        kd.cuda(wide, wide, wide)
+    # no width or head-count limit: a D = 129 head, a D = 320 head and
+    # B*H past 65,535 reach the device check like any other shape
+    for shape in ((1, 8, 1, 129), (1, 8, 2, 320), (65600, 2, 1, 8)):
+        wide = torch.zeros(shape, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="CUDA device"):
+            kd.cuda(wide, wide, wide)
     with pytest.raises(ValueError, match="CUDA device"):
         kd.cuda(x, x, x)
 

@@ -77,6 +77,40 @@ def test_dedup_kernel_int64_matches_plain(dev, name):
             assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
+def digit_streams(k):
+    """Streams that only a stable radix sort with its digit skip keeps
+    right: int64 ids that differ only above bit 40, ids that differ only
+    in the lowest 8-bit digit, ids that differ only in the sign bit (int32
+    and int64), each with repeats in shuffled order."""
+    rng = np.random.default_rng(k)
+    i64 = np.iinfo(np.int64)
+    return {
+        "int64_above_bit40": (rng.integers(0, 64, k).astype(np.int64) << 41)
+        + 0x123456789,
+        "int32_lowest_digit": (rng.integers(0, 256, k) + 0x5A5A5A00)
+        .astype(np.int32),
+        "int64_lowest_digit": rng.integers(0, 256, k).astype(np.int64)
+        - (1 << 50),
+        "int32_sign_bit": np.where(rng.random(k) < 0.5, -(1 << 31), 0)
+        .astype(np.int32),
+        "int64_sign_bit": np.where(rng.random(k) < 0.5, i64.min, 0)
+        .astype(np.int64),
+    }
+
+
+@pytest.mark.parametrize("k", [4095, 4096, 4097, (1 << 18) + 1])
+@pytest.mark.parametrize("name", sorted(digit_streams(1)))
+def test_dedup_kernel_digit_streams_match_plain(dev, name, k):
+    """Bit for bit at K around the sort's 4096-key tile and past 2^18:
+    uids, inv (stability across tiles shows only there) and the count."""
+    ids = torch.from_numpy(digit_streams(k)[name]).to(dev)
+    count = int(sk.dedup_ids_plain(ids, k)[2])
+    for size in sorted({k, max(1, count // 2)}):
+        got = sk.dedup_ids(ids, size)
+        for a, b in zip(got, sk.dedup_ids_plain(ids, size)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, k, size)
+
+
 @pytest.mark.parametrize("d", [1, 8])
 @pytest.mark.parametrize("denom", [1.0, 4.0])
 def test_merge_apply_kernel_matches_plain(dev, d, denom):
@@ -258,10 +292,69 @@ def test_flash_attention_kernel_matches_plain(dev, shape, dtype, causal):
         assert float(err.mean()) <= FLASH_16_MEAN
 
 
-def test_flash_attention_kernel_refuses_wide_heads(dev):
-    x = torch.zeros((1, 8, 1, 129), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="D <= 128"):
-        fl.flash_attention(x, x, x)
+def flash_check(dev, shape, dt, causal):
+    """One kernel call against the plain version at ``shape``; returns the
+    design that ran."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator(device=dev).manual_seed(sum(shape) + causal)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+               for _ in range(3))
+    sk.reset_launches()
+    got = fl.flash_attention(q, k, v, causal=causal)
+    runs = sk.variant_launches("flash_attention")
+    assert sk.launches("flash_attention") == 1 and sum(runs.values()) == 1
+    want = fl.flash_attention_plain(q, k, v, causal)
+    assert got.dtype == dt and got.shape == q.shape
+    if dt == torch.float32:
+        torch.testing.assert_close(got, want, rtol=FLASH_F32[0],
+                                   atol=FLASH_F32[1])
+    else:
+        err = (got.float() - want.float()).abs()
+        assert bool(torch.isfinite(got.float()).all())
+        assert float(err.max()) <= FLASH_16_MAX, float(err.max())
+        assert float(err.mean()) <= FLASH_16_MEAN, float(err.mean())
+    return next(iter(runs))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_flash_attention_kernel_refuses_wide_heads(dev, dtype):
+    """D = 129 was refused (D <= 128); it now gives a result within the
+    tolerances: a 16-bit head whose row stride TMA refuses and that the
+    mma.sync kernel cannot take runs the FMA kernel in 128-column output
+    slices, as float32 does."""
+    assert flash_check(dev, (1, 200, 2, 129), getattr(torch, dtype),
+                       True) == "fma"
+
+
+@pytest.mark.parametrize("t", [100, 1000, 4096])
+@pytest.mark.parametrize("d", [64, 128, 160, 256, 320])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_flash_attention_kernel_head_widths_match_plain(dev, dtype, causal,
+                                                        d, t):
+    """Every head width the JAX kernel takes: the aligned 16-bit shapes
+    through D = 256 run the wgmma design, D = 320 the FMA kernel's
+    column slices."""
+    route = flash_check(dev, (1, t, 2, d), getattr(torch, dtype), causal)
+    assert route == ("wgmma" if d <= 256 else "fma")
+
+
+def test_flash_attention_kernel_many_heads_match_plain(dev):
+    """B*H = 65,600, past gridDim.y's 65,535: work items ride gridDim.x."""
+    assert flash_check(dev, (32800, 16, 2, 64), torch.bfloat16,
+                       True) == "wgmma"
+
+
+@pytest.mark.parametrize("shape", [(2, 4096, 8, 64), (4, 1024, 8, 64),
+                                   (2, 4096, 8, 128)])
+def test_flash_attention_aligned_bf16_runs_wgmma(dev, shape):
+    """The attention path's and the bench's shapes go through the Hopper
+    design, and an offset view of the same data through mma.sync."""
+    assert flash_check(dev, shape, torch.bfloat16, True) == "wgmma"
+    n = int(np.prod(shape))
+    x = torch.randn(n + 1, device=dev).to(torch.bfloat16)[1:].view(shape)
+    assert fl.flash_route(x, x, x) == ("mma_sync" if shape[-1] <= 128
+                                       else "fma")
 
 
 @pytest.mark.parametrize("n, offset", [(1, 0), (1001, 0), (4096, 0),
