@@ -28,9 +28,13 @@ Phases, one JSON line each:
            above bit 40; merge_apply within 2 ulp
            (table, accum) and rtol 1e-5 (sumsq) at V = 2^20, d in {1, 32},
            S = 159744, uids of a real dedup with and without id 0, denom in
-           {1, 4}, and in merge mode on 159,744 gathered rows; merge_rows
-           bit-exact at 159,744 rows, d in {1, 32}, with heavy duplicates
-           and out-of-range segments; quantize_pack bit-exact on the
+           {1, 4}, and in merge mode on 159,744 gathered rows, raw and as
+           the dp path gathers them with the coded runs' non-zero padding
+           rows (one launch of its fused ``merge`` design, none of
+           merge_rows); merge_rows bit-exact at 159,744 rows, d in {1,
+           32}, with heavy duplicates and out-of-range segments, with
+           segments whose rows are all +-0, and at nseg = 2^24 + 77 (all
+           four radix digits move); quantize_pack bit-exact on the
            [79872, 32] payload at 4, 8 (uniform, normal, fixed and measured
            range) and 16 bits with +-inf and NaN; quantize_pack_ef_update
            bit-exact (codes, dec, residual) on a real dedup's uids with id 0
@@ -75,8 +79,9 @@ Phases, one JSON line each:
            rank), through the hybrid sparse exchange: (a) exact, 50 steps,
            held-out AUC > 0.55; (b) 8 bits with a measured range, 10 steps;
            (c) 8 bits with its defaults (range 1.0, error feedback), 10
-           steps.  Per rank and step: dedup_ids, merge_rows and merge_apply
-           launched twice each, quantize_pack twice in (b),
+           steps.  Per rank and step: dedup_ids and merge_apply launched
+           twice each (every merge_apply launch its fused merge mode, and
+           no merge_rows launch), quantize_pack twice in (b),
            quantize_pack_ef_update twice in (c) (counts reset in each rank
            just before its steps).  Both ranks end bit-identical; the loss
            falls in every run; (b) ends within 0.05 of (a) at the same
@@ -95,12 +100,16 @@ Phases, one JSON line each:
            spawned on the same card (gloo, host-staged) on the same inputs.
            Both ranks return the same tensor, within the bf16 tolerance
            above of the flash output; flash_attention launched, through its
-           wgmma design.  Ring
-           step time and a profile of two more calls on rank 0.
+           wgmma design, and refusing bf16 inputs that require grad (it
+           has no backward).  The ring's backward on every rank: the
+           gradients of sum(out ** 2) at (2, 64, 2, 16) float32 causal
+           within rtol 1e-3 / atol 1e-4 of full attention's autograd.
+           Ring step time and a profile of two more calls on rank 0.
   bench    counts reset, then ``lightctr_tpu_torch.tools.
            sparse_kernel_bench.run`` and ``tools.kernel_bench.run`` (no
-           file written): every cell's kernel launched (quantize_pack_ef and
-           flash_attention included); their cells are printed.
+           file written): every cell's kernel launched (merge_rows,
+           quantize_pack_ef and flash_attention included; merge_apply in its
+           fused merge mode); their cells are printed.
 
 Then a ``{"kernels": [...]}`` line: each kernel at its main path's shape,
 its launches on that path, its device time (``ms``, CUDA graph of
@@ -109,10 +118,13 @@ one computes the same function (the yardstick; the port never calls it),
 the eager per-call time with the host (``call_ms``) and the bound: bytes
 at 3.35 TB/s, or for flash_attention the larger of that and its FLOPs at
 989 TFLOP/s (its ``per_shape`` adds the path shape non-causal and
-(2, 4096, 8, 128) causal, each beside SDPA).  Then the ``nvidia-smi`` name and power limit, and the
-last line ``{"ok": true, "device": {...}}``.  Any failed phase raises and
-exits non-zero; without CUDA, or without the ``lightctr_tpu_torch`` package
-beside this file, it exits 2 and prints no result.
+(2, 4096, 8, 128) causal, each beside SDPA; merge_rows' ``per_shape`` and
+merge_apply's ``merge_mode`` give d = 32 and d = 1, the merge mode each
+with the exact exchange's zero padding rows and the coded ones' non-zero
+rows).  Then the ``nvidia-smi`` name and power limit, and the last line
+``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
+non-zero; without CUDA, or without the ``lightctr_tpu_torch`` package beside
+this file, it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -175,6 +187,10 @@ FLASH_EXTRA_TIMED = (((2, 4096, 8, 64), False), ((2, 4096, 8, 128), True))
 FLASH_16_MAX, FLASH_16_MEAN = 2e-2, 2e-3  # a few bf16 ulps at |o| < 2
 FLASH_F32_RTOL, FLASH_F32_ATOL = 2e-4, 2e-5  # the JAX flash test's
 RING_WORLD = 2
+# the ring's backward against full attention's autograd, float32 causal
+# (tests/test_ring_attention.py::test_ring_grad_flows' tolerance)
+RING_GRAD_SHAPE = (2, 64, 2, 16)
+RING_GRAD_RTOL, RING_GRAD_ATOL = 1e-3, 1e-4
 BF16_FLOPS_PER_S = 989e12   # H100 SXM dense bf16, NVIDIA's data sheet
 
 # -- the dp phase: the same model and global batch over DP_WORLD ranks --
@@ -426,6 +442,28 @@ def check_dedup64(np, torch, sk, rng) -> dict:
     return {"bit_exact": True, "max_abs_err": 0, "cases": cases}
 
 
+#: a padding row's value after the coded exchange: the codes' tables hold
+#: no exact 0, so the padding's zero rows decode to small values, which the
+#: merge adds (one run of about half the gathered rows)
+CODED_PAD = 1e-3
+
+
+def gathered_stream(np, torch, sk, rng):
+    """The dp path's merge input: the two ranks' dedup streams of one
+    global batch (K = 79,872 ids each, id 0 padding each past its count),
+    gathered, and their union.  Returns (ids, uniq, inv, count, pad, per
+    rank), ``pad`` [M, 1] float32, 1 at each padding slot."""
+    fids = criteo_fids(np, rng, DP_WORLD * DP_LOCAL_ROWS).reshape(-1)
+    per_rank = [sk.dedup_ids(torch.from_numpy(
+        fids[r * DP_LOCAL_K:(r + 1) * DP_LOCAL_K]).cuda())
+        for r in range(DP_WORLD)]
+    ids = torch.cat([u for u, _, _ in per_rank])
+    uniq, inv, count = sk.dedup_ids(ids)
+    slot = torch.arange(ids.numel(), device="cuda") % per_rank[0][0].numel()
+    pad = ((ids == 0) & (slot > 0)).to(torch.float32).reshape(-1, 1)
+    return ids, uniq, inv, int(count), pad, per_rank
+
+
 def merge_inputs(np, torch, rng, m, d, nseg):
     """[m, d] rows and an inv over [-3, nseg + 3): the two ranks' gathered
     Criteo streams' heavy duplicates (a numeric field's id in every row)
@@ -443,41 +481,73 @@ def merge_inputs(np, torch, rng, m, d, nseg):
 def check_merge_rows(np, torch, sk, rng) -> dict:
     """merge_rows kernel == plain version (slot-order rounds) bit for bit
     at the allgather merge's shape: W*K = 159,744 gathered rows, d in
-    {1, 32}, nseg = W*K."""
+    {1, 32}, nseg = W*K; the same rows with every seventh segment's rows
+    all +-0 (left at +0); and nseg = 2^24 + 77, so the radix sort moves all
+    four digits."""
     m = DP_WORLD * DP_LOCAL_K
     cases = []
-    for d in (1, DIM):
+    for d, nseg, zeros in ((1, m, False), (DIM, m, False), (DIM, m, True),
+                           (1, (1 << 24) + 77, False)):
         rows, inv = merge_inputs(np, torch, rng, m, d, m)
-        got = sk.merge_rows(rows, inv, m)
+        if nseg != m:
+            inv = torch.from_numpy(rng.integers(
+                -2, nseg + 2, size=m).astype(np.int32)).cuda()
+        if zeros:
+            hit = (inv % 7) == 0
+            rows[hit] = torch.where(torch.rand_like(rows[hit]) < 0.5, 0.0,
+                                    -0.0)
+        got = sk.merge_rows(rows, inv, nseg)
         torch.cuda.synchronize()
-        want = sk.merge_rows_plain(rows, inv, m)
-        if not torch.equal(got, want):
-            raise AssertionError(f"merge_rows kernel != plain at d={d}: max "
-                                 f"{float((got - want).abs().max())}")
-        cases.append([m, d, m, int((inv < 0).sum() + (inv >= m).sum())])
+        want = sk.merge_rows_plain(rows, inv, nseg)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"merge_rows kernel != plain at d={d}, "
+                                 f"nseg={nseg}, zero segments {zeros}: "
+                                 f"max {float((got - want).abs().max())}")
+        cases.append({"m": m, "d": d, "nseg": nseg, "zero_segments": zeros,
+                      "dropped": int((inv < 0).sum() + (inv >= nseg).sum())})
     return {"bit_exact": True, "max_abs_err": 0.0, "cases": cases}
 
 
 def check_merge_apply_merge_mode(np, torch, sk, rng) -> dict:
-    """merge_apply in merge mode (merge_rows, then the apply) vs the plain
-    version: W*K = 159,744 gathered rows merged onto the union of two
-    ranks' dedup streams, V = 2^20, d in {1, 32}, denom W."""
+    """merge_apply in merge mode (one fused launch: the merge's sort and
+    runs, applied straight to the table) vs the plain version: W*K =
+    159,744 gathered rows merged onto the union of two ranks' dedup
+    streams, V = 2^20, d in {1, 32}, denom W; each call one launch of
+    merge_apply's ``merge`` design and none of merge_rows.  Then the dp
+    path's own stream, the two ranks' dedup streams gathered, with the
+    padding rows at CODED_PAD as the coded runs send them: one run of
+    about half the rows, which the whole walker block sums."""
     fids = criteo_fids(np, rng, DP_WORLD * DP_LOCAL_ROWS).reshape(-1)
-    ids = torch.from_numpy(fids).cuda()
-    uids, inv, count = sk.dedup_ids(ids)
+    raw_ids = torch.from_numpy(fids).cuda()
+    raw = sk.dedup_ids(raw_ids)
+    coded = gathered_stream(np, torch, sk, rng)
     gen = torch.Generator(device="cuda").manual_seed(17)
     max_ulp = {"table": 0, "accum": 0}
     max_abs, max_rel, cases = 0.0, 0.0, []
-    for d in (1, DIM):
+    for d, stream in ((1, "raw"), (DIM, "raw"), (1, "coded_pads"),
+                      (DIM, "coded_pads")):
+        if stream == "raw":
+            ids, (uids, inv, count) = raw_ids, raw
+        else:
+            ids, uids, inv, count, pad, _ = coded
         shape = (VOCAB,) if d == 1 else (VOCAB, d)
         table = torch.randn(shape, generator=gen, device="cuda")
         accum = torch.rand(shape, generator=gen, device="cuda")
         rows = torch.randn((ids.numel(),) + shape[1:], generator=gen,
                            device="cuda")
+        if stream == "coded_pads":
+            p = pad if d > 1 else pad.reshape(-1)
+            rows = rows * 0.05 * (1 - p) + CODED_PAD * p
         t1, a1 = table.clone(), accum.clone()
+        sk.reset_launches()
         _, _, s1 = sk.merge_apply(t1, a1, uids, rows, inv, lr=LR, eps=EPS,
                                   denom=float(DP_WORLD))
         torch.cuda.synchronize()
+        ran = (sk.launches("merge_rows"), sk.launches("merge_apply"),
+               sk.variant_launches("merge_apply"))
+        if ran != (0, 1, {"merge": 1}):
+            raise AssertionError(f"merge_apply merge mode launched "
+                                 f"(merge_rows, merge_apply, designs) {ran}")
         t2, a2 = table.clone(), accum.clone()
         _, _, s2 = sk.merge_apply_plain(t2, a2, uids, rows, inv, LR, EPS,
                                         float(DP_WORLD))
@@ -485,13 +555,14 @@ def check_merge_apply_merge_mode(np, torch, sk, rng) -> dict:
         rel = abs(float(s1) - float(s2)) / abs(float(s2))
         if ut > MAX_ULP or ua > MAX_ULP or rel > 1e-5:
             raise AssertionError(f"merge_apply merge mode vs plain: {ut} / "
-                                 f"{ua} ulp, sumsq rel {rel} (d={d})")
+                                 f"{ua} ulp, sumsq rel {rel} (d={d}, "
+                                 f"{stream})")
         max_ulp["table"] = max(max_ulp["table"], ut)
         max_ulp["accum"] = max(max_ulp["accum"], ua)
         max_abs = max(max_abs, float((t1 - t2).abs().max()),
                       float((a1 - a2).abs().max()))
         max_rel = max(max_rel, rel)
-        cases.append([ids.numel(), d, int(count)])
+        cases.append([stream, ids.numel(), d, int(count)])
     return {"max_ulp": max_ulp, "max_abs_err": max_abs,
             "max_sumsq_rel_err": max_rel, "cases": cases}
 
@@ -884,10 +955,14 @@ def profile_sparse_steps(torch, tr, batches) -> dict:
                                  for b in batches])
 
 
+class NoDeviceTime(AssertionError):
+    """A torch.profiler session recorded no device time."""
+
+
 def profile_calls(torch, calls) -> dict:
     """Device time by kernel over ``calls``, each a step (torch.profiler).
     The device's idle share rests on it, so a profile that shows no
-    device time fails the phase."""
+    device time fails the phase (NoDeviceTime)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -910,7 +985,7 @@ def profile_calls(torch, calls) -> dict:
             if dev_us > 0:
                 rows.append((dev_us, e.key, e.count))
     if not rows:
-        raise AssertionError("torch.profiler recorded no device time")
+        raise NoDeviceTime("torch.profiler recorded no device time")
     rows.sort(reverse=True)
     busy_ms = sum(r[0] for r in rows) / 1e3
     return {"steps": len(calls), "profiled_wall_ms": wall_ms,
@@ -918,6 +993,19 @@ def profile_calls(torch, calls) -> dict:
             "device_ops_per_step": sum(r[2] for r in rows) / len(calls),
             "top": [{"name": k[:60], "ms": us / 1e3, "calls": c}
                     for us, k, c in rows[:14]]}
+
+
+def launch_profile(torch, fn, calls: int = 20):
+    """Device time by kernel over ``calls`` calls of ``fn``: a kernel row's
+    per-launch breakdown, which gates nothing.  ``None`` when the session
+    recorded no device time.  On the card torch.profiler loses the first
+    device records of such a session (its ``calls`` per kernel fall short
+    of the launches), and once lost all of them; the cause is not known,
+    so the per-launch times are averages over the records kept."""
+    try:
+        return profile_calls(torch, [fn] * calls)
+    except NoDeviceTime:
+        return None
 
 
 def phase_train(np, torch, sk, seed) -> dict:
@@ -1167,6 +1255,7 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
         launches = sk.launches()
         rec = {"steps": steps, "losses": [float(x) for x in losses],
                "launches": launches,
+               "merge_apply_variants": sk.variant_launches("merge_apply"),
                "policy": dict(tr.exchange_policy),
                "bytes_per_step": dict(tr.exchange_bytes_per_step),
                "device": str(mesh.device), "backend": mesh.backend}
@@ -1205,8 +1294,9 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
 def dp_expected_launches(name, steps) -> dict:
     """Launches one rank makes in ``steps`` steps of run ``name``: two
     id streams deduped (local and gathered), two tables merged and
-    applied, and each table's payload coded once in the coded runs."""
-    return {"dedup_ids": 2 * steps, "merge_rows": 2 * steps,
+    applied (merge_apply's fused merge mode: no merge_rows launch), and
+    each table's payload coded once in the coded runs."""
+    return {"dedup_ids": 2 * steps, "merge_rows": 0,
             "merge_apply": 2 * steps,
             "quantize_pack": 2 * steps if name == "coded_dynamic" else 0,
             "quantize_pack_ef_update": 2 * steps if name == "coded_ef" else 0,
@@ -1259,6 +1349,12 @@ def phase_dp(np, torch, sk, seed) -> dict:
                 if got != want:
                     raise AssertionError(f"dp {name} rank {r}: launches "
                                          f"{got}, expected {want}")
+                if rec["merge_apply_variants"] != {
+                        "merge": want["merge_apply"]}:
+                    raise AssertionError(
+                        f"dp {name} rank {r}: merge_apply ran "
+                        f"{rec['merge_apply_variants']}, not only its "
+                        "fused merge mode")
                 if rec["policy"] != {"w": "sparse", "v": "sparse"}:
                     raise AssertionError(f"dp {name}: policy "
                                          f"{rec['policy']}")
@@ -1338,12 +1434,16 @@ def phase_dp(np, torch, sk, seed) -> dict:
                                      f"exact {exact[len(coded) - 1]}")
         want = dp_expected_launches("coded_ef", 1)
         got = {k: nccl["launches"].get(k, 0) for k in want}
-        if got != want or not np.isfinite(nccl["losses"][0]) or \
+        if got != want or nccl["merge_apply_variants"] != {
+                "merge": want["merge_apply"]} or not np.isfinite(nccl["losses"][0]) or \
                 nccl["backend"] != "nccl" or not nccl["device"].startswith(
                     "cuda"):
             raise AssertionError(f"dp nccl W=1: {nccl}")
         launches = {k: sum(card[0][n]["launches"].get(k, 0) for n in names)
                     for k in sk.KERNELS}
+        merge_variants = {"merge": sum(
+            card[0][n]["merge_apply_variants"].get("merge", 0)
+            for n in names)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"phase": "dp", "model": "fm", "world": DP_WORLD,
@@ -1355,7 +1455,8 @@ def phase_dp(np, torch, sk, seed) -> dict:
                         "launches": nccl["launches"], "device": nccl["device"]},
             "seconds": {"card_world": card_s, "cpu_world": cpu_s,
                         "nccl_world": nccl_s},
-            "dp_launches_rank0": launches}
+            "dp_launches_rank0": launches,
+            "dp_merge_apply_variants_rank0": merge_variants}
 
 
 # -- phase: attention ---------------------------------------------------------
@@ -1392,9 +1493,15 @@ def ring_rank(rank, world, out_dir, seed):
         for call in calls:
             call()
         torch.cuda.synchronize()
+    # the backward: the gradients of sum(out ** 2) in q, k and v
+    leaves = [x.requires_grad_(True) for x in flash_inputs(
+        torch, RING_GRAD_SHAPE, torch.float32, seed + 1)]
+    (ring_self_attention(mesh, *leaves, causal=True) ** 2).sum().backward()
+    torch.cuda.synchronize()
     torch.save({"out": out.cpu(), "axis": mesh.axis, "device":
                 str(mesh.device), "backend": mesh.backend,
-                "step_ms": step_ms, "profile": prof},
+                "step_ms": step_ms, "profile": prof,
+                "grads": [x.grad.cpu() for x in leaves]},
                os.path.join(out_dir, f"ring{rank}.pt"))
 
 
@@ -1418,6 +1525,15 @@ def phase_attention(torch, sk, fl, seed) -> dict:
     if route != {"wgmma": launches["flash_attention"]}:
         raise AssertionError(f"attention: the path's bf16 call ran {route}, "
                              "not the wgmma design")
+    # the kernel has no backward: inputs that require grad are refused
+    try:
+        fl.flash_attention(q.clone().requires_grad_(True), k, v, causal=True)
+        raise AssertionError("attention: flash_attention took bf16 inputs "
+                             "that require grad")
+    except RuntimeError as e:
+        if "full_attention" not in str(e):
+            raise
+        grad_refusal = str(e)
     root = tempfile.mkdtemp(prefix="chip_smoke_ring_")
     try:
         t = time.perf_counter()
@@ -1444,6 +1560,21 @@ def phase_attention(torch, sk, fl, seed) -> dict:
     if emax > FLASH_16_MAX or emean > FLASH_16_MEAN:
         raise AssertionError(f"attention: ring vs flash max {emax}, mean "
                              f"{emean}")
+    # the ring's gradients on every rank against full attention's autograd
+    from lightctr_tpu_torch.nn.ring_attention import full_attention
+    leaves = [x.requires_grad_(True) for x in flash_inputs(
+        torch, RING_GRAD_SHAPE, torch.float32, seed + 1)]
+    (full_attention(*leaves, causal=True) ** 2).sum().backward()
+    grad_err = 0.0
+    for r, rec in enumerate(recs):
+        for name, got, want in zip("qkv", rec["grads"], leaves):
+            want = want.grad.cpu()
+            if not torch.allclose(got, want, rtol=RING_GRAD_RTOL,
+                                  atol=RING_GRAD_ATOL):
+                raise AssertionError(
+                    f"attention: ring rank {r}'s d{name} vs full attention: "
+                    f"max {float((got - want).abs().max())}")
+            grad_err = max(grad_err, float((got - want).abs().max()))
     return {"phase": "attention", "shape": list(FLASH_PATH_SHAPE),
             "dtype": "bfloat16", "causal": True, "launches": launches,
             "flash_route": route,
@@ -1454,6 +1585,11 @@ def phase_attention(torch, sk, fl, seed) -> dict:
                      "world_seconds": ring_s},
             "ring_vs_flash": {"max_abs_err": emax, "mean_abs_err": emean,
                               "tolerance": [FLASH_16_MAX, FLASH_16_MEAN]},
+            "ring_grads_vs_full_attention": {
+                "shape": list(RING_GRAD_SHAPE), "dtype": "float32",
+                "causal": True, "max_abs_err": grad_err,
+                "tolerance": [RING_GRAD_RTOL, RING_GRAD_ATOL]},
+            "flash_grad_refusal": grad_refusal,
             "ranks_equal": True}
 
 
@@ -1475,10 +1611,12 @@ def phase_bench(torch, sk) -> dict:
         if c.get("impl_kernel", c.get("impl")) != "cuda" or \
                 launches[name] < 1:
             raise AssertionError(f"bench: {name} did not launch ({c})")
-    if launches["merge_rows"] < 1:
-        raise AssertionError("bench: merge_apply's merge mode launched no "
-                             "merge_rows")
+    merge_variants = sk.variant_launches("merge_apply")
+    if merge_variants.get("merge", 0) < 1:
+        raise AssertionError(f"bench: merge_apply's cell ran {merge_variants}"
+                             ", not its fused merge mode")
     return {"phase": "bench", "launches": launches,
+            "merge_apply_variants": merge_variants,
             "sparse_kernel_bench": sparse, "kernel_bench": kern}
 
 
@@ -1677,59 +1815,84 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
     Returns the new kernels' rows and the extra fields of the dedup_ids and
     merge_apply rows."""
     rng = np.random.default_rng(seed + 6)
-    fids = criteo_fids(np, rng, DP_WORLD * DP_LOCAL_ROWS).reshape(-1)
-    per_rank = [sk.dedup_ids(torch.from_numpy(
-        fids[r * DP_LOCAL_K:(r + 1) * DP_LOCAL_K]).cuda())
-        for r in range(DP_WORLD)]
+    all_ids, uniq, inv, real, pad, per_rank = gathered_stream(
+        np, torch, sk, rng)
     uids_l, _, count_l = per_rank[0]
-    all_ids = torch.cat([u for u, _, _ in per_rank])
-    uniq, inv, count = sk.dedup_ids(all_ids)
-    m, k, real = all_ids.numel(), uids_l.numel(), int(count)
+    m, k = all_ids.numel(), uids_l.numel()
     gen = torch.Generator(device="cuda").manual_seed(31)
-    # each rank's dedup padding (id 0 past its slot 0) carries zero rows
-    slot = torch.arange(m, device="cuda") % k
-    pad = ((all_ids == 0) & (slot > 0)).to(torch.float32).reshape(-1, 1)
+    # each rank's dedup padding (id 0 past its slot 0) carries zero rows in
+    # the exact exchange, CODED_PAD in the coded ones
     rows = torch.randn((m, DIM), generator=gen, device="cuda") * 0.05 \
         * (1 - pad)
+    rows_coded = rows + CODED_PAD * pad
     out = []
 
-    # merge_rows: the gathered rows merged onto the union's slots
-    nbytes = m * DIM * 4 + m * 4 + m * DIM * 4
+    # merge_rows and merge_apply's merge mode: the gathered rows merged
+    # onto the union's slots, at d = 32 (the v table) and d = 1 (w); the
+    # dp path launches each width once a step
+    per_d, merge_mode = [], []
+    for d in (DIM, 1):
+        rows_d = rows if d == DIM else rows[:, 0].contiguous()
+        flat = rows_d.reshape(m, d)
+        nbytes = m * d * 4 + m * 4 + m * d * 4
+        per_d.append({
+            "d": d, "m": m, "nseg": m, "distinct": real,
+            "ms": graph_ms(torch, lambda: sk.merge_rows(flat, inv, m)),
+            "plain_ms": call_ms(torch, lambda: sk.merge_rows_plain(
+                flat, inv, m), reps=3),
+            "library_ms": graph_ms(torch, lambda: torch.zeros(
+                (m, d), device="cuda").index_add_(0, inv, flat)),
+            "call_ms": call_ms(torch, lambda: sk.merge_rows(flat, inv, m)),
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "bytes": nbytes, "launches": launches["merge_rows"],
+            "profile": launch_profile(
+                torch, lambda: sk.merge_rows(flat, inv, m))})
+        shape = (VOCAB, d) if d > 1 else (VOCAB,)
+        table = torch.randn(shape, generator=gen, device="cuda")
+        accum = torch.rand(shape, generator=gen, device="cuda")
+        nbytes = (m * d * 4 + m * 4 + m * 4
+                  + real * d * 4 * 4)
+        # the exact exchange's zero padding rows, dropped by the key pass,
+        # and the coded exchanges' CODED_PAD ones, one long run
+        for pads, src in (("zero", rows), ("coded", rows_coded)):
+            rows_d = src if d == DIM else src[:, 0].contiguous()
+            merge_mode.append({
+                "d": d, "pads": pads, "m": m, "s": m, "s_real": real,
+                "ms": graph_ms(torch, lambda: sk.merge_apply(
+                    table, accum, uniq, rows_d, inv, lr=LR, eps=EPS,
+                    denom=float(DP_WORLD))),
+                "plain_ms": call_ms(torch, lambda: sk.merge_apply_plain(
+                    table, accum, uniq, rows_d, inv, LR, EPS,
+                    float(DP_WORLD)), reps=3),
+                "call_ms": call_ms(torch, lambda: sk.merge_apply(
+                    table, accum, uniq, rows_d, inv, lr=LR, eps=EPS,
+                    denom=float(DP_WORLD))),
+                "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                "bytes": nbytes, "library_ms": None,
+                "library_note": "no single PyTorch call merges and applies "
+                                "a touched-row Adagrad",
+                "profile": launch_profile(torch, lambda: sk.merge_apply(
+                    table, accum, uniq, rows_d, inv, lr=LR, eps=EPS,
+                    denom=float(DP_WORLD))),
+                "max_ulp": kern["merge_apply_merge_mode"]["max_ulp"],
+                "max_abs_err":
+                    kern["merge_apply_merge_mode"]["max_abs_err"]})
+        del table, accum
+    head = per_d[0]
     out.append(kernel_row(
         sk, "merge_rows", launches=launches["merge_rows"],
+        launches_note="0 on the dp path since merge_apply fuses the merge; "
+                      "the bench phase and the collectives' sparse "
+                      "all-reduce launch it",
         max_abs_err=kern["merge_rows"]["max_abs_err"],
         shape={"m": m, "d": DIM, "nseg": m, "distinct": real},
-        ms=graph_ms(torch, lambda: sk.merge_rows(rows, inv, m)),
-        plain_ms=call_ms(torch, lambda: sk.merge_rows_plain(rows, inv, m),
-                         reps=3),
+        ms=head["ms"], plain_ms=head["plain_ms"],
         plain_timing="eager between events: its rounds sync to count them",
-        library_ms=graph_ms(torch, lambda: torch.zeros(
-            (m, DIM), device="cuda").index_add_(0, inv, rows)),
+        library_ms=head["library_ms"],
         library_call="torch.zeros(...).index_add_ (atomics: a sum order "
                      "that is not the slot order)",
-        bound_ms=bound_ms(nbytes), bound_by="bytes", bytes=nbytes,
-        call_ms=call_ms(torch, lambda: sk.merge_rows(rows, inv, m))))
-
-    # merge_apply's merge mode at d = 32: merge_rows, then the apply
-    table = torch.randn((VOCAB, DIM), generator=gen, device="cuda")
-    accum = torch.rand((VOCAB, DIM), generator=gen, device="cuda")
-    nbytes = (m * DIM * 4 + m * 4 + m * 4
-              + real * DIM * 4 * 4)
-    merge_mode = {
-        "d": DIM, "m": m, "s": m, "s_real": real,
-        "ms": graph_ms(torch, lambda: sk.merge_apply(
-            table, accum, uniq, rows, inv, lr=LR, eps=EPS,
-            denom=float(DP_WORLD))),
-        "plain_ms": call_ms(torch, lambda: sk.merge_apply_plain(
-            table, accum, uniq, rows, inv, LR, EPS, float(DP_WORLD)), reps=3),
-        "call_ms": call_ms(torch, lambda: sk.merge_apply(
-            table, accum, uniq, rows, inv, lr=LR, eps=EPS,
-            denom=float(DP_WORLD))),
-        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes,
-        "library_ms": None, "launches": launches["merge_apply"],
-        "max_ulp": kern["merge_apply_merge_mode"]["max_ulp"],
-        "max_abs_err": kern["merge_apply_merge_mode"]["max_abs_err"]}
-
+        bound_ms=head["bound_ms"], bound_by="bytes", bytes=head["bytes"],
+        call_ms=head["call_ms"], per_shape=per_d))
     # quantize_pack: one rank's [K, 32] payload, 8 bits normal (the
     # default table), a measured range; 16 bits uniform beside it
     x = torch.randn((k, DIM), generator=gen, device="cuda") * 0.05
@@ -1941,8 +2104,11 @@ def main(argv=None) -> int:
             row.update(dedup_extra,
                        launches_dp=dp_info["dp_launches_rank0"]["dedup_ids"])
         if row["name"] == "merge_apply":
+            # the dp phase checks that every one ran the merge design
             row.update(merge_extra,
-                       launches_dp=dp_info["dp_launches_rank0"]["merge_apply"])
+                       launches_dp=dp_info["dp_launches_rank0"]["merge_apply"],
+                       launches_dp_note="merge mode, both widths together "
+                                        "(each table merged once a step)")
     rows += new_rows
     rows += new_timing(torch, sk, fl, qz, args.seed, {
         "quantize_pack_ef": bench_info["launches"]["quantize_pack_ef"],

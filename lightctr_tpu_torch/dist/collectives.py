@@ -9,7 +9,9 @@ core.mesh.Mesh` in place of ``axis_name``.  The JAX collectives map so:
   ``pmax`` / ``psum``         ``all_reduce`` with MAX / SUM
   ``pmean``                   ``all_reduce`` SUM, then ``/ n``
   ``ppermute`` (ring)         paired ``isend``/``irecv`` to the ring
-                              neighbours (:func:`ring_shift`)
+                              neighbours (:func:`ring_shift`;
+                              :func:`ring_shift_all` for several tensors
+                              in one batch, either way round)
 
 On an NCCL group CUDA tensors go straight in.  On a gloo group the layer
 stages CUDA payloads through host memory itself, chosen by the group's
@@ -87,23 +89,33 @@ def _ring_perm(n: int):
 def ring_shift(mesh, x: torch.Tensor) -> torch.Tensor:
     """``ppermute`` over :func:`_ring_perm`: send ``x`` to the next rank,
     return what the previous rank sent."""
+    return ring_shift_all(mesh, (x,))[0]
+
+
+def ring_shift_all(mesh, xs, reverse: bool = False) -> list:
+    """:func:`ring_shift` of every tensor of ``xs`` in one
+    ``batch_isend_irecv``, sent and received in the order given, so every
+    rank posts the same sequence (``reverse``: send to the previous rank,
+    return what the next one sent)."""
     n, r = mesh.size, mesh.rank
     if n == 1:
-        return x.clone()
-    src = _staged(mesh, x)
-    as_bytes = src.dtype in _AS_BYTES
-    if as_bytes:
-        src = src.view(torch.uint8)
-    recv = torch.empty_like(src)
-    ops = [dist.P2POp(dist.isend, src, mesh.global_rank((r + 1) % n),
-                      mesh.group),
-           dist.P2POp(dist.irecv, recv, mesh.global_rank((r - 1) % n),
-                      mesh.group)]
+        return [x.clone() for x in xs]
+    to, frm = ((r - 1) % n, (r + 1) % n) if reverse else ((r + 1) % n,
+                                                          (r - 1) % n)
+    ops, recvs = [], []
+    for x in xs:
+        src = _staged(mesh, x)
+        if src.dtype in _AS_BYTES:
+            src = src.view(torch.uint8)
+        recv = torch.empty_like(src)
+        ops += [dist.P2POp(dist.isend, src, mesh.global_rank(to), mesh.group),
+                dist.P2POp(dist.irecv, recv, mesh.global_rank(frm),
+                           mesh.group)]
+        recvs.append(recv)
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    if as_bytes:
-        recv = recv.view(x.dtype)
-    return recv.to(x.device)
+    return [(recv.view(x.dtype) if x.dtype in _AS_BYTES else recv)
+            .to(x.device) for recv, x in zip(recvs, xs)]
 
 
 # -- the ring all-reduce -----------------------------------------------------

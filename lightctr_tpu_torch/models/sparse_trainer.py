@@ -46,7 +46,7 @@ type (arXiv:1808.02621) with SparCML's sparse allreduce
     kernel, or, for a FIXED range with error feedback, coded by the
     ``quantize_pack_ef_update`` kernel with its per-table carry) and
     merged with the mean inside the fused apply (``merge_apply``'s merge
-    mode: the ``merge_rows`` kernel, then the apply) — or, past the
+    mode: one kernel that merges and applies) — or, past the
     density switch, as a dense [vocab, ...] buffer over the mean or the
     coded ring; every rank applies the identical update, so replicas
     cannot diverge.  ``self.exchange_policy`` records the pick;

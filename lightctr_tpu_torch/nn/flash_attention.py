@@ -7,7 +7,9 @@ tiles above the diagonal.  ``csrc/flash_attention.cu`` holds three kernels
 that together take float32, bfloat16 and float16 at any D and any B*H; its
 design note says how each differs from the TPU's grid, and
 :func:`flash_route` is the one rule that picks among them.  Forward only,
-as in the JAX package.
+as in the JAX package, where only the ``xla`` route is differentiable: the
+plain version (a CPU tensor) is differentiable, and the CUDA route refuses
+inputs that require grad rather than hand autograd a constant.
 
 Dispatch follows the tensor's device (``ops.sparse_kernels``, phase
 ``attention``): the plain version on a CPU tensor, the kernel on a CUDA
@@ -95,7 +97,17 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = False) -> torch.Tensor:
     """Launch the CUDA kernel of :func:`flash_route`'s design on the
     current stream; no synchronise.  Counts the launch under the kernel
-    and under its design (``sk.variant_launches("flash_attention")``)."""
+    and under its design (``sk.variant_launches("flash_attention")``).
+    The kernel is forward only, as the TPU kernel is: with grad mode on it
+    refuses q, k or v that require grad (its output would be a constant
+    to autograd), before any other check."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention's CUDA kernel has no backward (nor has the "
+            "JAX package's Pallas kernel): for gradients call "
+            "nn.ring_attention.full_attention, which autograd "
+            "differentiates, or run the kernel under torch.no_grad() on "
+            "inputs that need none")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPE_CODES:
         raise TypeError("flash_attention kernel takes q, k, v of one dtype "
                         "among float32, bfloat16, float16, got "

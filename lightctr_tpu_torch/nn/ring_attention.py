@@ -1,4 +1,4 @@
-"""Ring attention — sequence parallelism over a ``seq`` mesh, forward.
+"""Ring attention — sequence parallelism over a ``seq`` mesh.
 
 The port's counterpart of ``lightctr_tpu/nn/ring_attention.py``.  Each rank
 of a ``seq`` mesh (``core.mesh.make_mesh(MeshSpec(seq=n))``) holds one
@@ -12,13 +12,21 @@ single-device causal attention.
 
 The JAX function runs under ``shard_map``; here each rank runs
 :func:`ring_attention_local` in its own process over ``torch.distributed``
-(the hops are ``dist/collectives.ring_shift``, which stages CUDA tensors
+(the hops are ``dist/collectives.ring_shift_all``, which stages CUDA tensors
 through host memory on a gloo group and ships 16-bit floats as bytes), and
 :func:`ring_self_attention` all-gathers the blocks at the end, which is
 what ``shard_map``'s ``out_specs`` hands the JAX caller.  The per-hop
-products are ``torch.einsum``: XLA ran them outside any kernel.  Forward
-only: the JAX function is differentiable, and a ``torch.autograd.Function``
-over the ring is still to be ported (ROADMAP.md).
+products are ``torch.einsum``: XLA ran them outside any kernel.
+
+Differentiable, as the JAX function is (``lax.ppermute`` has a transpose):
+each hop is a ``torch.autograd.Function`` whose backward is the reverse
+hop, so dK and dV travel home one hop at a time; autograd keeps one score
+block a hop, as the JAX ``fori_loop`` keeps its residuals.  In
+:func:`ring_self_attention` every rank passes the same global tensors and
+gets the gradient of the global q, k and v, as ``jax.grad`` of the JAX
+function gives: the output gather's backward keeps the rank's own block of
+the cotangent, and the block slice's backward all-gathers the blocks'
+gradients in sequence order.
 
 :func:`full_attention` is the single-device oracle at the same [B, T, H, D]
 layout.
@@ -33,6 +41,58 @@ import torch
 from lightctr_tpu_torch.dist import collectives
 
 NEG_INF = -1e30
+
+
+class _RingHop(torch.autograd.Function):
+    """One K/V hop round the ring (both in one batch); the backward sends
+    their gradients the other way round, to the rank they came from."""
+
+    @staticmethod
+    def forward(ctx, mesh, k, v):
+        ctx.mesh = mesh
+        return tuple(collectives.ring_shift_all(mesh, (k, v)))
+
+    @staticmethod
+    def backward(ctx, dk, dv):
+        dk, dv = collectives.ring_shift_all(ctx.mesh, (dk, dv), reverse=True)
+        return None, dk, dv
+
+
+class _SeqBlocks(torch.autograd.Function):
+    """This rank's sequence block of each of the global q, k and v; the
+    backward all-gathers the blocks' gradients in sequence order, so every
+    rank gets the global gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, tb, *xs):
+        ctx.mesh = mesh
+        r = mesh.rank
+        return tuple(x[:, r * tb:(r + 1) * tb].contiguous() for x in xs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None) + tuple(
+            collectives.all_gather(ctx.mesh, g.transpose(0, 1).contiguous())
+            .transpose(0, 1).contiguous() for g in grads)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The blocks of every rank along the sequence dim; each rank computes
+    the same loss over the result, so the backward keeps the rank's own
+    block of the cotangent (a sum over ranks would scale it by n)."""
+
+    @staticmethod
+    def forward(ctx, mesh, local):
+        ctx.mesh, ctx.tb = mesh, local.shape[1]
+        # rank order is sequence order
+        return collectives.all_gather(
+            mesh, local.transpose(0, 1).contiguous()).transpose(0, 1) \
+            .contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        r, tb = ctx.mesh.rank, ctx.tb
+        return None, grad[:, r * tb:(r + 1) * tb].contiguous()
 
 
 def ring_attention_local(mesh, q: torch.Tensor, k: torch.Tensor,
@@ -70,8 +130,7 @@ def ring_attention_local(mesh, q: torch.Tensor, k: torch.Tensor,
         m = m_new
         # the last hop's rotation would be discarded: skip it
         if i < n - 1:
-            k_cur = collectives.ring_shift(mesh, k_cur)
-            v_cur = collectives.ring_shift(mesh, v_cur)
+            k_cur, v_cur = _RingHop.apply(mesh, k_cur, v_cur)
     # fully masked rows have l == 0
     out = o / torch.clamp(l, min=1e-30)[..., None]
     return torch.einsum("bhqd->bqhd", out).to(q.dtype)
@@ -83,19 +142,15 @@ def ring_self_attention(mesh, q: torch.Tensor, k: torch.Tensor,
     """Exact multi-head attention with the sequence dim sharded over the
     mesh's ``axis`` ring.  Every rank passes the same global ``q``, ``k``,
     ``v`` [B, T, H, D], keeps block ``[r*T/n, (r+1)*T/n)``, and gets the
-    full [B, T, H, D] result back."""
+    full [B, T, H, D] result back, differentiable in q, k and v."""
     mesh.require_axis(axis, "ring_self_attention")
-    n, r = mesh.size, mesh.rank
+    n = mesh.size
     t = q.shape[1]
     if t % n != 0:
         raise ValueError(f"sequence length {t} not divisible by ring size {n}")
-    tb = t // n
-    blocks = [x[:, r * tb:(r + 1) * tb].contiguous() for x in (q, k, v)]
-    local = ring_attention_local(mesh, *blocks, causal=causal)
-    # gather along the sequence dim: rank order is sequence order
-    gathered = collectives.all_gather(mesh, local.transpose(0, 1)
-                                      .contiguous())
-    return gathered.transpose(0, 1).contiguous()
+    blocks = _SeqBlocks.apply(mesh, t // n, q, k, v)
+    return _GatherSeq.apply(mesh, ring_attention_local(mesh, *blocks,
+                                                       causal=causal))
 
 
 def full_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -83,7 +83,7 @@ KERNELS: Dict[str, KernelDef] = {}
 
 _launches: Dict[str, int] = {}
 #: name -> {variant: launches}, for a kernel whose wrapper picks among
-#: designs (flash_attention's route)
+#: designs (flash_attention's route, merge_apply's mode)
 _variant_launches: Dict[str, Dict[str, int]] = {}
 _launch_lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -433,8 +433,9 @@ def dedup_ids(ids: torch.Tensor, size: Optional[int] = None):
 # ``[0, num_segments)`` dropped, each segment's rows added in increasing
 # slot order — the allgather exchange's merge of the gathered gradient
 # rows.  Replaces lightctr_tpu/ops/sparse_kernels.py ``_merge_pallas`` /
-# ``_merge_kernel``; csrc/merge_rows.cu has the kernel (a sort of (segment,
-# slot) keys, then one warp per segment) and its design note.
+# ``_merge_kernel``; csrc/merge_rows.cu has the kernel (a radix sort of
+# (segment, slot) pairs, then walkers over the short and the long runs,
+# from csrc/segment_runs.cuh) and its design note.
 
 
 def merge_rows_plain(rows: torch.Tensor, inv: torch.Tensor,
@@ -485,7 +486,8 @@ def add_in_rounds(out: torch.Tensor, seg: torch.Tensor,
 
 
 def _bind_merge_rows(lib: ctypes.CDLL) -> None:
-    bind_entry(lib, "merge_rows_workspace_bytes", [_LL], restype=_LL)
+    bind_entry(lib, "merge_rows_workspace_bytes", [_LL, _LL, _LL],
+               restype=_LL)
     bind_entry(lib, "merge_rows_f32", [_P, _P, _LL, _LL, _LL, _P, _P, _P])
 
 
@@ -507,7 +509,7 @@ def _merge_rows_cuda(rows: torch.Tensor, inv: torch.Tensor,
                       dtype=rows.dtype, device=dev)
     d = rows[0].numel()
     lib = load("merge_rows")
-    work = torch.empty((lib.merge_rows_workspace_bytes(m),),
+    work = torch.empty((lib.merge_rows_workspace_bytes(m, num_segments, d),),
                        dtype=torch.uint8, device=dev)
     run_kernel("merge_rows", dev, lib.merge_rows_f32, rows.data_ptr(),
                inv.data_ptr(), m, d, num_segments, out.data_ptr(),
@@ -546,8 +548,9 @@ def merge_rows(rows: torch.Tensor, inv: torch.Tensor,
 # ``merged`` is ``rows`` (apply mode, ``inv=None``) or their segment merge
 # through ``inv`` (merge mode, the allgather exchange's path).  Replaces
 # lightctr_tpu/ops/sparse_kernels.py ``_merge_apply_pallas``; on the card
-# the merge mode is the merge_rows kernel into an [S, d] scratch, then the
-# apply kernel (csrc/merge_apply.cu, with its design note).
+# each mode is one entry of csrc/merge_apply.cu (with its design note):
+# the merge mode sorts and walks the runs as merge_rows does and applies
+# each merged row straight to the table, with no [S, d] scratch.
 
 
 def merge_apply_plain(table, accum, uids, rows, inv, lr, eps, denom):
@@ -580,12 +583,19 @@ def _bind_merge_apply(lib: ctypes.CDLL) -> None:
     bind_entry(lib, "merge_apply_workspace_bytes", [], restype=_LL)
     bind_entry(lib, "merge_apply_f32",
                [_P, _P, _P, _P, _LL, _LL, _LL, _F, _F, _F, _P, _P, _P])
+    bind_entry(lib, "merge_apply_merge_workspace_bytes", [_LL, _LL, _LL],
+               restype=_LL)
+    bind_entry(lib, "merge_apply_merge_f32",
+               [_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _F, _F, _F, _P, _P,
+                _P])
 
 
 def _merge_apply_cuda(table, accum, uids, rows, inv, lr, eps, denom):
-    """Launch the CUDA apply (after the merge_rows kernel in merge mode) on
-    the current stream, in place on ``table`` and ``accum``; no
-    synchronise.  ``sumsq`` stays on the card."""
+    """Launch the CUDA apply, or in merge mode the fused merge and apply,
+    on the current stream, in place on ``table`` and ``accum``; no
+    synchronise.  ``sumsq`` stays on the card.  The launch counts under
+    ``merge_apply`` and under its mode (``variant_launches("merge_apply")``:
+    ``apply`` or ``merge``)."""
     if not (table.dtype == accum.dtype == rows.dtype == torch.float32):
         raise TypeError("merge_apply kernel takes float32 table, accum and "
                         f"rows, got {table.dtype}, {accum.dtype}, "
@@ -601,19 +611,35 @@ def _merge_apply_cuda(table, accum, uids, rows, inv, lr, eps, denom):
     s = uids.numel()
     dev = check_cuda_tensors("merge_apply", table=table, accum=accum,
                              uids=uids, rows=rows)
+    lib = load("merge_apply")
+    sumsq = torch.empty((), dtype=torch.float32, device=dev)
     if inv is not None:
-        # merge mode: the slot-order segment merge into an [S, d] scratch
-        rows = _merge_rows_cuda(rows.reshape(rows.shape[0], d), inv, s)
+        # merge mode: the slot-order segment merge fused into the apply
+        if inv.dtype != torch.int32:
+            raise TypeError(f"merge_apply kernel takes an int32 inv, got "
+                            f"{inv.dtype}")
+        m = rows.shape[0]
+        if inv.numel() != m or rows.numel() != m * d:
+            raise ValueError(f"merge_apply: {inv.numel()} segment ids and "
+                             f"{rows.numel()} gradient values for {m} rows "
+                             f"of width {d}")
+        check_cuda_tensors("merge_apply", rows=rows, inv=inv)
+        work = torch.empty((lib.merge_apply_merge_workspace_bytes(m, s, d),),
+                           dtype=torch.uint8, device=dev)
+        run_kernel("merge_apply", dev, lib.merge_apply_merge_f32,
+                   table.data_ptr(), accum.data_ptr(), uids.data_ptr(),
+                   rows.data_ptr(), inv.data_ptr(), vocab, d, s, m, lr, eps,
+                   denom, sumsq.data_ptr(), work.data_ptr(), variant="merge")
+        return table, accum, sumsq
     if rows.numel() != s * d:
         raise ValueError(f"merge_apply: {rows.numel()} gradient values for "
                          f"{s} uids of width {d}")
-    lib = load("merge_apply")
     work = torch.empty((lib.merge_apply_workspace_bytes(),),
                        dtype=torch.uint8, device=dev)
-    sumsq = torch.empty((), dtype=torch.float32, device=dev)
     run_kernel("merge_apply", dev, lib.merge_apply_f32, table.data_ptr(),
                accum.data_ptr(), uids.data_ptr(), rows.data_ptr(), vocab, d,
-               s, lr, eps, denom, sumsq.data_ptr(), work.data_ptr())
+               s, lr, eps, denom, sumsq.data_ptr(), work.data_ptr(),
+               variant="apply")
     return table, accum, sumsq
 
 
@@ -646,7 +672,8 @@ def merge_apply(
     are zero-gradient by contract.  A uid in ``[-V, 0)`` wraps to
     ``uid + V`` and any other uid outside the table is dropped from the
     update, as the JAX reference's scatter does.  The plain version on CPU
-    tensors, the CUDA kernels on CUDA tensors (both modes)."""
+    tensors, the CUDA kernel on CUDA tensors (both modes, one launch each;
+    the merge mode's kernel merges and applies in one pass)."""
     if uids.device != table.device:
         raise ValueError(f"merge_apply: table on {table.device}, uids on "
                          f"{uids.device}")

@@ -1,0 +1,109 @@
+"""A/B of two checkouts' host-bound paths on one card: the ring attention
+call and the data-parallel steps.
+
+Each root named on the command line is a checkout of the repo (the tree
+under test, or a parent unpacked with ``git archive``).  For each, in the
+order given, a fresh process imports that checkout's ``chip_smoke.py``,
+builds its kernels and spawns its own rank functions, so the numbers time
+that checkout's code at ``chip_smoke.py``'s shapes:
+
+  ``ring_rank``  ring attention over a ``seq`` ring of 2 gloo ranks on the
+                 card, (2, 4096, 8, 64) bf16 causal; rank 0's median call
+                 of three (host clock, synchronised);
+  ``dp_rank``    FM at Criteo width trained over 2 gloo ranks on the card,
+                 its three runs (exact, 8-bit dynamic range, 8-bit with
+                 EF) at the smoke's steps; each run's steady step on each
+                 rank (steps 4 onward).
+
+Step times on this path move between hosts by more than the change under
+test, so compare roots only within one run, in an order such as parent,
+change, change, parent.  One JSON line a root on stdout, then a summary
+line with each root's medians on rank 0.
+
+    python -m lightctr_tpu_torch.tools.path_ab ROOT [ROOT ...]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+#: what runs in each root's process (argv: root), at chip_smoke's seed 0
+_CHILD = r"""
+import json, os, shutil, sys, tempfile, time
+root, seed = sys.argv[1], 0
+sys.path.insert(0, root)
+import torch
+import chip_smoke as cs
+from lightctr_tpu_torch.core.mesh import spawn_world
+from lightctr_tpu_torch.native import bindings
+from lightctr_tpu_torch.ops import sparse_kernels as sk
+if not torch.cuda.is_available():
+    sys.exit("path_ab: CUDA is not available")
+sk.build_all()
+bindings.available()
+tmp = tempfile.mkdtemp(prefix="path_ab_")
+try:
+    t = time.perf_counter()
+    spawn_world(cs.ring_rank, cs.RING_WORLD, "gloo",
+                deadline_s=cs.DP_DEADLINE_S, args=(tmp, seed))
+    ring_s = time.perf_counter() - t
+    ring = [torch.load(os.path.join(tmp, f"ring{r}.pt"))["step_ms"]
+            for r in range(cs.RING_WORLD)]
+    steps = {name: n for name, _, n in cs.DP_RUNS}
+    spawn_world(cs.dp_rank, cs.DP_WORLD, "gloo",
+                deadline_s=cs.DP_DEADLINE_S,
+                args=(tmp, seed, "cuda", steps))
+    dp = {name: [] for name in steps}
+    for r in range(cs.DP_WORLD):
+        with open(os.path.join(tmp, f"rank{r}.json")) as f:
+            recs = json.load(f)
+        for name, rec in recs.items():
+            dp[name].append(1e3 * rec["steady_wall_s"] / rec["steady_steps"])
+finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+print(json.dumps({"root": root, "ring_call_ms": ring,
+                  "ring_world_seconds": ring_s, "dp_steps": steps,
+                  "dp_step_ms": dp}), flush=True)
+"""
+
+
+def run_root(root: str) -> dict:
+    """Time ``root``'s ring call and dp steps in a process of its own;
+    the last line it prints, parsed."""
+    root = os.path.abspath(root)
+    if not os.path.isfile(os.path.join(root, "chip_smoke.py")):
+        raise FileNotFoundError(f"path_ab: no chip_smoke.py in {root}")
+    out = subprocess.run([sys.executable, "-c", _CHILD, root],
+                         cwd=root, check=True, stdout=subprocess.PIPE,
+                         text=True).stdout
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("roots", nargs="+")
+    args = ap.parse_args(argv)
+    by_root = {}
+    for root in args.roots:
+        rec = run_root(root)
+        print(json.dumps(rec), flush=True)
+        by_root.setdefault(rec["root"], []).append(rec)
+    print(json.dumps({"summary": {
+        root: {"runs": len(recs),
+               "ring_call_ms_rank0": statistics.median(
+                   r["ring_call_ms"][0] for r in recs),
+               "dp_step_ms_rank0": {
+                   name: statistics.median(r["dp_step_ms"][name][0]
+                                           for r in recs)
+                   for name in recs[0]["dp_step_ms"]}}
+        for root, recs in by_root.items()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

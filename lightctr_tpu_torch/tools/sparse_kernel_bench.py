@@ -3,8 +3,10 @@ the hand-written CUDA kernel.
 
 The port's counterpart of ``tools/sparse_kernel_bench.py``, at its cells
 and shapes: id dedup (K 16,384 ids of a 2^20 vocabulary), the row gather
-(8,192 rows of a [65,536, 16] block), merge + Adagrad apply (M 32,768
-gradient rows onto S 8,192 touched rows of a [2^18, 16] table, denom 8),
+(8,192 rows of a [65,536, 16] block), the segment merge alone (M 32,768
+gradient rows onto S 8,192 segments, as the collectives' sparse
+all-reduce merges) and fused into the Adagrad apply (onto S 8,192
+touched rows of a [2^18, 16] table, denom 8),
 and the quantize pack, plain and EF-folded ([16,384, 16] payload, the
 8-bit uniform table over +-1, a [P, 1] mask).
 
@@ -14,6 +16,11 @@ eager calls for a plain version that syncs (``torch.unique``, the
 merge's rounds).  Which version ran is measured, not assumed: a cell's
 ``impl_kernel`` comes from the kernel's launch count over one call, and
 ``kernel_launches`` counts every launch the cell made.
+
+The segment merge alone is the port's own cell: the JAX tool times the
+merge only inside the apply.  It is here because the data-parallel path
+no longer launches ``merge_rows`` (the merge mode fuses it into the
+apply), and the collectives' sparse all-reduce is its other caller.
 
 The JAX tool's "apply row-blocking A/B" cell has no counterpart: it times
 one Pallas grid knob (rows per grid step, set through an environment
@@ -124,6 +131,11 @@ def run(device="cuda", steps: int = 20, out: Optional[str] = None,
     accum = torch.from_numpy(
         np.abs(r.normal(size=(tv, DIM))).astype(np.float32)).to(dev)
     tp, ap = table.clone(), accum.clone()
+    cells.append(_cell("merge", "merge_rows",
+                       f"M={m} grad rows -> S={s} segments",
+                       lambda: sk.merge_rows_plain(rows, inv, s),
+                       lambda: sk.merge_rows(rows, inv, s), steps, dev,
+                       False))
     cells.append(_cell(
         "merge_apply", "merge_apply",
         f"M={m} grad rows -> S={s} touched of [{tv}, {DIM}] table",

@@ -1,10 +1,12 @@
 """The long-context attention path of the port (``lightctr_tpu_torch.nn``)
 against the JAX package on the same numpy inputs: ``full_attention``,
 ``flash_attention`` (its plain version, on CPU tensors) against the
-interpreted Pallas kernel, ``validate_blocks``, and ``ring_self_attention``
-in worlds of 2 and 4 gloo ranks on the CPU (spawned once per module, the
-ranks running ``tests/torch_dp_worlds.py``) against the JAX function on a
-``seq`` mesh of the conftest's CPU devices.  Also the mesh's ``seq`` axis
+interpreted Pallas kernel and, differentiated, against ``jax.grad``, the
+CUDA route's refusal of inputs that require grad, ``validate_blocks``, and
+``ring_self_attention`` and its gradients in worlds of 2 and 4 gloo ranks
+on the CPU (spawned once per module, the ranks running
+``tests/torch_dp_worlds.py``) against the JAX function on a ``seq`` mesh of
+the conftest's CPU devices.  Also the mesh's ``seq`` axis
 and ``make_mesh``'s device default.  The CUDA kernel is held to the plain
 version on the card by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
@@ -218,6 +220,44 @@ def test_flash_attention_kernel_is_registered_and_refuses_bad_inputs():
         kd.cuda(x, x, x)
 
 
+def test_flash_attention_kernel_refuses_grads_first():
+    """The CUDA route has no backward (nor has the JAX Pallas kernel):
+    with grad mode on, inputs that require grad are refused before the
+    device check, naming ``full_attention``; under ``no_grad`` the same
+    CPU tensors reach the device refusal."""
+    cuda = tsk.KERNELS["flash_attention"].cuda
+    x = torch.zeros((1, 8, 2, 16))
+    before = tsk.launches("flash_attention")
+    for which in range(3):
+        qkv_ = [x.clone() for _ in range(3)]
+        qkv_[which].requires_grad_(True)
+        with pytest.raises(RuntimeError, match="full_attention"):
+            cuda(*qkv_)
+        with torch.no_grad(), pytest.raises(ValueError, match="CUDA device"):
+            cuda(*qkv_)
+    with pytest.raises(RuntimeError, match="no backward"):
+        cuda(x.half().requires_grad_(True), x.float(), x)
+    assert tsk.launches("flash_attention") == before
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_attention_plain_is_differentiable_as_jax(causal):
+    """A CPU tensor runs the plain version, which autograd differentiates:
+    its gradients of sum(out ** 2) match ``jax.grad`` of the JAX package's
+    ``full_attention`` (its differentiable ``xla`` route)."""
+    inputs = qkv(11 + causal, 2, 32, 2, 8)
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in inputs]
+    out = tflash.flash_attention(*leaves, causal=causal)
+    assert out.grad_fn is not None
+    (out ** 2).sum().backward()
+    want = jax.grad(lambda q, k, v: jnp.sum(jring.full_attention(
+        q, k, v, causal=causal) ** 2), argnums=(0, 1, 2))(
+        *map(jnp.asarray, inputs))
+    for leaf, jg in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(jg),
+                                   rtol=FULL_RTOL, atol=FULL_ATOL)
+
+
 # -- the mesh's seq axis and device default -----------------------------------
 
 
@@ -312,6 +352,43 @@ def test_ring_self_attention_matches_jax(ring_world, causal):
     np.testing.assert_allclose(
         ranks[0][key], tring.full_attention(q, k, v, causal=causal).numpy(),
         rtol=FLASH_RTOL, atol=FLASH_ATOL)
+
+
+#: tests/test_ring_attention.py::test_ring_grad_flows's tolerance of the
+#: ring's gradients against full attention's
+GRAD_RTOL, GRAD_ATOL = 1e-3, 1e-4
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_ring_self_attention_grads_match_jax(ring_world, causal):
+    """The gradients of sum(out ** 2) in q, k and v: bit-identical across
+    ranks, and on every rank within test_ring_grad_flows' tolerance of
+    ``jax.grad`` of the JAX ring on a ``seq`` mesh and of autograd through
+    the port's ``full_attention``.  The differentiable call's output is
+    the no-grad call's, bit for bit."""
+    w, jmesh, ranks = ring_world
+    key = f"causal{int(causal)}"
+    inputs = worlds.attention_inputs()
+
+    def loss(q, k, v):
+        return jnp.sum(jring.ring_self_attention(
+            jmesh, q, k, v, axis="seq", causal=causal) ** 2)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, inputs))
+    leaves = [torch.from_numpy(x).requires_grad_(True) for x in inputs]
+    (tring.full_attention(*leaves, causal=causal) ** 2).sum().backward()
+    for res in ranks:
+        np.testing.assert_array_equal(res[f"grad_out_{key}"], res[key])
+        for got, first, jg, tl in zip(res[f"grads_{key}"],
+                                      ranks[0][f"grads_{key}"], want,
+                                      leaves):
+            assert got.shape == worlds.ATTN_SHAPE
+            np.testing.assert_array_equal(got, first)
+            np.testing.assert_allclose(got, np.asarray(jg), rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL)
+            np.testing.assert_allclose(got, tl.grad.numpy(), rtol=GRAD_RTOL,
+                                       atol=GRAD_ATOL)
 
 
 def test_ring_self_attention_bf16_matches_jax(ring_world):

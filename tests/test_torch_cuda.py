@@ -152,30 +152,90 @@ def test_merge_apply_kernel_drops_uids_outside_the_table(dev):
         torch.testing.assert_close(s1, s2, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("d", [1, 8])
-def test_merge_apply_merge_mode_kernel_matches_plain(dev, d):
-    """Merge mode: merge_rows into the [S, d] scratch, then the apply,
-    on two ranks' gathered ids; one launch of each kernel."""
-    rng = np.random.default_rng(d + 3)
+def merge_mode_case(dev, d, n_ids=6000, vocab=4096, seed=3):
+    """Two ranks' gathered ids deduped onto their union (uids with id-0
+    pads), a [vocab, d] table and accumulator, and the gathered rows."""
+    rng = np.random.default_rng(d + seed)
     ids = torch.from_numpy(
-        (rng.random(6000) ** 4 * 4096).astype(np.int32)).to(dev)
-    uids, inv, _ = sk.dedup_ids(ids)
-    shape = (4096,) if d == 1 else (4096, d)
-    gen = torch.Generator(device=dev).manual_seed(d)
+        (rng.random(n_ids) ** 4 * vocab).astype(np.int32)).to(dev)
+    uids, inv, count = sk.dedup_ids(ids)
+    shape = (vocab,) if d == 1 else (vocab, d)
+    gen = torch.Generator(device=dev).manual_seed(d + seed)
     table = torch.randn(shape, generator=gen, device=dev)
     accum = torch.rand(shape, generator=gen, device=dev)
     rows = torch.randn((ids.numel(),) + shape[1:], generator=gen, device=dev)
+    return uids, inv, int(count), table, accum, rows
+
+
+def check_merge_mode(uids, inv, table, accum, rows, denom=2.0):
+    """The fused merge mode against the plain version: one launch of
+    merge_apply in its ``merge`` design and none of merge_rows; table and
+    accum within 2 ulp, sumsq within rtol 1e-5.  Returns both results."""
     sk.reset_launches()
     t1, a1, s1 = sk.merge_apply(table.clone(), accum.clone(), uids, rows,
-                                inv, lr=0.05, denom=2.0)
-    assert sk.launches("merge_rows") == 1 and sk.launches("merge_apply") == 1
+                                inv, lr=0.05, denom=denom)
+    assert sk.launches("merge_rows") == 0 and sk.launches("merge_apply") == 1
+    assert sk.variant_launches("merge_apply") == {"merge": 1}
     t2, a2, s2 = sk.merge_apply_plain(table.clone(), accum.clone(), uids,
-                                      rows, inv, 0.05, 1e-7, 2.0)
+                                      rows, inv, 0.05, 1e-7, denom)
     assert ulp(t1, t2) <= MAX_ULP and ulp(a1, a2) <= MAX_ULP
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=0)
+    return (t1, a1), (t2, a2)
+
+
+@pytest.mark.parametrize("d", [1, 8, 32, 33])
+def test_merge_apply_merge_mode_kernel_matches_plain(dev, d):
+    """Merge mode, fused: the sorted runs' sums applied straight to the
+    table, on two ranks' gathered ids; one launch, of merge_apply's
+    ``merge`` design, and no merge_rows launch."""
+    uids, inv, _, table, accum, rows = merge_mode_case(dev, d)
+    check_merge_mode(uids, inv, table, accum, rows)
 
 
 @pytest.mark.parametrize("d", [1, 32])
+def test_merge_apply_merge_mode_zero_rows_get_the_plain_update(dev, d):
+    """A real uid whose gathered rows are all +-0 receives no kept row: it
+    still gets the plain version's update with g = +0, which turns a -0.0
+    accumulator into +0.0, bit for bit."""
+    uids, inv, count, table, accum, rows = merge_mode_case(dev, d, seed=11)
+    seg = 3
+    uid = int(uids[seg])
+    assert uid != 0 and seg < count
+    hit = inv == seg
+    assert int(hit.sum()) >= 1
+    rows[hit] = torch.where(torch.rand_like(rows[hit]) < 0.5, 0.0, -0.0)
+    accum[uid] = -0.0
+    table[uid] = torch.where(torch.rand_like(table[uid]) < 0.5, 0.0, -0.0)
+    (t1, a1), (t2, a2) = check_merge_mode(uids, inv, table, accum, rows)
+    for got, want in ((t1, t2), (a1, a2)):
+        assert torch.equal(got[uid].view(torch.int32),
+                           want[uid].view(torch.int32))
+    assert not bool(torch.signbit(a1[uid]).any())  # -0.0 became +0.0
+
+
+def test_merge_apply_merge_mode_heavy_run_and_wide_segments(dev):
+    """A segment of 4,096 rows (summed in slot order, one column a thread),
+    and segments past 2^24, so the radix sort moves its top digit: S =
+    2^24 + 4,096 distinct uids of a 2^25-row table at d = 1."""
+    uids, inv, _, table, accum, rows = merge_mode_case(dev, 32)
+    inv = inv.clone()
+    inv[:4096] = 5
+    check_merge_mode(uids, inv, table, accum, rows)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    vocab, s, m = 1 << 25, (1 << 24) + 4096, 200_000
+    uids = torch.randperm(vocab, generator=gen, device=dev)[:s].sort() \
+        .values.to(torch.int32)
+    inv = torch.randint(0, s, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    inv[:1000] = torch.arange(s - 1000, s, device=dev, dtype=torch.int32)
+    assert int((inv >= (1 << 24)).sum()) > 1000
+    table = torch.randn((vocab,), generator=gen, device=dev)
+    accum = torch.rand((vocab,), generator=gen, device=dev)
+    rows = torch.randn((m,), generator=gen, device=dev)
+    check_merge_mode(uids, inv, table, accum, rows, denom=1.0)
+
+
+@pytest.mark.parametrize("d", [1, 8, 32, 33])
 def test_merge_rows_kernel_matches_plain(dev, d):
     """Bit for bit (slot-order sums): heavy duplicates and out-of-range
     segments of both signs."""
@@ -188,6 +248,56 @@ def test_merge_rows_kernel_matches_plain(dev, d):
     rows = torch.randn((m, d), generator=gen, device=dev) * 10
     got = sk.merge_rows(rows, inv, nseg)
     assert torch.equal(got, sk.merge_rows_plain(rows, inv, nseg))
+
+
+@pytest.mark.parametrize("case", ["heavy_run", "zero_segments", "nseg_2p24"])
+def test_merge_rows_kernel_edge_cases_match_plain(dev, case):
+    """A run of 4,096 rows in one segment; segments whose every row is +-0
+    (left at +0); nseg past 2^24, so all four radix digits move."""
+    gen = torch.Generator(device=dev).manual_seed(13)
+    m, nseg, d = 30000, 5000, 32
+    if case == "nseg_2p24":
+        m, nseg, d = 200_000, (1 << 24) + 77, 1
+    inv = torch.randint(-2, nseg + 2, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    rows = torch.randn((m, d), generator=gen, device=dev)
+    if case == "heavy_run":
+        inv[5000:9096] = 17
+    if case == "zero_segments":
+        zero = (inv % 7) == 0
+        rows[zero] = torch.where(torch.rand_like(rows[zero]) < 0.5, 0.0, -0.0)
+    sk.reset_launches()
+    got = sk.merge_rows(rows, inv, nseg)
+    assert sk.launches("merge_rows") == 1
+    want = sk.merge_rows_plain(rows, inv, nseg)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("d", [1, 32, 33, 300])
+def test_merge_long_runs_match_plain(dev, d):
+    """A run far longer than a walker block's tile (as the coded
+    exchange's padding makes: about half the rows in one segment), and
+    runs of 16 and 17 rows, around the length where the whole block takes
+    a run over from one thread a column: merge_rows bit for bit, merge
+    mode within 2 ulp."""
+    gen = torch.Generator(device=dev).manual_seed(d + 21)
+    m, nseg, vocab = 40_000, 2000, 8192
+    inv = torch.randint(-2, nseg + 2, (m,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    inv[1000:21000] = 7
+    inv[30000:30016] = 100
+    inv[30100:30117] = 101
+    rows = torch.randn((m, d), generator=gen, device=dev)
+    got = sk.merge_rows(rows, inv, nseg)
+    want = sk.merge_rows_plain(rows, inv, nseg)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    uids = torch.randperm(vocab, generator=gen, device=dev)[:nseg].sort() \
+        .values.to(torch.int32)
+    shape = (vocab,) if d == 1 else (vocab, d)
+    table = torch.randn(shape, generator=gen, device=dev)
+    accum = torch.rand(shape, generator=gen, device=dev)
+    check_merge_mode(uids, inv % nseg, table, accum,
+                     rows.reshape(-1) if d == 1 else rows)
 
 
 @pytest.mark.parametrize("bits, mode", [(4, "normal"), (8, "uniform"),
@@ -314,6 +424,25 @@ def flash_check(dev, shape, dt, causal):
         assert float(err.max()) <= FLASH_16_MAX, float(err.max())
         assert float(err.mean()) <= FLASH_16_MEAN, float(err.mean())
     return next(iter(runs))
+
+
+def test_flash_attention_kernel_refuses_grads(dev):
+    """The kernel has no backward: a bf16 call whose inputs require grad
+    raises before any launch; under no_grad it runs, and its output is a
+    constant to autograd."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 256, 2, 64), generator=gen, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    sk.reset_launches()
+    for which in range(3):
+        args = [q, k, v]
+        args[which] = args[which].clone().requires_grad_(True)
+        with pytest.raises(RuntimeError, match="full_attention"):
+            fl.flash_attention(*args, causal=True)
+    assert sk.launches("flash_attention") == 0
+    with torch.no_grad():
+        out = fl.flash_attention(q.requires_grad_(True), k, v, causal=True)
+    assert out.grad_fn is None and sk.launches("flash_attention") == 1
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])

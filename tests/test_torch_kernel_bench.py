@@ -32,10 +32,10 @@ def test_sparse_kernel_bench_cells_on_cpu(tmp_path, monkeypatch):
     assert os.listdir(tmp_path) == []
     assert rep["device"] == "cpu"
     kernels = [c["kernel"] for c in rep["cells"]]
-    assert kernels == ["dedup_ids", "gather_rows", "merge_apply",
-                       "quantize_pack", "quantize_pack_ef"]
+    assert kernels == ["dedup_ids", "gather_rows", "merge_rows",
+                       "merge_apply", "quantize_pack", "quantize_pack_ef"]
     assert [c["phase"] for c in rep["cells"]] == [
-        "dedup", "gather", "merge_apply", "pack", "pack"]
+        "dedup", "gather", "merge", "merge_apply", "pack", "pack"]
     for c in rep["cells"]:
         assert set(c) == SPARSE_KEYS
         assert c["impl_kernel"] == "plain" and c["kernel_is_plain"]
@@ -102,3 +102,17 @@ def test_cli_writes_only_with_out(tmp_path, tool, out):
     if not __import__("torch").cuda.is_available():
         assert proc.returncode != 0
         assert "CUDA is not available" in proc.stderr
+
+
+def test_path_ab_refuses_a_root_without_the_script_or_the_card(tmp_path):
+    """The A/B tool times a checkout through its own chip_smoke.py: a
+    directory without it is refused before any process starts, and
+    without CUDA the checkout's process fails instead of printing a
+    result."""
+    from lightctr_tpu_torch.tools import path_ab
+
+    with pytest.raises(FileNotFoundError, match="no chip_smoke.py"):
+        path_ab.main([str(tmp_path)])
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises(subprocess.CalledProcessError):
+            path_ab.run_root(REPO_ROOT)

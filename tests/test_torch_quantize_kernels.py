@@ -3,19 +3,24 @@
 ``quantize_pack_ef_update``) and the quantile codec (``ops/quantize.py``):
 each plain version against the JAX package's function on the same numpy
 inputs — the quantize kernels fed the SAME table arrays in both packages —
-plus dispatch, launch counts, the CUDA wrappers' refusals and the
+plus a numpy model of the order in which the card's merge adds (held to
+the plain version, ``segment_sum`` and the interpreted TPU kernel under
+hypothesis), dispatch, launch counts, the CUDA wrappers' refusals and the
 registry's pointers to the TPU kernels.
 The kernels themselves are held to these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``."""
 
 import itertools
 import os
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from lightctr_tpu.ops import quantize as jquant
 from lightctr_tpu.ops import sparse_kernels as jsk
@@ -352,6 +357,94 @@ def test_merge_rows_matches_the_interpreted_tpu_kernel(monkeypatch):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert tsk.merge_rows(torch.zeros((0, 4)), torch.zeros(0, dtype=torch.int32),
                           3).shape == (3, 4)
+
+
+def merge_order_model(rows, inv, nseg):
+    """The order in which the card's merge (csrc/segment_runs.cuh) adds,
+    in numpy: key ``inv`` for a kept slot and ``nseg`` for a dropped or
+    all-zero one, a stable sort of the keys, then each run of one key
+    below ``nseg`` summed from +0.0 in float32, in sorted (slot) order."""
+    m = rows.shape[0]
+    flat = rows.reshape(m, int(np.prod(rows.shape[1:])))
+    zero = ~(flat != 0).any(axis=1)
+    keys = np.where((inv >= 0) & (inv < nseg) & ~zero, inv, nseg)
+    order = np.argsort(keys, kind="stable")
+    ranked = keys[order]
+    out = np.zeros((nseg, flat.shape[1]), np.float32)
+    starts = np.flatnonzero(np.r_[True, ranked[1:] != ranked[:-1]]) \
+        if m else np.zeros(0, np.int64)
+    for a, b in zip(starts, np.r_[starts[1:], m]):
+        if ranked[a] >= nseg:
+            continue  # the dropped slots, last
+        acc = np.zeros(flat.shape[1], np.float32)
+        with np.errstate(invalid="ignore"):  # inf + -inf is NaN
+            for slot in order[a:b]:
+                acc = acc + flat[slot]
+        out[ranked[a]] = acc
+    return out.reshape((nseg,) + rows.shape[1:])
+
+
+def assert_same_bits(got, want):
+    """NaN at the same places, every other value bit for bit (signed zeros
+    included).  A NaN's sign and payload are the adder's: XLA's CPU code
+    makes inf + -inf a positive NaN, numpy and PyTorch a negative one."""
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    assert got.shape == want.shape
+    nan = np.isnan(got)
+    np.testing.assert_array_equal(nan, np.isnan(want))
+    np.testing.assert_array_equal(got[~nan].view(np.int32),
+                                  want[~nan].view(np.int32))
+
+
+#: row values that show the order of the adds and the drop rules: signed
+#: zeros, NaN, infinities, magnitudes far apart
+_MERGE_VALUES = [0.0, -0.0, 1.0, -1.0, 3.5, 1e-8, -1e8, 1e30, -1e30,
+                 float("nan"), float("inf"), -float("inf"), 0.1, -7.25]
+
+
+@st.composite
+def merge_cases(draw):
+    nseg = draw(st.one_of(st.sampled_from([1, 2, 4, 8, 16, 32, 64]),
+                          st.integers(1, 40)))
+    m = draw(st.integers(0, 48))
+    d = draw(st.sampled_from([1, 3]))
+    vals = st.sampled_from(_MERGE_VALUES)
+    rows = np.array([[draw(vals) for _ in range(d)] for _ in range(m)],
+                    np.float32).reshape(m, d)
+    # whole rows of +-0, which the kernel leaves out
+    for i in range(m):
+        if draw(st.integers(0, 4)) == 0:
+            rows[i] = [draw(st.sampled_from([0.0, -0.0])) for _ in range(d)]
+    # segments drawn from a few (so some stay empty) and past both ends
+    pool = draw(st.lists(st.integers(-3, nseg + 2), min_size=1, max_size=6))
+    inv = np.array([draw(st.sampled_from(pool)) for _ in range(m)], np.int32)
+    return rows, inv, nseg
+
+
+@settings(max_examples=60, deadline=None, database=None, derandomize=True)
+@given(merge_cases())
+def test_merge_order_model_is_segment_sum_bit_exact(case):
+    """The kernel's order (sorted keys, runs walked from +0) gives the
+    plain version's bits and ``jax.ops.segment_sum``'s, and the
+    interpreted TPU kernel's, with +-0, NaN and infinite rows, segments
+    out of range on both sides, empty segments and nseg at powers of two.
+    The interpreted kernel adds a dropped slot's row times 0 to segment 0,
+    so it differs where a dropped row holds NaN or an infinity (NaN there;
+    ROADMAP.md); that comparison skips such cases."""
+    rows, inv, nseg = case
+    got = merge_order_model(rows, inv, nseg)
+    assert_same_bits(got, tsk.merge_rows_plain(
+        torch.from_numpy(rows), torch.from_numpy(inv), nseg).numpy())
+    assert not np.signbit(got[got == 0]).any()  # a sum from +0 is never -0
+    if rows.shape[0] == 0:
+        return
+    assert_same_bits(got, jax.ops.segment_sum(
+        jnp.asarray(rows), jnp.asarray(inv), num_segments=nseg))
+    dropped = (inv < 0) | (inv >= nseg)
+    if np.isfinite(rows[dropped]).all():
+        with mock.patch.dict(os.environ, {jsk.ENV_FLAG: "interpret"}):
+            assert_same_bits(got, jsk.merge_rows(
+                jnp.asarray(rows), jnp.asarray(inv), nseg))
 
 
 @pytest.mark.parametrize("mode", ["interpret", "xla"])

@@ -238,15 +238,22 @@ def attention_inputs(seed=0):
 
 def attention_rank(rank, world, out_dir):
     """``ring_self_attention`` over a ``seq`` mesh of every rank: float32
-    with and without the causal mask, bfloat16 causal (its blocks cross
-    gloo as bytes), the indivisible-T error, and the refusal of a function
-    that needs the ``data`` axis."""
+    with and without the causal mask, and the gradients of the sum of the
+    output's squares in q, k and v (with the output of that differentiable
+    call); bfloat16 causal (its blocks cross gloo as bytes), the
+    indivisible-T error, and the refusal of a function that needs the
+    ``data`` axis."""
     mesh = make_mesh(MeshSpec(seq=world), device="cpu")
     q, k, v = (torch.from_numpy(x) for x in attention_inputs())
     out = {"axis": mesh.axis}
     for causal in (False, True):
         out[f"causal{int(causal)}"] = _np(
             ring_self_attention(mesh, q, k, v, causal=causal))
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        got = ring_self_attention(mesh, *leaves, causal=causal)
+        (got ** 2).sum().backward()
+        out[f"grad_out_causal{int(causal)}"] = _np(got)
+        out[f"grads_causal{int(causal)}"] = [_np(x.grad) for x in leaves]
     bf = [x.to(torch.bfloat16) for x in (q, k, v)]
     got = ring_self_attention(mesh, *bf, causal=True)
     out["bf16_dtype"] = str(got.dtype)
