@@ -121,7 +121,9 @@ at 3.35 TB/s, or for flash_attention the larger of that and its FLOPs at
 (2, 4096, 8, 128) causal, each beside SDPA; merge_rows' ``per_shape`` and
 merge_apply's ``merge_mode`` give d = 32 and d = 1, the merge mode each
 with the exact exchange's zero padding rows and the coded ones' non-zero
-rows).  Then the ``nvidia-smi`` name and power limit, and the last line
+rows; merge_apply's apply mode and quantize_pack_ef_update add
+``cold_ms``, each call after a read that empties the L2, at d = 1 and
+d = 32).  Then the ``nvidia-smi`` name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
 non-zero; without CUDA, or without the ``lightctr_tpu_torch`` package beside
 this file, it exits 2 and prints no result.
@@ -336,8 +338,9 @@ def check_dedup(np, torch, sk, rng) -> dict:
 
 def check_merge_apply(np, torch, sk, rng) -> dict:
     """merge_apply kernel vs plain version at the train path's shapes:
-    V = 2^20, d in {1, 32}, S = 159744 uids of a real dedup (Criteo ids
-    hold id 0 about 3 % of the time; the other stream has none)."""
+    V = 2^20, d in {1, 32} and 33 (one float a lane, a row across the
+    warp), S = 159744 uids of a real dedup (Criteo ids hold id 0 about 3 %
+    of the time; the other stream has none)."""
     fids = criteo_fids(np, rng, TRAIN_BATCH).reshape(-1)
     streams = {"with_id0": fids, "without_id0": np.where(fids == 0, 1, fids)}
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -348,7 +351,7 @@ def check_merge_apply(np, torch, sk, rng) -> dict:
     for sname, ids in streams.items():
         uids, _, count = sk.dedup_ids(torch.from_numpy(ids).cuda())
         has0 = bool(uids[0] == 0)
-        for d in (1, DIM):
+        for d in (1, DIM, DIM + 1):
             shape = (VOCAB,) if d == 1 else (VOCAB, d)
             table = torch.randn(shape, generator=gen, device="cuda")
             accum = torch.rand(shape, generator=gen, device="cuda")
@@ -610,15 +613,15 @@ def check_quantize_pack_ef_update(np, torch, sk, qz, rng) -> dict:
     """quantize_pack_ef_update kernel == plain version bit for bit (codes,
     dec, residual): the uids of a real dedup of one rank's 2048-row
     Criteo batch (id 0 included, pads masked), rows 3x the range so the
-    clip feeds the carry, a carry from a previous step, d in {1, 32}, 8
-    and 16 bits."""
+    clip feeds the carry, a carry from a previous step, d in {1, 32, 33},
+    8 and 16 bits."""
     fids = criteo_fids(np, rng, DP_LOCAL_ROWS).reshape(-1)
     fids[0] = 0
     uids, _, count = sk.dedup_ids(torch.from_numpy(fids).cuda())
     k = uids.numel()
     gen = torch.Generator(device="cuda").manual_seed(29)
     cases = []
-    for d in (1, DIM):
+    for d in (1, DIM, DIM + 1):
         for bits, mode in ((8, "normal"), (16, "uniform")):
             table = qz.build_table(-1.0, 1.0, bits=bits, mode=mode,
                                    device="cuda")
@@ -1651,6 +1654,53 @@ def graph_ms(torch, fn, reps: int = 100, repeats: int = 7) -> float:
     return statistics.median(per)
 
 
+#: bytes a cold timing reads between two calls: four times the H100's
+#: 50 MB L2, so none of the last call's lines are left in it
+L2_FLUSH_BYTES = 4 * 50 * (1 << 20)
+
+
+def cold_ms(torch, fn, reps: int = 20, repeats: int = 7) -> float:
+    """Device time of one ``fn()`` call on a cold L2.  ``graph_ms`` replays
+    a call on the lines its last call left in the 50 MB L2, which holds a
+    working set of up to that size; here each call follows a read of
+    ``L2_FLUSH_BYTES``.  One CUDA graph holds ``reps`` (read, call) pairs,
+    another the ``reps`` reads alone; both are replayed in turn
+    ``repeats`` times between CUDA events, and the median difference per
+    call is the call's time."""
+    flush = torch.zeros(L2_FLUSH_BYTES // 4, device="cuda")
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        for _ in range(3):
+            flush.sum()
+            fn()
+    torch.cuda.current_stream().wait_stream(s)
+    graphs = []
+    for with_call in (True, False):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            for _ in range(reps):
+                flush.sum()
+                if with_call:
+                    fn()
+        g.replay()
+        graphs.append(g)
+    torch.cuda.synchronize()
+
+    def replay_ms(g):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b)
+
+    per = [(replay_ms(graphs[0]) - replay_ms(graphs[1])) / reps
+           for _ in range(repeats)]
+    return statistics.median(per)
+
+
 def call_ms(torch, fn, reps: int = 200) -> float:
     """Time of one eager call, host included: ``reps`` calls back to
     back between CUDA events after a warm-up."""
@@ -1760,6 +1810,8 @@ def train_timing(np, torch, sk, fa, seed, launches, kern) -> list:
             "d": d, "vocab": VOCAB, "s": k, "s_real": real,
             "ms": graph_ms(torch, lambda: sk.merge_apply(
                 table, accum, uids, grads, lr=LR, eps=EPS)),
+            "cold_ms": cold_ms(torch, lambda: sk.merge_apply(
+                table, accum, uids, grads, lr=LR, eps=EPS)),
             "plain_ms": call_ms(torch, lambda: sk.merge_apply_plain(
                 table, accum, uids, grads, None, LR, EPS, 1.0), reps=50),
             "call_ms": call_ms(torch, lambda: sk.merge_apply(
@@ -1771,7 +1823,8 @@ def train_timing(np, torch, sk, fa, seed, launches, kern) -> list:
         max_abs_err=kern["merge_apply"]["max_abs_err"],
         max_ulp=kern["merge_apply"]["max_ulp"],
         shape={"vocab": VOCAB, "d": DIM, "s": k, "s_real": real},
-        ms=big["ms"], kernel_ms=big["ms"], plain_ms=big["plain_ms"],
+        ms=big["ms"], kernel_ms=big["ms"], cold_ms=big["cold_ms"],
+        plain_ms=big["plain_ms"],
         plain_timing="eager between events: its dedup_grads runs "
                      "torch.unique, which syncs",
         bound_ms=big["bound_ms"], bound_by="bytes", library_ms=None,
@@ -1922,33 +1975,51 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
         call_ms=head["call_ms"], per_shape=per_shape))
 
     # quantize_pack_ef_update: one rank's deduped uids into a [V, 32]
-    # carry, fixed range 1.0, 8 bits normal
+    # carry (the v table's) and a [V] one (w's), fixed range 1.0, 8 bits
+    # normal
     table_q = qz.build_table(-1.0, 1.0, bits=8, mode="normal", device="cuda")
-    residual = torch.zeros((VOCAB, DIM), device="cuda")
     mask = (~((uids_l == 0) & (torch.arange(k, device="cuda") > 0))) \
         .to(torch.float32).reshape(-1, 1)
-    g = torch.randn((k, DIM), generator=gen, device="cuda") * mask
     real_l = int(count_l)
-    nbytes = (k * DIM * 4 + real_l * DIM * 4 + k * 8
-              + k * DIM * (1 + 4) + real_l * DIM * 4)
+    per_shape = []
+    for d in (1, DIM):
+        shape = (VOCAB,) if d == 1 else (VOCAB, d)
+        residual = torch.zeros(shape, device="cuda")
+        mask_d = mask.reshape(-1) if d == 1 else mask
+        g = torch.randn((k,) + shape[1:], generator=gen, device="cuda") \
+            * mask_d
+        # rows and uid/mask read, the real slots' carries read and
+        # written, codes and dec written
+        nbytes = (k * d * 4 + real_l * d * 4 + k * 8
+                  + k * d * (1 + 4) + real_l * d * 4)
+        per_shape.append({
+            "d": d, "s": k, "s_real": real_l, "vocab": VOCAB, "bits": 8,
+            "ms": graph_ms(torch, lambda: sk.quantize_pack_ef_update(
+                table_q, g, uids_l, residual, mask_d)),
+            "cold_ms": cold_ms(torch, lambda: sk.quantize_pack_ef_update(
+                table_q, g, uids_l, residual, mask_d)),
+            "plain_ms": call_ms(
+                torch, lambda: sk.quantize_pack_ef_update_plain(
+                    table_q, g, uids_l, residual, mask_d), reps=20),
+            "call_ms": call_ms(torch, lambda: sk.quantize_pack_ef_update(
+                table_q, g, uids_l, residual, mask_d)),
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes})
+        del residual, g
+    big = per_shape[-1]
     out.append(kernel_row(
         sk, "quantize_pack_ef_update",
         launches=launches["quantize_pack_ef_update"],
         max_abs_err=kern["quantize_pack_ef_update"]["max_abs_err"],
         shape={"s": k, "s_real": real_l, "d": DIM, "vocab": VOCAB,
                "bits": 8},
-        ms=graph_ms(torch, lambda: sk.quantize_pack_ef_update(
-            table_q, g, uids_l, residual, mask)),
-        plain_ms=call_ms(torch, lambda: sk.quantize_pack_ef_update_plain(
-            table_q, g, uids_l, residual, mask), reps=20),
+        ms=big["ms"], cold_ms=big["cold_ms"], plain_ms=big["plain_ms"],
         plain_timing="eager between events: its scatter selects the "
                      "in-table slots, which syncs",
         library_ms=None,
         library_note="no single PyTorch call computes an EF-compensated "
                      "quantile encode with the carry scattered back",
-        bound_ms=bound_ms(nbytes), bound_by="bytes", bytes=nbytes,
-        call_ms=call_ms(torch, lambda: sk.quantize_pack_ef_update(
-            table_q, g, uids_l, residual, mask))))
+        bound_ms=big["bound_ms"], bound_by="bytes", bytes=big["bytes"],
+        call_ms=big["call_ms"], per_shape=per_shape))
 
     # dedup_ids on int64 ids: one train batch's Criteo ids, widened
     ids64 = torch.from_numpy(criteo_fids(np, rng, TRAIN_BATCH).reshape(-1)

@@ -18,9 +18,10 @@ ported yet.
 
 :func:`spawn_world` starts such a world on one host: one process per rank
 (``torch.multiprocessing`` spawn), each with its process group initialised
-over ``tcp://127.0.0.1`` on a free port, joined with a deadline.  It lives
-in the package because spawn re-imports the target's module in every
-child: a target defined next to JAX imports would import JAX there too.
+through a rendezvous store that the caller's process hosts on 127.0.0.1,
+joined with a deadline.  It lives in the package because spawn re-imports
+the target's module in every child: a target defined next to JAX imports
+would import JAX there too.
 """
 
 from __future__ import annotations
@@ -28,7 +29,6 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-import socket
 import time
 from typing import Callable, Optional
 
@@ -148,19 +148,14 @@ def shard_batch(mesh: Mesh, batch) -> dict:
 # -- the launcher ------------------------------------------------------------
 
 
-def free_port() -> int:
-    """A TCP port on 127.0.0.1 that was free a moment ago."""
-    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
-
-
 def _rank_main(rank, fn, world, backend, port, timeout_s, args):
     os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
     torch.set_num_threads(1)
-    dist.init_process_group(
-        backend, init_method=f"tcp://127.0.0.1:{port}", world_size=world,
-        rank=rank, timeout=datetime.timedelta(seconds=timeout_s))
+    timeout = datetime.timedelta(seconds=timeout_s)
+    store = dist.TCPStore("127.0.0.1", port, world_size=world,
+                          is_master=False, timeout=timeout)
+    dist.init_process_group(backend, store=store, world_size=world,
+                            rank=rank, timeout=timeout)
     try:
         fn(rank, world, *args)
     finally:
@@ -171,8 +166,14 @@ def spawn_world(fn: Callable, world: int, backend: str = "gloo",
                 args: tuple = (), deadline_s: float = 300.0,
                 timeout_s: float = DEFAULT_TIMEOUT_S) -> None:
     """Run ``fn(rank, world, *args)`` in ``world`` spawned processes, each
-    with its default process group initialised (``backend``, a free port
-    on 127.0.0.1, ``timeout_s`` for the rendezvous and every collective).
+    with its default process group initialised (``backend``, ``timeout_s``
+    for the rendezvous and every collective).
+
+    The rendezvous store is this process's: a ``TCPStore`` bound to a port
+    of 127.0.0.1 that the OS picks, held from before the ranks start until
+    the world ends, which the ranks join as clients.  No other process can
+    take its port in between, as one could when a free port was looked up,
+    closed and bound again by rank 0 seconds later.
 
     ``fn`` must be importable from its module (spawn re-imports it in each
     child).  A rank that raises makes this raise (the others are stopped);
@@ -181,8 +182,11 @@ def spawn_world(fn: Callable, world: int, backend: str = "gloo",
     ``fn`` (``make_mesh``'s default: ``cuda:<rank mod devices>``)."""
     import torch.multiprocessing as mp
 
+    store = dist.TCPStore("127.0.0.1", 0, is_master=True,
+                          wait_for_workers=False,
+                          timeout=datetime.timedelta(seconds=timeout_s))
     ctx = mp.start_processes(
-        _rank_main, args=(fn, world, backend, free_port(), timeout_s, args),
+        _rank_main, args=(fn, world, backend, store.port, timeout_s, args),
         nprocs=world, join=False, start_method="spawn")
     end = time.monotonic() + deadline_s
     try:

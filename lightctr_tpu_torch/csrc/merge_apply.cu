@@ -33,11 +33,27 @@
 // the JAX reference computes it, which counts every merged row, those of
 // uids outside the table too.
 //
-// Layout (apply mode): the S*d gradient values are flattened over a
-// grid-stride loop, so neighbouring threads read neighbouring gradient
-// floats and, for d = 32, one warp reads and writes one 128-byte table row
-// and its accumulator row.  d = 1 (FM's w table) takes the same path with
-// one row per thread.
+// Layout (apply mode): touched_rows.cuh's walk.  A persistent grid of
+// warps takes tiles of slots; a tile's uids are loaded once, coalesced, a
+// tile ahead, and reach the lanes by shuffle.  Lanes run over a row's
+// columns, float4 where d % 4 == 0 and table, accumulator and rows are
+// 16-byte aligned (at d = 32, 8 lanes a row, 4 rows a warp access), one
+// float otherwise; at d = 1 (FM's w table) a lane takes whole slots.  A
+// lane starts the gradient, accumulator and table loads of kVecRows rows
+// (kScalarRows, kOwnRows) before it applies the first, and the next
+// tile's uids are in flight meanwhile.  At d = 32 that is 8 rows of 384
+// bytes a warp; at the 32 warps an SM that its registers allow, about
+// 96 KB an SM in flight, past the ~18 KB (3.35 TB/s x 0.7 us over 132
+// SMs) that hides HBM latency.  More rows a lane cost occupancy and
+// measured slower on the H100 at both widths.  The flat loop this
+// replaced ran one value a thread, with a 64-bit division by d for its
+// slot.  Each block writes its partial
+// of the sum of squares at its own index and a second launch,
+// sum_partials, adds them in block order.  One launch, whose last block
+// (named by a ticket in the workspace) adds the partials, measured slower
+// on the H100 at d 1 and d 32: the workspace is fresh scratch on every
+// call, so the ticket needs a memset node before the walk, and every
+// block a fence and an atomic after it.
 // The merge mode's layout is the walker's (segment_runs.cuh): a thread a
 // (segment, column), a warp a segment at d = 32, a thread one at d = 1.
 //
@@ -46,8 +62,9 @@
 // so nvcc cannot contract them into FMAs; rsqrtf matches torch.rsqrt on the
 // card.  sumsq is accumulated in double per thread, reduced per block, and
 // the per-block sums are added by one block in a fixed order, so it is the
-// same from run to run (the grid depends only on S*d; in the merge mode on
-// M, S and d, and the stable sort fixes which thread adds what).
+// same from run to run (the apply mode's grid depends only on S, d and the
+// card, and each warp's tiles are fixed; in the merge mode on M, S and d,
+// and the stable sort fixes which thread adds what).
 //
 // Bound: bytes.  The touched rows' table and accumulator are read and
 // written once (4 * S_real * d * 4 bytes for S_real distinct ids), their
@@ -66,11 +83,17 @@
 #include <cuda_runtime.h>
 
 #include "segment_runs.cuh"
+#include "touched_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 1024;
+constexpr int kMaxBlocks = 1024;  // the apply mode's partials
+// rows a lane has in flight, by lane kind (touched_rows.cuh): float4
+// lanes, one-float lanes (d % 4 != 0), lanes that take whole slots (d 1)
+constexpr int kVecRows = 2;
+constexpr int kScalarRows = 8;
+constexpr int kOwnRows = 2;
 
 __device__ __forceinline__ double warp_sum(double x) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_down_sync(0xffffffffu, x, o);
@@ -89,38 +112,78 @@ __device__ double block_sum(double x) {
   return x;
 }
 
-__global__ void apply_rows(float* __restrict__ table, float* __restrict__ accum,
-                           const int32_t* __restrict__ uids,
-                           const float* __restrict__ rows, long long vocab,
-                           long long d, long long s, float lr, float eps,
-                           float denom, bool scale,
-                           double* __restrict__ partials) {
-  double ssq = 0.0;
-  const long long total = s * d;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long slot = t / d;
-    const long long uid = uids[slot];
-    // pad slots (uid 0 past slot 0) carry no gradient
-    if (uid == 0 && slot > 0) continue;
-    float g = rows[t];
-    if (scale) g = __fdiv_rn(g, denom);
-    const float g2 = __fmul_rn(g, g);
-    ssq += (double)g2;
+// The apply mode's arguments.
+struct ApplyArgs {
+  float* table;
+  float* accum;
+  const int32_t* uids;
+  const float* rows;
+  long long vocab, d;
+  float lr, eps, denom;
+  bool scale;
+};
+
+// The apply mode's epilogue on touched_rows.cuh's walk: V columns of one
+// slot's row.  load() reads the gradient and, through the uid, the table
+// and accumulator; put() applies the update and adds g*g to the thread's
+// sum of squares.
+template <int V>
+struct ApplyRows : ApplyArgs {
+  using F = typename lct::FloatVec<V>::T;
+  double ssq;
+
+  struct Slot {
+    int32_t uid;
+  };
+  struct Ctx {
+    long long e;  // the element of table/accum, -1: none (dropped uid)
+    F g, a, w;
+  };
+
+  __device__ Slot slot(long long i) const { return {__ldg(uids + i)}; }
+
+  // pad slots (uid 0 past slot 0) carry no gradient
+  __device__ bool skip(long long i, const Slot& k) const {
+    return k.uid == 0 && i > 0;
+  }
+
+  __device__ Ctx load(long long i, const Slot& k, long long c) const {
+    Ctx x;
+    x.g = lct::stream_vec<V>(rows + i * d + c);
     // the JAX scatter's index rules: a negative uid wraps once, any other
     // uid outside the table is dropped
-    const long long row = uid < 0 ? uid + vocab : uid;
-    if (row < 0 || row >= vocab) continue;
-    const long long e = row * d + (t - slot * d);
-    const float a = __fadd_rn(accum[e], g2);
-    accum[e] = a;
-    table[e] = __fsub_rn(
-        table[e], __fmul_rn(__fmul_rn(lr, g), rsqrtf(__fadd_rn(a, eps))));
+    const long long row = k.uid < 0 ? (long long)k.uid + vocab : k.uid;
+    x.e = row >= 0 && row < vocab ? row * d + c : -1;
+    if (x.e >= 0) {
+      x.a = lct::load_vec<V>(accum + x.e);
+      x.w = lct::load_vec<V>(table + x.e);
+    }
+    return x;
   }
-  ssq = block_sum(ssq);
-  if (threadIdx.x == 0) partials[blockIdx.x] = ssq;
-}
+
+  __device__ void put(Ctx& x, long long, const Slot&, long long) {
+    F g2;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      float& g = lct::lane_of(x.g, j);
+      if (scale) g = __fdiv_rn(g, denom);
+      lct::lane_of(g2, j) = __fmul_rn(g, g);
+      ssq += (double)lct::lane_of(g2, j);
+    }
+    if (x.e < 0) return;
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float a = __fadd_rn(lct::lane_of(x.a, j), lct::lane_of(g2, j));
+      lct::lane_of(x.a, j) = a;
+      lct::lane_of(x.w, j) = __fsub_rn(
+          lct::lane_of(x.w, j),
+          __fmul_rn(__fmul_rn(lr, lct::lane_of(x.g, j)),
+                    rsqrtf(__fadd_rn(a, eps))));
+    }
+    lct::store_vec<V>(accum + x.e, x.a);
+    lct::store_vec<V>(table + x.e, x.w);
+  }
+};
 
 __global__ void sum_partials(const double* __restrict__ partials, int n,
                              float* __restrict__ out) {
@@ -128,6 +191,39 @@ __global__ void sum_partials(const double* __restrict__ partials, int n,
   for (int i = threadIdx.x; i < n; i += blockDim.x) x += partials[i];
   x = block_sum(x);
   if (threadIdx.x == 0) *out = (float)x;
+}
+
+// The apply mode's walk.  Each block writes its partial of the sum of
+// squares (a fixed-order block sum of its threads' doubles) at its index,
+// which sum_partials adds in block order.
+template <int V, int U, bool kOwn>
+__global__ void __launch_bounds__(kThreads)
+    apply_rows(ApplyRows<V> op, lct::TouchedRows w,
+               double* __restrict__ partials) {
+  lct::walk_touched_rows<V, U, kOwn>(w, op);
+  const double ssq = block_sum(op.ssq);
+  if (threadIdx.x == 0) partials[blockIdx.x] = ssq;
+}
+
+template <int V>
+cudaError_t launch_apply(const ApplyArgs& a, long long s, double* partials,
+                         float* out, cudaStream_t stream) {
+  const ApplyRows<V> op{a, 0.0};
+  return lct::launch_touched_rows<V, V == 4 ? kVecRows : kScalarRows,
+                                  kOwnRows>(
+      s, a.d, [&](auto u, auto own, const lct::TouchedRows& w) {
+        constexpr int U = decltype(u)::value;
+        constexpr bool kOwn = decltype(own)::value;
+        const unsigned grid = lct::grid_for(apply_rows<V, U, kOwn>, kThreads,
+                                            w.tiles, kMaxBlocks);
+        if (grid == 0) return cudaGetLastError();
+        apply_rows<V, U, kOwn><<<grid, kThreads, 0, stream>>>(op, w,
+                                                              partials);
+        const cudaError_t err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+        sum_partials<<<1, kThreads, 0, stream>>>(partials, (int)grid, out);
+        return cudaGetLastError();
+      });
 }
 
 // The merge mode's walker epilogue: the (segment, column) sum, divided by
@@ -202,20 +298,21 @@ extern "C" int merge_apply_f32(void* table, void* accum, const void* uids,
                                void* sumsq, void* workspace,
                                void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const long long total = s * d;
-  long long blocks = (total + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   double* partials = static_cast<double*>(workspace);
-  apply_rows<<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<float*>(table), static_cast<float*>(accum),
-      static_cast<const int32_t*>(uids), static_cast<const float*>(rows),
-      vocab, d, s, lr, eps, denom, denom != 1.0f, partials);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  sum_partials<<<1, kThreads, 0, stream>>>(partials, (int)blocks,
-                                           static_cast<float*>(sumsq));
-  return (int)cudaGetLastError();
+  float* out = static_cast<float*>(sumsq);
+  const ApplyArgs a{static_cast<float*>(table),
+                    static_cast<float*>(accum),
+                    static_cast<const int32_t*>(uids),
+                    static_cast<const float*>(rows),
+                    vocab,
+                    d,
+                    lr,
+                    eps,
+                    denom,
+                    denom != 1.0f};
+  if (lct::rows_take_float4(d, {table, accum, rows}))
+    return (int)launch_apply<4>(a, s, partials, out, stream);
+  return (int)launch_apply<1>(a, s, partials, out, stream);
 }
 
 // Bytes of device scratch merge_apply_merge_f32 needs for m gathered rows

@@ -25,12 +25,10 @@ line with each root's medians on rank 0.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
 import statistics
-import subprocess
 import sys
+
+from lightctr_tpu_torch.tools import ab_roots
 
 #: what runs in each root's process (argv: root), at chip_smoke's seed 0
 _CHILD = r"""
@@ -73,36 +71,22 @@ print(json.dumps({"root": root, "ring_call_ms": ring,
 
 
 def run_root(root: str) -> dict:
-    """Time ``root``'s ring call and dp steps in a process of its own;
-    the last line it prints, parsed."""
-    root = os.path.abspath(root)
-    if not os.path.isfile(os.path.join(root, "chip_smoke.py")):
-        raise FileNotFoundError(f"path_ab: no chip_smoke.py in {root}")
-    out = subprocess.run([sys.executable, "-c", _CHILD, root],
-                         cwd=root, check=True, stdout=subprocess.PIPE,
-                         text=True).stdout
-    return json.loads(out.strip().splitlines()[-1])
+    """Time ``root``'s ring call and dp steps in a process of its own."""
+    return ab_roots.run_root("path_ab", _CHILD, root)
+
+
+def summarize(recs: list) -> dict:
+    """One root's medians on rank 0."""
+    return {"ring_call_ms_rank0": statistics.median(
+                r["ring_call_ms"][0] for r in recs),
+            "dp_step_ms_rank0": {
+                name: statistics.median(r["dp_step_ms"][name][0]
+                                        for r in recs)
+                for name in recs[0]["dp_step_ms"]}}
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("roots", nargs="+")
-    args = ap.parse_args(argv)
-    by_root = {}
-    for root in args.roots:
-        rec = run_root(root)
-        print(json.dumps(rec), flush=True)
-        by_root.setdefault(rec["root"], []).append(rec)
-    print(json.dumps({"summary": {
-        root: {"runs": len(recs),
-               "ring_call_ms_rank0": statistics.median(
-                   r["ring_call_ms"][0] for r in recs),
-               "dp_step_ms_rank0": {
-                   name: statistics.median(r["dp_step_ms"][name][0]
-                                           for r in recs)
-                   for name in recs[0]["dp_step_ms"]}}
-        for root, recs in by_root.items()}}), flush=True)
-    return 0
+    return ab_roots.main(__doc__, run_root, summarize, argv)
 
 
 if __name__ == "__main__":

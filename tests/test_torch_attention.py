@@ -27,8 +27,8 @@ from lightctr_tpu.core.mesh import MeshSpec as JMeshSpec
 from lightctr_tpu.core.mesh import make_mesh as jmake_mesh
 from lightctr_tpu.nn import flash_attention as jflash
 from lightctr_tpu.nn import ring_attention as jring
-from lightctr_tpu_torch.core.mesh import (Mesh, MeshSpec, free_port,
-                                          local_mesh, make_mesh, spawn_world)
+from lightctr_tpu_torch.core.mesh import (Mesh, MeshSpec, local_mesh,
+                                          make_mesh, spawn_world)
 from lightctr_tpu_torch.models import fm as tfm
 from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
 from lightctr_tpu_torch.core.config import TrainConfig
@@ -263,11 +263,12 @@ def test_flash_attention_plain_is_differentiable_as_jax(causal):
 
 @pytest.fixture
 def one_rank_world(monkeypatch):
-    """A gloo process group of one rank in this process."""
+    """A gloo process group of one rank in this process, its rendezvous
+    an in-process store (no port)."""
     monkeypatch.setenv("GLOO_SOCKET_IFNAME", "lo")
     dist.init_process_group(
-        "gloo", init_method=f"tcp://127.0.0.1:{free_port()}", world_size=1,
-        rank=0, timeout=datetime.timedelta(seconds=60))
+        "gloo", store=dist.HashStore(), world_size=1, rank=0,
+        timeout=datetime.timedelta(seconds=60))
     yield
     dist.destroy_process_group()
 

@@ -23,6 +23,7 @@ from lightctr_tpu.dist import collectives as jcoll
 from lightctr_tpu.ops import quantize as jquant
 from lightctr_tpu_torch.core.mesh import spawn_world
 from lightctr_tpu_torch.dist import collectives as tcoll
+from lightctr_tpu_torch.tools import world_stress
 
 # -- byte accounting and the pick (pure Python, no world) --------------------
 
@@ -220,3 +221,41 @@ def test_ring_all_reduce_coded_ef_matches_jax(world, mode):
                 np.testing.assert_array_equal(
                     out[f"ring_ef_{mode}"][call][0][k],
                     ranks[0][f"ring_ef_{mode}"][call][0][k])
+
+
+def test_spawn_world_holds_its_rendezvous_port_before_the_ranks_start(
+        monkeypatch):
+    """The launcher's rendezvous store is bound in the calling process
+    before any rank starts, its port is the one the ranks are given, and
+    the ranks join it and run: no other process can take that port in
+    between.  (A port looked up free, closed, and bound again by rank 0
+    seconds later could be taken by a server of a test suite running
+    beside the world, which failed the world with EADDRINUSE.)"""
+    import socket
+
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+    from lightctr_tpu_torch.core import mesh
+
+    assert not hasattr(mesh, "free_port")
+    stores, starts = [], []
+    make_store, start = dist.TCPStore, tmp.start_processes
+
+    def recording_store(*args, **kwargs):
+        stores.append(make_store(*args, **kwargs))
+        return stores[-1]
+
+    def checked_start(*args, **kwargs):
+        assert len(stores) == 1, "no rendezvous store before the ranks"
+        port = stores[0].port
+        assert port in kwargs["args"], "the ranks are not given its port"
+        with socket.socket() as s:
+            with pytest.raises(OSError):
+                s.bind(("127.0.0.1", port))
+        starts.append(port)
+        return start(*args, **kwargs)
+
+    monkeypatch.setattr(dist, "TCPStore", recording_store)
+    monkeypatch.setattr(tmp, "start_processes", checked_start)
+    spawn_world(world_stress.all_reduce_rank, 2, "gloo", deadline_s=120.0)
+    assert len(starts) == 1

@@ -111,24 +111,113 @@ def test_dedup_kernel_digit_streams_match_plain(dev, name, k):
             assert a.dtype == b.dtype and torch.equal(a, b), (name, k, size)
 
 
-@pytest.mark.parametrize("d", [1, 8])
-@pytest.mark.parametrize("denom", [1.0, 4.0])
-def test_merge_apply_kernel_matches_plain(dev, d, denom):
-    rng = np.random.default_rng(d)
-    ids = torch.from_numpy(
-        (rng.random(3000) ** 4 * 4096).astype(np.int32)).to(dev)
-    uids, _, _ = sk.dedup_ids(ids)
-    shape = (4096,) if d == 1 else (4096, d)
-    gen = torch.Generator(device=dev).manual_seed(d)
+#: a slot count past one sweep of the touched-row kernels' persistent
+#: grid at every width (at most 1024 blocks of 8 warps, 128 slots a warp
+#: tile at d = 1 and fewer at any other width)
+SWEEP_S = (1 << 21) + 5
+#: (d, S, storage offset of rows in floats) of the touched-row kernels'
+#: cases: float4 lanes (d % 4 == 0), one float a lane (3, 33), whole slots
+#: a lane (1, and 4 on float4), a row across the whole warp (33); S from
+#: one slot to past a sweep; rows one float off their 16-byte alignment,
+#: so the float4 widths take the one-float path
+TOUCHED_CASES = ([(d, s, 0) for d in (1, 3, 4, 8, 32, 33, 64)
+                  for s in (1, 31, 4097, SWEEP_S)]
+                 + [(d, 4097, 1) for d in (8, 32, 64)] + [(32, SWEEP_S, 1)])
+
+
+def touched_uids(seed, s, vocab):
+    """[s] int32 uids of the dedup convention for the touched-row kernels:
+    a real id 0 at slot 0 (past one slot), then distinct rows in shuffled
+    order, a quarter of them as ``row - vocab`` (which wraps to the row),
+    about 1 % outside the table either side (dropped), then id-0 pads for
+    the last third of the slots."""
+    rng = np.random.default_rng(seed)
+    lead = 1 if s > 1 else 0
+    n = max(1, min(s - lead - s // 3, vocab - 1))
+    u = rng.choice(np.arange(1, vocab), size=n, replace=False)
+    wrap = rng.random(n) < 0.25
+    u[wrap] -= vocab
+    out = rng.random(n) < 0.01
+    u[out] = np.where(rng.random(out.sum()) < 0.5,
+                      vocab + rng.integers(0, 100, out.sum()),
+                      -vocab - 1 - rng.integers(0, 100, out.sum()))
+    uids = np.zeros(s, np.int32)
+    uids[lead:lead + n] = u
+    return uids
+
+
+def offset_rows(rows, offset):
+    """``rows`` copied into a contiguous view ``offset`` floats into its
+    storage."""
+    if not offset:
+        return rows
+    buf = torch.empty(rows.numel() + offset, dtype=rows.dtype,
+                      device=rows.device)
+    view = buf[offset:].view(rows.shape)
+    view.copy_(rows)
+    return view
+
+
+def merge_apply_touched(dev, d, s, offset, seed):
+    """(table, accum, uids, rows) of a touched-row case: vocab 2^20 at the
+    largest S, 8192 otherwise."""
+    vocab = 1 << 20 if s > 8192 else 8192
+    uids = torch.from_numpy(touched_uids(seed, s, vocab)).to(dev)
+    shape = (vocab,) if d == 1 else (vocab, d)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     table = torch.randn(shape, generator=gen, device=dev)
     accum = torch.rand(shape, generator=gen, device=dev)
-    rows = torch.randn((uids.numel(),) + shape[1:], generator=gen, device=dev)
+    rows = torch.randn((s,) + shape[1:], generator=gen, device=dev)
+    return table, accum, uids, offset_rows(rows, offset)
+
+
+@pytest.mark.parametrize("d, s, offset", TOUCHED_CASES)
+@pytest.mark.parametrize("denom", [1.0, 4.0])
+def test_merge_apply_kernel_matches_plain(dev, d, s, offset, denom):
+    """The apply mode within 2 ulp of the plain version and sumsq within
+    rtol 1e-5, with pads, wrapping uids and uids outside the table."""
+    table, accum, uids, rows = merge_apply_touched(dev, d, s, offset, d + s)
+    assert rows.storage_offset() == offset and rows.is_contiguous()
+    sk.reset_launches()
     t1, a1, s1 = sk.merge_apply(table.clone(), accum.clone(), uids, rows,
                                 lr=0.05, denom=denom)
+    assert sk.variant_launches("merge_apply") == {"apply": 1}
     t2, a2, s2 = sk.merge_apply_plain(table.clone(), accum.clone(), uids,
                                       rows, None, 0.05, 1e-7, denom)
     assert ulp(t1, t2) <= MAX_ULP and ulp(a1, a2) <= MAX_ULP
     torch.testing.assert_close(s1, s2, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("d", [1, 3, 4, 32])
+def test_merge_apply_kernel_sumsq_is_the_same_every_call(dev, d):
+    """The apply mode's sum of squares is bitwise the same over two calls
+    and over three replays of one captured CUDA graph; the table and
+    accumulator a replay leaves are those of an eager call."""
+    table, accum, uids, rows = merge_apply_touched(dev, d, 159744, 0, 11)
+    runs = []
+    for _ in range(2):
+        t, a = table.clone(), accum.clone()
+        runs.append((t, a, sk.merge_apply(t, a, uids, rows, lr=0.05,
+                                          denom=2.0)[2].clone()))
+    assert torch.equal(runs[0][2].view(torch.int32),
+                       runs[1][2].view(torch.int32))
+    t, a = table.clone(), accum.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        sk.merge_apply(t, a, uids, rows, lr=0.05, denom=2.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        _, _, ssq = sk.merge_apply(t, a, uids, rows, lr=0.05, denom=2.0)
+    for _ in range(3):
+        t.copy_(table)
+        a.copy_(accum)
+        ssq.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(ssq.view(torch.int32), runs[0][2].view(torch.int32))
+        assert torch.equal(t, runs[0][0]) and torch.equal(a, runs[0][1])
 
 
 def test_merge_apply_kernel_drops_uids_outside_the_table(dev):
@@ -317,30 +406,41 @@ def test_quantize_pack_kernel_matches_plain(dev, bits, mode):
     assert got.view(-1)[:3].tolist() == [top, 0, top]
 
 
-@pytest.mark.parametrize("d", [1, 8])
-@pytest.mark.parametrize("bits", [8, 16])
-def test_quantize_pack_ef_update_kernel_matches_plain(dev, d, bits):
-    """Codes, dec and the residual bit for bit: dedup uids with a real id
-    0 and masked pads, rows past the fixed range, a carry from before."""
-    rng = np.random.default_rng(d * bits)
-    ids = (rng.random(3000) ** 4 * 4096).astype(np.int32)
-    ids[0] = 0
-    uids, _, _ = sk.dedup_ids(torch.from_numpy(ids).to(dev))
+def check_ef_update(dev, uids, shape, bits, offset, seed):
+    """Codes, dec and the residual of the kernel and the plain version bit
+    for bit: pads (uid 0 past slot 0) masked and zero, rows past the
+    fixed range, a carry from before."""
     k = uids.numel()
-    shape = (4096,) if d == 1 else (4096, d)
-    gen = torch.Generator(device=dev).manual_seed(d)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     table = qz.build_table(-1.0, 1.0, bits=bits,
                            mode="normal" if bits <= 8 else "uniform",
                            device=dev)
     mask = (~((uids == 0) & (torch.arange(k, device=dev) > 0))).float() \
         .reshape((-1,) + (1,) * (len(shape) - 1))
-    rows = torch.randn((k,) + shape[1:], generator=gen, device=dev) * 3 * mask
+    rows = offset_rows(
+        torch.randn((k,) + shape[1:], generator=gen, device=dev) * 3 * mask,
+        offset)
     residual = torch.randn(shape, generator=gen, device=dev) * 0.1
     r1, r2 = residual.clone(), residual.clone()
     c1, _, d1 = sk.quantize_pack_ef_update(table, rows, uids, r1, mask)
     c2, _, d2 = sk.quantize_pack_ef_update_plain(table, rows, uids, r2, mask)
-    assert torch.equal(c1, c2) and torch.equal(d1, d2)
-    assert torch.equal(r1, r2)
+    assert c1.dtype == c2.dtype and torch.equal(c1, c2)
+    assert torch.equal(d1, d2) and torch.equal(r1, r2)
+
+
+@pytest.mark.parametrize("d, s, offset", TOUCHED_CASES)
+@pytest.mark.parametrize("bits", [8, 16])
+def test_quantize_pack_ef_update_kernel_matches_plain(dev, d, s, offset,
+                                                      bits):
+    """Codes, dec and the residual bit for bit at the touched-row walk's
+    widths, slot counts and offsets: a real id 0 at slot 0, pads (uid 0
+    past slot 0) masked and zero, wrapping uids and uids outside the table
+    (their carry reads NaN, which takes the top code), rows past the fixed
+    range, a carry from before."""
+    vocab = 1 << 20 if s > 8192 else 8192
+    uids = torch.from_numpy(touched_uids(d * s + bits, s, vocab)).to(dev)
+    check_ef_update(dev, uids, (vocab,) if d == 1 else (vocab, d), bits,
+                    offset, d + bits)
 
 
 @pytest.mark.parametrize("mask_kind", ["row", "value", "scalar"])

@@ -66,7 +66,10 @@ def test_importing_the_serving_slice_loads_no_jax():
             "lightctr_tpu_torch.nn.ring_attention, "
             "lightctr_tpu_torch.tools.sparse_kernel_bench, "
             "lightctr_tpu_torch.tools.kernel_bench, "
-            "lightctr_tpu_torch.tools.path_ab; "
+            "lightctr_tpu_torch.tools.path_ab, "
+            "lightctr_tpu_torch.tools.kernel_ab, "
+            "lightctr_tpu_torch.tools.ab_roots, "
+            "lightctr_tpu_torch.tools.world_stress; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

@@ -116,3 +116,17 @@ def test_path_ab_refuses_a_root_without_the_script_or_the_card(tmp_path):
     if not __import__("torch").cuda.is_available():
         with pytest.raises(subprocess.CalledProcessError):
             path_ab.run_root(REPO_ROOT)
+
+
+def test_kernel_ab_refuses_a_root_without_the_script_or_the_card(tmp_path):
+    """The kernel A/B builds and times a checkout's kernels through its
+    own chip_smoke.py: a directory without it is refused before any
+    process starts, and without CUDA the checkout's process fails instead
+    of printing a result."""
+    from lightctr_tpu_torch.tools import kernel_ab
+
+    with pytest.raises(FileNotFoundError, match="no chip_smoke.py"):
+        kernel_ab.main([str(tmp_path)])
+    if not __import__("torch").cuda.is_available():
+        with pytest.raises(subprocess.CalledProcessError):
+            kernel_ab.run_root(REPO_ROOT)

@@ -274,10 +274,13 @@ def _ef_case(seed, d, bits, vocab=64, s=40):
                               else "uniform"), rows, uids, residual, mask
 
 
-@pytest.mark.parametrize("d, bits", list(itertools.product((1, 5), (8, 16))))
+@pytest.mark.parametrize("d, bits", list(itertools.product((1, 3, 5, 33),
+                                                           (8, 16))))
 def test_quantize_pack_ef_update_plain_matches_jax_reference(d, bits):
     """Codes, dec and the residual (updated in place) bit for bit against
-    ``KERNELS["quantize_pack_ef_update"].reference``, twice in a row."""
+    ``KERNELS["quantize_pack_ef_update"].reference``, twice in a row, at
+    widths where the card's kernel takes one float a lane (3, 5, and 33,
+    a row across the whole warp) and whole slots (1)."""
     jt, rows, uids, residual, mask = _ef_case(d * 10 + bits, d, bits)
     tt = _same_table(jt)
     jres = jnp.asarray(residual)

@@ -129,12 +129,19 @@ def _convention_uids(rng, s, vocab, with_zero=False):
     return uids, u.size
 
 
+#: apply-only cases -> the 2-D table's width: tests/test_sparse_kernels.py's
+#: 6, and 3 and 33, where the card's apply takes one float a lane (one row
+#: of 3 columns per lane group, a 33-column row across the whole warp)
+APPLY_WIDTHS = {"apply_2d": 6, "apply_d3": 3, "apply_d33": 33}
+
+
 def _merge_apply_case(kind):
     """(table, accum, uids, rows, inv, lr, denom) of tests/test_sparse_
     kernels.py's merge_apply tests: merge mode on a 2-D table with
-    denom 4, and apply-only on the 1-D (FM w) and 2-D tables."""
-    rng = np.random.default_rng({"merge_2d": 3, "apply_1d": 4,
-                                 "apply_2d": 5}[kind])
+    denom 4, and apply-only on the 1-D (FM w) and 2-D tables (the
+    widths of :data:`APPLY_WIDTHS`)."""
+    rng = np.random.default_rng({"merge_2d": 3, "apply_1d": 4, "apply_2d": 5,
+                                 "apply_d3": 6, "apply_d33": 7}[kind])
     if kind == "merge_2d":
         m, s, vocab, d = 160, 40, 64, 5
         uids, nu = _convention_uids(rng, s, vocab, with_zero=True)
@@ -144,7 +151,8 @@ def _merge_apply_case(kind):
     else:
         s, vocab = 24, 48
         uids, nu = _convention_uids(rng, s, vocab, with_zero=True)
-        shape = (vocab,) if kind == "apply_1d" else (vocab, 6)
+        shape = ((vocab,) if kind == "apply_1d"
+                 else (vocab, APPLY_WIDTHS[kind]))
         rows = rng.normal(size=(s,) + shape[1:]).astype(np.float32)
         rows[nu:] = 3.0  # pad slots: the dispatch's mask must zero them
         inv, lr, denom = None, 0.05, (1.0 if kind == "apply_1d" else 4.0)
@@ -164,7 +172,8 @@ def _run_merge_apply_torch(table, accum, uids, rows, inv, lr, denom):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("kind", ["merge_2d", "apply_1d", "apply_2d"])
+@pytest.mark.parametrize("kind", ["merge_2d", "apply_1d", "apply_2d",
+                                  "apply_d3", "apply_d33"])
 def test_merge_apply_plain_matches_jax(monkeypatch, mode, kind):
     """Within the JAX test's own bounds (FMA-contraction ulp on table and
     accum, float tolerance on the sum of squares); untouched rows
