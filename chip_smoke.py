@@ -35,14 +35,19 @@ Phases, one JSON line each:
            32}, with heavy duplicates and out-of-range segments, with
            segments whose rows are all +-0, and at nseg = 2^24 + 77 (all
            four radix digits move); quantize_pack bit-exact on the
-           [79872, 32] payload at 4, 8 (uniform, normal, fixed and measured
-           range) and 16 bits with +-inf and NaN; quantize_pack_ef_update
+           [79872, 32] payload at 1, 4, 8 (uniform, normal, fixed and
+           measured range) and 16 bits with +-inf and NaN, one float past
+           16 bytes (n = 3 mod 4) at 8 and 16 bits, and at 16 bits on
+           every boundary and one ulp either side, each launch through the
+           design its width names (``tree`` up to 8 bits, ``split``
+           above); quantize_pack_ef_update
            bit-exact (codes, dec, residual) on a real dedup's uids with id 0
            at 8 and 16 bits; fused_adagrad within 2 ulp at N in {1, 1001,
            2^20, 2^25} and at a misaligned start; quantize_pack_ef
            bit-exact (codes, delta) on the [79872, 32] payload at 8 and 16
-           bits with +-inf and NaN, masked and unmasked rows, a [P, 1] and
-           a [P, d] mask; flash_attention at the bench's causal bf16 shapes
+           bits with +-inf and NaN, masked and unmasked rows, a [P, 1], a
+           [P, d] and a scalar mask, through the design its width names;
+           flash_attention at the bench's causal bf16 shapes
            (4, 1024, 8, 64), (2, 4096, 8, 64), (1, 8192, 8, 64), at bf16
            heads of 128, 256 and 320 causal and not, and at B*H = 65,600
            (max abs error <= 2e-2, mean <= 2e-3), at (2, 256, 4, 32) and the
@@ -81,8 +86,9 @@ Phases, one JSON line each:
            (c) 8 bits with its defaults (range 1.0, error feedback), 10
            steps.  Per rank and step: dedup_ids and merge_apply launched
            twice each (every merge_apply launch its fused merge mode, and
-           no merge_rows launch), quantize_pack twice in (b),
-           quantize_pack_ef_update twice in (c) (counts reset in each rank
+           no merge_rows launch), quantize_pack twice in (b) (each its
+           ``tree`` design), quantize_pack_ef_update twice in (c) (counts
+           reset in each rank
            just before its steps).  Both ranks end bit-identical; the loss
            falls in every run; (b) ends within 0.05 of (a) at the same
            step.  The same runs on the CPU with the plain versions (the
@@ -109,24 +115,26 @@ Phases, one JSON line each:
            sparse_kernel_bench.run`` and ``tools.kernel_bench.run`` (no
            file written): every cell's kernel launched (merge_rows,
            quantize_pack_ef and flash_attention included; merge_apply in its
-           fused merge mode); their cells are printed.
+           fused merge mode, quantize_pack and quantize_pack_ef through
+           their ``tree`` design); their cells are printed.
 
 Then a ``{"kernels": [...]}`` line: each kernel at its main path's shape,
 its launches on that path, its device time (``ms``, CUDA graph of
 back-to-back calls), the plain version's, one PyTorch library call's where
 one computes the same function (the yardstick; the port never calls it),
-the eager per-call time with the host (``call_ms``) and the bound: bytes
-at 3.35 TB/s, or for flash_attention the larger of that and its FLOPs at
-989 TFLOP/s (its ``per_shape`` adds the path shape non-causal and
-(2, 4096, 8, 128) causal, each beside SDPA; merge_rows' ``per_shape`` and
-merge_apply's ``merge_mode`` give d = 32 and d = 1, the merge mode each
-with the exact exchange's zero padding rows and the coded ones' non-zero
-rows; merge_apply's apply mode and quantize_pack_ef_update add
-``cold_ms``, each call after a read that empties the L2, at d = 1 and
-d = 32).  Then the ``nvidia-smi`` name and power limit, and the last line
-``{"ok": true, "device": {...}}``.  Any failed phase raises and exits
-non-zero; without CUDA, or without the ``lightctr_tpu_torch`` package beside
-this file, it exits 2 and prints no result.
+the eager per-call time with the host (``call_ms``) and the bound: bytes at
+3.35 TB/s, or for flash_attention the larger of that and its FLOPs at 989
+TFLOP/s (its ``per_shape`` adds the path shape non-causal and (2, 4096, 8,
+128) causal, each beside SDPA; merge_rows' ``per_shape`` and merge_apply's
+``merge_mode`` give d = 32 and d = 1, the merge mode each with the exact
+exchange's zero padding rows and the coded ones' non-zero rows;
+merge_apply's apply mode and quantize_pack_ef_update add ``cold_ms``, each
+call after a read that empties the L2, at d = 1 and d = 32, as do
+quantize_pack at 8 and 16 bits and quantize_pack_ef). Then the
+``nvidia-smi`` name and power limit, and the last line ``{"ok": true,
+"device": {...}}``. Any failed phase raises and exits non-zero; without
+CUDA, or without the ``lightctr_tpu_torch`` package beside this file, it
+exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -580,33 +588,69 @@ def qp_payload(torch, gen, shape, scale=0.05):
     return x
 
 
+def check_design(sk, name, bits, call):
+    """``call()`` launches kernel ``name`` once, through the search design
+    a ``bits``-wide table names; returns what ``call`` returns."""
+    before = sk.variant_launches(name)
+    out = call()
+    after = sk.variant_launches(name)
+    ran = {k: v - before.get(k, 0) for k, v in after.items()
+           if v != before.get(k, 0)}
+    if ran != {sk.search_design(bits): 1}:
+        raise AssertionError(f"{name} at {bits} bits ran {ran}, not its "
+                             f"{sk.search_design(bits)} design")
+    return out
+
+
 def check_quantize_pack(np, torch, sk, qz) -> dict:
     """quantize_pack kernel == plain version (quantize.compress) bit for
     bit on the exchange's [79,872, 32] payload: 8-bit uniform and normal
-    tables (fixed range 1.0 and a measured range), 16-bit uniform, and
-    4-bit with its nibble-packed wire form."""
+    tables (fixed range 1.0 and a measured range), 16-bit uniform, 4-bit
+    with its nibble-packed wire form and 1-bit; at 8 and 16 bits also the
+    payload one float past 16 bytes and one value short (a scalar head and
+    tail around the float4 body), and at 16 bits every boundary and one
+    ulp either side (both edges of every segment of the two-stage
+    search).  Each launch through its width's design."""
     gen = torch.Generator(device="cuda").manual_seed(23)
     x = qp_payload(torch, gen, (DP_LOCAL_K, DIM))
+    # a flat copy one float past 16 bytes, one value short
+    x_mis = torch.empty(x.numel() + 1, device="cuda")[1:-1].copy_(
+        x.reshape(-1)[:-1])
     rng_dyn = 1.05 * x[x.isfinite()].abs().max()
     cases = []
     for bits, mode, lim in ((8, "uniform", 1.0), (8, "normal", 1.0),
                             (8, "normal", rng_dyn), (16, "uniform", 1.0),
-                            (4, "normal", rng_dyn)):
+                            (4, "normal", rng_dyn), (1, "uniform", 1.0)):
         table = qz.build_table(-lim, lim, bits=bits, mode=mode,
                                device="cuda")
-        got = sk.quantize_pack(table, x)
-        torch.cuda.synchronize()
-        want = sk.quantize_pack_plain(table, x)
-        if got.dtype != want.dtype or not torch.equal(got, want):
-            raise AssertionError(f"quantize_pack kernel != plain at {bits} "
-                                 f"bits, {mode}")
+        inputs = [("aligned", x)]
+        if bits in (8, 16):
+            inputs.append(("misaligned", x_mis))
+        if bits == 16:
+            b = table.boundaries
+            inf = torch.tensor(float("inf"), device="cuda")
+            edges = torch.cat([b, torch.nextafter(b, inf),
+                               torch.nextafter(b, -inf)])
+            inputs.append(("boundaries", edges[torch.randperm(
+                edges.numel(), generator=gen, device="cuda")]))
+        for what, xi in inputs:
+            got = check_design(sk, "quantize_pack", bits,
+                               lambda: sk.quantize_pack(table, xi))
+            torch.cuda.synchronize()
+            want = sk.quantize_pack_plain(table, xi)
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise AssertionError(f"quantize_pack kernel != plain at "
+                                     f"{bits} bits, {mode}, {what}")
+            cases.append([bits, mode, "dynamic" if torch.is_tensor(lim)
+                          else lim, what, xi.numel()])
         if bits <= 4 and not torch.equal(
-                sk.quantize_pack_packed(table, x), qz.pack_nibbles(want)):
+                sk.quantize_pack_packed(table, x),
+                qz.pack_nibbles(sk.quantize_pack_plain(table, x))):
             raise AssertionError("quantize_pack_packed != pack_nibbles")
-        cases.append([bits, mode, "dynamic" if torch.is_tensor(lim) else lim,
-                      int(got[0, 2])])
+    nan_code = int(sk.quantize_pack(qz.build_table(-1.0, 1.0, bits=8,
+                                                   device="cuda"), x)[0, 2])
     return {"bit_exact": True, "max_abs_err": 0, "payload": [DP_LOCAL_K, DIM],
-            "nan_code": cases[0][3], "cases": cases}
+            "nan_code": nan_code, "cases": cases}
 
 
 def check_quantize_pack_ef_update(np, torch, sk, qz, rng) -> dict:
@@ -651,8 +695,9 @@ def check_quantize_pack_ef_update(np, torch, sk, qz, rng) -> dict:
 def check_quantize_pack_ef(np, torch, sk, qz) -> dict:
     """quantize_pack_ef kernel == plain version bit for bit (codes, delta)
     on the [79,872, 32] payload: rows with +-inf and NaN, a carry with inf
-    and NaN, masked and unmasked rows ([P, 1]) and values ([P, d]), 8 bits
-    normal and 16 bits uniform."""
+    and NaN, masked and unmasked rows ([P, 1]) and values ([P, d]) and a
+    scalar mask, 8 bits normal and 16 bits uniform, each launch through
+    its width's design."""
     gen = torch.Generator(device="cuda").manual_seed(37)
     rows = qp_payload(torch, gen, (DP_LOCAL_K, DIM), scale=0.5)
     carried = torch.randn((DP_LOCAL_K, DIM), generator=gen,
@@ -663,12 +708,17 @@ def check_quantize_pack_ef(np, torch, sk, qz) -> dict:
     for bits, mode in ((8, "normal"), (16, "uniform")):
         table = qz.build_table(-1.0, 1.0, bits=bits, mode=mode,
                                device="cuda")
-        for shape in ((DP_LOCAL_K, 1), (DP_LOCAL_K, DIM)):
+        for shape in ((DP_LOCAL_K, 1), (DP_LOCAL_K, DIM), ()):
             mask = (torch.rand(shape, generator=gen, device="cuda")
                     > 0.3).to(torch.float32)
-            mask[0] = 1.0   # the inf/NaN values of the first row unmasked
-            mask[1] = 0.0
-            c1, d1 = sk.quantize_pack_ef(table, rows, carried, mask)
+            if shape:
+                mask[0] = 1.0   # the inf/NaN values of the first row unmasked
+                mask[1] = 0.0
+            else:
+                mask.fill_(1.0)
+            c1, d1 = check_design(sk, "quantize_pack_ef", bits,
+                                  lambda: sk.quantize_pack_ef(
+                                      table, rows, carried, mask))
             torch.cuda.synchronize()
             c2, d2 = sk.quantize_pack_ef_plain(table, rows, carried, mask)
             if c1.dtype != c2.dtype or not torch.equal(c1, c2):
@@ -1259,6 +1309,8 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
         rec = {"steps": steps, "losses": [float(x) for x in losses],
                "launches": launches,
                "merge_apply_variants": sk.variant_launches("merge_apply"),
+               "quantize_pack_variants":
+                   sk.variant_launches("quantize_pack"),
                "policy": dict(tr.exchange_policy),
                "bytes_per_step": dict(tr.exchange_bytes_per_step),
                "device": str(mesh.device), "backend": mesh.backend}
@@ -1358,6 +1410,12 @@ def phase_dp(np, torch, sk, seed) -> dict:
                         f"dp {name} rank {r}: merge_apply ran "
                         f"{rec['merge_apply_variants']}, not only its "
                         "fused merge mode")
+                want_qp = ({"tree": want["quantize_pack"]}
+                           if want["quantize_pack"] else {})
+                if rec["quantize_pack_variants"] != want_qp:
+                    raise AssertionError(
+                        f"dp {name} rank {r}: quantize_pack ran "
+                        f"{rec['quantize_pack_variants']}, not {want_qp}")
                 if rec["policy"] != {"w": "sparse", "v": "sparse"}:
                     raise AssertionError(f"dp {name}: policy "
                                          f"{rec['policy']}")
@@ -1447,6 +1505,9 @@ def phase_dp(np, torch, sk, seed) -> dict:
         merge_variants = {"merge": sum(
             card[0][n]["merge_apply_variants"].get("merge", 0)
             for n in names)}
+        qp_variants = {"tree": sum(
+            card[0][n]["quantize_pack_variants"].get("tree", 0)
+            for n in names)}
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"phase": "dp", "model": "fm", "world": DP_WORLD,
@@ -1459,7 +1520,8 @@ def phase_dp(np, torch, sk, seed) -> dict:
             "seconds": {"card_world": card_s, "cpu_world": cpu_s,
                         "nccl_world": nccl_s},
             "dp_launches_rank0": launches,
-            "dp_merge_apply_variants_rank0": merge_variants}
+            "dp_merge_apply_variants_rank0": merge_variants,
+            "dp_quantize_pack_variants_rank0": qp_variants}
 
 
 # -- phase: attention ---------------------------------------------------------
@@ -1618,8 +1680,16 @@ def phase_bench(torch, sk) -> dict:
     if merge_variants.get("merge", 0) < 1:
         raise AssertionError(f"bench: merge_apply's cell ran {merge_variants}"
                              ", not its fused merge mode")
+    # both pack cells code at 8 bits: every launch the tree design
+    pack_variants = {n: sk.variant_launches(n)
+                     for n in ("quantize_pack", "quantize_pack_ef")}
+    for n, ran in pack_variants.items():
+        if ran != {"tree": launches[n]}:
+            raise AssertionError(f"bench: {n} ran {ran}, not its tree "
+                                 "design")
     return {"phase": "bench", "launches": launches,
             "merge_apply_variants": merge_variants,
+            "pack_variants": pack_variants,
             "sparse_kernel_bench": sparse, "kernel_bench": kern}
 
 
@@ -1956,7 +2026,9 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
         nbytes = x.numel() * (4 + (1 if bits <= 8 else 2))
         per_shape.append({
             "bits": bits, "mode": mode, "n": x.numel(),
+            "design": sk.search_design(bits),
             "ms": graph_ms(torch, lambda: sk.quantize_pack(table_q, x)),
+            "cold_ms": cold_ms(torch, lambda: sk.quantize_pack(table_q, x)),
             "plain_ms": graph_ms(torch,
                                  lambda: sk.quantize_pack_plain(table_q, x)),
             "library_ms": graph_ms(torch, lambda: torch.searchsorted(
@@ -1968,7 +2040,8 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
         sk, "quantize_pack", launches=launches["quantize_pack"],
         max_abs_err=kern["quantize_pack"]["max_abs_err"],
         shape={"n": x.numel(), "bits": 8, "mode": "normal"},
-        ms=head["ms"], plain_ms=head["plain_ms"],
+        design=head["design"], ms=head["ms"], cold_ms=head["cold_ms"],
+        plain_ms=head["plain_ms"],
         library_ms=head["library_ms"],
         library_call="torch.searchsorted (int64 indices, no cast)",
         bound_ms=head["bound_ms"], bound_by="bytes", bytes=head["bytes"],
@@ -2048,7 +2121,10 @@ def new_timing(torch, sk, fl, qz, seed, launches, kern, route) -> list:
         launches_on="bench phase (its only caller, as in the JAX package)",
         max_abs_err=kern["quantize_pack_ef"]["max_abs_err"],
         shape={"p": DP_LOCAL_K, "d": DIM, "bits": 8, "mask": [DP_LOCAL_K, 1]},
+        design=sk.search_design(table.bits),
         ms=graph_ms(torch, lambda: sk.quantize_pack_ef(table, x, car, mask)),
+        cold_ms=cold_ms(torch, lambda: sk.quantize_pack_ef(table, x, car,
+                                                           mask)),
         plain_ms=graph_ms(torch, lambda: sk.quantize_pack_ef_plain(
             table, x, car, mask)),
         library_ms=None,

@@ -41,7 +41,8 @@
 // at d = 32), one float otherwise; at d = 1 a lane takes whole slots.  A
 // lane starts the payload and carry loads of kVecRows rows (kScalarRows,
 // kOwnRows) before the first search, with the next tile's uids and masks
-// in flight.  The 8-bit search (shared_code) walks the boundaries as an
+// in flight.  The 8-bit search (shared_code, quantile_search.cuh, which
+// B6 and B7 share) walks the boundaries as an
 // Eytzinger tree in shared memory, its 8 levels written out, so a lane's V
 // searches are independent chains of shared-memory reads that interleave
 // and a warp's reads of one level spread over the banks; a loop of the
@@ -77,57 +78,11 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr long long kMaxBlocks = 8192;
-constexpr int kSharedValues = 256;  // an 8-bit table
 // rows a lane has in flight, by lane kind (touched_rows.cuh): float4
 // lanes, one-float lanes (d % 4 != 0), lanes that take whole slots (d 1)
 constexpr int kVecRows = 1;
 constexpr int kScalarRows = 4;
 constexpr int kOwnRows = 1;
-
-// Up to 8 bits the table's boundaries and values, staged once a block.
-// The boundaries are in Eytzinger order: a perfect search tree of 255
-// nodes (+inf past the last boundary), node i's children at 2i and 2i + 1,
-// index 0 unused.
-__shared__ float s_tree[kSharedValues];
-__shared__ float s_val[kSharedValues];
-
-// Node i (1 <= i < 256) of the tree holds the boundary whose sorted index
-// is its in-order rank.
-__device__ __forceinline__ int tree_rank(int i) {
-  const int level = 31 - __clz(i);
-  return ((2 * (i - (1 << level)) + 1) << (7 - level)) - 1;
-}
-
-// lct::lower_bound_code on the tree: 8 levels written out, descending to
-// the right past every node below x, end at 256 + (the boundaries below
-// x).  The +inf nodes never count, so every table up to 8 bits gives the
-// same code as the sorted search.  A level's nodes sit side by side, so a
-// warp's reads at the first six levels hit distinct banks (a sorted
-// array's probes of one level share a bank, up to 8-way), and with no
-// loop of a runtime length a thread's searches interleave.  NaN takes
-// code nb, as there.
-__device__ __forceinline__ int shared_code(float x, int nb) {
-  int i = 1;
-#pragma unroll
-  for (int level = 0; level < 8; ++level)
-    i = 2 * i + (s_tree[i] < x ? 1 : 0);
-  return isnan(x) ? nb : i - kSharedValues;
-}
-
-// V codes stored at once: 4 one-byte codes are one word, 4 two-byte codes
-// two words.
-template <typename Code, int V>
-struct CodeVec {
-  Code c[V];
-};
-template <>
-struct alignas(4) CodeVec<uint8_t, 4> {
-  uint8_t c[4];
-};
-template <>
-struct alignas(8) CodeVec<uint16_t, 4> {
-  uint16_t c[4];
-};
 
 // The entry's arguments.
 struct EfArgs {
@@ -178,14 +133,14 @@ struct EfUpdate : EfArgs {
 
   __device__ int code_of(float val) const {
     if constexpr (kShared)
-      return shared_code(val, nb);
+      return lct::shared_code(val, nb);
     else
       return lct::lower_bound_code(val, nb, nbp,
                                    [this](int j) { return __ldg(bnd + j); });
   }
 
   __device__ void put(Ctx& x, long long i, const Slot& k, long long c) const {
-    CodeVec<Code, V> code;
+    lct::CodeVec<Code, V> code;
     F dec;
 #pragma unroll
     for (int j = 0; j < V; ++j) {
@@ -194,7 +149,7 @@ struct EfUpdate : EfArgs {
       const int q = code_of(val);
       float dv;
       if constexpr (kShared)
-        dv = s_val[q];
+        dv = lct::s_val[q];
       else
         dv = __ldg(values + q);
       code.c[j] = (Code)q;
@@ -203,7 +158,7 @@ struct EfUpdate : EfArgs {
           __fadd_rn(car, __fmul_rn(__fsub_rn(__fsub_rn(val, dv), car), k.m));
     }
     const long long t = i * d + c;
-    *reinterpret_cast<CodeVec<Code, V>*>(static_cast<Code*>(codes) + t) =
+    *reinterpret_cast<lct::CodeVec<Code, V>*>(static_cast<Code*>(codes) + t) =
         code;
     lct::store_vec<V>(dec_out + t, dec);
     if (x.e >= 0 && k.m != 0.0f) lct::store_vec<V>(residual + x.e, x.car);
@@ -213,15 +168,7 @@ struct EfUpdate : EfArgs {
 template <int V, int U, bool kOwn, typename Code, bool kShared>
 __global__ void __launch_bounds__(kThreads)
     ef_update(EfUpdate<V, Code, kShared> op, lct::TouchedRows w) {
-  if constexpr (kShared) {
-    for (int i = threadIdx.x + 1; i < kSharedValues; i += blockDim.x) {
-      const int r = tree_rank(i);
-      s_tree[i] = r < op.nb ? op.bnd[r] : INFINITY;
-    }
-    for (int i = threadIdx.x; i <= op.nb; i += blockDim.x)
-      s_val[i] = op.values[i];
-    __syncthreads();
-  }
+  if constexpr (kShared) lct::stage_tree(op.bnd, op.nb, op.values);
   lct::walk_touched_rows<V, U, kOwn>(w, op);
 }
 
@@ -263,7 +210,7 @@ int launch(const void* bnd, long long nb, const void* values,
                  vocab,
                  codes,
                  static_cast<float*>(dec)};
-  const bool shared = nb < kSharedValues;
+  const bool shared = nb < lct::kTreeNodes;
   // float4 lanes also need the codes on a whole word (4 codes at once)
   if (lct::rows_take_float4(d, {rows, residual, dec}) &&
       reinterpret_cast<uintptr_t>(codes) % (4 * sizeof(Code)) == 0)

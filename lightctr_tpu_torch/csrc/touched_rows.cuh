@@ -167,20 +167,23 @@ cudaError_t launch_touched_rows(long long s, long long d, Launch&& launch) {
                 touched_rows_shape<V, URows, false>(s, d));
 }
 
-// A persistent grid for `kernel` at `threads` a block: the device's SMs
-// times the blocks of it that fit on one, at most what the tiles need and
-// at most max_blocks.  Returns 0 on a CUDA error (the caller's
-// cudaGetLastError reports it).
+// A persistent grid for `kernel` at `threads` a block (and smem bytes of
+// dynamic shared memory): the device's SMs times the blocks of it that fit
+// on one (at most max_per_sm where that is not 0), at most what the tiles
+// (of one warp each) need and at most max_blocks.  Returns 0 on a CUDA
+// error (the caller's cudaGetLastError reports it).
 template <typename Kernel>
 unsigned grid_for(Kernel kernel, int threads, long long tiles,
-                  long long max_blocks) {
+                  long long max_blocks, int max_per_sm = 0,
+                  size_t smem = 0) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
           cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                    0) != cudaSuccess)
+                                                    smem) != cudaSuccess)
     return 0;
+  if (max_per_sm > 0 && per_sm > max_per_sm) per_sm = max_per_sm;
   const long long warps = threads / 32;
   long long blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
   const long long need = (tiles + warps - 1) / warps;

@@ -688,8 +688,17 @@ def merge_apply(
 # ``searchsorted(boundaries, x, side='left')`` as uint8 (<= 8 bits) or
 # uint16 codes — the encode of every coded collective.  Replaces
 # lightctr_tpu/ops/sparse_kernels.py ``_qp_pallas`` (``_qp_kernel``,
-# ``_qp_search_kernel``); csrc/quantize_pack.cu has the kernel (one thread
-# per value, a branchless lower bound) and its design note.
+# ``_qp_search_kernel``); csrc/quantize_pack.cu has the kernel (float4
+# lanes on a persistent grid over csrc/quantile_search.cuh's searches) and
+# its design note.
+
+
+def search_design(bits: int) -> str:
+    """The search a quantize kernel runs for a ``bits``-wide table (its
+    launches' variant): ``tree``, the whole table as a tree in shared
+    memory, up to 8 bits; ``split``, a top tree in shared memory then one
+    segment of the boundaries, above."""
+    return "tree" if bits <= 8 else "split"
 
 
 def quantize_pack_plain(table, x: torch.Tensor) -> torch.Tensor:
@@ -737,7 +746,7 @@ def _quantize_pack_cuda(table, x: torch.Tensor) -> torch.Tensor:
     fn = lib.quantize_pack_u8 if table.bits <= 8 else lib.quantize_pack_u16
     run_kernel("quantize_pack", dev, fn, table.boundaries.data_ptr(),
                table.boundaries.numel(), x.data_ptr(), x.numel(),
-               codes.data_ptr())
+               codes.data_ptr(), variant=search_design(table.bits))
     return codes
 
 
@@ -792,8 +801,8 @@ def quantize_pack_ef_plain(table, rows, carried, mask):
 
 def _bind_quantize_pack_ef(lib: ctypes.CDLL) -> None:
     for sym in ("quantize_pack_ef_u8", "quantize_pack_ef_u16"):
-        bind_entry(lib, sym, [_P, _LL, _P, _P, _P, _P, _LL, _LL, _P, _P,
-                              _P])
+        bind_entry(lib, sym, [_P, _LL, _P, _P, _P, _P, _LL, _LL, ctypes.c_int,
+                              _P, _P, _P])
 
 
 def _quantize_pack_ef_cuda(table, rows, carried, mask):
@@ -830,8 +839,9 @@ def _quantize_pack_ef_cuda(table, rows, carried, mask):
           else lib.quantize_pack_ef_u16)
     run_kernel("quantize_pack_ef", dev, fn, table.boundaries.data_ptr(),
                table.boundaries.numel(), table.values.data_ptr(),
-               rows.data_ptr(), carried.data_ptr(), m.data_ptr(), n,
-               n // p if per_row else 1, codes.data_ptr(), delta.data_ptr())
+               rows.data_ptr(), carried.data_ptr(), m.data_ptr(), p, n // p,
+               0 if per_row else 1, codes.data_ptr(), delta.data_ptr(),
+               variant=search_design(table.bits))
     return codes, delta
 
 

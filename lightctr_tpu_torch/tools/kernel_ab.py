@@ -1,6 +1,7 @@
-"""A/B of two checkouts' touched-row kernels on one card: merge_apply in
-both modes, merge_rows and quantize_pack_ef_update, at ``chip_smoke.py``'s
-shapes, each warm and cold: ``ms`` is chip_smoke's ``graph_ms`` (a CUDA
+"""A/B of two checkouts' touched-row and quantize kernels on one card:
+merge_apply in both modes, merge_rows, quantize_pack_ef_update,
+quantize_pack and quantize_pack_ef, at ``chip_smoke.py``'s shapes, each
+warm and cold: ``ms`` is chip_smoke's ``graph_ms`` (a CUDA
 graph of back-to-back calls, which find their working set in the 50 MB
 L2 where it fits), ``cold_ms`` its ``cold_ms`` (each call after a read
 that empties the L2).
@@ -8,7 +9,7 @@ that empties the L2).
 Each root named on the command line is a checkout of the repo (the tree
 under test, or a parent unpacked with ``git archive``).  For each, in the
 order given, a fresh process imports that checkout's ``chip_smoke.py`` and
-``sparse_kernels``, builds the four kernels from its ``csrc/`` and times
+``sparse_kernels``, builds the six kernels from its ``csrc/`` and times
 them on inputs made from chip_smoke's seeds, so both roots see the same
 data; the timing functions are this checkout's, so both roots are timed
 alike:
@@ -19,7 +20,12 @@ alike:
                   (M = 159,744, zero padding), d 32 and 1;
   ``merge_rows``  merge_rows on the same rows, d 32 and 1;
   ``ef_update``   quantize_pack_ef_update, one dp rank's uids (S = 79,872),
-                  8 bits normal, range 1.0, d 1 and 32.
+                  8 bits normal, range 1.0, d 1 and 32;
+  ``pack``        quantize_pack on one dp rank's [79,872, 32] payload, a
+                  measured range, 8 bits normal and 16 bits uniform (with
+                  ``library_ms``: one ``torch.searchsorted``);
+  ``pack_ef``     quantize_pack_ef on that payload with a carry and a
+                  [P, 1] mask, 8 bits normal, range 1.0.
 
 Compare roots only within one run, in an order such as parent, change,
 change, parent.  One JSON line a root on stdout (each kernel's ``ms``,
@@ -59,12 +65,13 @@ from lightctr_tpu_torch.ops import quantize as qz
 from lightctr_tpu_torch.ops import sparse_kernels as sk
 if not torch.cuda.is_available():
     sys.exit("kernel_ab: CUDA is not available")
-names = ("dedup_ids", "merge_apply", "merge_rows", "quantize_pack_ef_update")
+names = ("dedup_ids", "merge_apply", "merge_rows", "quantize_pack_ef_update",
+         "quantize_pack", "quantize_pack_ef")
 with ThreadPoolExecutor(len(names)) as ex:
     list(ex.map(lambda n: sk.compile_source(sk.KERNELS[n].source), names))
 gen = torch.Generator(device="cuda").manual_seed(5)
 out = {"root": root, "apply": {}, "merge_mode": {}, "merge_rows": {},
-       "ef_update": {}}
+       "ef_update": {}, "pack": {}, "pack_ef": {}}
 
 def timed(fn, nbytes):
     return {"ms": timer.graph_ms(torch, fn),
@@ -121,11 +128,27 @@ for d in (1, cs.DIM):
                                            mask_d),
         k * d * 4 + real_l * d * 4 + k * 8 + k * d * 5 + real_l * d * 4)
     del residual, g
+
+p = cs.DP_LOCAL_K
+x = torch.randn((p, cs.DIM), generator=gen, device="cuda") * 0.05
+lim = 1.05 * x.abs().max()
+for bits, mode in ((8, "normal"), (16, "uniform")):
+    table = qz.build_table(-lim, lim, bits=bits, mode=mode)
+    out["pack"][bits] = timed(lambda: sk.quantize_pack(table, x),
+                              x.numel() * (4 + (1 if bits <= 8 else 2)))
+    out["pack"][bits]["library_ms"] = timer.graph_ms(
+        torch, lambda: torch.searchsorted(table.boundaries, x))
+car = torch.randn((p, cs.DIM), generator=gen, device="cuda") * 0.01
+mask = torch.ones((p, 1), device="cuda")
+table = qz.build_table(-1.0, 1.0, bits=8, mode="normal", device="cuda")
+out["pack_ef"][8] = timed(lambda: sk.quantize_pack_ef(table, x, car, mask),
+                          x.numel() * 13 + p * 4)
 out["nvidia_smi"] = timer.nvidia_smi()
 print(json.dumps(out), flush=True)
 """
 
-KERNELS = ("apply", "merge_mode", "merge_rows", "ef_update")
+KERNELS = ("apply", "merge_mode", "merge_rows", "ef_update", "pack",
+           "pack_ef")
 
 
 def run_root(root: str) -> dict:
@@ -134,7 +157,8 @@ def run_root(root: str) -> dict:
 
 
 def summarize(recs: list) -> dict:
-    """One root's medians of ``ms`` and ``cold_ms``, by kernel and width."""
+    """One root's medians of ``ms`` and ``cold_ms``, by kernel and width
+    (bits for ``pack`` and ``pack_ef``)."""
     return {kern: {d: {t: statistics.median(r[kern][d][t] for r in recs)
                        for t in ("ms", "cold_ms")}
                    for d in recs[0][kern]}

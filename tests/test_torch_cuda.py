@@ -389,21 +389,84 @@ def test_merge_long_runs_match_plain(dev, d):
                      rows.reshape(-1) if d == 1 else rows)
 
 
-@pytest.mark.parametrize("bits, mode", [(4, "normal"), (8, "uniform"),
-                                        (8, "normal"), (16, "uniform")])
-def test_quantize_pack_kernel_matches_plain(dev, bits, mode):
+def variant_delta(name, before):
+    """Launches of kernel ``name`` by design since ``before`` (a
+    ``variant_launches`` snapshot), the designs that ran only."""
+    after = sk.variant_launches(name)
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v != before.get(k, 0)}
+
+
+def check_quantize_pack(table, x):
+    """The kernel's codes against the plain version's bit for bit, through
+    the design the table's width names, in one launch."""
+    before = sk.variant_launches("quantize_pack")
+    got = sk.quantize_pack(table, x)
+    assert variant_delta("quantize_pack", before) == {
+        sk.search_design(table.bits): 1}
+    want = sk.quantize_pack_plain(table, x)
+    assert got.dtype == want.dtype and torch.equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3])
+@pytest.mark.parametrize("tail", [0, 1, 2, 3])
+@pytest.mark.parametrize("bits, mode", [(1, "uniform"), (4, "normal"),
+                                        (8, "uniform"), (8, "normal"),
+                                        (16, "uniform")])
+def test_quantize_pack_kernel_matches_plain(dev, bits, mode, tail, offset):
     """Bit for bit, NaN and +-inf included (NaN and +inf take the top
-    code)."""
-    gen = torch.Generator(device=dev).manual_seed(bits)
+    code), at n = 4k + tail values starting ``offset`` floats past 16
+    bytes (a scalar head and tail around the float4 body), the codes on
+    their own alignment."""
+    gen = torch.Generator(device=dev).manual_seed(bits + 16 * tail)
     x = torch.randn((5000, 7), generator=gen, device=dev)
     x.view(-1)[:5] = torch.tensor([float("inf"), float("-inf"), float("nan"),
                                    4.0, -4.0], device=dev)
+    x = offset_rows(x.view(-1)[:35000 + tail], offset)
+    x.view(-1)[-1] = float("nan")  # a NaN in the scalar tail
     table = qz.build_table(-2.0, 2.0, bits=bits, mode=mode, device=dev)
-    got = sk.quantize_pack(table, x)
-    want = sk.quantize_pack_plain(table, x)
-    assert got.dtype == want.dtype and torch.equal(got, want)
+    got = check_quantize_pack(table, x)
     top = (1 << bits) - 1
     assert got.view(-1)[:3].tolist() == [top, 0, top]
+    assert int(got.view(-1)[-1]) == top
+
+
+def split_edge_values(bnd, head, seg):
+    """Every boundary, one ulp either side, and the boundaries at each
+    segment's edges of the two-stage search (its first and last, the
+    head's), with NaN, +-inf and values past both ends."""
+    b = bnd.cpu()
+    idx = torch.arange(b.numel())
+    edges = b[((idx - head) % seg == 0) | ((idx - head) % seg == seg - 1)
+              | (idx < head)]
+    inf = torch.tensor(float("inf"))
+    vals = torch.cat([b, torch.nextafter(b, inf), torch.nextafter(b, -inf),
+                      edges, torch.nextafter(edges, inf),
+                      torch.nextafter(edges, -inf),
+                      torch.tensor([float("nan"), float("inf"),
+                                    float("-inf"), 1e30, -1e30, 0.0,
+                                    -0.0])])
+    return vals[torch.randperm(vals.numel(),
+                               generator=torch.Generator().manual_seed(3))]
+
+
+@pytest.mark.parametrize("bnd_offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("bits", [9, 12, 16])
+def test_quantize_pack_split_search_edges_match_plain(dev, bits, bnd_offset):
+    """The two-stage search above 8 bits, bit for bit: values on every
+    boundary, one ulp either side, on each segment edge (segments start on
+    16 bytes, so the boundaries' own offset moves them), NaN and +-inf,
+    the payload itself misaligned."""
+    t = qz.build_table(-1.0, 1.0, bits=bits, mode="normal", device=dev)
+    buf = torch.empty(t.boundaries.numel() + bnd_offset, device=dev)
+    table = qz.QuantTable(buf[bnd_offset:].copy_(t.boundaries), t.values,
+                          bits)
+    head = (4 - (table.boundaries.data_ptr() % 16) // 4) % 4
+    for seg in (8, 16, 32):
+        x = split_edge_values(table.boundaries, head, seg).to(dev)
+        check_quantize_pack(table, x)
+        check_quantize_pack(table, offset_rows(x, 1))
 
 
 def check_ef_update(dev, uids, shape, bits, offset, seed):
@@ -443,27 +506,39 @@ def test_quantize_pack_ef_update_kernel_matches_plain(dev, d, s, offset,
                     offset, d + bits)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", [1, 3, 4, 32, 33])
 @pytest.mark.parametrize("mask_kind", ["row", "value", "scalar"])
 @pytest.mark.parametrize("bits", [8, 16])
-def test_quantize_pack_ef_kernel_matches_plain(dev, bits, mask_kind):
+def test_quantize_pack_ef_kernel_matches_plain(dev, bits, mask_kind, d,
+                                               offset):
     """Codes and delta bit for bit: +-inf and NaN in the rows and in the
     carry, masked and unmasked values, a mask of one value per row, per
-    value, or one for all."""
-    gen = torch.Generator(device=dev).manual_seed(bits)
-    rows = torch.randn((3000, 9), generator=gen, device=dev) * 0.8
+    value, or one for all; rows of d values (d = 1: a 1-D payload) from
+    float4 lanes to one float a lane, and rows, carry and mask ``offset``
+    floats off 16 bytes (one float a lane); one launch of the design the
+    table's width names."""
+    gen = torch.Generator(device=dev).manual_seed(bits + d)
+    p = 3000
+    shape = (p,) if d == 1 else (p, d)
+    rows = torch.randn(shape, generator=gen, device=dev) * 0.8
     rows.view(-1)[:3] = torch.tensor([float("inf"), float("-inf"),
                                       float("nan")], device=dev)
-    carried = torch.randn((3000, 9), generator=gen, device=dev) * 0.05
+    carried = torch.randn(shape, generator=gen, device=dev) * 0.05
     carried.view(-1)[20:22] = torch.tensor([float("inf"), float("nan")],
                                            device=dev)
-    shape = {"row": (3000, 1), "value": (3000, 9), "scalar": ()}[mask_kind]
-    mask = (torch.rand(shape, generator=gen, device=dev) > 0.3).float()
+    mshape = {"row": (p,) + (1,) * (len(shape) - 1), "value": shape,
+              "scalar": ()}[mask_kind]
+    mask = (torch.rand(mshape, generator=gen, device=dev) > 0.3).float()
+    rows, carried = offset_rows(rows, offset), offset_rows(carried, offset)
+    mask = offset_rows(mask, offset) if mask.dim() else mask
     table = qz.build_table(-1.0, 1.0, bits=bits,
                            mode="normal" if bits <= 8 else "uniform",
                            device=dev)
-    before = sk.launches("quantize_pack_ef")
+    before = sk.variant_launches("quantize_pack_ef")
     c1, d1 = sk.quantize_pack_ef(table, rows, carried, mask)
-    assert sk.launches("quantize_pack_ef") == before + 1
+    assert variant_delta("quantize_pack_ef", before) == {
+        sk.search_design(bits): 1}
     c2, d2 = sk.quantize_pack_ef_plain(table, rows, carried, mask)
     assert c1.dtype == c2.dtype and torch.equal(c1, c2)
     assert torch.equal(d1.view(torch.int32), d2.view(torch.int32))

@@ -12,6 +12,7 @@ The kernels themselves are held to these plain versions on the card by
 
 import itertools
 import os
+import re
 from unittest import mock
 
 import jax
@@ -164,6 +165,173 @@ def test_quantize_pack_plain_matches_the_interpreted_tpu_kernel(
     want = np.asarray(jsk.quantize_pack(jt, jnp.asarray(x)))
     got = tsk.quantize_pack(_same_table(jt), torch.from_numpy(x))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# -- the card's search layout (csrc/quantile_search.cuh), in numpy ------------
+
+
+def _header_int(name):
+    """A ``constexpr int`` of the search header, so the model follows the
+    split the header sets."""
+    path = os.path.join(REPO_ROOT, "lightctr_tpu_torch", "csrc",
+                        "quantile_search.cuh")
+    with open(path) as f:
+        return int(re.search(rf"constexpr int {name} = (\d+);",
+                             f.read()).group(1))
+
+
+def tree_rank(i, levels):
+    """Node i's in-order rank in an Eytzinger tree of ``levels`` levels."""
+    i = np.asarray(i, np.int64)
+    level = np.frexp(i.astype(np.float64))[1] - 1
+    return ((2 * (i - (1 << level)) + 1) << (levels - 1 - level)) - 1
+
+
+def tree_node(r, levels):
+    """The node holding sorted index r (``tree_rank``'s inverse)."""
+    p = np.asarray(r, np.int64) + 1
+    z = np.frexp((p & -p).astype(np.float64))[1] - 1
+    return (1 << (levels - 1 - z)) + (p >> (z + 1))
+
+
+def tree_descend(tree, x, levels):
+    """Right past every node below x; the number of keys below x."""
+    i = np.ones(x.shape, np.int64)
+    for _ in range(levels):
+        i = 2 * i + (tree[i] < x)
+    return i - (1 << levels)
+
+
+def tree_code_model(bnd, x):
+    """``stage_tree`` then ``shared_code``: the table (up to 8 bits) as an
+    Eytzinger tree, node i holding boundary ``tree_rank(i)``, +inf past
+    the last."""
+    levels, nb = _header_int("kTreeLevels"), bnd.size
+    tree = np.full(1 << levels, np.inf, np.float32)
+    i = np.arange(1, 1 << levels)
+    r = tree_rank(i, levels)
+    tree[i] = np.where(r < nb, bnd[np.minimum(r, nb - 1)], np.inf)
+    return np.where(np.isnan(x), nb, tree_descend(tree, x, levels))
+
+
+def split_code_model(bnd, x, mis):
+    """``split_table``, ``stage_split`` then ``split_code`` for boundaries
+    whose address is ``mis`` floats past 16 bytes: a head of (4 - mis) % 4
+    boundaries, segments of kSegWidth after it keyed by their last
+    boundary in a kTopLevels tree (+inf from the last segment on), then a
+    count inside the one segment, its positions past nb masked.  Asserts
+    the float4 loads start on 16 bytes and stay in the table's last
+    16-byte chunk."""
+    levels, width = _header_int("kTopLevels"), _header_int("kSegWidth")
+    nb = bnd.size
+    head = min((4 - mis) % 4, nb)
+    nseg = (nb - head + width - 1) // width
+    r = np.arange((1 << levels) - 1)
+    key_at = head + r * width + width - 1
+    tree = np.full(1 << levels, np.inf, np.float32)
+    tree[tree_node(r, levels)] = np.where(
+        r < nseg - 1, bnd[np.minimum(key_at, nb - 1)], np.inf)
+    j = tree_descend(tree, x, levels)
+    first = head + j * width
+    chunk = first[:, None] + 4 * np.arange(width // 4)
+    loaded = chunk[chunk < nb]
+    assert ((mis + loaded) % 4 == 0).all()
+    assert ((mis + loaded) // 4 <= (mis + nb - 1) // 4).all()
+    pos = np.arange(width)
+    seg = bnd[np.clip(first[:, None] + pos, 0, nb - 1)]
+    inside = ((pos < (nb - first)[:, None]) & (seg < x[:, None])).sum(1)
+    below_head = (bnd[:head][None, :] < x[:, None]).sum(1)
+    code = j * width + np.where(j == 0, below_head, head) + inside
+    return np.where(np.isnan(x), nb, code)
+
+
+def search_values(bnd, seed):
+    """Every boundary and one ulp either side, values between, NaN, +-inf,
+    +-0 and values past both ends, shuffled."""
+    rng = np.random.default_rng(seed)
+    inf = np.float32(np.inf)
+    x = np.concatenate([
+        bnd, np.nextafter(bnd, inf), np.nextafter(bnd, -inf),
+        rng.normal(size=2000).astype(np.float32) * max(1.0, abs(bnd).max()),
+        np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1e30, -1e30],
+                 np.float32)])
+    return rng.permutation(x)
+
+
+def assert_codes_match_jax(jt, x, got):
+    """``got`` equals the JAX package's ``compress`` wherever x is not
+    subnormal: XLA's CPU code flushes subnormal inputs to zero (the
+    smallest one above a 0.0 boundary takes the code below it there),
+    where numpy, PyTorch and the card compare them as they are."""
+    normal = (x == 0) | ~(np.abs(x) < np.finfo(np.float32).tiny)
+    want = np.asarray(jquant.compress(jt, jnp.asarray(x)))
+    np.testing.assert_array_equal(got[normal], want[normal])
+
+
+def test_search_tree_ranks_and_nodes_are_inverse():
+    """``tree_rank`` (the 8-bit tree's staging) and ``tree_node`` (the top
+    tree's) are each other's inverse, and a descent lands on every rank."""
+    for levels in (_header_int("kTreeLevels"), _header_int("kTopLevels"),
+                   1, 5):
+        nodes = np.arange(1, 1 << levels)
+        ranks = tree_rank(nodes, levels)
+        assert sorted(ranks.tolist()) == list(range((1 << levels) - 1))
+        np.testing.assert_array_equal(tree_node(ranks, levels), nodes)
+        keys = np.arange((1 << levels) - 1, dtype=np.float32)
+        tree = np.full(1 << levels, np.inf, np.float32)
+        tree[nodes] = keys[ranks]
+        np.testing.assert_array_equal(
+            tree_descend(tree, keys + 0.5, levels), np.arange(keys.size) + 1)
+
+
+@pytest.mark.parametrize("mode", ["uniform", "normal"])
+@pytest.mark.parametrize("bits", [1, 2, 4, 8])
+def test_tree_search_model_is_searchsorted(bits, mode):
+    """The 8-bit tree as the card stages and walks it gives
+    ``np.searchsorted(side='left')`` and the JAX package's ``compress``
+    (NaN and +inf the top code, -inf 0), on ties and ulp neighbours."""
+    jt = jquant.build_table(-1.5, 1.5, bits, mode)
+    bnd = np.asarray(jt.boundaries)
+    x = search_values(bnd, bits)
+    got = tree_code_model(bnd, x)
+    want = np.searchsorted(bnd, x, side="left")
+    np.testing.assert_array_equal(got, want)
+    assert_codes_match_jax(jt, x, got)
+
+
+@pytest.mark.parametrize("mis", [0, 1, 2, 3])
+@pytest.mark.parametrize("bits", [1, 4, 8, 9, 12, 16])
+def test_split_search_model_is_searchsorted(bits, mis):
+    """The two-stage search as the card stages and walks it, for
+    boundaries at each alignment, gives ``np.searchsorted(side='left')``
+    and the JAX package's ``compress`` at every width: on each boundary,
+    one ulp either side (so on both edges of every segment), NaN, +-inf;
+    and ``np.searchsorted`` on a table whose boundaries repeat."""
+    jt = jquant.build_table(-1.0, 1.0, bits, "normal")
+    bnd = np.asarray(jt.boundaries)
+    x = search_values(bnd, bits + 16 * mis)
+    got = split_code_model(bnd, x, mis)
+    np.testing.assert_array_equal(got, np.searchsorted(bnd, x, side="left"))
+    assert_codes_match_jax(jt, x, got)
+    dup = np.sort(np.round(bnd * 8) / 8).astype(np.float32)
+    np.testing.assert_array_equal(
+        split_code_model(dup, x, mis), np.searchsorted(dup, x, side="left"))
+
+
+@pytest.mark.parametrize("mis", [0, 1, 2, 3])
+def test_flat_pack_layout_covers_each_value_once(mis):
+    """quantize_pack.cu's split of a payload ``mis`` floats past 16 bytes:
+    a scalar head up to the first 16-byte boundary, float4 vectors, a
+    scalar tail, each value once, every vector on 16 bytes."""
+    for n in (0, 1, 2, 3, 4, 5, 7, 8, 33, 4096 + 3):
+        head = min((4 - mis) % 4, n)
+        nvec = (n - head) // 4
+        tail = head + 4 * nvec
+        idx = list(range(head)) + [head + 4 * v + k for v in range(nvec)
+                                   for k in range(4)] + list(range(tail, n))
+        assert idx == list(range(n))
+        assert nvec == 0 or (mis + head) % 4 == 0
+        assert n - tail <= 3
 
 
 # -- quantize_pack_ef ----------------------------------------------------------
