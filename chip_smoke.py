@@ -19,8 +19,9 @@ Phases, one JSON line each:
   kernels  every kernel against its plain version on the card:
            gather_rows bit-exact (``torch.equal``) over d in {1, 33, 128}
            x n in {1, 1000, 16384} and the serve path's own shape,
-           R = 65536, with negative and >= R indices that exercise the
-           clip; dedup_ids bit-exact (uids, inv, count) at K in {1, 1000,
+           R = 65536, int64 ids at d 33, and the hot-row shape (R = 2^20,
+           d 32, n = 159,744), with negative and >= R indices that
+           exercise the clip; dedup_ids bit-exact (uids, inv, count) at K in {1, 1000,
            159744} on Criteo id streams, negative ids and int32's limits,
            all-equal and all-zero streams, ids that differ only in the
            lowest digit or only in the sign bit, and with size < count, and
@@ -42,7 +43,8 @@ Phases, one JSON line each:
            design its width names (``tree`` up to 8 bits, ``split``
            above); quantize_pack_ef_update
            bit-exact (codes, dec, residual) on a real dedup's uids with id 0
-           at 8 and 16 bits; fused_adagrad within 2 ulp at N in {1, 1001,
+           at 8 and 16 bits, through the design its width names;
+           fused_adagrad within 2 ulp at N in {1, 1001,
            2^20, 2^25} and at a misaligned start; quantize_pack_ef
            bit-exact (codes, delta) on the [79872, 32] payload at 8 and 16
            bits with +-inf and NaN, masked and unmasked rows, a [P, 1], a
@@ -87,9 +89,9 @@ Phases, one JSON line each:
            steps.  Per rank and step: dedup_ids and merge_apply launched
            twice each (every merge_apply launch its fused merge mode, and
            no merge_rows launch), quantize_pack twice in (b) (each its
-           ``tree`` design), quantize_pack_ef_update twice in (c) (counts
-           reset in each rank
-           just before its steps).  Both ranks end bit-identical; the loss
+           ``tree`` design), quantize_pack_ef_update twice in (c) (each
+           its ``tree`` design; counts reset in each rank just before its
+           steps).  Both ranks end bit-identical; the loss
            falls in every run; (b) ends within 0.05 of (a) at the same
            step.  The same runs on the CPU with the plain versions (the
            first 2 steps of (a), all of (b) and (c)): losses within rtol
@@ -118,7 +120,10 @@ Phases, one JSON line each:
            fused merge mode, quantize_pack and quantize_pack_ef through
            their ``tree`` design); their cells are printed.
 
-Then a ``{"kernels": [...]}`` line: each kernel at its main path's shape,
+Then a ``gather_floor`` line: an empty kernel at gather_rows' launch
+shape, timed as the kernel is, at the serve and hot-row shapes (the
+least a launch of that shape takes).  Then a ``{"kernels": [...]}``
+line: each kernel at its main path's shape,
 its launches on that path, its device time (``ms``, CUDA graph of
 back-to-back calls), the plain version's, one PyTorch library call's where
 one computes the same function (the yardstick; the port never calls it),
@@ -129,8 +134,10 @@ TFLOP/s (its ``per_shape`` adds the path shape non-causal and (2, 4096, 8,
 ``merge_mode`` give d = 32 and d = 1, the merge mode each with the exact
 exchange's zero padding rows and the coded ones' non-zero rows;
 merge_apply's apply mode and quantize_pack_ef_update add ``cold_ms``, each
-call after a read that empties the L2, at d = 1 and d = 32, as do
-quantize_pack at 8 and 16 bits and quantize_pack_ef). Then the
+call after a read that empties the L2, at d = 1 and d = 32, the latter at
+8 and 16 bits, as do quantize_pack at 8 and 16 bits and quantize_pack_ef;
+gather_rows adds ``cold_ms`` and its ``per_shape`` gives the serve and
+hot-row shapes, warm and cold, each beside ``torch.index_select``). Then the
 ``nvidia-smi`` name and power limit, and the last line ``{"ok": true,
 "device": {...}}``. Any failed phase raises and exits non-zero; without
 CUDA, or without the ``lightctr_tpu_torch`` package beside this file, it
@@ -170,6 +177,11 @@ KERNEL_NS = (1, 1000, 16384)
 TRAIN_BATCH = 4096
 TRAIN_K = TRAIN_BATCH * N_FIELDS   # ids deduped per step: 159,744
 SPARSE_STEPS = 50                  # 204,800 rows, criteo_scale's pass
+#: gather_rows' hot-row shape: a train batch's slots read out of a
+#: device-resident [2^20, 32] table (the JAX package's hot tier and the
+#: trainer's hot-resident path read their rows through the same kernel)
+HOT_ROWS = 1 << 20
+HOT_N = TRAIN_K
 FUSED_STEPS = 10
 EVAL_ROWS = 20480
 LR = 0.05
@@ -263,24 +275,24 @@ def gather_inputs(torch, rows, d, n, gen, idx_dtype=None):
 
 def phase_kernels(torch, sk, serve_ns) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(1234)
-    cases = [(d, n, torch.int32) for d in KERNEL_DS
+    cases = [(CACHE_ROWS, d, n, torch.int32) for d in KERNEL_DS
              for n in sorted(set(KERNEL_NS) | set(serve_ns))]
-    cases.append((ROW_DIM, 1000, torch.int64))
+    cases += [(CACHE_ROWS, ROW_DIM, 1000, torch.int64),
+              (HOT_ROWS, DIM, HOT_N, torch.int32)]
     max_err = 0.0
     checked = []
-    for d, n, idt in cases:
-        block, idx = gather_inputs(torch, CACHE_ROWS, d, n, gen, idt)
+    for rows, d, n, idt in cases:
+        block, idx = gather_inputs(torch, rows, d, n, gen, idt)
         got = sk.gather_rows(block, idx)
         torch.cuda.synchronize()
         want = sk.gather_rows_plain(block, idx)
         if not torch.equal(got, want):
-            raise AssertionError(
-                f"gather_rows kernel != plain at d={d} n={n} idx={idt}")
+            raise AssertionError(f"gather_rows kernel != plain at R={rows} "
+                                 f"d={d} n={n} idx={idt}")
         max_err = max(max_err, float((got - want).abs().max()))
-        checked.append([d, n, str(idt).replace("torch.", "")])
+        checked.append([rows, d, n, str(idt).replace("torch.", "")])
     return {"phase": "kernels", "gather_rows": {
-        "bit_exact": True, "max_abs_err": max_err, "rows": CACHE_ROWS,
-        "cases": checked}}
+        "bit_exact": True, "max_abs_err": max_err, "cases": checked}}
 
 
 def ulp_diff(torch, a, b) -> int:
@@ -658,7 +670,7 @@ def check_quantize_pack_ef_update(np, torch, sk, qz, rng) -> dict:
     dec, residual): the uids of a real dedup of one rank's 2048-row
     Criteo batch (id 0 included, pads masked), rows 3x the range so the
     clip feeds the carry, a carry from a previous step, d in {1, 32, 33},
-    8 and 16 bits."""
+    8 and 16 bits, each launch through its width's design."""
     fids = criteo_fids(np, rng, DP_LOCAL_ROWS).reshape(-1)
     fids[0] = 0
     uids, _, count = sk.dedup_ids(torch.from_numpy(fids).cuda())
@@ -677,7 +689,10 @@ def check_quantize_pack_ef_update(np, torch, sk, qz, rng) -> dict:
                 .to(torch.float32).reshape((-1,) + (1,) * (rows.ndim - 1))
             rows = rows * mask
             r1, r2 = residual.clone(), residual.clone()
-            c1, _, d1 = sk.quantize_pack_ef_update(table, rows, uids, r1, mask)
+            c1, _, d1 = check_design(
+                sk, "quantize_pack_ef_update", bits,
+                lambda: sk.quantize_pack_ef_update(table, rows, uids, r1,
+                                                   mask))
             torch.cuda.synchronize()
             c2, _, d2 = sk.quantize_pack_ef_update_plain(table, rows, uids,
                                                          r2, mask)
@@ -1311,6 +1326,8 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
                "merge_apply_variants": sk.variant_launches("merge_apply"),
                "quantize_pack_variants":
                    sk.variant_launches("quantize_pack"),
+               "ef_update_variants":
+                   sk.variant_launches("quantize_pack_ef_update"),
                "policy": dict(tr.exchange_policy),
                "bytes_per_step": dict(tr.exchange_bytes_per_step),
                "device": str(mesh.device), "backend": mesh.backend}
@@ -1416,6 +1433,12 @@ def phase_dp(np, torch, sk, seed) -> dict:
                     raise AssertionError(
                         f"dp {name} rank {r}: quantize_pack ran "
                         f"{rec['quantize_pack_variants']}, not {want_qp}")
+                want_ef = ({"tree": want["quantize_pack_ef_update"]}
+                           if want["quantize_pack_ef_update"] else {})
+                if rec["ef_update_variants"] != want_ef:
+                    raise AssertionError(
+                        f"dp {name} rank {r}: quantize_pack_ef_update ran "
+                        f"{rec['ef_update_variants']}, not {want_ef}")
                 if rec["policy"] != {"w": "sparse", "v": "sparse"}:
                     raise AssertionError(f"dp {name}: policy "
                                          f"{rec['policy']}")
@@ -1806,31 +1829,66 @@ def bound_ms_ops(nbytes, flops):
                                                                "bytes")
 
 
-def gather_timing(torch, sk, serve_ns, launches, max_abs_err) -> dict:
-    n = max(serve_ns)
-    gen = torch.Generator(device="cuda").manual_seed(99)
-    block = torch.randn((CACHE_ROWS, ROW_DIM), generator=gen, device="cuda")
-    idx = torch.randint(0, CACHE_ROWS, (n,), generator=gen, device="cuda",
+def gather_shape(torch, rows, d, n, seed):
+    """A [rows, d] block and n uniform int32 indices into it, and the
+    bytes one gather of them needs: the distinct rows it reads, the
+    indices, the rows it writes."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    block = torch.randn((rows, d), generator=gen, device="cuda")
+    idx = torch.randint(0, rows, (n,), generator=gen, device="cuda",
                         dtype=torch.int32)
-    if not torch.equal(sk.gather_rows(block, idx),
-                       sk.gather_rows_plain(block, idx)):
-        raise AssertionError("gather_rows kernel != plain at the serve shape")
-    # bytes this call needs: the distinct rows it reads, the indices, the
-    # rows it writes
     n_read = int(torch.unique(idx).numel())
-    nbytes = n_read * ROW_DIM * 4 + n * 4 + n * ROW_DIM * 4
-    kernel_ms = graph_ms(torch, lambda: sk.gather_rows(block, idx))
-    return kernel_row(
+    return block, idx, n_read * d * 4 + n * 4 + n * d * 4
+
+
+def gather_floor_ms(torch, sk, block, idx) -> float:
+    """The gather's floor: an empty kernel at its launch shape, timed as
+    ``graph_ms`` times the kernel (no launch counted)."""
+    out = torch.empty((idx.numel(),) + tuple(block.shape[1:]), device="cuda")
+    return graph_ms(torch, lambda: sk.gather_rows_floor(block, idx, out))
+
+
+def gather_timing(torch, sk, serve_ns, launches, max_abs_err):
+    """gather_rows at the serve shape (the cache's 65,536 rows of 33, n
+    its largest padded micro-batch) and the hot-row shape, warm and cold,
+    beside the plain version and ``torch.index_select``; returns the
+    kernels row and the empty kernel's floor at both shapes."""
+    per_shape, floor = [], {}
+    for what, rows, d, n, seed in (("serve", CACHE_ROWS, ROW_DIM,
+                                    max(serve_ns), 99),
+                                   ("hot_row", HOT_ROWS, DIM, HOT_N, 98)):
+        block, idx, nbytes = gather_shape(torch, rows, d, n, seed)
+        if not torch.equal(sk.gather_rows(block, idx),
+                           sk.gather_rows_plain(block, idx)):
+            raise AssertionError(f"gather_rows kernel != plain at the "
+                                 f"{what} shape")
+        floor[what] = gather_floor_ms(torch, sk, block, idx)
+        per_shape.append({
+            "shape": what, "rows": rows, "d": d, "n": n,
+            "ms": graph_ms(torch, lambda: sk.gather_rows(block, idx)),
+            "cold_ms": cold_ms(torch, lambda: sk.gather_rows(block, idx)),
+            "plain_ms": graph_ms(torch,
+                                 lambda: sk.gather_rows_plain(block, idx)),
+            "library_ms": graph_ms(torch,
+                                   lambda: block.index_select(0, idx)),
+            "library_cold_ms": cold_ms(torch,
+                                       lambda: block.index_select(0, idx)),
+            "call_ms": call_ms(torch, lambda: sk.gather_rows(block, idx)),
+            "bound_ms": bound_ms(nbytes), "bytes": nbytes,
+            "floor_ms": floor[what]})
+        del block, idx
+    serve = per_shape[0]
+    row = kernel_row(
         sk, "gather_rows", launches=launches["gather_rows"],
         max_abs_err=max_abs_err,
-        shape={"rows": CACHE_ROWS, "d": ROW_DIM, "n": n},
-        ms=kernel_ms, kernel_ms=kernel_ms,
-        plain_ms=graph_ms(torch, lambda: sk.gather_rows_plain(block, idx)),
-        bound_ms=bound_ms(nbytes), bound_by="bytes",
-        library_ms=graph_ms(torch, lambda: block.index_select(0, idx)),
-        library_call="torch.index_select",
-        call_ms=call_ms(torch, lambda: sk.gather_rows(block, idx)),
-        bytes=nbytes)
+        shape={"rows": CACHE_ROWS, "d": ROW_DIM, "n": serve["n"]},
+        ms=serve["ms"], kernel_ms=serve["ms"], cold_ms=serve["cold_ms"],
+        plain_ms=serve["plain_ms"], bound_ms=serve["bound_ms"],
+        bound_by="bytes", library_ms=serve["library_ms"],
+        library_call="torch.index_select", call_ms=serve["call_ms"],
+        bytes=serve["bytes"], per_shape=per_shape)
+    return row, {"phase": "gather_floor",
+                 "empty_kernel_ms_at_launch_shape": floor}
 
 
 def train_timing(np, torch, sk, fa, seed, launches, kern) -> list:
@@ -2048,37 +2106,42 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
         call_ms=head["call_ms"], per_shape=per_shape))
 
     # quantize_pack_ef_update: one rank's deduped uids into a [V, 32]
-    # carry (the v table's) and a [V] one (w's), fixed range 1.0, 8 bits
-    # normal
-    table_q = qz.build_table(-1.0, 1.0, bits=8, mode="normal", device="cuda")
+    # carry (the v table's) and a [V] one (w's), fixed range 1.0: 8 bits
+    # normal (the dp path's), then 16 bits uniform (no path runs it)
     mask = (~((uids_l == 0) & (torch.arange(k, device="cuda") > 0))) \
         .to(torch.float32).reshape(-1, 1)
     real_l = int(count_l)
     per_shape = []
-    for d in (1, DIM):
-        shape = (VOCAB,) if d == 1 else (VOCAB, d)
-        residual = torch.zeros(shape, device="cuda")
-        mask_d = mask.reshape(-1) if d == 1 else mask
-        g = torch.randn((k,) + shape[1:], generator=gen, device="cuda") \
-            * mask_d
-        # rows and uid/mask read, the real slots' carries read and
-        # written, codes and dec written
-        nbytes = (k * d * 4 + real_l * d * 4 + k * 8
-                  + k * d * (1 + 4) + real_l * d * 4)
-        per_shape.append({
-            "d": d, "s": k, "s_real": real_l, "vocab": VOCAB, "bits": 8,
-            "ms": graph_ms(torch, lambda: sk.quantize_pack_ef_update(
-                table_q, g, uids_l, residual, mask_d)),
-            "cold_ms": cold_ms(torch, lambda: sk.quantize_pack_ef_update(
-                table_q, g, uids_l, residual, mask_d)),
-            "plain_ms": call_ms(
-                torch, lambda: sk.quantize_pack_ef_update_plain(
-                    table_q, g, uids_l, residual, mask_d), reps=20),
-            "call_ms": call_ms(torch, lambda: sk.quantize_pack_ef_update(
-                table_q, g, uids_l, residual, mask_d)),
-            "bound_ms": bound_ms(nbytes), "bytes": nbytes})
-        del residual, g
-    big = per_shape[-1]
+    for bits, mode in ((8, "normal"), (16, "uniform")):
+        table_q = qz.build_table(-1.0, 1.0, bits=bits, mode=mode,
+                                 device="cuda")
+        for d in (1, DIM):
+            shape = (VOCAB,) if d == 1 else (VOCAB, d)
+            residual = torch.zeros(shape, device="cuda")
+            mask_d = mask.reshape(-1) if d == 1 else mask
+            g = torch.randn((k,) + shape[1:], generator=gen,
+                            device="cuda") * mask_d
+            # rows and uid/mask read, the real slots' carries read and
+            # written, codes and dec written
+            nbytes = (k * d * 4 + real_l * d * 4 + k * 8
+                      + k * d * (bits // 8 + 4) + real_l * d * 4)
+            per_shape.append({
+                "d": d, "s": k, "s_real": real_l, "vocab": VOCAB,
+                "bits": bits, "design": sk.search_design(bits),
+                "ms": graph_ms(torch, lambda: sk.quantize_pack_ef_update(
+                    table_q, g, uids_l, residual, mask_d)),
+                "cold_ms": cold_ms(
+                    torch, lambda: sk.quantize_pack_ef_update(
+                        table_q, g, uids_l, residual, mask_d)),
+                "plain_ms": call_ms(
+                    torch, lambda: sk.quantize_pack_ef_update_plain(
+                        table_q, g, uids_l, residual, mask_d), reps=20),
+                "call_ms": call_ms(
+                    torch, lambda: sk.quantize_pack_ef_update(
+                        table_q, g, uids_l, residual, mask_d)),
+                "bound_ms": bound_ms(nbytes), "bytes": nbytes})
+            del residual, g
+    big = per_shape[1]
     out.append(kernel_row(
         sk, "quantize_pack_ef_update",
         launches=launches["quantize_pack_ef_update"],
@@ -2240,8 +2303,11 @@ def main(argv=None) -> int:
     emit(attn_info | {"nvidia_smi": smi})
     bench_info = phase_bench(torch, sk)
     emit(bench_info | {"nvidia_smi": smi})
-    rows = [gather_timing(torch, sk, serve_ns, serve_info["launches"],
-                          kern["gather_rows"]["max_abs_err"])]
+    gather_row, gather_floor = gather_timing(
+        torch, sk, serve_ns, serve_info["launches"],
+        kern["gather_rows"]["max_abs_err"])
+    emit(gather_floor | {"nvidia_smi": smi})
+    rows = [gather_row]
     rows += train_timing(np, torch, sk, fa, args.seed,
                          train_info["train_launches"], kern)
     new_rows, dedup_extra, merge_extra = dp_timing(

@@ -5,10 +5,8 @@
 // code nb, as the JAX reference's searchsorted gives it (a compare-count,
 // like the TPU kernel _qp_kernel, would give 0); +inf takes nb and -inf 0.
 //
-// Three searches:
+// Two searches:
 //
-//   - lower_bound_code: a branchless lower bound over the sorted array, one
-//     dependent read a level (B8's 16-bit path).
 //   - Up to 8 bits (nb <= 255): the boundaries as an Eytzinger tree in
 //     shared memory (s_tree, staged by stage_tree, searched by
 //     shared_code), 8 levels written out.  A level's nodes sit side by
@@ -41,30 +39,6 @@
 #include <math.h>
 
 namespace lct {
-
-// The smallest power of two >= nb (nb >= 1).
-inline int search_width(long long nb) {
-  int p = 1;
-  while (p < nb) p <<= 1;
-  return p;
-}
-
-// Branchless lower bound over nb ascending boundaries, read through
-// bnd(i), with positions nb .. nbp-1 of the power-of-two width nbp read as
-// +inf (they never count).  log2(nbp) + 1 reads.
-template <typename Load>
-__device__ __forceinline__ int lower_bound_code(float x, int nb, int nbp,
-                                                Load bnd) {
-  if (isnan(x)) return nb;
-  int pos = 0;
-  for (int half = nbp >> 1; half >= 1; half >>= 1) {
-    const int probe = pos + half - 1;
-    const float b = probe < nb ? bnd(probe) : INFINITY;
-    if (b < x) pos += half;
-  }
-  const float last = pos < nb ? bnd(pos) : INFINITY;
-  return pos + (last < x ? 1 : 0);
-}
 
 // Node i (1 <= i < 2^L) of a perfect search tree of L levels in Eytzinger
 // order (node i's children at 2i and 2i + 1, index 0 unused) holds the key

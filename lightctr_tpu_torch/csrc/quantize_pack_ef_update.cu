@@ -28,9 +28,7 @@
 // rows + (+-0) unless the pad's row is -0, which a zero-gradient pad is not.
 // The decode is one table read (dec = values[code]), so 16-bit tables run
 // here too: the TPU sent them to its reference because a one-hot decode
-// over 2^16 values wastes vector time.  Up to 8 bits both tables sit in
-// shared memory; at 16 bits (512 KB) they are read through the read-only
-// cache.
+// over 2^16 values wastes vector time.
 //
 // Layout: touched_rows.cuh's walk, as merge_apply's apply mode.  A
 // persistent grid (SMs x resident blocks), so each block stages the 8-bit
@@ -41,13 +39,18 @@
 // at d = 32), one float otherwise; at d = 1 a lane takes whole slots.  A
 // lane starts the payload and carry loads of kVecRows rows (kScalarRows,
 // kOwnRows) before the first search, with the next tile's uids and masks
-// in flight.  The 8-bit search (shared_code, quantile_search.cuh, which
-// B6 and B7 share) walks the boundaries as an
-// Eytzinger tree in shared memory, its 8 levels written out, so a lane's V
-// searches are independent chains of shared-memory reads that interleave
-// and a warp's reads of one level spread over the banks; a loop of the
-// table's runtime depth over the sorted array kept the searches one after
-// another, and its probes of one level shared a bank.  The searches,
+// in flight.  The searches are quantile_search.cuh's, which B6 and B7
+// share.  Up to 8 bits (shared_code) the boundaries are an Eytzinger tree
+// in shared memory, its 8 levels written out, so a lane's V searches are
+// independent chains of shared-memory reads that interleave and a warp's
+// reads of one level spread over the banks, and the values sit beside it;
+// a loop of the table's runtime depth over the sorted array kept the
+// searches one after another, and its probes of one level shared a bank.
+// Above 8 bits the two-stage search (split_code): a top tree in dynamic
+// shared memory, staged once a block, then one float4 load of a segment,
+// in 1024-thread blocks, one an SM, decoded by one read of values through
+// the read-only path; the sorted-array lower bound it replaced made 17
+// dependent reads of a table that misses L1.  The searches,
 // not the bytes, set the pace here: one row a float4 lane (4 searches)
 // keeps the registers low enough for 32 warps an SM, and more rows a lane
 // measured slower on the H100.  Codes are stored V at once: 4 one-byte
@@ -76,7 +79,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kTreeThreads = 256;  // the split's: lct::kSplitThreads
 constexpr long long kMaxBlocks = 8192;
 // rows a lane has in flight, by lane kind (touched_rows.cuh): float4
 // lanes, one-float lanes (d % 4 != 0), lanes that take whole slots (d 1)
@@ -84,11 +87,11 @@ constexpr int kVecRows = 1;
 constexpr int kScalarRows = 4;
 constexpr int kOwnRows = 1;
 
-// The entry's arguments.
+// The entry's arguments: t is the boundaries (t.bnd, t.nb), as the split
+// search reads them above 8 bits.
 struct EfArgs {
-  const float* bnd;
+  lct::SplitTable t;
   const float* values;
-  int nb, nbp;
   const float* rows;
   const int32_t* uids;
   float* residual;
@@ -102,7 +105,7 @@ struct EfArgs {
 // load() reads the payload and, through the uid, the carry; put() encodes,
 // decodes and writes the code, dec and (an unmasked slot in the table)
 // the carry.
-template <int V, typename Code, bool kShared>
+template <int V, typename Code, bool kTree>
 struct EfUpdate : EfArgs {
   using F = typename lct::FloatVec<V>::T;
 
@@ -131,14 +134,6 @@ struct EfUpdate : EfArgs {
     return x;
   }
 
-  __device__ int code_of(float val) const {
-    if constexpr (kShared)
-      return lct::shared_code(val, nb);
-    else
-      return lct::lower_bound_code(val, nb, nbp,
-                                   [this](int j) { return __ldg(bnd + j); });
-  }
-
   __device__ void put(Ctx& x, long long i, const Slot& k, long long c) const {
     lct::CodeVec<Code, V> code;
     F dec;
@@ -146,46 +141,56 @@ struct EfUpdate : EfArgs {
     for (int j = 0; j < V; ++j) {
       const float car = lct::lane_of(x.car, j);
       const float val = __fadd_rn(lct::lane_of(x.x, j), __fmul_rn(car, k.m));
-      const int q = code_of(val);
+      int q;
       float dv;
-      if constexpr (kShared)
+      if constexpr (kTree) {
+        q = lct::shared_code(val, t.nb);
         dv = lct::s_val[q];
-      else
+      } else {
+        q = lct::split_code(t, val);
         dv = __ldg(values + q);
+      }
       code.c[j] = (Code)q;
       lct::lane_of(dec, j) = dv;
       lct::lane_of(x.car, j) =
           __fadd_rn(car, __fmul_rn(__fsub_rn(__fsub_rn(val, dv), car), k.m));
     }
-    const long long t = i * d + c;
-    *reinterpret_cast<lct::CodeVec<Code, V>*>(static_cast<Code*>(codes) + t) =
+    const long long e = i * d + c;
+    *reinterpret_cast<lct::CodeVec<Code, V>*>(static_cast<Code*>(codes) + e) =
         code;
-    lct::store_vec<V>(dec_out + t, dec);
+    lct::store_vec<V>(dec_out + e, dec);
     if (x.e >= 0 && k.m != 0.0f) lct::store_vec<V>(residual + x.e, x.car);
   }
 };
 
-template <int V, int U, bool kOwn, typename Code, bool kShared>
-__global__ void __launch_bounds__(kThreads)
-    ef_update(EfUpdate<V, Code, kShared> op, lct::TouchedRows w) {
-  if constexpr (kShared) lct::stage_tree(op.bnd, op.nb, op.values);
+template <int V, int U, bool kOwn, typename Code, bool kTree>
+__global__ void __launch_bounds__(kTree ? kTreeThreads : lct::kSplitThreads)
+    ef_update(EfUpdate<V, Code, kTree> op, lct::TouchedRows w) {
+  if constexpr (kTree)
+    lct::stage_tree(op.t.bnd, op.t.nb, op.values);
+  else
+    lct::stage_split(op.t);
   lct::walk_touched_rows<V, U, kOwn>(w, op);
 }
 
-template <int V, typename Code, bool kShared>
+template <int V, typename Code, bool kTree>
 cudaError_t launch_width(const EfArgs& a, long long s, cudaStream_t stream) {
-  const EfUpdate<V, Code, kShared> op{a};
+  const EfUpdate<V, Code, kTree> op{a};
   return lct::launch_touched_rows<V, V == 4 ? kVecRows : kScalarRows,
                                   kOwnRows>(
       s, a.d, [&](auto u, auto own, const lct::TouchedRows& w) {
         constexpr int U = decltype(u)::value;
         constexpr bool kOwn = decltype(own)::value;
+        const auto kernel = ef_update<V, U, kOwn, Code, kTree>;
+        const int threads = kTree ? kTreeThreads : lct::kSplitThreads;
+        const size_t smem = kTree ? 0 : lct::kSplitSmem;
+        if (!kTree && lct::split_smem_attr(kernel) != cudaSuccess)
+          return cudaGetLastError();
         const unsigned grid =
-            lct::grid_for(ef_update<V, U, kOwn, Code, kShared>, kThreads,
-                          w.tiles, kMaxBlocks);
+            lct::grid_for(kernel, threads, w.tiles, kMaxBlocks,
+                          kTree ? 0 : lct::kSplitBlocksPerSm, smem);
         if (grid == 0) return cudaGetLastError();
-        ef_update<V, U, kOwn, Code, kShared><<<grid, kThreads, 0, stream>>>(
-            op, w);
+        kernel<<<grid, threads, smem, stream>>>(op, w);
         return cudaGetLastError();
       });
 }
@@ -196,12 +201,11 @@ int launch(const void* bnd, long long nb, const void* values,
            const void* mask, long long s, long long d, long long vocab,
            void* codes, void* dec, void* stream_ptr) {
   if (s <= 0 || d <= 0) return (int)cudaSuccess;
-  if (nb < 1) return (int)cudaErrorInvalidValue;
+  if (nb < 1 || nb > 65535 || reinterpret_cast<uintptr_t>(bnd) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const EfArgs a{static_cast<const float*>(bnd),
+  const EfArgs a{lct::split_table(static_cast<const float*>(bnd), (int)nb),
                  static_cast<const float*>(values),
-                 (int)nb,
-                 lct::search_width(nb),
                  static_cast<const float*>(rows),
                  static_cast<const int32_t*>(uids),
                  static_cast<float*>(residual),
@@ -210,14 +214,14 @@ int launch(const void* bnd, long long nb, const void* values,
                  vocab,
                  codes,
                  static_cast<float*>(dec)};
-  const bool shared = nb < lct::kTreeNodes;
+  const bool tree = nb < lct::kTreeNodes;
   // float4 lanes also need the codes on a whole word (4 codes at once)
   if (lct::rows_take_float4(d, {rows, residual, dec}) &&
       reinterpret_cast<uintptr_t>(codes) % (4 * sizeof(Code)) == 0)
-    return (int)(shared ? launch_width<4, Code, true>(a, s, stream)
-                        : launch_width<4, Code, false>(a, s, stream));
-  return (int)(shared ? launch_width<1, Code, true>(a, s, stream)
-                      : launch_width<1, Code, false>(a, s, stream));
+    return (int)(tree ? launch_width<4, Code, true>(a, s, stream)
+                      : launch_width<4, Code, false>(a, s, stream));
+  return (int)(tree ? launch_width<1, Code, true>(a, s, stream)
+                    : launch_width<1, Code, false>(a, s, stream));
 }
 
 }  // namespace

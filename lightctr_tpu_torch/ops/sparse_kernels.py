@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -298,30 +299,73 @@ _P, _LL, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float
 def _bind_gather_rows(lib: ctypes.CDLL) -> None:
     for sym in ("gather_rows_f32_i32", "gather_rows_f32_i64"):
         bind_entry(lib, sym, [_P, _P, _P, _LL, _LL, _LL, _P])
+    bind_entry(lib, "gather_rows_floor", [_P, _P, _LL, _LL, _LL, _P])
 
 
 def _gather_rows_cuda(block: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; no synchronise."""
-    if block.dtype != torch.float32:
-        raise TypeError(f"gather_rows kernel takes float32 rows, "
-                        f"got {block.dtype}")
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"gather_rows kernel takes int32/int64 indices, "
-                        f"got {idx.dtype}")
-    dev = check_cuda_tensors("gather_rows", block=block, idx=idx)
-    rows = block.shape[0]
-    n = idx.numel()
-    out = torch.empty((n,) + tuple(block.shape[1:]), dtype=block.dtype,
-                      device=block.device)
-    if out.numel() == 0:
-        return out
-    d = out.numel() // n
-    lib = load("gather_rows")
-    fn = (lib.gather_rows_f32_i32 if idx.dtype == torch.int32
-          else lib.gather_rows_f32_i64)
-    run_kernel("gather_rows", dev, fn, block.data_ptr(), idx.data_ptr(),
-               out.data_ptr(), rows, d, n)
+    out = torch.empty((idx.numel(),) + tuple(block.shape[1:]),
+                      dtype=block.dtype, device=block.device)
+    if out.numel():
+        _gather_rows_into(block, idx, out)
+    else:
+        _check_gather("gather_rows", block, idx, out)
     return out
+
+
+def _check_gather(name: str, block: torch.Tensor, idx: torch.Tensor,
+                  out: torch.Tensor) -> torch.device:
+    """The device of a gather of ``idx``'s rows of ``block`` into ``out``:
+    a float32 block, int32/int64 indices (``TypeError`` otherwise), and
+    all three contiguous on one CUDA device with ``out`` of ``idx.numel()``
+    rows of the block's width (``ValueError`` otherwise)."""
+    if block.dtype != torch.float32 or out.dtype != torch.float32:
+        raise TypeError(f"{name} kernel takes a float32 block and out, got "
+                        f"{block.dtype} and {out.dtype}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"{name} kernel takes int32/int64 indices, "
+                        f"got {idx.dtype}")
+    dev = check_cuda_tensors(name, block=block, idx=idx, out=out)
+    if block.dim() < 1 or out.numel() != idx.numel() * _row_width(block):
+        raise ValueError(f"{name}: out {tuple(out.shape)} for {idx.numel()} "
+                         f"rows of block {tuple(block.shape)}")
+    return dev
+
+
+def _row_width(block: torch.Tensor) -> int:
+    return math.prod(block.shape[1:])
+
+
+def _gather_rows_into(block: torch.Tensor, idx: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Launch the gather kernel into ``out``, which may start anywhere a
+    float may; at least one row of at least one float."""
+    dev = _check_gather("gather_rows", block, idx, out)
+    if not out.numel():
+        raise ValueError("gather_rows: nothing to gather")
+    fn = (load("gather_rows").gather_rows_f32_i32
+          if idx.dtype == torch.int32
+          else load("gather_rows").gather_rows_f32_i64)
+    run_kernel("gather_rows", dev, fn, block.data_ptr(), idx.data_ptr(),
+               out.data_ptr(), block.shape[0], _row_width(block), idx.numel())
+
+
+def gather_rows_floor(block: torch.Tensor, idx: torch.Tensor,
+                      out: torch.Tensor) -> None:
+    """Launch an empty kernel at the grid and block the gather of ``idx``
+    (int32) into ``out`` would take: the launch's floor, which moves
+    nothing and counts no launch."""
+    dev = _check_gather("gather_rows_floor", block, idx, out)
+    if idx.dtype != torch.int32 or not out.numel():
+        raise ValueError("gather_rows_floor: int32 ids, at least one row")
+    fn = load("gather_rows").gather_rows_floor
+    with torch.cuda.device(dev):
+        err = fn(block.data_ptr(), out.data_ptr(), block.shape[0],
+                 _row_width(block), idx.numel(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"gather_rows_floor launch failed: CUDA error "
+                           f"{err}")
 
 
 register_kernel(
@@ -948,7 +992,8 @@ def _quantize_pack_ef_update_cuda(table, rows, uids, residual, mask):
                table.boundaries.data_ptr(), table.boundaries.numel(),
                table.values.data_ptr(), rows.data_ptr(), uids.data_ptr(),
                residual.data_ptr(), m.data_ptr(), s, d, vocab,
-               codes.data_ptr(), dec.data_ptr())
+               codes.data_ptr(), dec.data_ptr(),
+               variant=search_design(table.bits))
     return codes, residual, dec
 
 

@@ -1,6 +1,7 @@
-"""A/B of two checkouts' touched-row and quantize kernels on one card:
-merge_apply in both modes, merge_rows, quantize_pack_ef_update,
-quantize_pack and quantize_pack_ef, at ``chip_smoke.py``'s shapes, each
+"""A/B of two checkouts' row, touched-row and quantize kernels on one
+card: gather_rows, merge_apply in both modes, merge_rows,
+quantize_pack_ef_update, quantize_pack and quantize_pack_ef, at
+``chip_smoke.py``'s shapes, each
 warm and cold: ``ms`` is chip_smoke's ``graph_ms`` (a CUDA
 graph of back-to-back calls, which find their working set in the 50 MB
 L2 where it fits), ``cold_ms`` its ``cold_ms`` (each call after a read
@@ -9,18 +10,24 @@ that empties the L2).
 Each root named on the command line is a checkout of the repo (the tree
 under test, or a parent unpacked with ``git archive``).  For each, in the
 order given, a fresh process imports that checkout's ``chip_smoke.py`` and
-``sparse_kernels``, builds the six kernels from its ``csrc/`` and times
-them on inputs made from chip_smoke's seeds, so both roots see the same
-data; the timing functions are this checkout's, so both roots are timed
-alike:
+``sparse_kernels``, builds the seven kernels from its ``csrc/`` and
+times them on inputs made from chip_smoke's seeds, so both roots see the
+same data; the timing functions and the gather's shapes are this
+checkout's, so both roots are timed alike:
 
+  ``gather``      gather_rows at the serve shape (65,536 rows of 33, n =
+                  the largest padded micro-batch, 8,192) and the hot-row
+                  shape (2^20 rows of 32, n = 159,744 uniform ids), each
+                  with ``library_ms`` / ``library_cold_ms`` (one
+                  ``torch.index_select``); then warm only at d 1, 33, 128
+                  x n 1, 1000, 8192, 16384, 159,744 out of 65,536 rows;
   ``apply``       merge_apply's apply mode on one train batch's uids
                   (S = 159,744) into 2^20-row tables, d 1 and 32;
   ``merge_mode``  merge_apply's merge mode on the dp path's gathered rows
                   (M = 159,744, zero padding), d 32 and 1;
   ``merge_rows``  merge_rows on the same rows, d 32 and 1;
   ``ef_update``   quantize_pack_ef_update, one dp rank's uids (S = 79,872),
-                  8 bits normal, range 1.0, d 1 and 32;
+                  range 1.0, 8 bits normal and 16 bits uniform, d 1 and 32;
   ``pack``        quantize_pack on one dp rank's [79,872, 32] payload, a
                   measured range, 8 bits normal and 16 bits uniform (with
                   ``library_ms``: one ``torch.searchsorted``);
@@ -65,18 +72,35 @@ from lightctr_tpu_torch.ops import quantize as qz
 from lightctr_tpu_torch.ops import sparse_kernels as sk
 if not torch.cuda.is_available():
     sys.exit("kernel_ab: CUDA is not available")
-names = ("dedup_ids", "merge_apply", "merge_rows", "quantize_pack_ef_update",
-         "quantize_pack", "quantize_pack_ef")
+names = ("gather_rows", "dedup_ids", "merge_apply", "merge_rows",
+         "quantize_pack_ef_update", "quantize_pack", "quantize_pack_ef")
 with ThreadPoolExecutor(len(names)) as ex:
     list(ex.map(lambda n: sk.compile_source(sk.KERNELS[n].source), names))
 gen = torch.Generator(device="cuda").manual_seed(5)
-out = {"root": root, "apply": {}, "merge_mode": {}, "merge_rows": {},
-       "ef_update": {}, "pack": {}, "pack_ef": {}}
+out = {"root": root, "gather": {}, "apply": {}, "merge_mode": {},
+       "merge_rows": {}, "ef_update": {}, "pack": {}, "pack_ef": {}}
 
 def timed(fn, nbytes):
     return {"ms": timer.graph_ms(torch, fn),
             "cold_ms": timer.cold_ms(torch, fn),
             "bound_ms": timer.bound_ms(nbytes)}
+
+n_serve = max(timer.serve_gather_ns(np, sk, timer.make_requests(np, seed)))
+for what, rows, d, n, gseed in (
+        ("serve", timer.CACHE_ROWS, timer.ROW_DIM, n_serve, 99),
+        ("hot_row", timer.HOT_ROWS, timer.DIM, timer.HOT_N, 98)):
+    block, idx, nbytes = timer.gather_shape(torch, rows, d, n, gseed)
+    out["gather"][what] = timed(lambda: sk.gather_rows(block, idx), nbytes)
+    out["gather"][what]["library_ms"] = timer.graph_ms(
+        torch, lambda: block.index_select(0, idx))
+    out["gather"][what]["library_cold_ms"] = timer.cold_ms(
+        torch, lambda: block.index_select(0, idx))
+for d in (1, 33, 128):
+    for n in (1, 1000, 8192, 16384, timer.HOT_N):
+        block, idx, _ = timer.gather_shape(torch, timer.CACHE_ROWS, d, n, 97)
+        out["gather"][f"d{d}_n{n}"] = {
+            "ms": timer.graph_ms(torch, lambda: sk.gather_rows(block, idx))}
+del block, idx
 
 rng = np.random.default_rng(seed + 5)
 ids = torch.from_numpy(cs.criteo_fids(np, rng, cs.TRAIN_BATCH)
@@ -115,19 +139,22 @@ for d in (cs.DIM, 1):
 
 uids_l, _, count_l = per_rank[0]
 k, real_l = uids_l.numel(), int(count_l)
-table_q = qz.build_table(-1.0, 1.0, bits=8, mode="normal", device="cuda")
 mask = (~((uids_l == 0) & (torch.arange(k, device="cuda") > 0))) \
     .to(torch.float32)
-for d in (1, cs.DIM):
-    shape = (cs.VOCAB,) if d == 1 else (cs.VOCAB, d)
-    mask_d = mask if d == 1 else mask.reshape(-1, 1)
-    residual = torch.zeros(shape, device="cuda")
-    g = torch.randn((k,) + shape[1:], generator=gen, device="cuda") * mask_d
-    out["ef_update"][d] = timed(
-        lambda: sk.quantize_pack_ef_update(table_q, g, uids_l, residual,
-                                           mask_d),
-        k * d * 4 + real_l * d * 4 + k * 8 + k * d * 5 + real_l * d * 4)
-    del residual, g
+for bits, mode in ((8, "normal"), (16, "uniform")):
+    table_q = qz.build_table(-1.0, 1.0, bits=bits, mode=mode, device="cuda")
+    for d in (1, cs.DIM):
+        shape = (cs.VOCAB,) if d == 1 else (cs.VOCAB, d)
+        mask_d = mask if d == 1 else mask.reshape(-1, 1)
+        residual = torch.zeros(shape, device="cuda")
+        g = torch.randn((k,) + shape[1:], generator=gen, device="cuda") \
+            * mask_d
+        out["ef_update"][f"{bits}b_d{d}"] = timed(
+            lambda: sk.quantize_pack_ef_update(table_q, g, uids_l, residual,
+                                               mask_d),
+            k * d * 4 + real_l * d * 4 + k * 8 + k * d * (bits // 8 + 4)
+            + real_l * d * 4)
+        del residual, g
 
 p = cs.DP_LOCAL_K
 x = torch.randn((p, cs.DIM), generator=gen, device="cuda") * 0.05
@@ -147,8 +174,8 @@ out["nvidia_smi"] = timer.nvidia_smi()
 print(json.dumps(out), flush=True)
 """
 
-KERNELS = ("apply", "merge_mode", "merge_rows", "ef_update", "pack",
-           "pack_ef")
+KERNELS = ("gather", "apply", "merge_mode", "merge_rows", "ef_update",
+           "pack", "pack_ef")
 
 
 def run_root(root: str) -> dict:
@@ -157,10 +184,13 @@ def run_root(root: str) -> dict:
 
 
 def summarize(recs: list) -> dict:
-    """One root's medians of ``ms`` and ``cold_ms``, by kernel and width
-    (bits for ``pack`` and ``pack_ef``)."""
+    """One root's medians of ``ms``, ``cold_ms`` and the library's times
+    where a cell has them, by kernel and cell (width; bits for ``pack``
+    and ``pack_ef``; shape for ``gather``)."""
     return {kern: {d: {t: statistics.median(r[kern][d][t] for r in recs)
-                       for t in ("ms", "cold_ms")}
+                       for t in ("ms", "cold_ms", "library_ms",
+                                 "library_cold_ms")
+                       if t in recs[0][kern][d]}
                    for d in recs[0][kern]}
             for kern in KERNELS}
 

@@ -389,6 +389,109 @@ def test_merge_long_runs_match_plain(dev, d):
                      rows.reshape(-1) if d == 1 else rows)
 
 
+GATHER_DS = (1, 4, 32, 33, 128)
+GATHER_NS = (1, 31, 32, 33, 1000, 4097, 8192, 159744)
+
+
+def gather_case(dev, d, n, offset, seed):
+    """A [R, d] block stored ``offset`` floats past 16 bytes (R 2^20 at
+    the train batch's n, 65,536 below) and n int32 ids: every clip edge
+    first (-1, R, int32's limits, R - 1, 0, -R, 2R), then uniform over
+    [-R/4, 5R/4)."""
+    rows = 1 << 20 if n > 100000 else 65536
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    block = offset_rows(torch.randn((rows, d), generator=gen, device=dev),
+                        offset)
+    idx = torch.randint(-rows // 4, rows + rows // 4, (n,), generator=gen,
+                        device=dev, dtype=torch.int64)
+    edges = torch.tensor([-1, rows, -(1 << 31), (1 << 31) - 1, rows - 1, 0,
+                          -rows, 2 * rows])
+    m = min(n, edges.numel())
+    idx[:m] = edges[:m]
+    return block, idx.to(torch.int32)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("n", GATHER_NS)
+@pytest.mark.parametrize("d", GATHER_DS)
+def test_gather_rows_kernel_matches_plain(dev, d, n, offset):
+    """Bit for bit (``torch.equal``), one launch a call: the block
+    ``offset`` floats off 16 bytes and the output ``offset + 1`` (so the
+    float4 lanes' alignment test sees each pointer off alone and both), the
+    same ids as int64 moved by multiples of 2^32 (the int32 cast wraps them
+    back), and at d 33 the block as [R, 3, 11]."""
+    block, idx = gather_case(dev, d, n, offset, 7 * d + n + offset)
+    want = sk.gather_rows_plain(block, idx)
+    before = sk.launches("gather_rows")
+    assert torch.equal(sk.gather_rows(block, idx), want)
+    assert sk.launches("gather_rows") == before + 1
+    out = offset_rows(torch.empty_like(want), (offset + 1) % 4)
+    sk._gather_rows_into(block, idx, out)
+    assert torch.equal(out, want)
+    wide = idx.to(torch.int64) \
+        + (torch.arange(n, device=dev) % 3 - 1) * (1 << 32)
+    assert torch.equal(sk.gather_rows(block, wide), want)
+    if d == 33:
+        assert torch.equal(sk.gather_rows(block.view(-1, 3, 11), idx),
+                           want.view(n, 3, 11))
+
+
+def test_gather_rows_into_refuses_a_wrong_out(dev):
+    """The launcher writes only into a float32 out of n rows of a float32
+    block's width, from int32/int64 ids, and launches (and counts) nothing
+    otherwise, nor for n 0."""
+    block, idx = gather_case(dev, 33, 100, 0, 5)
+    before = sk.launches("gather_rows")
+    for out in (torch.empty((99, 33), device=dev),
+                torch.empty((100, 32), device=dev)):
+        with pytest.raises(ValueError, match="gather_rows: out"):
+            sk._gather_rows_into(block, idx, out)
+    out = torch.empty((100, 33), device=dev)
+    for args in ((block, idx.to(torch.float32), out),
+                 (block, idx.to(torch.int16), out),
+                 (block.double(), idx, out.double()),
+                 (block, idx, out.double())):
+        with pytest.raises(TypeError, match="gather_rows kernel takes"):
+            sk._gather_rows_into(*args)
+    with pytest.raises(ValueError, match="nothing to gather"):
+        sk._gather_rows_into(block, idx[:0], out[:0])
+    with pytest.raises(TypeError, match="gather_rows kernel takes"):
+        sk.gather_rows(block.double(), idx)
+    assert sk.launches("gather_rows") == before
+
+
+@pytest.mark.parametrize("d", [1, 33, 128])
+def test_gather_rows_floor_moves_nothing_and_counts_nothing(dev, d):
+    """The floor launches an empty kernel at the gather's grid: out keeps
+    what it held, and no gather launch is counted."""
+    block, idx = gather_case(dev, d, 8192, 0, 3)
+    out = torch.full((8192, d), 7.0, device=dev)
+    before = sk.launches("gather_rows")
+    sk.gather_rows_floor(block, idx, out)
+    torch.cuda.synchronize()
+    assert sk.launches("gather_rows") == before
+    assert bool((out == 7.0).all())
+
+
+@pytest.mark.parametrize("edge", ["n_times_d", "rows_times_d"])
+def test_gather_rows_kernel_wide_index_math_matches_plain(dev, edge):
+    """The 64-bit instantiation, bit for bit: n * d past 2^31 (d 33, one
+    float lanes), and R * d past 2^31 (d 128, float4 lanes, ids up to the
+    block's last row)."""
+    if edge == "n_times_d":
+        rows, d, n = 4096, 33, (1 << 31) // 33 + 1000
+    else:
+        rows, d, n = (1 << 24) + 3, 128, 100000
+    assert n * d >= 1 << 31 or rows * d >= 1 << 31
+    gen = torch.Generator(device=dev).manual_seed(11)
+    block = torch.randn((rows, d), generator=gen, device=dev)
+    idx = torch.randint(0, rows + 10, (n,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx[:2] = torch.tensor([rows - 1, rows], device=dev)
+    got = sk.gather_rows(block, idx)
+    assert torch.equal(got, sk.gather_rows_plain(block, idx))
+
+
 def variant_delta(name, before):
     """Launches of kernel ``name`` by design since ``before`` (a
     ``variant_launches`` snapshot), the designs that ran only."""
@@ -471,8 +574,9 @@ def test_quantize_pack_split_search_edges_match_plain(dev, bits, bnd_offset):
 
 def check_ef_update(dev, uids, shape, bits, offset, seed):
     """Codes, dec and the residual of the kernel and the plain version bit
-    for bit: pads (uid 0 past slot 0) masked and zero, rows past the
-    fixed range, a carry from before."""
+    for bit, in one launch through the design the table's width names:
+    pads (uid 0 past slot 0) masked and zero, rows past the fixed range, a
+    carry from before."""
     k = uids.numel()
     gen = torch.Generator(device=dev).manual_seed(seed)
     table = qz.build_table(-1.0, 1.0, bits=bits,
@@ -485,7 +589,10 @@ def check_ef_update(dev, uids, shape, bits, offset, seed):
         offset)
     residual = torch.randn(shape, generator=gen, device=dev) * 0.1
     r1, r2 = residual.clone(), residual.clone()
+    before = sk.variant_launches("quantize_pack_ef_update")
     c1, _, d1 = sk.quantize_pack_ef_update(table, rows, uids, r1, mask)
+    assert variant_delta("quantize_pack_ef_update", before) == {
+        sk.search_design(bits): 1}
     c2, _, d2 = sk.quantize_pack_ef_update_plain(table, rows, uids, r2, mask)
     assert c1.dtype == c2.dtype and torch.equal(c1, c2)
     assert torch.equal(d1, d2) and torch.equal(r1, r2)
@@ -499,7 +606,8 @@ def test_quantize_pack_ef_update_kernel_matches_plain(dev, d, s, offset,
     widths, slot counts and offsets: a real id 0 at slot 0, pads (uid 0
     past slot 0) masked and zero, wrapping uids and uids outside the table
     (their carry reads NaN, which takes the top code), rows past the fixed
-    range, a carry from before."""
+    range, a carry from before; each launch counted under its design
+    (``tree`` at 8 bits, ``split`` at 16)."""
     vocab = 1 << 20 if s > 8192 else 8192
     uids = torch.from_numpy(touched_uids(d * s + bits, s, vocab)).to(dev)
     check_ef_update(dev, uids, (vocab,) if d == 1 else (vocab, d), bits,
