@@ -5,7 +5,8 @@ holds each against its plain PyTorch version, serves FM at Criteo width
 through the PS-backed ``PredictionServer`` and checks the scores, trains FM
 at Criteo width with ``SparseTableCTRTrainer`` and
 ``CTRTrainer(fused_adagrad=True)``, then trains it data-parallel over two
-ranks on the one card, and checks the training; runs the long-context
+ranks on the one card (the allgather exchange) and over eight (the
+reduce-scatter exchange), and checks the training; runs the long-context
 attention path (flash attention on one card, ring attention over two
 ranks) and the port's two kernel benches.
 
@@ -54,7 +55,14 @@ Phases, one JSON line each:
            heads of 128, 256 and 320 causal and not, and at B*H = 65,600
            (max abs error <= 2e-2, mean <= 2e-3), at (2, 256, 4, 32) and the
            graft entry's (2, 32, 2, 8) in fp32, causal and not (rtol 2e-4,
-           atol 2e-5); each case through the design ``flash_route`` names.
+           atol 2e-5); each case through the design ``flash_route`` names;
+           and the dp_rs path's kernels at its shapes: dedup_ids on owner
+           0's 25,960 bucket ids cut at 8,193, merge_rows of those rows
+           into 8,193 segments (zero and coded padding), quantize_pack on
+           the [8, 3245, 32] buckets, quantize_pack_ef_update of one
+           rank's [19,968, 32] rows into a [65,536, 32] carry (all
+           bit-exact), merge_apply's apply mode on the 65,544 gathered
+           shard slots with their non-zero id-0 pads (2 ulp).
   serve    FM, 39 fields (26 categorical + 13 numeric), vocabulary 2^20,
            factor dim 32: a port ``AsyncParamServer`` (rows ``[w | v]`` of
            width 33) behind ``ParamServerService``, a ``PredictionServer``
@@ -101,6 +109,35 @@ Phases, one JSON line each:
            NCCL.  Steady-state examples/s of (a) with the health feed off,
            set by gloo's host staging, and rank 0's device time over 5
            more steps (torch.profiler) for the card's idle share.
+  dp_rs    the same model at vocabulary 2^16 (docs/SPARSE_EXCHANGE.md's
+           middle band), global batch 4096, over 8 gloo ranks on the card
+           (512 rows, 19,968 ids a rank), where the pick sends v over the
+           reduce-scatter exchange (bucket 3,245, shard 8,193) and w over
+           the dense one: (a) exact, 20 steps; (b) 8 bits, measured
+           range, 10; (c) 8 bits with its defaults (range 1.0, EF), 10;
+           (d) 3 steps of a batch whose ids are all multiples of 8, which
+           the host check refuses, so each runs the allgather fallback.
+           Per rank and run the launches equal the plan's
+           (``rs_expected_launches``: merge_apply's apply mode, its merge
+           mode in (d), quantize_pack and quantize_pack_ef_update through
+           ``tree``); every rank ends bit-identical; the overflow slot is
+           0 and ``trainer_sparse_rs_bytes_total`` is sparse_rs_bytes
+           times the steps in (a)-(c), ``trainer_rs_fallback_total`` 3 in
+           (d); the loss falls in (a) and (b); the first 2 steps of (a)
+           and all of (c) re-run at W = 8 on the CPU with the plain
+           versions within the dp phase's bounds, and all of (b) beside
+           them, reported (its measured ranges follow the last ulp of the
+           card's gradients and its shard encode meets boundaries, so its
+           trajectory is not held).  (b)'s and (c)'s exchanges on equal
+           inputs at the path's shapes (``sparse_reduce_scatter``, 8-bit
+           measured range; fixed range with the stage-1 carry): rank 0's
+           outputs on the card equal the CPU world's bit for bit.
+           ``sparse_reduce_scatter`` at the JAX
+           bench's rs-grid cells (vocab 2048, dim 16, densities 0.25 and
+           0.5): exact against a float64 oracle, and with both EF carries
+           conserving the mass, overflow 0.  Step times, examples/s of
+           (a), the capacity check's host time, rank 0's device time and
+           idle share over 5 profiled steps.
 
   attention  the long-context path, counts reset just before it:
            ``flash_attention`` at (2, 4096, 8, 64) bf16 causal on the card,
@@ -137,7 +174,10 @@ merge_apply's apply mode and quantize_pack_ef_update add ``cold_ms``, each
 call after a read that empties the L2, at d = 1 and d = 32, the latter at
 8 and 16 bits, as do quantize_pack at 8 and 16 bits and quantize_pack_ef;
 gather_rows adds ``cold_ms`` and its ``per_shape`` gives the serve and
-hot-row shapes, warm and cold, each beside ``torch.index_select``). Then the
+hot-row shapes, warm and cold, each beside ``torch.index_select``; each
+row's ``launches_dp_rs`` counts rank 0's launches in dp_rs, which is
+merge_rows' ``launches``, and dedup_ids, merge_rows and merge_apply add
+their ``dp_rs`` timing at that path's shapes). Then the
 ``nvidia-smi`` name and power limit, and the last line ``{"ok": true,
 "device": {...}}``. Any failed phase raises and exits non-zero; without
 CUDA, or without the ``lightctr_tpu_torch`` package beside this file, it
@@ -306,11 +346,11 @@ def ulp_diff(torch, a, b) -> int:
     return int((ordered(a) - ordered(b)).abs().max())
 
 
-def criteo_fids(np, rng, rows):
+def criteo_fids(np, rng, rows, vocab=VOCAB):
     """[rows, 39] int32 ids of the Criteo layout (data/synth.py): ids
     ~ u^4 * vocab in the 26 categorical fields, one fixed id per numeric
     field."""
-    fids = (rng.random((rows, N_FIELDS)) ** 4 * VOCAB).astype(np.int32)
+    fids = (rng.random((rows, N_FIELDS)) ** 4 * vocab).astype(np.int32)
     fids[:, N_CAT:] = np.arange(N_CAT, N_FIELDS, dtype=np.int32)
     return fids
 
@@ -941,12 +981,12 @@ def phase_serve(np, torch, sk, seed, requests) -> dict:
 # -- phase: train -------------------------------------------------------------
 
 
-def criteo_rows(np, rng, n) -> dict:
+def criteo_rows(np, rng, n, vocab=VOCAB) -> dict:
     """n synthetic Criteo rows in memory, data/synth.py's recipe: u^4
     head/tail ids, exponential numeric values (rounded to 3 digits), and a
     label planted as a logistic in two numeric fields plus a head-id
     effect."""
-    fids = criteo_fids(np, rng, n)
+    fids = criteo_fids(np, rng, n, vocab)
     vals = np.ones((n, N_FIELDS), np.float32)
     vals[:, N_CAT:] = rng.exponential(
         1.0, (n, N_FIELDS - N_CAT)).astype(np.float32).round(3)
@@ -958,12 +998,12 @@ def criteo_rows(np, rng, n) -> dict:
             "mask": np.ones((n, N_FIELDS), np.float32), "labels": labels}
 
 
-def train_params(np, seed):
+def train_params(np, seed, vocab=VOCAB):
     """FM's init at Criteo width from a seed (fm_algo_abst.h:53-67): W
     zero, V ~ N(0, 1/k)."""
     rng = np.random.default_rng(seed + 3)
-    v = rng.standard_normal((VOCAB, DIM), dtype=np.float32)
-    return {"w": np.zeros(VOCAB, np.float32),
+    v = rng.standard_normal((vocab, DIM), dtype=np.float32)
+    return {"w": np.zeros(vocab, np.float32),
             "v": v * np.float32(1.0 / np.sqrt(DIM))}
 
 
@@ -1545,6 +1585,651 @@ def phase_dp(np, torch, sk, seed) -> dict:
             "dp_launches_rank0": launches,
             "dp_merge_apply_variants_rank0": merge_variants,
             "dp_quantize_pack_variants_rank0": qp_variants}
+
+
+# -- phase: dp_rs -------------------------------------------------------------
+
+RS_VOCAB = 1 << 16          # docs/SPARSE_EXCHANGE.md's middle band
+RS_WORLD = 8
+RS_LOCAL_ROWS = TRAIN_BATCH // RS_WORLD
+RS_LOCAL_K = RS_LOCAL_ROWS * N_FIELDS   # ids one rank dedups a step: 19,968
+#: (name, trainer kwargs, steps) of the dp_rs phase's runs; ``fallback``
+#: steps a batch whose ids all lie on one owner
+RS_RUNS = (
+    ("exact", {}, 20),
+    ("coded_dynamic", {"compress_bits": 8, "compress_range": "dynamic"}, 10),
+    ("coded_ef", {"compress_bits": 8}, 10),
+    ("fallback", {}, 3),
+)
+RS_CPU_STEPS = 2            # exact steps re-run at W = 8 on the CPU
+RS_PROFILE_STEPS = 5
+RS_DEADLINE_S = 900.0
+#: tools/sparse_ring_bench.py's rs-grid cells whose pick at 8 ranks is the
+#: reduce-scatter: vocabulary, dim, densities
+RS_GRID = (2048, 16, (0.25, 0.5))
+RS_GRID_RTOL, RS_GRID_ATOL = 1e-5, 1e-6   # the JAX bench's oracle bound
+#: the coded exchanges ``sparse_reduce_scatter`` makes on the path's
+#: shapes in both worlds, on the same inputs: (b)'s dynamic 8-bit codes
+#: and (c)'s fixed-range codes with the stage-1 carry
+RS_EXCHANGES = {
+    "coded_dynamic": {"compress_bits": 8, "compress_range": "dynamic",
+                      "compress_mode": "normal"},
+    "coded_ef": {"compress_bits": 8, "compress_range": 1.0,
+                 "compress_mode": "normal", "residual": True},
+}
+
+
+def rs_data(np, seed):
+    """The dp_rs phase's global batches at vocabulary RS_VOCAB, and the
+    skewed batch: the first batch's ids moved onto multiples of the world,
+    so every id lies on owner 0 and the reduce-scatter would overflow."""
+    rng = np.random.default_rng(seed + 7)
+    steps = max(s for _, _, s in RS_RUNS)
+    data = criteo_rows(np, rng, steps * TRAIN_BATCH, RS_VOCAB)
+    batches = [{k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                for k, v in data.items()} for i in range(steps)]
+    skewed = dict(batches[0])
+    skewed["fids"] = (np.maximum(skewed["fids"] // RS_WORLD, 1)
+                      * RS_WORLD).astype(np.int32)
+    return batches, skewed
+
+
+def rs_grid_inputs(np, seed, density):
+    """(uids [W, k], rows [W, k, dim]) of one rs-grid cell, the JAX
+    bench's recipe: each rank's sorted unique ids of k draws from [1,
+    vocab), padded with id 0 and zero rows."""
+    vocab, dim, _ = RS_GRID
+    rng = np.random.default_rng(seed + 8 + int(100 * density))
+    k = max(1, int(vocab * density))
+    uids = np.zeros((RS_WORLD, k), np.int32)
+    rows = np.zeros((RS_WORLD, k, dim), np.float32)
+    for m in range(RS_WORLD):
+        u = np.unique(rng.integers(1, vocab, size=k))
+        uids[m, :u.size] = u
+        rows[m, :u.size] = rng.normal(size=(u.size, dim))
+    return uids, rows
+
+
+def rs_exchange_inputs(np, seed):
+    """(uids [W, K], rows [W, K, 32]) at the dp_rs path's shapes: each
+    rank's deduped ids of the first batch (id-0 padded, as the trainer
+    dedups them) and gradient-sized rows, zero at the pads."""
+    batches, _ = rs_data(np, seed)
+    fids = batches[0]["fids"].reshape(-1)
+    rng = np.random.default_rng(seed + 10)
+    uids = np.zeros((RS_WORLD, RS_LOCAL_K), np.int32)
+    rows = np.zeros((RS_WORLD, RS_LOCAL_K, DIM), np.float32)
+    for m in range(RS_WORLD):
+        u = np.unique(fids[m * RS_LOCAL_K:(m + 1) * RS_LOCAL_K])
+        uids[m, :u.size] = u
+        rows[m, :u.size] = 0.05 * rng.standard_normal((u.size, DIM))
+    return uids, rows
+
+
+def record_overflow(tr, slots):
+    """Wrap ``tr``'s step so the third slot of each step's health vector
+    (the reduce-scatter's overflow, summed over the ranks) lands in
+    ``slots``, with the health feed off."""
+    step = tr._step
+
+    def recording(params, state, batch):
+        out = step(params, state, batch)
+        slots.append(out[3][2])
+        return out
+
+    tr._step = recording
+
+
+def rs_expected_launches(sk, name, steps) -> dict:
+    """Launches one rank makes in ``steps`` steps of dp_rs run ``name``,
+    v on the reduce-scatter and w on the dense pick: the local id stream
+    and the owner's bucket ids deduped, v's owner merge (merge_rows) and
+    its apply on the gathered shards (merge_apply's apply mode); in the
+    coded runs v's bucket encode (quantize_pack, or in the EF run
+    quantize_pack_ef_update) and its shard encode, and w's coded dense
+    ring, one encode a ring step (W a step).  The fallback dedups its
+    gathered stream and merges in merge_apply's merge mode."""
+    want = dict.fromkeys(sk.KERNELS, 0)
+    want["dedup_ids"] = 2 * steps
+    want["merge_apply"] = steps
+    if name != "fallback":
+        want["merge_rows"] = steps
+    if name == "coded_dynamic":
+        want["quantize_pack"] = (2 + RS_WORLD) * steps
+    if name == "coded_ef":
+        want["quantize_pack"] = (1 + RS_WORLD) * steps
+        want["quantize_pack_ef_update"] = steps
+    return want
+
+
+def rs_path_inputs(np, torch, sk, rng):
+    """One global batch's ids down the reduce-scatter's id path on one
+    process: each rank's dedup (K = 19,968) and owner partition, owner 0's
+    W received buckets (ring slot order), its id merge cut at the shard
+    capacity, and every owner's shard end to end (``out_ids``)."""
+    from lightctr_tpu_torch.dist import collectives as coll
+
+    fids = criteo_fids(np, rng, TRAIN_BATCH, RS_VOCAB).reshape(-1)
+    bucket, shard = coll.rs_default_caps(RS_WORLD, RS_LOCAL_K, RS_VOCAB)
+    plans = []
+    for m in range(RS_WORLD):
+        u, _, _ = sk.dedup_ids(torch.from_numpy(
+            fids[m * RS_LOCAL_K:(m + 1) * RS_LOCAL_K]).cuda())
+        plans.append((u,) + coll.rs_owner_partition(u, RS_WORLD, bucket))
+    shards, owner0 = [], None
+    for r in range(RS_WORLD):
+        all_ids = torch.stack([plans[(r - i) % RS_WORLD][3][r]
+                               for i in range(RS_WORLD)])
+        uniq, inv, _ = coll._rs_merge_ids(all_ids, shard)
+        shards.append(uniq)
+        if r == 0:
+            owner0 = (all_ids.reshape(-1), uniq, inv)
+    return {"bucket": bucket, "shard": shard, "local": plans[0],
+            "owner0": owner0, "out_ids": torch.cat(shards)}
+
+
+def check_rs_path(np, torch, sk, qz, rng) -> dict:
+    """Each kernel of the dp_rs path against its plain version at that
+    path's shapes: dedup_ids on owner 0's 25,960 bucket ids cut at the
+    shard capacity 8,193 (bit-exact); merge_rows of the [25,960, 32]
+    bucket rows into 8,193 segments, with zero and with coded padding
+    rows (bit-exact); merge_apply's apply mode on the 65,544 gathered
+    shard slots into a [65,536, 32] table, the foreign shards' leading
+    id-0 pads holding non-zero rows it must skip (2 ulp); quantize_pack
+    on the [8, 3,245, 32] buckets (bit-exact); quantize_pack_ef_update of
+    one rank's [19,968, 32] rows into a [65,536, 32] carry (bit-exact)."""
+    from lightctr_tpu_torch.dist import collectives as coll
+
+    inp = rs_path_inputs(np, torch, sk, rng)
+    all_ids, _, _ = inp["owner0"]
+    shard = inp["shard"]
+    got = sk.dedup_ids(all_ids, shard)
+    torch.cuda.synchronize()
+    want = sk.dedup_ids_plain(all_ids, shard)
+    for a, b, what in zip(got, want, ("uids", "inv", "count")):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"dp_rs dedup_ids kernel != plain ({what})")
+    inv = got[1]
+    m = all_ids.numel()
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    pad = (all_ids == 0).to(torch.float32).reshape(-1, 1)
+    rows = torch.randn((m, DIM), generator=gen, device="cuda") * 0.05
+    for what, r in (("zero pads", rows * (1 - pad)),
+                    ("coded pads", rows * (1 - pad) + CODED_PAD * pad)):
+        a = sk.merge_rows(r, inv, shard)
+        torch.cuda.synchronize()
+        if not torch.equal(a.view(torch.int32),
+                           sk.merge_rows_plain(r, inv, shard)
+                           .view(torch.int32)):
+            raise AssertionError(f"dp_rs merge_rows kernel != plain "
+                                 f"({what})")
+    out_ids = inp["out_ids"]
+    s = out_ids.numel()
+    table = torch.randn((RS_VOCAB, DIM), generator=gen, device="cuda")
+    accum = torch.rand((RS_VOCAB, DIM), generator=gen, device="cuda")
+    grads = torch.randn((s, DIM), generator=gen, device="cuda") * 0.05
+    t1, a1, t2, a2 = table.clone(), accum.clone(), table.clone(), \
+        accum.clone()
+    _, _, s1 = sk.merge_apply(t1, a1, out_ids, grads, lr=LR, eps=EPS)
+    torch.cuda.synchronize()
+    _, _, s2 = sk.merge_apply_plain(t2, a2, out_ids, grads, None, LR, EPS,
+                                    1.0)
+    ut, ua = ulp_diff(torch, t1, t2), ulp_diff(torch, a1, a2)
+    rel = abs(float(s1) - float(s2)) / abs(float(s2))
+    if ut > MAX_ULP or ua > MAX_ULP or rel > 1e-5:
+        raise AssertionError(f"dp_rs merge_apply kernel vs plain: {ut} / "
+                             f"{ua} ulp, sumsq rel {rel}")
+    u, dest, order, _, _ = inp["local"]
+    k = u.numel()
+    payload = torch.randn((k, DIM), generator=gen, device="cuda") * 0.05
+    buckets = coll.rs_scatter_rows(payload, dest, order, RS_WORLD,
+                                   inp["bucket"])
+    lim = 1.05 * buckets.abs().max()
+    table_q = qz.build_table(-lim, lim, bits=8, mode="normal")
+    c = check_design(sk, "quantize_pack", 8,
+                     lambda: sk.quantize_pack(table_q, buckets))
+    torch.cuda.synchronize()
+    if not torch.equal(c, sk.quantize_pack_plain(table_q, buckets)):
+        raise AssertionError("dp_rs quantize_pack kernel != plain")
+    table_q = qz.build_table(-1.0, 1.0, bits=8, mode="normal",
+                             device="cuda")
+    mask = coll._ef_valid_mask(u, payload)
+    res = torch.randn((RS_VOCAB, DIM), generator=gen, device="cuda") * 0.01
+    r1, r2 = res.clone(), res.clone()
+    c1, _, d1 = check_design(sk, "quantize_pack_ef_update", 8,
+                             lambda: sk.quantize_pack_ef_update(
+                                 table_q, payload * 30, u, r1, mask))
+    torch.cuda.synchronize()
+    c2, _, d2 = sk.quantize_pack_ef_update_plain(table_q, payload * 30, u,
+                                                 r2, mask)
+    for a, b, what in ((c1, c2, "codes"), (d1, d2, "dec"),
+                       (r1, r2, "residual")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"dp_rs quantize_pack_ef_update kernel != "
+                                 f"plain ({what})")
+    return {"bit_exact": ["dedup_ids", "merge_rows", "quantize_pack",
+                          "quantize_pack_ef_update"],
+            "merge_apply_max_ulp": {"table": ut, "accum": ua},
+            "merge_apply_sumsq_rel_err": rel,
+            "max_abs_err": max(float((t1 - t2).abs().max()),
+                               float((a1 - a2).abs().max())),
+            "shapes": {"bucket_ids": m, "shard_cap": shard,
+                       "distinct": int(want[2]), "buckets": list(
+                           buckets.shape), "out_ids": s, "local_k": k,
+                       "foreign_pads": int(((out_ids == 0) & (torch.arange(
+                           s, device="cuda") > 0)).sum())}}
+
+
+def dp_rs_rank(rank, world, out_dir, seed, device, run_steps, grid):
+    """One rank of the dp_rs phase: each run of ``run_steps`` ({name:
+    steps}) trains FM at Criteo width and vocabulary RS_VOCAB through
+    ``SparseTableCTRTrainer``'s hybrid exchange on the global batches
+    (this rank takes its rows), counting launches from just before the
+    first step to just after the last; with ``grid``,
+    ``sparse_reduce_scatter`` at the rs-grid cells, exact and with both EF
+    carries.  Writes losses, launches, the overflow slots, the counters,
+    the capacity check's host time, digests of the trained state and
+    (rank 0) the rows the first RS_CPU_STEPS batches touched."""
+    import hashlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from lightctr_tpu_torch.dist import collectives as coll
+    from lightctr_tpu_torch.models import fm
+    from lightctr_tpu_torch.models.sparse_trainer import \
+        SparseTableCTRTrainer
+    from lightctr_tpu_torch.ops import sparse_kernels as sk
+
+    mesh = make_mesh(MeshSpec(data=world), device=device)
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(mesh.device)
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize(mesh.device)
+
+    batches, skewed = rs_data(np, seed)
+    params = train_params(np, seed, RS_VOCAB)
+    snap_ids = torch.from_numpy(np.unique(np.concatenate(
+        [b["fids"].reshape(-1) for b in batches[:RS_CPU_STEPS]])).astype(
+            np.int64)).to(mesh.device)
+    out = {}
+    for name, kw, _ in RS_RUNS:
+        if name not in run_steps:
+            continue
+        steps = run_steps[name]
+        tr = SparseTableCTRTrainer(
+            fm.params_from_numpy(params, mesh.device), fm.logits,
+            TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2),
+            sparse_tables={"w": ["fids"], "v": ["fids"]},
+            fused_fn=fm.logits_with_l2, mesh=mesh, **kw)
+        tr.health = None  # the steady state with the health feed off
+        tr.telemetry = obs.MetricsRegistry()
+        run = [skewed] * steps if name == "fallback" else batches[:steps]
+        plan = tr._exchange_plan(run[0])
+        t = time.perf_counter()
+        fits = [tr._rs_batch_fits(b, plan) for b in run]
+        fits_ms = 1e3 * (time.perf_counter() - t) / len(run)
+        slots = []
+        record_overflow(tr, slots)
+        warm = max(0, min(WARMUP_STEPS, steps - 2))
+        sync()
+        dist.barrier()
+        sk.reset_launches()
+        losses, t0 = [], None
+        for i, b in enumerate(run):
+            if i == warm:
+                sync()
+                t0 = time.perf_counter()
+            losses.append(tr.train_step(b))
+            if i + 1 == RS_CPU_STEPS and rank == 0 and name != "fallback":
+                torch.save({k: tr.params[k].index_select(0, snap_ids).cpu()
+                            for k in ("w", "v")},
+                           os.path.join(out_dir, f"snap_{name}.pt"))
+        sync()
+        wall = time.perf_counter() - t0
+        rec = {"steps": steps, "losses": [float(x) for x in losses],
+               "launches": sk.launches(),
+               "merge_apply_variants": sk.variant_launches("merge_apply"),
+               "quantize_pack_variants":
+                   sk.variant_launches("quantize_pack"),
+               "ef_update_variants":
+                   sk.variant_launches("quantize_pack_ef_update"),
+               "plan": {k: [v[1], v[2]] for k, v in plan.items()},
+               "fits": fits, "fits_host_ms": fits_ms,
+               "overflow_slots": [float(x) for x in slots],
+               "policy": dict(tr.exchange_policy),
+               "fallback_policy": dict(tr._fallback_policy),
+               "last_fallback": tr._last_step_fallback,
+               "bytes_per_step": dict(tr.exchange_bytes_per_step),
+               "counters": tr.telemetry.snapshot()["counters"],
+               "timed_steps": steps - warm, "timed_wall_s": wall,
+               "device": str(mesh.device), "backend": mesh.backend}
+        if name == "exact" and on_card:
+            # RS_PROFILE_STEPS more steps, rank 0's under the profiler
+            # (the other ranks step alongside for the collectives)
+            more = batches[:RS_PROFILE_STEPS]
+            if rank == 0:
+                rec["profile"] = profile_sparse_steps(torch, tr, more)
+            else:
+                for b in more:
+                    tr.train_step(b)
+                sync()
+        state = {"w": tr.params["w"], "v": tr.params["v"],
+                 "accum_w": tr.opt_state["accum"]["w"],
+                 "accum_v": tr.opt_state["accum"]["v"]}
+        rec["digest"] = {k: hashlib.sha256(
+            t.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, t in state.items()}
+        out[name] = rec
+        del tr, state
+        if on_card:
+            torch.cuda.empty_cache()
+    uids, rows = rs_exchange_inputs(np, seed)
+    bucket, shard = coll.rs_default_caps(world, RS_LOCAL_K, RS_VOCAB)
+    u = torch.from_numpy(uids[rank]).to(mesh.device)
+    r = torch.from_numpy(rows[rank]).to(mesh.device)
+    for name, kw in RS_EXCHANGES.items():
+        kw = dict(kw)
+        if kw.pop("residual", False):
+            kw["residual"] = coll.sparse_ef_residual_init(mesh,
+                                                          (RS_VOCAB, DIM))
+        got = coll.sparse_reduce_scatter(mesh, u, r, bucket_cap=bucket,
+                                         shard_cap=shard, **kw)
+        if rank == 0:
+            np.savez(os.path.join(out_dir, f"exchange_{name}.npz"),
+                     *[t.cpu().numpy() for t in got])
+    if grid:
+        vocab, dim, densities = RS_GRID
+        out["grid"] = {}
+        for density in densities:
+            uids, rows = rs_grid_inputs(np, seed, density)
+            k = uids.shape[1]
+            u = torch.from_numpy(uids[rank]).to(mesh.device)
+            r = torch.from_numpy(rows[rank]).to(mesh.device)
+            bucket, shard = coll.rs_default_caps(world, k, vocab)
+            gu, m, over = coll.sparse_reduce_scatter(
+                mesh, u, r, bucket_cap=bucket, shard_cap=shard)
+            res = coll.sparse_ef_residual_init(mesh, (vocab, dim))
+            ores = coll.sparse_ef_residual_init(mesh, (vocab, dim))
+            egu, em, eover, res, ores = coll.sparse_reduce_scatter(
+                mesh, u, r, average=False, bucket_cap=bucket,
+                shard_cap=shard, compress_bits=8, compress_range=1.0,
+                residual=res, owner_residual=ores)
+            tag = f"grid{int(100 * density)}_rank{rank}.npz"
+            np.savez(os.path.join(out_dir, tag),
+                     **{key: t.cpu().numpy() for key, t in (
+                         ("gu", gu), ("m", m), ("egu", egu), ("em", em),
+                         ("res", res), ("ores", ores))})
+            out["grid"][str(density)] = {
+                "k": k, "bucket_cap": bucket, "shard_cap": shard,
+                "pick": coll.pick_exchange_algo(world, k, vocab, dim)[0],
+                "overflow": int(over), "overflow_ef": int(eover)}
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def dense64(np, vocab, dim, uids, rows):
+    """The [vocab, dim] float64 array a (uids, rows) pair denotes under
+    ``.add`` scatter semantics."""
+    out = np.zeros((vocab, dim))
+    np.add.at(out, np.asarray(uids).reshape(-1),
+              np.asarray(rows, np.float64).reshape(-1, dim))
+    return out
+
+
+def check_rs_grid(np, seed, root, ranks) -> dict:
+    """The rs-grid calls against a float64 numpy oracle: the exact mean
+    within the JAX bench's bound and overflow 0 on every rank, every
+    output bit-identical across ranks; the coded sum with both EF carries
+    conserves the mass: what it delivered plus every rank's two carries
+    is the exact sum within 1e-5 (row 0 left out: the empty bucket slots'
+    zero code decodes to a half-bucket there, as in the JAX package)."""
+    vocab, dim, densities = RS_GRID
+    cells = {}
+    for density in densities:
+        uids, rows = rs_grid_inputs(np, seed, density)
+        exact = sum(dense64(np, vocab, dim, uids[m], rows[m])
+                    for m in range(RS_WORLD))
+        got = [np.load(os.path.join(root, f"grid{int(100 * density)}"
+                                          f"_rank{r}.npz"))
+               for r in range(RS_WORLD)]
+        infos = [rk["grid"][str(density)] for rk in ranks]
+        err = 0.0
+        for r, (g, info) in enumerate(zip(got, infos)):
+            if info["overflow"] or info["overflow_ef"]:
+                raise AssertionError(f"dp_rs grid {density}: rank {r} "
+                                     f"overflowed {info}")
+            mean = dense64(np, vocab, dim, g["gu"], g["m"])
+            if not np.allclose(mean, exact / RS_WORLD, rtol=RS_GRID_RTOL,
+                               atol=RS_GRID_ATOL):
+                raise AssertionError(f"dp_rs grid {density}: rank {r}'s "
+                                     "mean is not the oracle's")
+            err = max(err, float(np.abs(mean - exact / RS_WORLD).max()))
+            for key in ("gu", "m", "egu", "em"):
+                if not np.array_equal(g[key], got[0][key]):
+                    raise AssertionError(f"dp_rs grid {density}: rank {r}'s "
+                                         f"{key} is not rank 0's")
+        delivered = dense64(np, vocab, dim, got[0]["egu"], got[0]["em"])
+        carried = sum(g["res"].astype(np.float64) + g["ores"] for g in got)
+        cons = float(np.abs(delivered + carried - exact)[1:].max())
+        if cons > 1e-5:
+            raise AssertionError(f"dp_rs grid {density}: delivered + "
+                                 f"carried is {cons} off the exact sum")
+        info = infos[0]
+        if info["pick"] != "sparse_rs":
+            raise AssertionError(f"dp_rs grid {density}: pick {info}")
+        cells[str(density)] = dict(
+            info, max_abs_err_mean=err, ef_conservation_max_abs_err=cons,
+            ef_carried_max=float(np.abs(carried[1:]).max()))
+    return cells
+
+
+def check_rs_exchanges(np, dirs) -> dict:
+    """The coded reduce-scatter exchanges of RS_EXCHANGES on the path's
+    shapes, rank 0's outputs on the card against the CPU world's plain
+    versions on the same inputs: bit for bit (equal inputs measure equal
+    ranges, the tables are built on the host, and every kernel of the
+    exchange is bit-exact to its plain version)."""
+    out = {}
+    for name in RS_EXCHANGES:
+        a, b = (np.load(os.path.join(dirs[w], f"exchange_{name}.npz"))
+                for w in ("card", "cpu"))
+        keys = sorted(a.files)
+        for key in keys:
+            if a[key].dtype != b[key].dtype or \
+                    not np.array_equal(a[key], b[key]):
+                raise AssertionError(
+                    f"dp_rs exchange {name}: output {key} differs card vs "
+                    f"cpu, max abs {float(np.abs(a[key] - b[key]).max())}")
+        out[name] = {"bit_identical": True, "overflow": int(a[keys[2]]),
+                     "gathered": list(a[keys[1]].shape)}
+        if out[name]["overflow"]:
+            raise AssertionError(f"dp_rs exchange {name} overflowed")
+    return out
+
+
+def phase_dp_rs(np, torch, sk, seed) -> dict:
+    """FM at Criteo width and vocabulary RS_VOCAB trained data-parallel
+    by SparseTableCTRTrainer over RS_WORLD gloo ranks on the one card,
+    v on the reduce-scatter exchange (four runs, the last a fallback),
+    the first steps re-run on the CPU, and sparse_reduce_scatter at the
+    rs-grid cells."""
+    import shutil
+    import tempfile
+
+    from lightctr_tpu_torch.core.mesh import spawn_world
+    from lightctr_tpu_torch.dist import collectives as coll
+
+    names = tuple(name for name, _, _ in RS_RUNS)
+    card_steps = {name: steps for name, _, steps in RS_RUNS}
+    cpu_steps = {"exact": RS_CPU_STEPS, "coded_dynamic":
+                 card_steps["coded_dynamic"],
+                 "coded_ef": card_steps["coded_ef"]}
+    bucket, shard = coll.rs_default_caps(RS_WORLD, RS_LOCAL_K, RS_VOCAB)
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_rs_")
+    try:
+        dirs = {k: os.path.join(root, k) for k in ("card", "cpu")}
+        for d in dirs.values():
+            os.makedirs(d)
+        t = time.perf_counter()
+        spawn_world(dp_rs_rank, RS_WORLD, "gloo", deadline_s=RS_DEADLINE_S,
+                    args=(dirs["card"], seed, "cuda", card_steps, True))
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        spawn_world(dp_rs_rank, RS_WORLD, "gloo", deadline_s=RS_DEADLINE_S,
+                    args=(dirs["cpu"], seed, "cpu", cpu_steps, False))
+        cpu_s = time.perf_counter() - t
+        load = lambda d, r: json.load(open(os.path.join(d, f"rank{r}.json")))
+        card = [load(dirs["card"], r) for r in range(RS_WORLD)]
+        cpu = load(dirs["cpu"], 0)
+        runs = {}
+        for name in names:
+            recs = [c[name] for c in card]
+            steps = recs[0]["steps"]
+            want = rs_expected_launches(sk, name, steps)
+            coded = name.startswith("coded")
+            want_rs_bytes = coll.sparse_rs_bytes(
+                RS_WORLD, bucket, shard, DIM,
+                8 if coded else None) * steps
+            for r, rec in enumerate(recs):
+                got = {k: rec["launches"].get(k, 0) for k in want}
+                if got != want:
+                    raise AssertionError(f"dp_rs {name} rank {r}: launches "
+                                         f"{got}, expected {want}")
+                mode = "merge" if name == "fallback" else "apply"
+                if rec["merge_apply_variants"] != {mode: steps}:
+                    raise AssertionError(
+                        f"dp_rs {name} rank {r}: merge_apply ran "
+                        f"{rec['merge_apply_variants']}, not its {mode} mode")
+                for key, kname in (("quantize_pack_variants",
+                                    "quantize_pack"),
+                                   ("ef_update_variants",
+                                    "quantize_pack_ef_update")):
+                    want_v = {"tree": want[kname]} if want[kname] else {}
+                    if rec[key] != want_v:
+                        raise AssertionError(
+                            f"dp_rs {name} rank {r}: {kname} ran "
+                            f"{rec[key]}, not {want_v}")
+                if rec["plan"] != {"w": ["dense", None],
+                                   "v": ["sparse_rs", [bucket, shard]]}:
+                    raise AssertionError(f"dp_rs {name}: plan {rec['plan']}")
+                if rec["digest"] != recs[0]["digest"]:
+                    raise AssertionError(f"dp_rs {name}: rank {r}'s state is "
+                                         "not bit-identical to rank 0's")
+                counters = rec["counters"]
+                if name == "fallback":
+                    if any(rec["fits"]) or not rec["last_fallback"] or \
+                            rec["fallback_policy"] != {"w": "dense",
+                                                       "v": "sparse"} or \
+                            counters.get("trainer_rs_fallback_total") != \
+                            steps or "trainer_sparse_rs_bytes_total" in \
+                            counters:
+                        raise AssertionError(f"dp_rs fallback rank {r}: "
+                                             f"{rec}")
+                    continue
+                if not all(rec["fits"]) or rec["last_fallback"] or \
+                        rec["policy"] != {"w": "dense", "v": "sparse_rs"} \
+                        or any(rec["overflow_slots"]) or \
+                        len(rec["overflow_slots"]) != steps or \
+                        "trainer_rs_fallback_total" in counters or \
+                        counters.get("trainer_sparse_rs_bytes_total") != \
+                        want_rs_bytes:
+                    raise AssertionError(f"dp_rs {name} rank {r}: policy "
+                                         f"{rec['policy']}, overflow "
+                                         f"{rec['overflow_slots']}, fits "
+                                         f"{rec['fits']}, counters "
+                                         f"{counters}")
+            losses = recs[0]["losses"]
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"dp_rs {name}: losses {losses}")
+            run = {"steps": steps, "launches_per_rank": want,
+                   "policy": recs[0]["policy"] or recs[0]["fallback_policy"],
+                   "bytes_per_step": recs[0]["bytes_per_step"],
+                   "counters_rank0": recs[0]["counters"],
+                   "rs_batch_fits_host_ms": recs[0]["fits_host_ms"],
+                   "step_ms": 1e3 * recs[0]["timed_wall_s"]
+                   / recs[0]["timed_steps"],
+                   "timed_steps": recs[0]["timed_steps"],
+                   "losses": losses, "ranks_bit_identical": True}
+            if name in ("exact", "coded_dynamic"):
+                head = 5 if name == "exact" else 3
+                if np.mean(losses[-head:]) >= np.mean(losses[:head]):
+                    raise AssertionError(f"dp_rs {name}: loss did not fall "
+                                         f"{losses}")
+            if name == "exact":
+                run["examples_per_s_gloo_host_staged"] = (
+                    TRAIN_BATCH * 1e3 / run["step_ms"])
+                prof = recs[0]["profile"]
+                prof["idle_share"] = 1.0 - prof["device_ms_per_step"] / \
+                    run["step_ms"]
+                run["profile_rank0"] = prof
+            if name in cpu:
+                # (b)'s trajectory is reported, not held: its measured
+                # ranges follow the last ulp of the card's gradients (whose
+                # atomic sums vary from run to run), and its shard encode
+                # re-codes sums of decoded values that sit on boundaries,
+                # so a range one ulp apart flips codes by the hundred and
+                # Adagrad turns each into up to 2 lr; its exchange is held
+                # bit for bit on equal inputs instead (check_rs_exchanges)
+                gate = name != "coded_dynamic"
+                cpu_losses = cpu[name]["losses"]
+                rtol = TRAIN_RTOL if name == "exact" else DP_CODED_RTOL
+                if gate and not np.allclose(losses[:len(cpu_losses)],
+                                            cpu_losses, rtol=rtol, atol=0):
+                    raise AssertionError(
+                        f"dp_rs {name}: losses card "
+                        f"{losses[:len(cpu_losses)]} vs cpu {cpu_losses}")
+                a_snap = torch.load(os.path.join(dirs["card"],
+                                                 f"snap_{name}.pt"))
+                b_snap = torch.load(os.path.join(dirs["cpu"],
+                                                 f"snap_{name}.pt"))
+                max_abs, off = 0.0, 0
+                for k in ("w", "v"):
+                    a, b = a_snap[k], b_snap[k]
+                    max_abs = max(max_abs, float((a - b).abs().max()))
+                    off += int((~torch.isclose(a, b, rtol=TRAIN_RTOL,
+                                               atol=TRAIN_ATOL)).sum())
+                total = sum(a_snap[k].numel() for k in ("w", "v"))
+                if gate and ((name == "exact" and off)
+                             or off > DP_CODE_FLIP_SHARE * total):
+                    raise AssertionError(f"dp_rs {name}: {off} of {total} "
+                                         "touched values differ card vs cpu, "
+                                         f"max abs {max_abs}")
+                run.update(cpu_steps=len(cpu_losses), cpu_gated=gate,
+                           loss_rel_err_vs_cpu=max(
+                               abs(a - b) / abs(b) for a, b in
+                               zip(losses, cpu_losses)),
+                           touched_values=total, touched_off_tolerance=off,
+                           max_abs_err_vs_cpu=max_abs)
+            runs[name] = run
+        grid = check_rs_grid(np, seed, dirs["card"], card)
+        exchanges = check_rs_exchanges(np, dirs)
+        launches = {k: sum(card[0][n]["launches"].get(k, 0) for n in names)
+                    for k in sk.KERNELS}
+        variants = {key: {} for key in ("merge_apply_variants",
+                                        "quantize_pack_variants",
+                                        "ef_update_variants")}
+        for n in names:
+            for key, acc in variants.items():
+                for v, c in card[0][n][key].items():
+                    acc[v] = acc.get(v, 0) + c
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "dp_rs", "model": "fm", "world": RS_WORLD,
+            "backend": "gloo (host-staged), all ranks on cuda:0",
+            "batch": TRAIN_BATCH, "local_rows": RS_LOCAL_ROWS,
+            "local_k": RS_LOCAL_K, "vocab": RS_VOCAB, "factor_dim": DIM,
+            "caps": {"bucket": bucket, "shard": shard}, "runs": runs,
+            "grid": grid, "exchanges_vs_cpu": exchanges,
+            "seconds": {"card_world": card_s, "cpu_world": cpu_s},
+            "launches_rank0": launches, "variants_rank0": variants}
 
 
 # -- phase: attention ---------------------------------------------------------
@@ -2168,6 +2853,53 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
     return out, {"int64": dedup64}, {"merge_mode": merge_mode}
 
 
+def rs_timing(np, torch, sk, seed) -> dict:
+    """dedup_ids, merge_rows and merge_apply's apply mode at the dp_rs
+    path's shapes (owner 0's 25,960 bucket ids cut at 8,193; its [25,960,
+    32] bucket rows into 8,193 segments; the 65,544 gathered shard slots
+    into a [65,536, 32] table): {kernel: its ``dp_rs`` timing}."""
+    inp = rs_path_inputs(np, torch, sk, np.random.default_rng(seed + 9))
+    all_ids, uniq, inv = inp["owner0"]
+    shard, m = inp["shard"], all_ids.numel()
+    gen = torch.Generator(device="cuda").manual_seed(47)
+    rows = torch.randn((m, DIM), generator=gen, device="cuda") * 0.05 \
+        * (all_ids != 0).to(torch.float32).reshape(-1, 1)
+    out = {}
+    nbytes = m * 4 + m * 4 + shard * 4
+    out["dedup_ids"] = {
+        "k": m, "size": shard,
+        "ms": graph_ms(torch, lambda: sk.dedup_ids(all_ids, shard)),
+        "library_ms": call_ms(torch, lambda: torch.unique(
+            all_ids, sorted=True, return_inverse=True), reps=50),
+        "bound_ms": bound_ms(nbytes), "bytes": nbytes}
+    nbytes = m * DIM * 4 + m * 4 + shard * DIM * 4
+    out["merge_rows"] = {
+        "m": m, "d": DIM, "nseg": shard,
+        "ms": graph_ms(torch, lambda: sk.merge_rows(rows, inv, shard)),
+        "plain_ms": call_ms(torch, lambda: sk.merge_rows_plain(
+            rows, inv, shard), reps=3),
+        "library_ms": graph_ms(torch, lambda: torch.zeros(
+            (shard, DIM), device="cuda").index_add_(0, inv, rows)),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes}
+    out_ids = inp["out_ids"]
+    s = out_ids.numel()
+    real = int(((out_ids != 0) | (torch.arange(s, device="cuda") == 0))
+               .sum())
+    table = torch.randn((RS_VOCAB, DIM), generator=gen, device="cuda")
+    accum = torch.rand((RS_VOCAB, DIM), generator=gen, device="cuda")
+    grads = torch.randn((s, DIM), generator=gen, device="cuda") * 0.05
+    nbytes = real * DIM * 4 * 4 + real * DIM * 4 + s * 4
+    out["merge_apply"] = {
+        "mode": "apply", "s": s, "s_real": real, "vocab": RS_VOCAB,
+        "d": DIM,
+        "ms": graph_ms(torch, lambda: sk.merge_apply(
+            table, accum, out_ids, grads, lr=LR, eps=EPS)),
+        "plain_ms": call_ms(torch, lambda: sk.merge_apply_plain(
+            table, accum, out_ids, grads, None, LR, EPS, 1.0), reps=20),
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes}
+    return out
+
+
 def new_timing(torch, sk, fl, qz, seed, launches, kern, route) -> list:
     """quantize_pack_ef on the [79,872, 32] payload (8 bits, a [P, 1]
     mask: one dp rank's layout) and flash_attention at the attention
@@ -2292,6 +3024,7 @@ def main(argv=None) -> int:
     kern["fused_adagrad"] = check_fused_adagrad(torch, fa)
     kern["quantize_pack_ef"] = check_quantize_pack_ef(np, torch, sk, qz)
     kern["flash_attention"] = check_flash(torch, sk, fl)
+    kern["dp_rs_path"] = check_rs_path(np, torch, sk, qz, krng)
     emit(kern)
     serve_info = phase_serve(np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
@@ -2299,6 +3032,8 @@ def main(argv=None) -> int:
     emit(train_info | {"nvidia_smi": smi})
     dp_info = phase_dp(np, torch, sk, args.seed)
     emit(dp_info | {"nvidia_smi": smi})
+    rs_info = phase_dp_rs(np, torch, sk, args.seed)
+    emit(rs_info | {"nvidia_smi": smi})
     attn_info = phase_attention(torch, sk, fl, args.seed)
     emit(attn_info | {"nvidia_smi": smi})
     bench_info = phase_bench(torch, sk)
@@ -2327,8 +3062,21 @@ def main(argv=None) -> int:
         "quantize_pack_ef": bench_info["launches"]["quantize_pack_ef"],
         "flash_attention": attn_info["launches"]["flash_attention"]}, kern,
         attn_info["flash_route"])
+    rs_extra = rs_timing(np, torch, sk, args.seed)
     for row in rows:
-        row["launches_bench"] = bench_info["launches"].get(row["name"], 0)
+        name = row["name"]
+        row["launches_bench"] = bench_info["launches"].get(name, 0)
+        row["launches_dp_rs"] = rs_info["launches_rank0"].get(name, 0)
+        if name in rs_extra:
+            row["dp_rs"] = rs_extra[name]
+        if name == "merge_rows":
+            # its main path since the reduce-scatter: the owner's merge
+            row.update(launches_dp=row["launches"],
+                       launches=row["launches_dp_rs"],
+                       launches_note="dp_rs phase, rank 0 over its four "
+                                     "runs (the reduce-scatter's owner "
+                                     "merge); 0 in dp, where merge_apply "
+                                     "fuses the merge")
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

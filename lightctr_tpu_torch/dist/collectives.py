@@ -8,10 +8,11 @@ core.mesh.Mesh` in place of ``axis_name``.  The JAX collectives map so:
   ``all_gather(tiled=True)``  an all-gather along dim 0 (:func:`all_gather`)
   ``pmax`` / ``psum``         ``all_reduce`` with MAX / SUM
   ``pmean``                   ``all_reduce`` SUM, then ``/ n``
-  ``ppermute`` (ring)         paired ``isend``/``irecv`` to the ring
-                              neighbours (:func:`ring_shift`;
-                              :func:`ring_shift_all` for several tensors
-                              in one batch, either way round)
+  ``ppermute`` (rotate by s)  paired ``isend``/``irecv`` to the ranks s
+                              ahead and s behind (:func:`permute`, several
+                              tensors and shifts in one batch;
+                              :func:`ring_shift` and :func:`ring_shift_all`
+                              are its shift of one, either way round)
 
 On an NCCL group CUDA tensors go straight in.  On a gloo group the layer
 stages CUDA payloads through host memory itself, chosen by the group's
@@ -31,6 +32,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -81,40 +83,49 @@ def pmean(mesh, x: torch.Tensor) -> torch.Tensor:
     return all_reduce(mesh, x) / mesh.size
 
 
-def _ring_perm(n: int):
-    """Neighbour table: rank j sends to (j+1) % n (ring_collect.h:26-40)."""
-    return [(j, (j + 1) % n) for j in range(n)]
-
-
 def ring_shift(mesh, x: torch.Tensor) -> torch.Tensor:
-    """``ppermute`` over :func:`_ring_perm`: send ``x`` to the next rank,
-    return what the previous rank sent."""
+    """``ppermute`` over the ring's neighbour table (ring_collect.h:26-40:
+    rank j sends to (j+1) % n): send ``x`` to the next rank, return what
+    the previous rank sent."""
     return ring_shift_all(mesh, (x,))[0]
 
 
 def ring_shift_all(mesh, xs, reverse: bool = False) -> list:
-    """:func:`ring_shift` of every tensor of ``xs`` in one
-    ``batch_isend_irecv``, sent and received in the order given, so every
-    rank posts the same sequence (``reverse``: send to the previous rank,
-    return what the next one sent)."""
+    """:func:`ring_shift` of every tensor of ``xs`` in one batch
+    (``reverse``: send to the previous rank, return what the next one
+    sent)."""
+    return permute(mesh, xs, -1 if reverse else 1)
+
+
+def permute(mesh, xs, shift) -> list:
+    """``lax.ppermute`` over the rotate-by-``shift`` table ``[(j, (j +
+    shift) % n)]``: send each tensor of ``xs`` to rank ``(r + shift) % n``
+    and return what rank ``(r - shift) % n`` sent it.  ``shift`` is one
+    int for every tensor or a sequence, one a tensor.  Every hop goes in
+    one ``batch_isend_irecv``, posted in the order given, so every rank
+    posts the same sequence; a shift of 0 mod n returns a copy."""
     n, r = mesh.size, mesh.rank
-    if n == 1:
-        return [x.clone() for x in xs]
-    to, frm = ((r - 1) % n, (r + 1) % n) if reverse else ((r + 1) % n,
-                                                          (r - 1) % n)
+    shifts = [shift] * len(xs) if isinstance(shift, int) else list(shift)
     ops, recvs = [], []
-    for x in xs:
+    for x, s in zip(xs, shifts):
+        s %= n
+        if s == 0:
+            recvs.append(None)
+            continue
         src = _staged(mesh, x)
         if src.dtype in _AS_BYTES:
             src = src.view(torch.uint8)
         recv = torch.empty_like(src)
-        ops += [dist.P2POp(dist.isend, src, mesh.global_rank(to), mesh.group),
-                dist.P2POp(dist.irecv, recv, mesh.global_rank(frm),
+        ops += [dist.P2POp(dist.isend, src, mesh.global_rank((r + s) % n),
+                           mesh.group),
+                dist.P2POp(dist.irecv, recv, mesh.global_rank((r - s) % n),
                            mesh.group)]
         recvs.append(recv)
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return [(recv.view(x.dtype) if x.dtype in _AS_BYTES else recv)
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    return [x.clone() if recv is None else
+            (recv.view(x.dtype) if x.dtype in _AS_BYTES else recv)
             .to(x.device) for recv, x in zip(recvs, xs)]
 
 
@@ -369,6 +380,29 @@ def rs_default_caps(n: int, k_padded: int, vocab: int,
     return bucket, shard
 
 
+def rs_fits(per_member_ids, n: int, bucket_cap: int, shard_cap: int) -> bool:
+    """Host-side exact capacity check for one batch (numpy): True when
+    every member's per-owner unique-id count fits ``bucket_cap`` and every
+    owner's cross-member union fits ``shard_cap``.  ``per_member_ids``:
+    one raw (pre-dedup) integer id array per mesh member.  The hybrid
+    trainer runs it before the reduce-scatter step and takes the allgather
+    when it returns False, so the capacity guess never corrupts a step."""
+    uniques = []
+    for ids in per_member_ids:
+        u = np.unique(np.asarray(ids).reshape(-1))
+        if u.size:
+            counts = np.bincount((u % n).astype(np.int64), minlength=n)
+            if counts.max(initial=0) > bucket_cap:
+                return False
+        uniques.append(u)
+    gu = np.unique(np.concatenate(uniques)) if uniques else np.zeros(0)
+    if not gu.size:
+        return True
+    counts = np.bincount((gu % n).astype(np.int64), minlength=n)
+    # +1: the id-0 padding slot can ride into every owner's shard
+    return bool(counts.max(initial=0) + 1 <= shard_cap)
+
+
 def sparse_rs_bytes(n: int, bucket_cap: int, shard_cap: int, dim: int,
                     compress_bits: Optional[int] = None,
                     include_ids: bool = True) -> int:
@@ -557,3 +591,252 @@ def sparse_ef_residual_init(mesh, table_shape) -> torch.Tensor:
     function's [n, vocab, ...] stack holds one per rank)."""
     return torch.zeros(tuple(table_shape), dtype=torch.float32,
                        device=mesh.device)
+
+
+# -- the reduce-scatter sparse exchange --------------------------------------
+#
+# SparCML's split allreduce (arXiv:1802.08021 §4): each rank
+# owner-partitions its deduped (uids, rows) by ``uid % n`` (the PS modulo
+# family), ships only destination-owned buckets around a rotate-by-i
+# permute, the owner merges the duplicates, and only the merged owner
+# shards are all-gathered: (n-1)*(bucket_cap + shard_cap) entries a rank
+# instead of the allgather's (n-1)*K.
+
+
+def rs_owner_partition(uids: torch.Tensor, n: int, bucket_cap: int):
+    """Owner partition plan for one deduped id stream (owner = uid % n).
+
+    ``uids`` [K] follow the dedup convention (unique ids, padding repeats
+    id 0 past slot 0).  Padded repeats are routed nowhere: their rows are
+    zero, and dropping them keeps them out of owner 0's bucket.  Returns
+    ``(dest [K], order [K], bucket_ids [n, bucket_cap], overflow)``:
+    ``order`` is the owner-grouped permutation of the slots (stable, so
+    equal owners keep slot order), ``dest`` the flat bucket slot of each
+    permuted entry (``n * bucket_cap`` = dropped), so row payloads scatter
+    with :func:`rs_scatter_rows` through the same plan.  ``overflow`` (a
+    0-d int32 tensor) counts real entries that did not fit their
+    bucket."""
+    k = uids.shape[0]
+    slot = torch.arange(k, device=uids.device)
+    owner = torch.remainder(uids, n).to(torch.int32)
+    owner = owner.masked_fill((uids == 0) & (slot > 0), n)
+    order = torch.argsort(owner, stable=True)
+    o_sorted = owner.index_select(0, order)
+    first = torch.searchsorted(o_sorted, o_sorted, side="left")
+    pos = slot - first
+    over = (pos >= bucket_cap) & (o_sorted < n)
+    drop = n * bucket_cap
+    dest = torch.where((o_sorted >= n) | over, drop,
+                       o_sorted.to(torch.int64) * bucket_cap + pos)
+    bucket_ids = uids.new_zeros((drop + 1,))
+    bucket_ids[dest] = uids.index_select(0, order)
+    return (dest, order, bucket_ids[:drop].reshape(n, bucket_cap),
+            over.sum(dtype=torch.int32))
+
+
+def rs_scatter_rows(rows: torch.Tensor, dest: torch.Tensor,
+                    order: torch.Tensor, n: int, bucket_cap: int,
+                    fill=None) -> torch.Tensor:
+    """Scatter a [K, ...] payload into [n, bucket_cap, ...] destination
+    buckets through an :func:`rs_owner_partition` plan, empty slots zero
+    (``fill`` overrides: the folded-EF path scatters codes and fills with
+    the code of 0.0, so the buckets are the codes of zero-filled value
+    buckets)."""
+    dtype = rows.dtype
+    if dtype == torch.uint16:  # index_select/index_put lack uint16
+        rows = rows.view(torch.int16)
+        if fill is not None:
+            fill = torch.as_tensor(fill).view(torch.int16)
+    shape = (n * bucket_cap + 1,) + tuple(rows.shape[1:])
+    out = rows.new_zeros(shape) if fill is None else \
+        rows.new_empty(shape).fill_(fill)
+    out[dest] = rows.index_select(0, order)
+    return out[:n * bucket_cap].view(dtype).reshape(
+        (n, bucket_cap) + tuple(rows.shape[1:]))
+
+
+def _rs_ring_exchange(buckets: torch.Tensor, mesh, n: int) -> torch.Tensor:
+    """Scatter phase: bucket d of every rank reaches rank d.  Hop i (the
+    rotate-by-i :func:`permute`, all n-1 hops in one batch) ships one
+    [bucket_cap, ...] bucket a rank.  Returns [n, bucket_cap, ...]: slot 0
+    this rank's own bucket, slot i the bucket rank (idx - i) % n sent."""
+    idx = mesh.rank
+    got = permute(mesh, [buckets[(idx + i) % n] for i in range(1, n)],
+                  list(range(1, n)))
+    return torch.stack([buckets[idx]] + got)
+
+
+def _rs_merge_ids(all_ids: torch.Tensor, shard_cap: int):
+    """Owner-side id merge: the n received [bucket_cap] id buckets ->
+    ``(uniq [shard_cap], inv [n*bucket_cap], overflow)``, through the
+    ``dedup_ids`` kernel cut at ``shard_cap``.  ``inv`` keeps full ranks,
+    so the ids past the cut reach the merge out of range and are dropped;
+    ``overflow`` counts them (0 when :func:`rs_fits` held)."""
+    uniq, inv, count = sparse_kernels.dedup_ids(all_ids.reshape(-1),
+                                                size=shard_cap)
+    return uniq, inv, torch.clamp(count - shard_cap, min=0)
+
+
+def _rs_gather_rows(rows, dest, order, inv, mesh, n, bucket_cap, shard_cap,
+                    average=True, compress_bits=None,
+                    compress_range="dynamic", compress_mode="uniform",
+                    uids=None, residual=None, owner_uids=None,
+                    owner_residual=None):
+    """Row half of the reduce-scatter exchange against a shared id plan
+    (``dest``/``order`` from :func:`rs_owner_partition`, ``inv`` from
+    :func:`_rs_merge_ids`): scatter this table's [K, ...] payload into
+    destination buckets, route them round the ring, merge at the owner
+    with the ``merge_rows`` kernel (mean when ``average``), all-gather the
+    merged shards -> [n*shard_cap, ...].  Tables sharing one id stream
+    call this once each while the id plan runs once.
+
+    ``residual``: this rank's [vocab, ...] stage-1 EF carry for clipped
+    payloads under a FIXED ``compress_range`` (needs ``uids``), updated
+    in place: the scatter-phase encode is compensated and its fresh error
+    written back by the ``quantize_pack_ef_update`` kernel, and an entry
+    dropped by bucket overflow carries its full value forward.
+
+    ``owner_residual``: this rank's [vocab, ...] stage-2 carry for the
+    owner's merged-shard encode (needs ``owner_uids``, the owner's merged
+    ids).  Only in SUM mode: the merged mean of decoded values cannot
+    clip, a merged sum can reach ``n * compress_range``.  Each rank owns
+    the ``uid % n == idx`` rows, so the carries never collide.
+
+    Returns ``gathered``, ``(gathered, residual)`` when ``residual`` is
+    given, and ``(gathered, residual | None, owner_residual)`` when
+    ``owner_residual`` is."""
+    use_ef = residual is not None
+    use_owner_ef = owner_residual is not None
+    table = None
+    if use_ef or use_owner_ef:
+        if compress_bits is None:
+            raise ValueError("sparse error feedback needs compress_bits")
+        if not isinstance(compress_range, (int, float)):
+            raise ValueError(
+                "sparse error feedback compensates FIXED-range clipping; "
+                "compress_range='dynamic' never clips — pass a float range")
+        table = quantize.build_table(-compress_range, compress_range,
+                                     bits=compress_bits, mode=compress_mode,
+                                     device=rows.device)
+    if use_owner_ef:
+        if average:
+            raise ValueError(
+                "owner_residual is a SUM-mode carry: the averaged merged "
+                "shard cannot clip, stage 2 needs no compensation")
+        if owner_uids is None:
+            raise ValueError("owner-side error feedback needs owner_uids")
+    if use_ef:
+        if uids is None:
+            raise ValueError("sparse error feedback needs uids")
+        mask = _ef_valid_mask(uids, rows)
+        # compensate, encode, decode and scatter the carry in one kernel
+        # pass over the [K, ...] rows, before the bucket scatter: codes are
+        # slot-invariant, so scattered codes are the codes of the
+        # scattered values
+        codes_rows, residual, dec_rows = \
+            sparse_kernels.quantize_pack_ef_update(table, rows, uids,
+                                                   residual, mask)
+        # an entry dropped by bucket overflow reaches no owner: its carry
+        # takes the decoded value back (exact zero when rs_fits held)
+        kept = rows.new_zeros((uids.shape[0],))
+        kept[order] = (dest < n * bucket_cap).to(rows.dtype)
+        dropped = (1.0 - kept).reshape((-1,) + (1,) * (rows.ndim - 1))
+        residual.index_add_(0, uids, dec_rows * dropped * mask)
+        zero_code = quantize.compress(table, rows.new_zeros(()))
+        codes = rs_scatter_rows(codes_rows, dest, order, n, bucket_cap,
+                                fill=zero_code)
+        all_rows = quantize.extract(table, _rs_ring_exchange(codes, mesh, n))
+    else:
+        bucket_rows = rs_scatter_rows(rows, dest, order, n, bucket_cap)
+        if compress_bits is not None:
+            all_rows = _coded_exchange(
+                bucket_rows, lambda c: _rs_ring_exchange(c, mesh, n), mesh,
+                compress_bits, compress_range, compress_mode)
+        else:
+            all_rows = _rs_ring_exchange(bucket_rows, mesh, n)
+    merged = sparse_kernels.merge_rows(
+        all_rows.reshape((n * bucket_cap,) + tuple(rows.shape[1:])), inv,
+        shard_cap)
+    if average:
+        merged = merged / n
+    if use_owner_ef:
+        mask_o = _ef_valid_mask(owner_uids, merged)
+        codes_o, owner_residual, _ = sparse_kernels.quantize_pack_ef_update(
+            table, merged, owner_uids, owner_residual, mask_o)
+        gathered = quantize.extract(table, all_gather(mesh, codes_o))
+        return gathered, residual, owner_residual
+    if compress_bits is not None:
+        gathered = _coded_exchange(merged, lambda c: all_gather(mesh, c),
+                                   mesh, compress_bits, compress_range,
+                                   compress_mode)
+    else:
+        gathered = all_gather(mesh, merged)
+    if use_ef:
+        return gathered, residual
+    return gathered
+
+
+def _rs_ids(uids: torch.Tensor, mesh, n: int, bucket_cap: int,
+            shard_cap: int):
+    """Id half of the reduce-scatter exchange, once per id stream:
+    partition, route the id buckets, merge them at the owner and gather
+    the merged shards -> ``(dest, order, uniq, inv, out_ids, overflow)``.
+    ``out_ids`` [n*shard_cap] is the n sorted shards end to end, so not
+    sorted as a whole; each foreign shard starts with an id-0 pad."""
+    dest, order, bucket_ids, over_b = rs_owner_partition(uids, n, bucket_cap)
+    all_ids = _rs_ring_exchange(bucket_ids, mesh, n)
+    uniq, inv, over_s = _rs_merge_ids(all_ids, shard_cap)
+    return dest, order, uniq, inv, all_gather(mesh, uniq), over_b + over_s
+
+
+def sparse_reduce_scatter(mesh, uids, rows, average: bool = True,
+                          vocab: Optional[int] = None,
+                          bucket_cap: Optional[int] = None,
+                          shard_cap: Optional[int] = None,
+                          compress_bits: Optional[int] = None,
+                          compress_range="dynamic",
+                          compress_mode: str = "uniform",
+                          residual: Optional[torch.Tensor] = None,
+                          owner_residual: Optional[torch.Tensor] = None):
+    """Owner-partitioned sparse all-reduce of this rank's (ids,
+    row-gradients) pair, ``uids`` [K] deduped and id-0 padded, ``rows``
+    [K, ...] as in :func:`sparse_all_reduce`.  Returns ``(all_uids
+    [n*shard_cap], merged [n*shard_cap, ...], overflow)``, the same on
+    every rank: the owner shards end to end, each real id once (in its
+    owner's shard) with its cross-rank sum (mean when ``average``), the
+    id-0 pads of foreign shards with zero rows (the ``.add`` contract of
+    :func:`sparse_all_reduce`).  ``overflow`` (0-d int32) counts this
+    rank's entries and its shard's ids that did not fit.
+
+    Capacities default to :func:`rs_default_caps` (``vocab`` needed then):
+    expected sizes with slack, so exact callers check :func:`rs_fits`
+    first and fall back to :func:`sparse_all_reduce`.  ``compress_bits``
+    codes both phases' payloads through mesh-global tables.  ``residual``
+    (stage 1) and ``owner_residual`` (stage 2, SUM mode) are this rank's
+    [vocab, ...] EF carries (:func:`sparse_ef_residual_init`), updated in
+    place; each appends itself to the return, stage 1 first."""
+    n = mesh.size
+    if bucket_cap is None or shard_cap is None:
+        if vocab is None:
+            raise ValueError(
+                "sparse_reduce_scatter needs vocab (to derive default "
+                "capacities) or explicit bucket_cap/shard_cap")
+        db, ds = rs_default_caps(n, uids.shape[-1], vocab)
+        bucket_cap = bucket_cap if bucket_cap is not None else db
+        shard_cap = shard_cap if shard_cap is not None else ds
+    dest, order, uniq, inv, out_ids, over = _rs_ids(uids, mesh, n,
+                                                    bucket_cap, shard_cap)
+    out = _rs_gather_rows(
+        rows, dest, order, inv, mesh, n, bucket_cap, shard_cap,
+        average=average, compress_bits=compress_bits,
+        compress_range=compress_range, compress_mode=compress_mode,
+        uids=uids, residual=residual,
+        owner_uids=uniq if owner_residual is not None else None,
+        owner_residual=owner_residual)
+    if owner_residual is not None:
+        gathered, new_res, new_owner = out
+        tail = ((new_res,) if residual is not None else ()) + (new_owner,)
+        return (out_ids, gathered, over) + tail
+    if residual is not None:
+        return (out_ids, out[0], over, out[1])
+    return out_ids, out, over

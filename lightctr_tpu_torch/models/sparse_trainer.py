@@ -46,22 +46,32 @@ type (arXiv:1808.02621) with SparCML's sparse allreduce
     kernel, or, for a FIXED range with error feedback, coded by the
     ``quantize_pack_ef_update`` kernel with its per-table carry) and
     merged with the mean inside the fused apply (``merge_apply``'s merge
-    mode: one kernel that merges and applies) — or, past the
-    density switch, as a dense [vocab, ...] buffer over the mean or the
-    coded ring; every rank applies the identical update, so replicas
-    cannot diverge.  ``self.exchange_policy`` records the pick;
+    mode: one kernel that merges and applies) — or over the
+    reduce-scatter exchange: ids owner-partitioned by ``uid % n``, routed
+    round the ring and merged at the owner (``dedup_ids`` cut at the
+    shard capacity, then ``merge_rows`` and the mean per table), only the
+    merged owner shards all-gathered and applied (``merge_apply``'s apply
+    mode) — or, past the density switch, as a dense [vocab, ...] buffer
+    over the mean or the coded ring; every rank applies the identical
+    update, so replicas cannot diverge.  ``self.exchange_policy`` records
+    the pick ({table: "sparse" | "sparse_rs" | "dense"});
+  - reduce-scatter capacities are expected sizes with slack, so every
+    global batch is checked on the host (``rs_fits``) before the step; a
+    batch that would overflow runs the same step with the allgather in
+    place of the reduce-scatter (counted in
+    ``trainer_rs_fallback_total``).  Every rank is handed the same global
+    batch, so every rank takes the same branch with no collective;
   - dense leaves ride the coded ring with ``compress_bits`` (EF-SGD
     residual and all, CTRTrainer's compressed path), the plain mean
     otherwise.
 
-Not yet ported: the reduce-scatter exchange (a ``"sparse_rs"`` pick
-raises; FM at Criteo width never picks it at 2 or 4 ranks),
-``param_shardings``, ``hier_exchange`` and the quality plane
-(``quality_bins``); giving one raises ``ValueError``.
+Not yet ported: ``param_shardings``, ``hier_exchange`` and the quality
+plane (``quality_bins``); giving one raises ``ValueError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Dict, Optional, Sequence
 
@@ -91,9 +101,15 @@ EXCHANGE_SERIES = (
     "trainer_exchange_bytes_total",      # {table, policy} bytes/step
     "trainer_exchange_algo_total",       # {table, algo} steps per decision
     "trainer_sparse_exchange_bytes_total",
+    "trainer_sparse_rs_bytes_total",
     "trainer_dense_ring_bytes_total",
+    "trainer_rs_fallback_total",
     "trainer_rs_overflow_total",
 )
+
+#: the byte counter of each sparse policy (the rest are the dense ring's)
+_POLICY_BYTES = {"sparse": "trainer_sparse_exchange_bytes_total",
+                 "sparse_rs": "trainer_sparse_rs_bytes_total"}
 
 
 class SparseTableCTRTrainer(CTRTrainer):
@@ -164,12 +180,23 @@ class SparseTableCTRTrainer(CTRTrainer):
         # mesh WITHOUT explicit shardings = replicated data parallelism:
         # the explicit hybrid exchange
         self._hybrid_dp = mesh is not None and param_shardings is None
-        # {table: "sparse" | "dense"} — the pick each table leaf got, and
-        # {table: bytes each rank transmits per step under it}, written by
-        # the step with the accounting helpers of dist.collectives
+        # {table: "sparse" | "sparse_rs" | "dense"} — the pick each table
+        # leaf got, and {table: bytes each rank transmits per step under
+        # it}, written by the step with the accounting helpers of
+        # dist.collectives
         self.exchange_policy: Dict[str, str] = {}
         self.exchange_bytes_per_step: Dict[str, int] = {}
         self._exchange_logged = False
+        # the reduce-scatter's overflow fallback: the same step with the
+        # allgather for its sparse_rs tables, built at its first use, which
+        # records into its own dicts so it cannot shadow the primary
+        # step's decisions
+        self._step_ag = None
+        self._fallback_policy: Dict[str, str] = {}
+        self._fallback_bytes: Dict[str, int] = {}
+        self._last_step_fallback = False
+        self._fallback_logged = False
+        self._plan_cache: Dict = {}
         super().__init__(
             params, logits_fn, cfg, l2_fn=l2_fn, fused_fn=fused_fn, mesh=mesh,
             param_shardings=param_shardings, compress_bits=compress_bits,
@@ -306,13 +333,15 @@ class SparseTableCTRTrainer(CTRTrainer):
 
         return step
 
-    def _make_hybrid_dp_step(self):
+    def _make_hybrid_dp_step(self, force_ag: bool = False):
         """Replicated data-parallel step with the hybrid explicit exchange
         (module docstring): per-rank O(touched) grads, table leaves over
-        the picked exchange (the sparse allgather or, past the density
-        switch, the dense mean/ring), dense leaves over the coded ring or
-        the plain mean.  Tables sharing a field tuple share the exchanged
-        id stream: only the first table of a group pays the id bytes."""
+        the picked exchange (the sparse allgather, the reduce-scatter or,
+        past the density switch, the dense mean/ring), dense leaves over
+        the coded ring or the plain mean.  Tables sharing a field tuple
+        share the exchanged id stream: only the first table of a
+        (stream, algo, caps) group pays the id bytes.  ``force_ag`` builds
+        the overflow fallback: ``sparse_rs`` picks take the allgather."""
         loss_fn = self._make_loss_fn()
         tx = self.tx
         spec = self._spec
@@ -327,8 +356,10 @@ class SparseTableCTRTrainer(CTRTrainer):
         sparse_ef = self._use_sparse_ef()
         ring_pad = self._ring_pad if bits is not None else 0
         margin = self._dense_margin
-        policy = self.exchange_policy
-        xbytes = self.exchange_bytes_per_step
+        if force_ag:
+            policy, xbytes = self._fallback_policy, self._fallback_bytes
+        else:
+            policy, xbytes = self.exchange_policy, self.exchange_bytes_per_step
 
         def dense_table_exchange(g):
             """SparCML's switch-over target: the table gradient as one
@@ -345,23 +376,25 @@ class SparseTableCTRTrainer(CTRTrainer):
                 compress_range=crange, compress_mode=cmode)
             return flat[:length].reshape(g.shape)
 
-        def pick(k, kpad, table):
-            dim = math.prod(table.shape[1:])
+        def pick(kpad, table):
+            """(algo, dim, caps) of one table: the static pick from shapes,
+            the allgather in the fallback, and the reduce-scatter's
+            capacities."""
+            vocab, dim = table.shape[0], math.prod(table.shape[1:])
             algo, _ = collectives.pick_exchange_algo(
-                n, kpad, table.shape[0], dim, sparse_bits=bits,
-                dense_bits=bits, margin=margin)
-            if algo == "sparse_rs":
-                not_yet_ported(f"{type(self).__name__} table {k!r}",
-                               reduce_scatter_exchange=algo)
-            return algo, dim
+                n, kpad, vocab, dim, sparse_bits=bits, dense_bits=bits,
+                margin=margin)
+            if force_ag and algo == "sparse_rs":
+                algo = "sparse"
+            caps = (collectives.rs_default_caps(n, kpad, vocab)
+                    if algo == "sparse_rs" else None)
+            return algo, dim, caps
 
         def step(params, opt_state, batch):
             # batch arrives as this rank's rows: the dedup is per rank
             tables, dense, batch2, uids, rows = dedup_and_gather(
                 spec, params, batch)
-            # the static pick, first: a branch that is not ported raises on
-            # every rank alike before any collective
-            picks = {k: pick(k, uids[k].shape[0], tables[k]) for k in spec}
+            picks = {k: pick(uids[k].shape[0], tables[k]) for k in spec}
             rows = leaves_requiring_grad(rows)
             dense_leaves = leaves_requiring_grad(dense)
             loss = loss_fn({**dense_leaves, **rows}, batch2)
@@ -404,14 +437,19 @@ class SparseTableCTRTrainer(CTRTrainer):
                          for k, p in dense.items()}
 
                 # -- table leaves: the pick per table, id streams shared
-                # within each (field tuple, algo) group ------------------
+                # within each (field tuple, algo, caps) group ------------
+                # the reduce-scatter's overflow count of this rank (the
+                # host check makes it 0; a nonzero sum reaches the health
+                # vector instead of passing silently)
+                over_total = None
                 for fields, keys in groups.items():
                     u = uids[keys[0]]
                     kpad = u.shape[0]
-                    sub: Dict[str, list] = {}
+                    sub: Dict[tuple, list] = {}
                     for k in keys:
-                        sub.setdefault(picks[k][0], []).append(k)
-                    for algo, ks in sub.items():
+                        sub.setdefault((picks[k][0], picks[k][2]),
+                                       []).append(k)
+                    for (algo, caps), ks in sub.items():
                         if algo == "dense":
                             for k in ks:
                                 policy[k] = "dense"
@@ -431,6 +469,46 @@ class SparseTableCTRTrainer(CTRTrainer):
                                     tables[k].copy_(tables[k] - lr * g
                                                     * torch.rsqrt(acc + eps))
                                     accum[k].copy_(acc)
+                            continue
+                        if algo == "sparse_rs":
+                            bucket_cap, shard_cap = caps
+                            with annotate("sparse_tables/rs_exchange",
+                                          tables=len(ks),
+                                          bucket_cap=bucket_cap,
+                                          shard_cap=shard_cap):
+                                dest, order, _, inv, out_ids, over = \
+                                    collectives._rs_ids(
+                                        u, mesh, n, bucket_cap, shard_cap)
+                            over_total = (over if over_total is None
+                                          else over_total + over)
+                            for i, k in enumerate(ks):
+                                policy[k] = "sparse_rs"
+                                xbytes[k] = collectives.sparse_rs_bytes(
+                                    n, bucket_cap, shard_cap, picks[k][1],
+                                    bits, include_ids=(i == 0))
+                                with annotate("sparse_tables/rs_exchange",
+                                              table=k):
+                                    out_rows = collectives._rs_gather_rows(
+                                        g_rows[k], dest, order, inv, mesh, n,
+                                        bucket_cap, shard_cap, average=True,
+                                        compress_bits=bits,
+                                        compress_range=(
+                                            crange if bits is not None
+                                            else 1.0),
+                                        compress_mode=cmode,
+                                        uids=u if sparse_ef else None,
+                                        residual=(opt_state["sres"][k]
+                                                  if sparse_ef else None))
+                                    if sparse_ef:
+                                        # the carry was updated in place
+                                        out_rows = out_rows[0]
+                                # rows arrived merged at their owners: the
+                                # apply mode on the all-gathered shards
+                                with annotate("sparse_tables/apply"):
+                                    _, _, ssq = sparse_kernels.merge_apply(
+                                        tables[k], accum[k], out_ids,
+                                        out_rows, None, lr=lr, eps=eps)
+                                gn2 = gn2 + ssq
                             continue
                         with annotate("sparse_tables/sparse_exchange",
                                       tables=len(ks)):
@@ -465,12 +543,119 @@ class SparseTableCTRTrainer(CTRTrainer):
                     # the per-table carries were updated in place
                     new_state["sres"] = opt_state["sres"]
                 # the health vector's third slot: the reduce-scatter
-                # overflow count of the JAX step, 0 on the ported branches
+                # overflow summed over the ranks (0 without a sparse_rs
+                # table, which every rank knows without a collective)
+                over_slot = (gn2.new_zeros(1) if over_total is None else
+                             collectives.all_reduce(mesh, over_total)
+                             .to(torch.float32).reshape(1))
                 health = torch.cat([_health_pack(loss, torch.sqrt(gn2)),
-                                    gn2.new_zeros(1)])
+                                    over_slot])
             return params, new_state, loss, health
 
         return step
+
+    # -- the reduce-scatter's capacity plan and overflow fallback --------
+
+    def _exchange_plan(self, batch) -> Dict[str, tuple]:
+        """The step's pick, made on the host: {table: (fields, algo,
+        caps)} from the global batch's shapes through the same
+        ``pick_exchange_algo`` / ``rs_default_caps`` calls the step makes
+        on this rank's rows.  Cached per field-shape signature."""
+        n = self.mesh.size
+        groups = self._field_groups(self._spec)
+        sig = tuple((fields, tuple(tuple(np.shape(batch[f])) for f in fields))
+                    for fields in groups)
+        plan = self._plan_cache.get(sig)
+        if plan is not None:
+            return plan
+        plan = {}
+        for fields, keys in groups.items():
+            kpad = sum(int(np.prod(np.shape(batch[f]))) for f in fields) // n
+            for k in keys:
+                vocab = int(self.params[k].shape[0])
+                dim = math.prod(self.params[k].shape[1:])
+                algo, _ = collectives.pick_exchange_algo(
+                    n, kpad, vocab, dim, sparse_bits=self.compress_bits,
+                    dense_bits=self.compress_bits, margin=self._dense_margin)
+                caps = (collectives.rs_default_caps(n, kpad, vocab)
+                        if algo == "sparse_rs" else None)
+                plan[k] = (fields, algo, caps)
+        self._plan_cache[sig] = plan
+        return plan
+
+    def _rs_batch_fits(self, batch, plan) -> bool:
+        """Exact capacity check of the global host batch for the plan's
+        reduce-scatter tables (``rs_fits`` over each rank's raw ids, as
+        :func:`~lightctr_tpu_torch.core.mesh.shard_batch` will cut them:
+        one host unique a rank per distinct id stream).  Every rank holds
+        the same global batch, so every rank decides alike."""
+        by_stream: Dict[tuple, set] = {}
+        for fields, algo, caps in plan.values():
+            if algo == "sparse_rs":
+                by_stream.setdefault(fields, set()).add(caps)
+        n = self.mesh.size
+        for fields, cap_set in by_stream.items():
+            cols = [_host(batch[f]) for f in fields]
+            per_member = [
+                np.concatenate([c[m * (c.shape[0] // n):
+                                  (m + 1) * (c.shape[0] // n)].reshape(-1)
+                                for c in cols])
+                for m in range(n)]
+            for bucket_cap, shard_cap in cap_set:
+                if not collectives.rs_fits(per_member, n, bucket_cap,
+                                           shard_cap):
+                    return False
+        return True
+
+    def _needs_fallback(self, batch) -> bool:
+        """True when the global batch would overflow a reduce-scatter
+        table's capacities, counted in ``trainer_rs_fallback_total``."""
+        if not self._hybrid_dp or self._rs_batch_fits(
+                batch, self._exchange_plan(batch)):
+            return False
+        self.telemetry.inc("trainer_rs_fallback_total")
+        return True
+
+    @contextlib.contextmanager
+    def _fallback_step(self):
+        """Run the steps inside with the fallback step (``sparse_rs``
+        tables on the allgather), built at its first use."""
+        if self._step_ag is None:
+            self._step_ag = self._make_hybrid_dp_step(force_ag=True)
+        primary, self._step = self._step, self._step_ag
+        try:
+            yield
+        finally:
+            self._step = primary
+
+    def train_step(self, batch) -> torch.Tensor:
+        # decided from the caller's global batch, before this rank takes
+        # its rows: a rank that decided from its own rows could take the
+        # other exchange than its peers and wait on them forever
+        self._last_step_fallback = self._needs_fallback(batch)
+        if not self._last_step_fallback:
+            return super().train_step(batch)
+        with self._fallback_step():
+            return super().train_step(batch)
+
+    def fit(self, arrays, epochs=None, batch_size=None, eval_arrays=None,
+            eval_every=0, verbose=False, prefetch=None):
+        # the full-batch path steps self._step itself; minibatches go
+        # through train_step, which checks each batch
+        kw = dict(epochs=epochs, batch_size=batch_size,
+                  eval_arrays=eval_arrays, eval_every=eval_every,
+                  verbose=verbose, prefetch=prefetch)
+        if batch_size is None and isinstance(arrays, dict) and \
+                self._needs_fallback(arrays):
+            with self._fallback_step():
+                return super().fit(arrays, **kw)
+        return super().fit(arrays, **kw)
+
+    def fit_fullbatch_scan(self, arrays, epochs):
+        if self._needs_fallback(arrays):
+            with self._fallback_step():
+                return super().fit_fullbatch_scan(arrays, epochs)
+        return super().fit_fullbatch_scan(arrays, epochs)
 
     # -- telemetry ------------------------------------------------------
 
@@ -504,10 +689,14 @@ class SparseTableCTRTrainer(CTRTrainer):
 
     def _record_step(self, dt: float, batch, health=None) -> None:
         """CTRTrainer's per-step record plus, for the hybrid exchange, the
-        per-table exchange counters and one ``exchange`` event per table
-        the first time."""
+        per-table exchange counters of the step that ran (the fallback's
+        own dicts after a fallback step) and one ``exchange`` event per
+        table the first time each of the two steps runs."""
         super()._record_step(dt, batch, health=health)
-        policy, xbytes = self.exchange_policy, self.exchange_bytes_per_step
+        fallback = self._last_step_fallback
+        policy, xbytes = ((self._fallback_policy, self._fallback_bytes)
+                          if fallback else
+                          (self.exchange_policy, self.exchange_bytes_per_step))
         if not (self._hybrid_dp and policy):
             return
         reg = self.telemetry
@@ -517,10 +706,12 @@ class SparseTableCTRTrainer(CTRTrainer):
                                 policy=pol), b)
             reg.inc(obs.labeled("trainer_exchange_algo_total", table=k,
                                 algo=pol))
-            reg.inc("trainer_sparse_exchange_bytes_total" if pol == "sparse"
-                    else "trainer_dense_ring_bytes_total", b)
-        if not self._exchange_logged:
-            self._exchange_logged = True
+            reg.inc(_POLICY_BYTES.get(pol, "trainer_dense_ring_bytes_total"),
+                    b)
+        flag = "_fallback_logged" if fallback else "_exchange_logged"
+        if not getattr(self, flag):
+            setattr(self, flag, True)
             for k, pol in policy.items():
                 obs.emit_event("exchange", table=k, policy=pol,
-                               bytes_per_step=xbytes.get(k, 0))
+                               bytes_per_step=xbytes.get(k, 0),
+                               fallback=fallback)

@@ -12,7 +12,11 @@ encode on the card is the ``quantize_pack`` kernel (``ops/sparse_kernels``).
 Tables are float32 and built with the JAX package's own float32 arithmetic,
 so the two packages agree on them: uniform tables bit for bit (see
 :func:`_linspace`), normal and log tables within a few ulp (``ndtri`` and
-``pow`` differ by ulps between the two libraries).
+``pow`` differ by ulps between the two libraries).  Every table is built
+on the host and then moved to its device: CUDA's ``ndtri`` differs from
+the CPU's in the last ulp, and a coded exchange that re-encodes sums of
+decoded values meets boundaries exactly, so a table built on the card
+would code some values differently from the same table on the CPU.
 """
 
 from __future__ import annotations
@@ -30,13 +34,12 @@ class QuantTable(NamedTuple):
     bits: int
 
 
-def _f32(x, device) -> torch.Tensor:
-    """A Python float or a 0-d tensor as a float32 0-d tensor on ``device``
-    (a tensor keeps its own device: the measured range of a dynamic
-    codec lives where its payload lives)."""
+def _f32(x) -> torch.Tensor:
+    """A Python float or a 0-d tensor as a float32 0-d tensor on the
+    host."""
     if isinstance(x, torch.Tensor):
-        return x.to(torch.float32).reshape(())
-    return torch.tensor(float(x), dtype=torch.float32, device=device)
+        return x.detach().to("cpu", torch.float32).reshape(())
+    return torch.tensor(float(x), dtype=torch.float32)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
@@ -93,15 +96,16 @@ def build_table(
 ) -> QuantTable:
     """Quantile tables (quantile_compress.h:71-107).  ``min_val`` /
     ``max_val`` are Python floats or 0-d tensors (a measured range); the
-    table lives on the range's device, or on ``device`` (default CPU) for
-    Python floats."""
+    table is built on the host and lives on the range's device, or on
+    ``device`` (default CPU) for Python floats.  A range on the card is
+    read back first, which waits for it."""
     dev = torch.device(device) if device is not None else None
     for v in (min_val, max_val):
         if isinstance(v, torch.Tensor):
             dev = v.device
     dev = dev if dev is not None else torch.device("cpu")
     n = 1 << bits
-    lo, hi = _f32(min_val, dev), _f32(max_val, dev)
+    lo, hi = _f32(min_val), _f32(max_val)
     if mode == "uniform":
         edges = _linspace(lo, hi, n + 1)
     elif mode == "log":
@@ -109,12 +113,12 @@ def build_table(
         # LOG mode for gradient-ish distributions (jnp.geomspace: 10 **
         # linspace(log10(start), log10(stop)))
         top = torch.maximum(lo.abs(), hi.abs())
-        start = _f32(1e-8, dev)
-        mags = torch.pow(_f32(10.0, dev), _linspace(
+        start = _f32(1e-8)
+        mags = torch.pow(_f32(10.0), _linspace(
             torch.log10(start), torch.log10(top), n // 2 + 1))
         edges = torch.cat([-mags.flip(0), mags[1:]])
     elif mode == "normal":
-        p = _linspace(_f32(1e-6, dev), _f32(1 - 1e-6, dev), n + 1)
+        p = _linspace(_f32(1e-6), _f32(1 - 1e-6), n + 1)
         if isinstance(min_val, torch.Tensor) or isinstance(max_val,
                                                            torch.Tensor):
             span = (hi - lo) / 2.0
@@ -129,7 +133,7 @@ def build_table(
         if custom_cdf_values is None:
             raise ValueError("custom mode needs custom_cdf_values")
         edges = torch.as_tensor(custom_cdf_values, dtype=torch.float32,
-                                device=dev)
+                                device="cpu")
         if edges.shape[0] != n + 1:
             raise ValueError(f"custom table needs {n + 1} edges, "
                              f"got {edges.shape[0]}")
@@ -137,8 +141,8 @@ def build_table(
         raise ValueError(f"unknown mode {mode!r}")
     edges = edges.to(torch.float32)
     values = 0.5 * (edges[:-1] + edges[1:])
-    return QuantTable(boundaries=edges[1:-1].contiguous(),
-                      values=values.contiguous(), bits=bits)
+    return QuantTable(boundaries=edges[1:-1].contiguous().to(dev),
+                      values=values.contiguous().to(dev), bits=bits)
 
 
 def code_dtype(bits: int) -> torch.dtype:

@@ -259,3 +259,334 @@ def test_spawn_world_holds_its_rendezvous_port_before_the_ranks_start(
     monkeypatch.setattr(tmp, "start_processes", checked_start)
     spawn_world(world_stress.all_reduce_rank, 2, "gloo", deadline_s=120.0)
     assert len(starts) == 1
+
+
+# -- the reduce-scatter exchange ----------------------------------------------
+
+
+def dense_oracle(vocab, dim, uids, rows):
+    """The [vocab, dim] float64 array a (uids, rows) pair denotes under
+    ``.add`` scatter semantics."""
+    out = np.zeros((vocab, dim))
+    np.add.at(out, np.asarray(uids).reshape(-1),
+              np.asarray(rows, np.float64).reshape(-1, dim))
+    return out
+
+
+def _jax_rs_once(jmesh, w, name):
+    """The JAX package's ``sparse_reduce_scatter`` on a scenario of
+    :func:`torch_dp_worlds.rs_cases` -> [all_uids, merged, overflow,
+    *carries], each stacked over the members."""
+    u, r, kw = worlds.rs_cases(w)[name]
+    kw = dict(kw)
+    extra = {}
+    if kw.pop("residual", False):
+        extra["residual"] = jcoll.sparse_ef_residual_init(
+            jmesh, (kw["vocab"],) + r.shape[2:])
+    out = jitted(jcoll.sparse_reduce_scatter, jmesh, **kw)(
+        jnp.asarray(u), jnp.asarray(r), **extra)
+    return [np.asarray(x) for x in out]
+
+
+def _assert_rs_matches(ranks, key, want, rtol=1e-6, atol=1e-7):
+    """Every rank's ``[all_uids, merged, overflow, *carries]`` against the
+    JAX members' (ids and overflow exact), and the merged result
+    bit-identical across ranks."""
+    for r, out in enumerate(ranks):
+        got = out["rs"][key]
+        np.testing.assert_array_equal(got[0], want[0][r])
+        np.testing.assert_allclose(got[1], want[1][r], rtol=rtol, atol=atol)
+        assert int(got[2]) == int(want[2][r])
+        for g, x in zip(got[3:], want[3:]):
+            np.testing.assert_allclose(g, x[r], rtol=rtol, atol=atol)
+        for i in (0, 1):
+            np.testing.assert_array_equal(got[i], ranks[0]["rs"][key][i])
+
+
+@pytest.mark.parametrize("name, average", [("mean", True),
+                                           ("dup_sum", False),
+                                           ("pads_sum", False)])
+def test_reduce_scatter_exact_matches_jax_and_the_dense_oracle(
+        world, name, average):
+    """``test_sparse_rs.py``'s parity over world sizes (the mean), its hot
+    id pool merged once at the owner (sum), and its id-0 padding beside a
+    real id 0 under a bucket of 2 (the pads must be dropped or they would
+    overflow): the JAX members' result, overflow 0, and the float64 dense
+    sum (mean) of every rank's pairs."""
+    w, jmesh, ranks = world
+    want = _jax_rs_once(jmesh, w, name)
+    _assert_rs_matches(ranks, name, want)
+    u, r, _ = worlds.rs_cases(w)[name]
+    vocab = int(max(u.max(), want[0].max())) + 1
+    dense = sum(dense_oracle(vocab, r.shape[2], u[m], r[m])
+                for m in range(w)) / (w if average else 1)
+    got = ranks[0]["rs"][name]
+    assert int(got[2]) == 0
+    np.testing.assert_allclose(dense_oracle(vocab, r.shape[2], got[0],
+                                            got[1]),
+                               dense, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("bits", [16, 8])
+def test_reduce_scatter_compressed_payload_matches_jax(world, bits):
+    """Both phases' payloads coded with a dynamic range: 16-bit uniform
+    tables are the JAX package's bit for bit; an 8-bit normal table's ulp
+    differences may move a value one bucket in either encode.  The 16-bit
+    merge stays within 1e-3 of the exact exchange (the JAX test's
+    bound)."""
+    w, jmesh, ranks = world
+    want = _jax_rs_once(jmesh, w, f"coded{bits}")
+    tol = 1e-6
+    if bits == 8:
+        u, r, _ = worlds.rs_cases(w)[f"coded{bits}"]
+        rng = 1.05 * float(np.abs(r).max())
+        tol = 2 * float(np.diff(np.asarray(jquant.build_table(
+            -rng, rng, 8, "normal").values)).max())
+    _assert_rs_matches(ranks, f"coded{bits}", want, rtol=0, atol=tol)
+    got = ranks[0]["rs"][f"coded{bits}"][1]
+    assert np.mean(np.abs(got - want[1][0]) <= 1e-6) > 0.95
+    if bits == 16:
+        u, r, kw = worlds.rs_cases(w)["coded16"]
+        exact = jitted(jcoll.sparse_reduce_scatter, jmesh,
+                       bucket_cap=kw["bucket_cap"],
+                       shard_cap=kw["shard_cap"])(jnp.asarray(u),
+                                                  jnp.asarray(r))
+        np.testing.assert_array_equal(ranks[0]["rs"]["coded16"][0],
+                                      np.asarray(exact[0])[0])
+        np.testing.assert_allclose(got, np.asarray(exact[1])[0], rtol=0,
+                                   atol=1e-3)
+
+
+def test_reduce_scatter_out_ids_meet_the_apply_contract(world):
+    """``merge_apply``'s apply mode skips the pads (id 0 past slot 0) and
+    takes every other uid to be distinct: the all-gathered owner shards
+    hold each real id once, and in the exact exchange every pad's row is
+    zero."""
+    _, _, ranks = world
+    for name in ("mean", "dup_sum", "pads_sum"):
+        ids, rows = ranks[0]["rs"][name][:2]
+        pad = (ids == 0) & (np.arange(ids.size) > 0)
+        real = ids[~pad]
+        assert np.unique(real).size == real.size, name
+        assert not rows[pad].any(), name
+
+
+def test_rs_ef_overflow_carries_full_value(world):
+    """A bucket-overflow victim (uids 1, 5, 9 on one owner, a bucket of
+    2) ships nothing; with the stage-1 carry its full value lands in the
+    carry instead, and the kept entries carry only rounding."""
+    w, jmesh, ranks = world
+    want = _jax_rs_once(jmesh, w, "overflow_ef")
+    _assert_rs_matches(ranks, "overflow_ef", want, atol=1e-6)
+    bucket_w = 2 * 1.0 / (1 << 8)
+    for out in ranks:
+        gu, m, over, res = out["rs"]["overflow_ef"]
+        assert int(over) > 0
+        merged = dense_oracle(32, 2, gu, m)
+        assert abs(merged[9, 0]) < 1e-6
+        np.testing.assert_allclose(res[9], 0.5, rtol=0, atol=1e-6)
+        assert np.abs(res[[1, 5]]).max() <= bucket_w / 2 + 1e-7
+
+
+def _jax_ef_rounds(jmesh, w, name):
+    """The JAX package's rounds of an EF drain scenario of
+    ``RS_EF_CASES``, each ``[all_uids, merged, overflow, *carries]``."""
+    spike, dim, rounds, kw, carries = worlds.RS_EF_CASES[name]
+
+    def call(u, r, res, ores):
+        extra = {}
+        if "residual" in carries:
+            extra["residual"] = res
+        if "owner_residual" in carries:
+            extra["owner_residual"] = ores
+        return jcoll.sparse_reduce_scatter(jmesh, u, r, **worlds.RS_EF_KW,
+                                           **kw, **extra)
+
+    fn = jax.jit(call)
+    uids = jnp.tile(jnp.asarray(worlds.RS_EF_UIDS), (w, 1))
+    spike_rows = jnp.asarray(worlds.rs_ef_rows(w, spike, dim))
+    carry = {c: jcoll.sparse_ef_residual_init(jmesh, (worlds.RS_EF_VOCAB,
+                                                      dim))
+             for c in ("residual", "owner_residual")}
+    steps = []
+    for t in range(rounds):
+        out = fn(uids, spike_rows if t == 0 else jnp.zeros_like(spike_rows),
+                 carry["residual"], carry["owner_residual"])
+        carry.update(zip(carries, out[3:]))
+        steps.append([np.asarray(x) for x in out])
+    return steps
+
+
+def _applied(steps, dim):
+    """Rank 0's rounds summed as the dense update they denote."""
+    return sum(dense_oracle(worlds.RS_EF_VOCAB, dim, s[0], s[1])
+               for s in steps)
+
+
+def _ef_rounds_match(ranks, jmesh, w, name):
+    want = _jax_ef_rounds(jmesh, w, name)
+    got = [out["rs"][f"ef_{name}"] for out in ranks]
+    for t, want_t in enumerate(want):
+        _assert_rs_matches([{"rs": {"x": g[t]}} for g in got], "x", want_t,
+                           atol=1e-6)
+    return got
+
+
+TOUCHED = [1, 2, 7, 8]
+BUCKET_W = 2 * 1.0 / (1 << 8)
+
+
+def test_rs_ef_residual_drains_and_recovers_clip(world):
+    """Stage-1 carry, the mean: a spike of 2.5 past the range 1.0 clips
+    at the ranks' scatter encode; without the carry the clipped mass is
+    lost, with it the remainder arrives over the following rounds and the
+    carry drains to under a bucket."""
+    w, jmesh, ranks = world
+    plain = _ef_rounds_match(ranks, jmesh, w, "stage1_plain")
+    ef = _ef_rounds_match(ranks, jmesh, w, "stage1")
+    applied_no, applied = _applied(plain[0], 3), _applied(ef[0], 3)
+    assert all(int(s[2]) == 0 for s in plain[0])
+    assert applied_no[1, 0] < 1.0 * 1.01
+    for rank_steps in ef:
+        assert float(np.abs(rank_steps[-1][3]).max()) <= BUCKET_W
+    np.testing.assert_allclose(applied[TOUCHED], 2.5, rtol=0,
+                               atol=8 * w * BUCKET_W)
+    assert applied[TOUCHED].mean() > 1.5 * applied_no[TOUCHED].mean()
+
+
+def test_rs_owner_ef_drains_sum_mode_stage2_clip(world):
+    """Stage-2 carry, the sum: 0.6 a rank stays inside the range, the
+    merged sum 0.6 W does not, so the owner's encode clips; the owner
+    carry delivers the rest and drains (each row only on its owner's
+    carry)."""
+    w, jmesh, ranks = world
+    plain = _ef_rounds_match(ranks, jmesh, w, "stage2_plain")
+    ef = _ef_rounds_match(ranks, jmesh, w, "stage2")
+    applied_no, applied = _applied(plain[0], 3), _applied(ef[0], 3)
+    assert applied_no[1, 0] < 1.0 * 1.01
+    for rank_steps in ef:
+        assert float(np.abs(rank_steps[-1][3][TOUCHED]).max()) <= BUCKET_W
+    np.testing.assert_allclose(applied[TOUCHED], w * 0.6, rtol=0,
+                               atol=6 * w * BUCKET_W)
+    assert applied[TOUCHED].mean() > applied_no[TOUCHED].mean() + \
+        0.8 * (w * 0.6 - 1.0)
+
+
+def test_rs_both_stage_carries_compose_under_clip(world):
+    """Both carries: 1.7 a rank clips stage 1 and the merged sum clips
+    stage 2; the rounds still deliver the full sum."""
+    w, jmesh, ranks = world
+    ef = _ef_rounds_match(ranks, jmesh, w, "both")
+    np.testing.assert_allclose(_applied(ef[0], 2)[TOUCHED], w * 1.7,
+                               rtol=0, atol=16 * w * BUCKET_W)
+
+
+def test_rs_owner_ef_rejected_in_mean_mode(world):
+    """An owner carry in mean mode is refused, in both packages."""
+    w, jmesh, ranks = world
+    for out in ranks:
+        assert "SUM-mode" in out["rs"]["owner_mean_error"]
+    with pytest.raises(ValueError, match="SUM-mode"):
+        jcoll.sparse_reduce_scatter(
+            jmesh, jnp.tile(jnp.arange(1, 5), (w, 1)),
+            jnp.ones((w, 4, 2)), vocab=8, average=True, compress_bits=8,
+            compress_range=1.0,
+            owner_residual=jcoll.sparse_ef_residual_init(jmesh, (8, 2)))
+
+
+def test_permute_slot_order_matches_rs_ring_exchange(world):
+    """The port's scatter phase (``permute`` by 1..n-1 in one batch)
+    returns the JAX ``ppermute`` ring's slot order: slot i holds the
+    bucket rank (idx - i) % n addressed to idx, for float32 buckets and
+    for 16-bit codes (which cross gloo as bytes)."""
+    from jax.sharding import PartitionSpec as P
+
+    from lightctr_tpu.core.compat import shard_map
+
+    w, jmesh, ranks = world
+    buckets = worlds.rs_ring_buckets(w)
+    fn = jax.jit(shard_map(
+        lambda b: jcoll._rs_ring_exchange(b[0], "data", w)[None],
+        mesh=jmesh, in_specs=P("data"), out_specs=P("data")))
+    want = np.asarray(fn(jnp.asarray(buckets)))
+    for r, out in enumerate(ranks):
+        np.testing.assert_array_equal(out["rs"]["ring"], want[r])
+        np.testing.assert_array_equal(out["rs"]["ring_u16"],
+                                      want[r].astype(np.int32))
+        slots = out["rs"]["ring"][:, 0]
+        np.testing.assert_array_equal(
+            slots, [100 * ((r - i) % w) + r for i in range(w)])
+
+
+def test_owner_partition_round_trip():
+    """``rs_owner_partition`` and ``rs_scatter_rows`` against the JAX
+    functions (``dest``, ``order``, buckets and overflow equal, the
+    stable order included), the buckets denoting the input exactly, and an
+    undersized bucket counting its overflow; codes scatter with their
+    fill (8 and 16 bits)."""
+    rng = np.random.default_rng(5)
+    n, vocab, k, dim = 4, 64, 24, 3
+    u = np.unique(rng.integers(1, vocab, size=k))
+    uids = np.zeros(k, np.int32)
+    rows = np.zeros((k, dim), np.float32)
+    uids[:u.size] = u
+    rows[:u.size] = rng.normal(size=(u.size, dim))
+    for cap in (k, 2):
+        jd, jo, jb, jover = jax.jit(jcoll.rs_owner_partition,
+                                    static_argnums=(1, 2))(
+            jnp.asarray(uids), n, cap)
+        dest, order, bucket_ids, over = tcoll.rs_owner_partition(
+            torch.from_numpy(uids), n, cap)
+        np.testing.assert_array_equal(dest.numpy(), np.asarray(jd))
+        np.testing.assert_array_equal(order.numpy(), np.asarray(jo))
+        np.testing.assert_array_equal(bucket_ids.numpy(), np.asarray(jb))
+        assert int(over) == int(jover)
+        counts = np.bincount(u % n, minlength=n)
+        assert int(over) == int(np.maximum(counts - cap, 0).sum())
+        b_rows = tcoll.rs_scatter_rows(torch.from_numpy(rows), dest, order,
+                                       n, cap)
+        np.testing.assert_array_equal(b_rows.numpy(), np.asarray(
+            jcoll.rs_scatter_rows(jnp.asarray(rows), jd, jo, n, cap)))
+        for dtype, jdtype in ((torch.uint8, jnp.uint8),
+                              (torch.uint16, jnp.uint16)):
+            codes = torch.from_numpy(
+                rng.integers(0, 200, size=(k, dim)).astype(np.int32))
+            got = tcoll.rs_scatter_rows(codes.to(dtype), dest, order, n,
+                                        cap, fill=torch.tensor(
+                                            7, dtype=torch.int32).to(dtype))
+            want = jcoll.rs_scatter_rows(jnp.asarray(codes.numpy(), jdtype),
+                                         jd, jo, n, cap,
+                                         fill=jnp.asarray(7, jdtype))
+            assert got.dtype == dtype
+            np.testing.assert_array_equal(got.to(torch.int32).numpy(),
+                                          np.asarray(want).astype(np.int32))
+        if cap == k:
+            b_ids = bucket_ids.numpy()
+            for d in range(n):
+                nz = b_ids[d][np.any(b_rows.numpy()[d] != 0, axis=-1)]
+                assert (nz % n == d).all()
+            np.testing.assert_array_equal(
+                dense_oracle(vocab, dim, b_ids, b_rows.numpy()),
+                dense_oracle(vocab, dim, uids, rows))
+
+
+def test_rs_fits_predicts_overflow():
+    """The host capacity check, against the JAX package's on its cases
+    (a spread stream fits, one owned by one rank does not, nor a union
+    past the shard) and on random streams either side of the caps."""
+    n = 4
+    good = [np.arange(1, 9) + 8 * m for m in range(n)]
+    skew = [np.arange(1, 9) * n for _ in range(n)]
+    wide = [np.arange(1, 40) + 40 * m for m in range(n)]
+    cases = [(good, 4, 16, True), (skew, 4, 16, False),
+             (wide, 40, 10, False)]
+    rng = np.random.default_rng(9)
+    for _ in range(20):
+        ids = [rng.integers(0, 200, size=30) for _ in range(n)]
+        bucket, shard = int(rng.integers(4, 12)), int(rng.integers(20, 60))
+        cases.append((ids, bucket, shard, None))
+    for ids, bucket, shard, expect in cases:
+        got = tcoll.rs_fits(ids, n, bucket, shard)
+        assert got == jcoll.rs_fits(ids, n, bucket, shard)
+        if expect is not None:
+            assert got is expect

@@ -324,6 +324,127 @@ def test_merge_apply_merge_mode_heavy_run_and_wide_segments(dev):
     check_merge_mode(uids, inv, table, accum, rows, denom=1.0)
 
 
+@pytest.mark.parametrize("mode", ["uniform", "normal", "log"])
+def test_quantile_tables_on_the_card_equal_the_cpu_tables(dev, mode):
+    """A table for the card (a fixed range, or a measured range that
+    lives on the card) is the CPU's table bit for bit: the card's
+    ``ndtri`` differs from the CPU's in the last ulp, and a coded
+    exchange that re-encodes sums of decoded values meets boundaries
+    exactly, so the card and the CPU would code some values apart."""
+    rng = np.random.default_rng(1)
+    for bits in (1, 4, 8, 16):
+        for lim in [1.0, 0.05] + list(rng.uniform(1e-3, 3.0, 8)):
+            want = qz.build_table(-lim, lim, bits=bits, mode=mode)
+            lt = torch.tensor(lim, dtype=torch.float32)
+            want_t = qz.build_table(-lt, lt, bits=bits, mode=mode)
+            for got, ref in ((qz.build_table(-lim, lim, bits=bits,
+                                             mode=mode, device=dev), want),
+                             (qz.build_table(-lt.to(dev), lt.to(dev),
+                                             bits=bits, mode=mode), want_t)):
+                for part in ("boundaries", "values"):
+                    g = getattr(got, part)
+                    assert g.device.type == "cuda"
+                    assert torch.equal(g.cpu(), getattr(ref, part)), (
+                        mode, bits, lim, part)
+
+
+def rs_owners(dev, n=8, k=2000, vocab=1 << 14, seed=0):
+    """n ranks' u^4 id streams down the reduce-scatter's id path on one
+    process: each rank's dedup and owner partition, and each owner's n
+    received buckets in the ring's slot order -> ([n*bucket_cap] ids an
+    owner, the shard capacity)."""
+    from lightctr_tpu_torch.dist import collectives as coll
+
+    rng = np.random.default_rng(seed)
+    bucket, shard = coll.rs_default_caps(n, k, vocab)
+    plans = []
+    for _ in range(n):
+        ids = (rng.random(k) ** 4 * vocab).astype(np.int32)
+        u, _, _ = sk.dedup_ids(torch.from_numpy(ids).to(dev))
+        plans.append(coll.rs_owner_partition(u, n, bucket))
+    owners = [torch.stack([plans[(r - i) % n][2][r] for i in range(n)])
+              .reshape(-1) for r in range(n)]
+    return owners, shard
+
+
+@pytest.mark.parametrize("cut", ["shard_cap", "below_count"])
+def test_rs_merge_ids_dedup_cut_matches_plain(dev, cut):
+    """The owner's id merge: dedup_ids on the n*bucket_cap received ids
+    cut at the shard capacity (size < K), and cut below the distinct
+    count (the overflow case: ``inv`` keeps full ranks, past the cut):
+    one launch each, bit for bit the plain version's, overflow counted."""
+    from lightctr_tpu_torch.dist import collectives as coll
+
+    owners, shard = rs_owners(dev)
+    for all_ids in owners:
+        count = int(sk.dedup_ids_plain(all_ids.cpu(), all_ids.numel())[2])
+        size = shard if cut == "shard_cap" else count // 2
+        assert size < all_ids.numel()
+        before = sk.launches("dedup_ids")
+        got = coll._rs_merge_ids(all_ids, size)
+        assert sk.launches("dedup_ids") == before + 1
+        want = coll._rs_merge_ids(all_ids.cpu(), size)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a.cpu(), b)
+        assert int(got[2]) == max(0, count - size)
+
+
+@pytest.mark.parametrize("d", [1, 32])
+def test_merge_apply_apply_on_gathered_shards_matches_plain(dev, d):
+    """The apply mode on the reduce-scatter's all-gathered owner shards:
+    ``out_ids`` is n sorted shards end to end, each foreign shard led by
+    an id-0 pad whose (coded) row is not zero and must be skipped, every
+    other uid distinct; within 2 ulp of the plain version, sumsq rtol
+    1e-5."""
+    from lightctr_tpu_torch.dist import collectives as coll
+
+    owners, shard = rs_owners(dev)
+    out_ids = torch.cat([coll._rs_merge_ids(a, shard)[0] for a in owners])
+    s = out_ids.numel()
+    pad = (out_ids == 0) & (torch.arange(s, device=dev) > 0)
+    assert bool(pad[shard::shard].all())  # each foreign shard's lead
+    real = out_ids[~pad]
+    assert real.unique().numel() == real.numel()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    vocab = 1 << 14
+    shape = (vocab,) if d == 1 else (vocab, d)
+    table = torch.randn(shape, generator=gen, device=dev)
+    accum = torch.rand(shape, generator=gen, device=dev)
+    rows = torch.randn((s,) + shape[1:], generator=gen, device=dev)
+    t1, a1, t2, a2 = table.clone(), accum.clone(), table.clone(), \
+        accum.clone()
+    before = sk.variant_launches("merge_apply").get("apply", 0)
+    _, _, s1 = sk.merge_apply(t1, a1, out_ids, rows, lr=0.05, eps=1e-7)
+    assert sk.variant_launches("merge_apply")["apply"] == before + 1
+    _, _, s2 = sk.merge_apply_plain(t2, a2, out_ids, rows, None, 0.05,
+                                    1e-7, 1.0)
+    assert ulp(t1, t2) <= MAX_ULP and ulp(a1, a2) <= MAX_ULP
+    torch.testing.assert_close(s1, s2, rtol=1e-5, atol=0)
+
+
+def test_rs_owner_partition_on_card_matches_cpu(dev):
+    """The owner partition and the bucket scatter (PyTorch ops, no
+    kernel of the port's) give the CPU's plan on the card: the stable
+    owner order, the destinations, the buckets and the overflow."""
+    from lightctr_tpu_torch.dist import collectives as coll
+
+    rng = np.random.default_rng(3)
+    u = np.unique(rng.integers(1, 4096, size=3000)).astype(np.int32)
+    uids = np.zeros(3000, np.int32)
+    uids[:u.size] = u
+    rows = rng.normal(size=(3000, 32)).astype(np.float32)
+    for cap in (500, 250):
+        got = coll.rs_owner_partition(torch.from_numpy(uids).to(dev), 8, cap)
+        want = coll.rs_owner_partition(torch.from_numpy(uids), 8, cap)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        assert torch.equal(
+            coll.rs_scatter_rows(torch.from_numpy(rows).to(dev), got[0],
+                                 got[1], 8, cap).cpu(),
+            coll.rs_scatter_rows(torch.from_numpy(rows), want[0], want[1],
+                                 8, cap))
+
+
 @pytest.mark.parametrize("d", [1, 8, 32, 33])
 def test_merge_rows_kernel_matches_plain(dev, d):
     """Bit for bit (slot-order sums): heavy duplicates and out-of-range

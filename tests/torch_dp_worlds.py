@@ -20,6 +20,7 @@ import os
 import numpy as np
 import torch
 
+from lightctr_tpu_torch import obs
 from lightctr_tpu_torch.core.config import TrainConfig
 from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
 from lightctr_tpu_torch.dist import collectives as tcoll
@@ -82,6 +83,135 @@ def exchange_inputs(world, seed=0):
             "tree": tree}
 
 
+def convention_pairs(rng, n, vocab, k, dim, lo=1):
+    """Per-rank (uids, rows) of the dedup convention (sorted unique ids,
+    trailing slots id 0 with zero rows), tests/test_sparse_rs.py's."""
+    uids = np.zeros((n, k), np.int32)
+    rows = np.zeros((n, k, dim), np.float32)
+    for m in range(n):
+        u = np.unique(rng.integers(lo, vocab, size=k))
+        uids[m, :u.size] = u
+        rows[m, :u.size] = rng.normal(size=(u.size, dim))
+    return uids, rows
+
+
+def rs_cases(world, seed=1):
+    """name -> (uids [W, K], rows [W, K, dim], kwargs) of the
+    reduce-scatter scenarios called once (tests/test_sparse_rs.py's):
+    the mean, a hot id pool merged in sum mode, id-0 pads beside a real
+    id 0 under a bucket of 2, the 16-bit and 8-bit coded payloads, and a
+    bucket overflow whose victim the stage-1 carry keeps."""
+    rng = np.random.default_rng(seed)
+    n = world
+    cases = {}
+    u, r = convention_pairs(rng, n, 256, 32, 5)
+    cases["mean"] = (u, r, {"bucket_cap": 32,
+                            "shard_cap": min(n * 32, 256 // n + 2)})
+    u, r = convention_pairs(rng, n, 32, 16, 3)  # heavy overlap
+    cases["dup_sum"] = (u, r, {"bucket_cap": 16, "shard_cap": n * 16,
+                               "average": False})
+    u = np.zeros((n, 8), np.int32)
+    r = np.zeros((n, 8, 3), np.float32)
+    r[0, 0] = 1.0  # rank 0: a real id-0 row, then padding
+    for m in range(1, n):
+        u[m, 0], u[m, 1] = 2 * m, 2 * m + 1
+        r[m, 0], r[m, 1] = m, -m
+    cases["pads_sum"] = (u, r, {"bucket_cap": 2, "shard_cap": 6,
+                                "average": False})
+    u, r = convention_pairs(rng, n, 128, 16, 4)
+    for bits, mode in ((16, "uniform"), (8, "normal")):
+        cases[f"coded{bits}"] = (u, r, {
+            "bucket_cap": 16, "shard_cap": n * 16, "compress_bits": bits,
+            "compress_range": "dynamic", "compress_mode": mode})
+    # owners 1, 1, 1 at 2 and 4 ranks: uid 9 overflows a bucket of 2
+    u = np.tile(np.array([1, 5, 9, 0], np.int32), (n, 1))
+    r = 0.5 * np.ones((n, 4, 2), np.float32)
+    r[:, 3] = 0.0
+    cases["overflow_ef"] = (u, r, {
+        "vocab": 32, "bucket_cap": 2, "shard_cap": 8, "compress_bits": 8,
+        "compress_range": 1.0, "residual": True})
+    return cases
+
+
+#: name -> (per-rank spike value, dim, rounds, kwargs, carries) of the
+#: EF drain scenarios (tests/test_sparse_rs.py's): one id an owner, the
+#: spike in round 0 and zero rows after; ``carries`` names the EF carries
+#: the calls thread (stage 1 ``residual``, stage 2 ``owner_residual``)
+RS_EF_CASES = {
+    "stage1": (2.5, 3, 8, {"average": True}, ("residual",)),
+    "stage1_plain": (2.5, 3, 8, {"average": True}, ()),
+    "stage2": (0.6, 3, 6, {"average": False}, ("owner_residual",)),
+    "stage2_plain": (0.6, 3, 2, {"average": False}, ()),
+    "both": (1.7, 2, 12, {"average": False},
+             ("residual", "owner_residual")),
+}
+RS_EF_VOCAB = 32
+RS_EF_KW = {"vocab": RS_EF_VOCAB, "compress_bits": 8, "compress_range": 1.0}
+RS_EF_UIDS = np.array([1, 2, 7, 8, 0, 0], np.int32)
+
+
+def rs_ef_rows(world, spike, dim):
+    """The round-0 rows of an EF drain scenario: ``spike`` in the four
+    real slots of every rank."""
+    rows = np.zeros((world, RS_EF_UIDS.size, dim), np.float32)
+    rows[:, :4] = spike
+    return rows
+
+
+def rs_ring_buckets(world):
+    """[W, W, 3] buckets whose values name (sending rank, destination)."""
+    src = np.arange(world).reshape(-1, 1, 1)
+    dst = np.arange(world).reshape(1, -1, 1)
+    return (100 * src + dst + np.zeros((1, 1, 3))).astype(np.float32)
+
+
+def _rs_rank(mesh, rank, world):
+    """The reduce-scatter scenarios on this rank."""
+    out = {}
+    for name, (u, r, kw) in rs_cases(world).items():
+        kw = dict(kw)
+        carry = kw.pop("residual", False)
+        if carry:
+            res = tcoll.sparse_ef_residual_init(
+                mesh, (kw["vocab"],) + r.shape[2:])
+            got = tcoll.sparse_reduce_scatter(
+                mesh, torch.from_numpy(u[rank]), torch.from_numpy(r[rank]),
+                residual=res, **kw)
+        else:
+            got = tcoll.sparse_reduce_scatter(
+                mesh, torch.from_numpy(u[rank]), torch.from_numpy(r[rank]),
+                **kw)
+        out[name] = [_np(x) for x in got]
+    uids = torch.from_numpy(RS_EF_UIDS)
+    for name, (spike, dim, rounds, kw, carries) in RS_EF_CASES.items():
+        state = {c: tcoll.sparse_ef_residual_init(mesh, (RS_EF_VOCAB, dim))
+                 for c in carries}
+        spike_rows = torch.from_numpy(rs_ef_rows(world, spike, dim)[rank])
+        steps = []
+        for t in range(rounds):
+            rows = spike_rows if t == 0 else torch.zeros_like(spike_rows)
+            got = tcoll.sparse_reduce_scatter(mesh, uids, rows, **RS_EF_KW,
+                                              **kw, **state)
+            state = dict(zip(carries, got[3:]))
+            steps.append([_np(x) for x in got])
+        out[f"ef_{name}"] = steps
+    try:
+        tcoll.sparse_reduce_scatter(
+            mesh, torch.arange(1, 5, dtype=torch.int32),
+            torch.ones((4, 2)), vocab=8, average=True, compress_bits=8,
+            compress_range=1.0,
+            owner_residual=tcoll.sparse_ef_residual_init(mesh, (8, 2)))
+        out["owner_mean_error"] = None
+    except ValueError as e:
+        out["owner_mean_error"] = str(e)
+    buckets = torch.from_numpy(rs_ring_buckets(world)[rank])
+    out["ring"] = _np(tcoll._rs_ring_exchange(buckets, mesh, world))
+    codes = buckets.to(torch.int32).to(torch.uint16)
+    out["ring_u16"] = _np(tcoll._rs_ring_exchange(codes, mesh, world)
+                          .to(torch.int32))
+    return out
+
+
 def _save(out_dir, rank, results):
     torch.save(results, os.path.join(out_dir, f"rank{rank}.pt"))
 
@@ -135,6 +265,7 @@ def collectives_rank(rank, world, out_dir):
                 compress_mode=mode, residual=res)
             calls.append(({k: _np(v) for k, v in red.items()}, _np(res)))
         out[f"ring_ef_{mode}"] = calls
+    out["rs"] = _rs_rank(mesh, rank, world)
     _save(out_dir, rank, out)
 
 
@@ -163,10 +294,156 @@ def trainer_batches(f):
     return [fm_batch(10 + i, f=f) for i in range(TRAINER_STEPS)]
 
 
+def rs_pick_batches(world):
+    """Two global batches of 64 rows a rank, 6 ids a row, at vocab 1024:
+    with v's dim 32 the pick is the reduce-scatter at 4 ranks."""
+    return [fm_batch(40 + i, n=64 * world, f=1024) for i in range(2)]
+
+
+def rs_fm_batch(seed, n_rows, f, nnz):
+    """tests/test_sparse_rs.py's FM batch (ids from 1, unit values)."""
+    rng = np.random.default_rng(seed)
+    return {
+        "fids": rng.integers(1, f, size=(n_rows, nnz)).astype(np.int32),
+        "vals": np.ones((n_rows, nnz), np.float32),
+        "mask": np.ones((n_rows, nnz), np.float32),
+        "labels": (rng.random(n_rows) > 0.5).astype(np.float32),
+    }
+
+
+#: the reduce-scatter trainer scenarios (tests/test_sparse_rs.py's):
+#: vocab 2048, dim 16, 512 rows of 8 ids (``sparse_rs`` for v at 4
+#: ranks), stepped RS_SCAN_STEPS full-batch epochs, then RS_FALLBACK_STEPS
+#: train steps on a batch whose ids are all multiples of the world (one
+#: owner: the reduce-scatter would overflow, so the step falls back)
+RS_TRAINER = (2048, 16, 512, 8)
+RS_SCAN_STEPS = 6
+RS_FALLBACK_STEPS = 3
+#: the EF scenario: vocab 4096, dim 64, 1024 rows of 8 ids, 8 bits
+#: uniform at a fixed range of 0.05 with the carry and without; one spike
+#: step (values x20, labels 1), then RS_EF_STEPS normal ones
+RS_EF_TRAINER = (4096, 64, 1024, 8)
+RS_EF_STEPS = 8
+RS_EF_TRAINER_KW = {"compress_bits": 8, "compress_range": 0.05,
+                    "compress_mode": "uniform"}
+#: the EF carry's parity scenario: the same trainer with the carry at a
+#: range of 1.0, whose table the JAX program builds bit for bit as its
+#: eager build_table does (at 0.05 it does not), over RS_EF_STEPS // 2
+#: normal steps (the spike step's gradients cancel terms of ~1e3, so
+#: their codes follow the summation order)
+RS_EF_PARITY_KW = dict(RS_EF_TRAINER_KW, compress_range=1.0)
+
+
+def rs_skewed_batch(world):
+    f, _, rows, nnz = RS_TRAINER
+    b = rs_fm_batch(61, rows, f, nnz)
+    b["fids"] = (np.maximum(b["fids"] // world, 1) * world).astype(np.int32)
+    return b
+
+
+def rs_ef_batches():
+    """The EF scenario's spike and normal batches (same ids, labels 1)."""
+    f, _, rows, nnz = RS_EF_TRAINER
+    base = rs_fm_batch(62, rows, f, nnz)
+    base["labels"] = np.ones(rows, np.float32)
+    spike = dict(base, vals=20.0 * base["vals"])
+    return spike, base
+
+
+def _rs_trainers(mesh, world):
+    """The reduce-scatter trainer scenarios on this rank."""
+    out = {}
+    tr = SparseTableCTRTrainer(
+        tfm.params_from_numpy(fm_params(1024, 32), "cpu"), tfm.logits,
+        TrainConfig(**CFG), sparse_tables=TABLES,
+        fused_fn=tfm.logits_with_l2, mesh=mesh)
+    tr.health = None
+    tr.telemetry = obs.MetricsRegistry()
+    losses = [float(tr.train_step(b)) for b in rs_pick_batches(world)]
+    out["rs_pick"] = {"loss": losses, "w": _np(tr.params["w"]),
+                      "v": _np(tr.params["v"]),
+                      "accum_v": _np(tr.opt_state["accum"]["v"]),
+                      "policy": dict(tr.exchange_policy),
+                      "bytes": dict(tr.exchange_bytes_per_step),
+                      "counters": tr.telemetry.snapshot()["counters"]}
+    f, dim, rows, nnz = RS_TRAINER
+    cfg = TrainConfig(learning_rate=0.1)
+    params = fm_params(f, dim, seed=1)
+    tr = SparseTableCTRTrainer(tfm.params_from_numpy(params, "cpu"),
+                               tfm.logits, cfg, sparse_tables=TABLES,
+                               mesh=mesh)
+    tr.health = None
+    batch = rs_fm_batch(60, rows, f, nnz)
+    out["rs_scan"] = {
+        "plan": {k: v[1] for k, v in tr._exchange_plan(batch).items()},
+        "fits": tr._rs_batch_fits(batch, tr._exchange_plan(batch)),
+        "loss": [float(x) for x in tr.fit_fullbatch_scan(batch,
+                                                         RS_SCAN_STEPS)],
+        "w": _np(tr.params["w"]), "v": _np(tr.params["v"]),
+        "policy": dict(tr.exchange_policy)}
+    tr = SparseTableCTRTrainer(tfm.params_from_numpy(params, "cpu"),
+                               tfm.logits, cfg, sparse_tables=TABLES,
+                               mesh=mesh)
+    tr.health = None
+    tr.telemetry = obs.MetricsRegistry()
+    batch = rs_skewed_batch(world)
+    losses = [float(tr.train_step(batch)) for _ in range(RS_FALLBACK_STEPS)]
+    out["rs_fallback"] = {
+        "plan": {k: v[1] for k, v in tr._exchange_plan(batch).items()},
+        "fits": tr._rs_batch_fits(batch, tr._exchange_plan(batch)),
+        "loss": losses, "w": _np(tr.params["w"]), "v": _np(tr.params["v"]),
+        "last_fallback": tr._last_step_fallback,
+        "fallback_policy": dict(tr._fallback_policy),
+        "policy": dict(tr.exchange_policy),
+        "counters": tr.telemetry.snapshot()["counters"]}
+    tr = SparseTableCTRTrainer(tfm.params_from_numpy(params, "cpu"),
+                               tfm.logits, cfg, sparse_tables=TABLES,
+                               mesh=mesh)
+    tr.health = None
+    tr.telemetry = obs.MetricsRegistry()
+    losses = tr.fit_fullbatch_scan(batch, RS_FALLBACK_STEPS)
+    out["rs_fallback_scan"] = {
+        "loss": [float(x) for x in losses], "w": _np(tr.params["w"]),
+        "v": _np(tr.params["v"]),
+        "counters": tr.telemetry.snapshot()["counters"]}
+    f, dim, rows, nnz = RS_EF_TRAINER
+    params = fm_params(f, dim)
+    spike, normal = rs_ef_batches()
+    for ef in (True, False):
+        tr = SparseTableCTRTrainer(
+            tfm.params_from_numpy(params, "cpu"), tfm.logits,
+            TrainConfig(learning_rate=0.05), sparse_tables=TABLES,
+            mesh=mesh, error_feedback=ef, **RS_EF_TRAINER_KW)
+        tr.health = None
+        losses = [float(tr.train_step(spike))]
+        rec = {"plan": {k: v[1] for k, v in
+                        tr._exchange_plan(spike).items()},
+               "fits": tr._rs_batch_fits(spike, tr._exchange_plan(spike))}
+        if ef:
+            rec["res_after_spike"] = float(
+                tr.opt_state["sres"]["v"].abs().max())
+        losses += [float(tr.train_step(normal)) for _ in range(RS_EF_STEPS)]
+        rec.update(loss=losses, v=_np(tr.params["v"]),
+                   policy=dict(tr.exchange_policy))
+        out[f"rs_ef{int(ef)}"] = rec
+    tr = SparseTableCTRTrainer(
+        tfm.params_from_numpy(params, "cpu"), tfm.logits,
+        TrainConfig(learning_rate=0.05), sparse_tables=TABLES, mesh=mesh,
+        error_feedback=True, **RS_EF_PARITY_KW)
+    tr.health = None
+    losses = [float(tr.train_step(normal)) for _ in range(RS_EF_STEPS // 2)]
+    out["rs_ef_parity"] = {"loss": losses, "w": _np(tr.params["w"]),
+                           "v": _np(tr.params["v"]),
+                           "sres_v": _np(tr.opt_state["sres"]["v"]),
+                           "policy": dict(tr.exchange_policy)}
+    return out
+
+
 def trainers_rank(rank, world, out_dir, carry_path):
     """The hybrid sparse trainer in each of :data:`TRAINER_CASES`, the
-    dense trainer with the plain mean and with the coded ring, and a
-    restart from the JAX trainer's mesh state (``carry_path``)."""
+    dense trainer with the plain mean and with the coded ring, the
+    reduce-scatter scenarios, and a restart from the JAX trainer's mesh
+    state (``carry_path``)."""
     mesh = make_mesh(MeshSpec(data=world), device="cpu")
     cfg = TrainConfig(**CFG)
     out = {}
@@ -193,18 +470,7 @@ def trainers_rank(rank, world, out_dir, carry_path):
                      "v": _np(tr.params["v"]),
                      "proba": tr.predict_proba(held),
                      "eval": tr.evaluate(held)}
-    # a shape whose pick is the reduce-scatter exchange at 4 ranks (v at
-    # vocab 1024, dim 32, 384 ids a rank): not ported, so the step raises
-    # on every rank before any collective
-    tr = SparseTableCTRTrainer(
-        tfm.params_from_numpy(fm_params(1024, 32), "cpu"), tfm.logits, cfg,
-        sparse_tables=TABLES, fused_fn=tfm.logits_with_l2, mesh=mesh)
-    tr.health = None
-    try:
-        out["rs_pick"] = {"loss": float(tr.train_step(
-            fm_batch(40, n=64 * world, f=1024))), "error": None}
-    except ValueError as e:
-        out["rs_pick"] = {"loss": None, "error": str(e)}
+    out.update(_rs_trainers(mesh, world))
     # the weight carry-over: continue from the JAX trainer's params and
     # mesh optimizer state (EF residuals included), one step
     carry = torch.load(carry_path, weights_only=False)
