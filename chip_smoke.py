@@ -6,9 +6,11 @@ through the PS-backed ``PredictionServer`` and checks the scores, trains FM
 at Criteo width with ``SparseTableCTRTrainer`` and
 ``CTRTrainer(fused_adagrad=True)``, then trains it data-parallel over two
 ranks on the one card (the allgather exchange) and over eight (the
-reduce-scatter exchange), and checks the training; runs the long-context
-attention path (flash attention on one card, ring attention over two
-ranks) and the port's two kernel benches.
+reduce-scatter exchange), and checks the training; trains it from a libFFM
+file through the streaming reader and the prefetch stage, and under the
+ftrl and adam optimizers; runs the long-context attention path (flash
+attention on one card, ring attention over two ranks) and the port's two
+kernel benches.
 
     python3 chip_smoke.py [--seed N]
 
@@ -78,10 +80,13 @@ Phases, one JSON line each:
            values, a planted logistic label), batch 4096, lr 0.05,
            lambda_l2 0.001, ``fm.logits_with_l2``.  (a) 50 steps of
            ``SparseTableCTRTrainer`` (204,800 rows): dedup_ids launched
-           once a step and merge_apply twice, the last 5 losses below the
-           first 5, held-out AUC > 0.55 on 20,480 rows; (b) 10 steps of
-           ``CTRTrainer(fused_adagrad=True)``: fused_adagrad launched twice
-           a step, the loss falling; (c) the first 3 sparse and 2 fused
+           once a step, merge_rows (the backward of the gathers,
+           ``embed.table.lookup``) and merge_apply twice, the last 5
+           losses below the first 5, held-out AUC > 0.55 on 20,480 rows;
+           (b) 10 steps of ``CTRTrainer(fused_adagrad=True)``:
+           fused_adagrad and merge_rows (into the whole 2^20-row tables)
+           launched twice a step, the loss falling; (c) the first 3
+           sparse and 2 fused
            steps re-run on the CPU with the plain versions (losses rtol
            1e-4, touched rows rtol 1e-4 / atol 1e-5), and the two trainers
            on the card agreeing after 10 steps from one init.  Launch
@@ -94,9 +99,10 @@ Phases, one JSON line each:
            rank), through the hybrid sparse exchange: (a) exact, 50 steps,
            held-out AUC > 0.55; (b) 8 bits with a measured range, 10 steps;
            (c) 8 bits with its defaults (range 1.0, error feedback), 10
-           steps.  Per rank and step: dedup_ids and merge_apply launched
-           twice each (every merge_apply launch its fused merge mode, and
-           no merge_rows launch), quantize_pack twice in (b) (each its
+           steps.  Per rank and step: dedup_ids, merge_rows (the gathers'
+           backward) and merge_apply launched twice each (every
+           merge_apply launch its fused merge mode), quantize_pack twice
+           in (b) (each its
            ``tree`` design), quantize_pack_ef_update twice in (c) (each
            its ``tree`` design; counts reset in each rank just before its
            steps).  Both ranks end bit-identical; the loss
@@ -118,17 +124,24 @@ Phases, one JSON line each:
            (d) 3 steps of a batch whose ids are all multiples of 8, which
            the host check refuses, so each runs the allgather fallback.
            Per rank and run the launches equal the plan's
-           (``rs_expected_launches``: merge_apply's apply mode, its merge
-           mode in (d), quantize_pack and quantize_pack_ef_update through
+           (``rs_expected_launches``: merge_rows for the gathers' backward
+           and the owner merge, merge_apply's apply mode, its merge mode
+           in (d), quantize_pack and quantize_pack_ef_update through
            ``tree``); every rank ends bit-identical; the overflow slot is
            0 and ``trainer_sparse_rs_bytes_total`` is sparse_rs_bytes
            times the steps in (a)-(c), ``trainer_rs_fallback_total`` 3 in
            (d); the loss falls in (a) and (b); the first 2 steps of (a)
            and all of (c) re-run at W = 8 on the CPU with the plain
            versions within the dp phase's bounds, and all of (b) beside
-           them, reported (its measured ranges follow the last ulp of the
-           card's gradients and its shard encode meets boundaries, so its
-           trajectory is not held).  (b)'s and (c)'s exchanges on equal
+           them, reported: its measured ranges follow the last ulp of
+           gradients that the card's forward reduces in another order
+           than the CPU's (``b_first_step_card_vs_cpu`` counts the
+           logits, loss and gradient values of (b)'s first step that part,
+           rank 0's rows), and its shard encode meets boundaries.  (b)'s
+           gate is one of its steps run twice from the same state on the
+           card: every rank's tables and accumulators bit-identical across
+           the two runs (the gathers' backward sums in slot order).
+           (b)'s and (c)'s exchanges on equal
            inputs at the path's shapes (``sparse_reduce_scatter``, 8-bit
            measured range; fixed range with the stage-1 carry): rank 0's
            outputs on the card equal the CPU world's bit for bit.
@@ -139,6 +152,22 @@ Phases, one JSON line each:
            (a), the capacity check's host time, rank 0's device time and
            idle share over 5 profiled steps.
 
+  ingest   FM at Criteo width trained from a libFFM file that
+           ``data.synth.write_criteo_proxy`` writes (204,800 rows, and a
+           20,480-row held-out file of another seed), read by
+           ``data.streaming.iter_libffm_batches`` with the native parser:
+           (a) ``SparseTableCTRTrainer.fit_stream(..., prefetch=2)``, 50
+           steps, then the same file without prefetch: the two loss lists
+           and tables bit-identical, each run's launches the plan's
+           (dedup_ids once a step, merge_rows and merge_apply twice), the
+           loss falling, held-out AUC > 0.55; examples/s of both, the
+           ``ingest_overlap_ratio`` gauge and the host parse time a
+           batch; (b) ``CTRTrainer`` under ``optim.get("ftrl")`` and
+           ``("adam")``, 10 steps each on the file's first batches:
+           merge_rows launched twice a step and nothing else, the loss
+           falling, the first 2 steps re-run on the CPU (losses rtol 1e-4,
+           the whole tables rtol 1e-4 / atol 1e-5); (c) the dp_rs phase's
+           repeated step, bit-identical.
   attention  the long-context path, counts reset just before it:
            ``flash_attention`` at (2, 4096, 8, 64) bf16 causal on the card,
            then ``ring_self_attention`` over a ``seq`` ring of 2 ranks
@@ -175,9 +204,13 @@ call after a read that empties the L2, at d = 1 and d = 32, the latter at
 8 and 16 bits, as do quantize_pack at 8 and 16 bits and quantize_pack_ef;
 gather_rows adds ``cold_ms`` and its ``per_shape`` gives the serve and
 hot-row shapes, warm and cold, each beside ``torch.index_select``; each
-row's ``launches_dp_rs`` counts rank 0's launches in dp_rs, which is
-merge_rows' ``launches``, and dedup_ids, merge_rows and merge_apply add
-their ``dp_rs`` timing at that path's shapes). Then the
+row's ``launches_dp_rs`` counts rank 0's launches in dp_rs and
+``launches_ingest`` the ingest phase's; merge_rows' ``launches`` are the
+train phase's, and its ``per_shape_train`` times it as the gathers'
+backward (159,744 slots into the 2^20-row table and into the sparse
+trainer's 159,744 rows, d = 32 and 1) beside ``index_add_``; dedup_ids,
+merge_rows and merge_apply add their ``dp_rs`` timing at that path's
+shapes). Then the
 ``nvidia-smi`` name and power limit, and the last line ``{"ok": true,
 "device": {...}}``. Any failed phase raises and exits non-zero; without
 CUDA, or without the ``lightctr_tpu_torch`` package beside this file, it
@@ -1116,6 +1149,27 @@ def launch_profile(torch, fn, calls: int = 20):
         return None
 
 
+def sparse_expected_launches(sk, steps) -> dict:
+    """Launches of ``steps`` one-card steps of the sparse trainer on FM:
+    the id stream deduped, and per table (w, v) the gather's backward
+    (merge_rows, ``embed.table.lookup``) and the touched-row apply
+    (merge_apply's apply mode)."""
+    want = dict.fromkeys(sk.KERNELS, 0)
+    want.update(dedup_ids=steps, merge_rows=2 * steps,
+                merge_apply=2 * steps)
+    return want
+
+
+def dense_expected_launches(sk, steps, fused=False) -> dict:
+    """Launches of ``steps`` steps of CTRTrainer on FM: per table the
+    gather's backward over the whole table (merge_rows at S = 2^20), and
+    with ``fused`` the fused Adagrad apply a leaf."""
+    want = dict.fromkeys(sk.KERNELS, 0)
+    want.update(merge_rows=2 * steps,
+                fused_adagrad=2 * steps if fused else 0)
+    return want
+
+
 def phase_train(np, torch, sk, seed) -> dict:
     from lightctr_tpu_torch.core.config import TrainConfig
     from lightctr_tpu_torch.models import fm
@@ -1143,8 +1197,9 @@ def phase_train(np, torch, sk, seed) -> dict:
         torch, sparse, batches, snapshots=(CPU_SPARSE_STEPS, PARITY_STEPS))
     s_launch = sk.launches()
     s_losses = [float(x) for x in s_losses]
-    if (s_launch["dedup_ids"] != SPARSE_STEPS
-            or s_launch["merge_apply"] != 2 * SPARSE_STEPS):
+    # per step: one dedup, and per table the gather's backward (merge_rows)
+    # and the touched-row apply (merge_apply)
+    if s_launch != sparse_expected_launches(sk, SPARSE_STEPS):
         raise AssertionError(f"sparse trainer launches {s_launch} over "
                              f"{SPARSE_STEPS} steps")
     if not all(np.isfinite(s_losses)) or \
@@ -1187,7 +1242,7 @@ def phase_train(np, torch, sk, seed) -> dict:
         snapshots=(CPU_FUSED_STEPS, PARITY_STEPS))
     f_launch = sk.launches()
     f_losses = [float(x) for x in f_losses]
-    if f_launch["fused_adagrad"] != 2 * FUSED_STEPS:
+    if f_launch != dense_expected_launches(sk, FUSED_STEPS, fused=True):
         raise AssertionError(f"fused trainer launches {f_launch} over "
                              f"{FUSED_STEPS} steps")
     if not all(np.isfinite(f_losses)) or \
@@ -1264,6 +1319,8 @@ def phase_train(np, torch, sk, seed) -> dict:
         },
         "train_launches": {"dedup_ids": s_launch["dedup_ids"],
                            "merge_apply": s_launch["merge_apply"],
+                           "merge_rows": s_launch["merge_rows"]
+                           + f_launch["merge_rows"],
                            "fused_adagrad": f_launch["fused_adagrad"]},
     }
 
@@ -1307,8 +1364,6 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
     last; writes losses, launches, digests of the trained state, the
     rows the first DP_CPU_STEPS batches touched, and (rank 0, exact run)
     the held-out evaluation."""
-    import hashlib
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1389,14 +1444,9 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
                         tr.train_step(b)
                     sync()
         # the replicated state (each rank's EF residuals are its own)
-        state = {"w": tr.params["w"], "v": tr.params["v"],
-                 "accum_w": tr.opt_state["accum"]["w"],
-                 "accum_v": tr.opt_state["accum"]["v"]}
-        rec["digest"] = {k: hashlib.sha256(
-            t.detach().cpu().numpy().tobytes()).hexdigest()
-            for k, t in state.items()}
+        rec["digest"] = state_digest(tr)
         out[name] = rec
-        del tr, state
+        del tr
         if on_card:
             torch.cuda.empty_cache()
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
@@ -1405,10 +1455,11 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
 
 def dp_expected_launches(name, steps) -> dict:
     """Launches one rank makes in ``steps`` steps of run ``name``: two
-    id streams deduped (local and gathered), two tables merged and
-    applied (merge_apply's fused merge mode: no merge_rows launch), and
+    id streams deduped (local and gathered), each table's gather
+    differentiated (merge_rows, the backward of ``embed.table.lookup``),
+    two tables merged and applied (merge_apply's fused merge mode), and
     each table's payload coded once in the coded runs."""
-    return {"dedup_ids": 2 * steps, "merge_rows": 0,
+    return {"dedup_ids": 2 * steps, "merge_rows": 2 * steps,
             "merge_apply": 2 * steps,
             "quantize_pack": 2 * steps if name == "coded_dynamic" else 0,
             "quantize_pack_ef_update": 2 * steps if name == "coded_ef" else 0,
@@ -1688,12 +1739,15 @@ def rs_expected_launches(sk, name, steps) -> dict:
     coded runs v's bucket encode (quantize_pack, or in the EF run
     quantize_pack_ef_update) and its shard encode, and w's coded dense
     ring, one encode a ring step (W a step).  The fallback dedups its
-    gathered stream and merges in merge_apply's merge mode."""
+    gathered stream and merges in merge_apply's merge mode.  Every run
+    differentiates each table's gather (merge_rows, the backward of
+    ``embed.table.lookup``) once a step."""
     want = dict.fromkeys(sk.KERNELS, 0)
     want["dedup_ids"] = 2 * steps
     want["merge_apply"] = steps
+    want["merge_rows"] = 2 * steps
     if name != "fallback":
-        want["merge_rows"] = steps
+        want["merge_rows"] += steps
     if name == "coded_dynamic":
         want["quantize_pack"] = (2 + RS_WORLD) * steps
     if name == "coded_ef":
@@ -1830,8 +1884,6 @@ def dp_rs_rank(rank, world, out_dir, seed, device, run_steps, grid):
     carries.  Writes losses, launches, the overflow slots, the counters,
     the capacity check's host time, digests of the trained state and
     (rank 0) the rows the first RS_CPU_STEPS batches touched."""
-    import hashlib
-
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -1921,16 +1973,13 @@ def dp_rs_rank(rank, world, out_dir, seed, device, run_steps, grid):
                 for b in more:
                     tr.train_step(b)
                 sync()
-        state = {"w": tr.params["w"], "v": tr.params["v"],
-                 "accum_w": tr.opt_state["accum"]["w"],
-                 "accum_v": tr.opt_state["accum"]["v"]}
-        rec["digest"] = {k: hashlib.sha256(
-            t.detach().cpu().numpy().tobytes()).hexdigest()
-            for k, t in state.items()}
+        rec["digest"] = state_digest(tr)
         out[name] = rec
-        del tr, state
+        del tr
         if on_card:
             torch.cuda.empty_cache()
+    if on_card:
+        out["repeat"] = rs_repeat_step(torch, mesh, params, batches)
     uids, rows = rs_exchange_inputs(np, seed)
     bucket, shard = coll.rs_default_caps(world, RS_LOCAL_K, RS_VOCAB)
     u = torch.from_numpy(uids[rank]).to(mesh.device)
@@ -1973,6 +2022,92 @@ def dp_rs_rank(rank, world, out_dir, seed, device, run_steps, grid):
                 "overflow": int(over), "overflow_ef": int(eover)}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
+
+
+def state_digest(tr) -> dict:
+    """sha256 of the trainer's tables and their accumulators."""
+    import hashlib
+
+    state = {"w": tr.params["w"], "v": tr.params["v"],
+             "accum_w": tr.opt_state["accum"]["w"],
+             "accum_v": tr.opt_state["accum"]["v"]}
+    return {k: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
+            for k, t in state.items()}
+
+
+def rs_repeat_step(torch, mesh, params, batches) -> dict:
+    """One coded step of dp_rs (b) run twice from the same state: a fresh
+    trainer steps the first batch, its state is copied, it steps the
+    second batch, the copy is restored and it steps the second batch
+    again.  The tables' digests after the two runs must agree: a step
+    whose gradient sums in a fixed order is reproducible bit for bit."""
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import fm
+    from lightctr_tpu_torch.models.sparse_trainer import \
+        SparseTableCTRTrainer
+    from lightctr_tpu_torch.optim.updaters import tree_map
+
+    kw = {name: k for name, k, _ in RS_RUNS}["coded_dynamic"]
+    tr = SparseTableCTRTrainer(
+        fm.params_from_numpy(params, mesh.device), fm.logits,
+        TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2),
+        sparse_tables={"w": ["fids"], "v": ["fids"]},
+        fused_fn=fm.logits_with_l2, mesh=mesh, **kw)
+    tr.health = None
+    tr.train_step(batches[0])
+    saved = tree_map(torch.clone, (tr.params, tr.opt_state))
+    digests, losses = [], []
+    for _ in range(2):
+        tr.params, tr.opt_state = tree_map(torch.clone, saved)
+        losses.append(float(tr.train_step(batches[1])))
+        digests.append(state_digest(tr))
+    return {"digests": digests, "losses": losses}
+
+
+def rs_grad_parity(np, torch, seed) -> dict:
+    """Where the card and the CPU part on dp_rs (b)'s first step: rank 0's
+    rows of the first batch through FM's loss (CTRTrainer's loss function,
+    the tables gathered whole) on the card and on the CPU from the same
+    init.  For the logits, the loss and the touched rows of the two
+    tables' gradients: how many values are not bit-identical, and the
+    largest distance in ulp; and whether the gradient's largest magnitude,
+    which a measured range follows, is the same."""
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import fm
+    from lightctr_tpu_torch.models.ctr_trainer import (
+        CTRTrainer, grads_of, leaves_requiring_grad)
+
+    batches, _ = rs_data(np, seed)
+    local = {k: v[:RS_LOCAL_ROWS] for k, v in batches[0].items()}
+    params = train_params(np, seed, RS_VOCAB)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        tr = CTRTrainer(fm.params_from_numpy(params, dev), fm.logits,
+                        TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2),
+                        fused_fn=fm.logits_with_l2, device=dev)
+        tr.health = None
+        batch = tr._put(local)
+        leaves = leaves_requiring_grad(tr.params)
+        loss = tr._make_loss_fn()(leaves, batch)
+        loss.backward()
+        grads = grads_of(leaves)
+        with torch.no_grad():
+            z = fm.logits(tr.params, batch)
+        got[dev] = {"logits": z.cpu(), "loss": loss.detach().cpu()[None],
+                    "grad_w": grads["w"].cpu(), "grad_v": grads["v"].cpu()}
+    ids = torch.from_numpy(np.unique(local["fids"]).astype(np.int64))
+    out = {}
+    for k in ("logits", "loss", "grad_w", "grad_v"):
+        a, b = got["cuda"][k], got["cpu"][k]
+        if k.startswith("grad"):
+            a, b = a.index_select(0, ids), b.index_select(0, ids)
+        out[k] = {"values": a.numel(),
+                  "differ": int((a.view(torch.int32)
+                                 != b.view(torch.int32)).sum()),
+                  "max_ulp": ulp_diff(torch, a, b)}
+    out["max_abs_grad_v_same"] = bool(
+        got["cuda"]["grad_v"].abs().max() == got["cpu"]["grad_v"].abs().max())
+    return out
 
 
 def dense64(np, vocab, dim, uids, rows):
@@ -2171,13 +2306,14 @@ def phase_dp_rs(np, torch, sk, seed) -> dict:
                     run["step_ms"]
                 run["profile_rank0"] = prof
             if name in cpu:
-                # (b)'s trajectory is reported, not held: its measured
-                # ranges follow the last ulp of the card's gradients (whose
-                # atomic sums vary from run to run), and its shard encode
-                # re-codes sums of decoded values that sit on boundaries,
-                # so a range one ulp apart flips codes by the hundred and
-                # Adagrad turns each into up to 2 lr; its exchange is held
-                # bit for bit on equal inputs instead (check_rs_exchanges)
+                # (b)'s trajectory against the CPU is reported, not held:
+                # its measured ranges follow the last ulp of the gradients,
+                # which the card's forward reduces in another order than
+                # the CPU's (rs_grad_parity), and its shard encode re-codes
+                # sums of decoded values that sit on boundaries, so a range
+                # one ulp apart flips codes by the hundred.  Its gate is
+                # the repeated step below (bit-identical on the card) and
+                # its exchange on equal inputs (check_rs_exchanges)
                 gate = name != "coded_dynamic"
                 cpu_losses = cpu[name]["losses"]
                 rtol = TRAIN_RTOL if name == "exact" else DP_CODED_RTOL
@@ -2209,6 +2345,18 @@ def phase_dp_rs(np, torch, sk, seed) -> dict:
                            touched_values=total, touched_off_tolerance=off,
                            max_abs_err_vs_cpu=max_abs)
             runs[name] = run
+        repeat = [c["repeat"] for c in card]
+        for r, rep in enumerate(repeat):
+            if rep["digests"][0] != rep["digests"][1] or \
+                    rep["digests"][0] != repeat[0]["digests"][0]:
+                raise AssertionError(
+                    f"dp_rs (b) repeated step, rank {r}: the two runs' "
+                    f"tables differ ({rep['digests']}, rank 0 "
+                    f"{repeat[0]['digests'][0]})")
+        repeat_info = {"run": "coded_dynamic", "ranks": RS_WORLD,
+                       "losses": repeat[0]["losses"],
+                       "tables_bit_identical": True}
+        grad_parity = rs_grad_parity(np, torch, seed)
         grid = check_rs_grid(np, seed, dirs["card"], card)
         exchanges = check_rs_exchanges(np, dirs)
         launches = {k: sum(card[0][n]["launches"].get(k, 0) for n in names)
@@ -2228,8 +2376,217 @@ def phase_dp_rs(np, torch, sk, seed) -> dict:
             "local_k": RS_LOCAL_K, "vocab": RS_VOCAB, "factor_dim": DIM,
             "caps": {"bucket": bucket, "shard": shard}, "runs": runs,
             "grid": grid, "exchanges_vs_cpu": exchanges,
+            "repeat_coded_step": repeat_info,
+            "b_first_step_card_vs_cpu": grad_parity,
             "seconds": {"card_world": card_s, "cpu_world": cpu_s},
             "launches_rank0": launches, "variants_rank0": variants}
+
+
+# -- phase: ingest ------------------------------------------------------------
+
+INGEST_ROWS = SPARSE_STEPS * TRAIN_BATCH    # 204,800 rows, 50 batches
+INGEST_PREFETCH = 2
+#: the optimizers (b) trains with, each from the JAX registry's names;
+#: ftrl's L1 and L2 are cut from the reference's 1.0, at which every
+#: weight of this model stays 0 for the first steps
+INGEST_OPTIMIZERS = (("ftrl", {"lambda1": 1e-3, "lambda2": 1e-3}),
+                     ("adam", {"learning_rate": 1e-2}))
+OPT_STEPS = 10
+OPT_CPU_STEPS = 2
+
+
+def ingest_files(seed, root) -> tuple:
+    """The training file (INGEST_ROWS Criteo-proxy rows) and the held-out
+    file (EVAL_ROWS rows of the same recipe, another seed), written by
+    ``data.synth.write_criteo_proxy``; the seconds the two writes took."""
+    from lightctr_tpu_torch.data import synth
+
+    t = time.perf_counter()
+    train = synth.write_criteo_proxy(os.path.join(root, "train.ffm"),
+                                     INGEST_ROWS, seed=seed + 11,
+                                     n_fields=N_FIELDS, n_cat=N_CAT,
+                                     vocab=VOCAB)
+    held = synth.write_criteo_proxy(os.path.join(root, "heldout.ffm"),
+                                    EVAL_ROWS, seed=seed + 12,
+                                    n_fields=N_FIELDS, n_cat=N_CAT,
+                                    vocab=VOCAB)
+    return train, held, time.perf_counter() - t
+
+
+def ingest_stream(path):
+    """The file's batches through the native chunk parser."""
+    from lightctr_tpu_torch.data import streaming
+
+    return streaming.iter_libffm_batches(path, TRAIN_BATCH, N_FIELDS,
+                                         feature_cnt=VOCAB, native=True)
+
+
+def ingest_fit(np, torch, sk, params, path, prefetch, max_steps=None):
+    """SparseTableCTRTrainer FM at Criteo width through ``fit_stream`` over
+    the file, the health feed off; launches counted from just before the
+    stream to just after it."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import fm
+    from lightctr_tpu_torch.models.sparse_trainer import \
+        SparseTableCTRTrainer
+
+    tr = SparseTableCTRTrainer(
+        fm.params_from_numpy(params, "cuda"), fm.logits,
+        TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2),
+        sparse_tables={"w": ["fids"], "v": ["fids"]},
+        fused_fn=fm.logits_with_l2, device="cuda")
+    tr.health = None
+    tr.telemetry = obs.MetricsRegistry()
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t = time.perf_counter()
+    losses = tr.fit_stream(ingest_stream(path), max_steps=max_steps,
+                           prefetch=prefetch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return tr, losses, wall, sk.launches(), tr.telemetry.snapshot()
+
+
+def phase_ingest(np, torch, sk, seed, repair) -> dict:
+    """FM at Criteo width trained from a libFFM file: (a) the sparse
+    trainer through ``fit_stream(..., prefetch=2)`` and again without
+    prefetch, bit-identical; (b) CTRTrainer under ftrl and adam, held to
+    the CPU; (c) the dp_rs phase's repeated coded step (``repair``)."""
+    import itertools
+    import shutil
+    import tempfile
+
+    from lightctr_tpu_torch import optim
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.data.sparse import load_libffm
+    from lightctr_tpu_torch.models import fm
+    from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        path, held_path, write_s = ingest_files(seed, root)
+        t = time.perf_counter()
+        n_batches = sum(1 for _ in ingest_stream(path))
+        parse_ms = 1e3 * (time.perf_counter() - t) / n_batches
+        if n_batches != SPARSE_STEPS:
+            raise AssertionError(f"ingest: {n_batches} batches in the file")
+        params = train_params(np, seed)
+
+        # (a) the file path, a few warm-up steps first so neither timed run
+        # pays the allocator's growth
+        ingest_fit(np, torch, sk, params, path, None, max_steps=3)
+        tr_p, l_pre, wall_pre, launch_pre, snap = ingest_fit(
+            np, torch, sk, params, path, INGEST_PREFETCH)
+        tr_s, l_sync, wall_sync, launch_sync, _ = ingest_fit(
+            np, torch, sk, params, path, None)
+        want = sparse_expected_launches(sk, SPARSE_STEPS)
+        for what, got in (("prefetch", launch_pre), ("sync", launch_sync)):
+            if got != want:
+                raise AssertionError(f"ingest (a) {what}: launches {got}, "
+                                     f"expected {want}")
+        if l_pre != l_sync:
+            raise AssertionError(f"ingest (a): prefetch losses {l_pre} are "
+                                 f"not the synchronous run's {l_sync}")
+        for k in ("w", "v"):
+            if not torch.equal(tr_p.params[k], tr_s.params[k]):
+                raise AssertionError(f"ingest (a): {k} after the prefetch "
+                                     "run differs from the synchronous run")
+        if not all(np.isfinite(l_pre)) or \
+                np.mean(l_pre[-5:]) >= np.mean(l_pre[:5]):
+            raise AssertionError(f"ingest (a): loss did not fall {l_pre}")
+        held = load_libffm(held_path, max_nnz=N_FIELDS,
+                           feature_cnt=VOCAB).batch_dict()
+        ev = tr_p.evaluate(held, batch_size=TRAIN_BATCH)
+        if not ev["auc"] > MIN_AUC:
+            raise AssertionError(f"ingest (a): held-out AUC {ev['auc']} <= "
+                                 f"{MIN_AUC}")
+        overlap = snap["gauges"].get("ingest_overlap_ratio")
+        if snap["counters"].get("ingest_prefetch_batches_total") != \
+                SPARSE_STEPS or overlap is None:
+            raise AssertionError(f"ingest (a): prefetch telemetry {snap}")
+        del tr_p, tr_s
+
+        # (b) the optimizers, on the file's first batches
+        batches = list(itertools.islice(ingest_stream(path), OPT_STEPS))
+        opt_runs = {}
+        for name, kw in INGEST_OPTIMIZERS:
+            tr = CTRTrainer(fm.params_from_numpy(params, "cuda"), fm.logits,
+                            TrainConfig(learning_rate=LR,
+                                        lambda_l2=LAMBDA_L2),
+                            fused_fn=fm.logits_with_l2,
+                            optimizer=optim.get(name, **kw), device="cuda")
+            tr.health = None
+            sk.reset_launches()
+            losses, snaps, wall, host = run_steps(
+                torch, tr, batches, snapshots=(OPT_CPU_STEPS,))
+            launches = sk.launches()
+            losses = [float(x) for x in losses]
+            if launches != dense_expected_launches(sk, OPT_STEPS):
+                raise AssertionError(f"ingest (b) {name}: launches "
+                                     f"{launches}")
+            if not all(np.isfinite(losses)) or \
+                    np.mean(losses[-3:]) >= np.mean(losses[:3]):
+                raise AssertionError(f"ingest (b) {name}: loss did not "
+                                     f"fall {losses}")
+            c_losses, c_params = cpu_rerun(
+                np, torch, CTRTrainer, params, batches[:OPT_CPU_STEPS],
+                optimizer=optim.get(name, **kw))
+            if not np.allclose(losses[:OPT_CPU_STEPS], c_losses,
+                               rtol=TRAIN_RTOL, atol=0):
+                raise AssertionError(f"ingest (b) {name}: losses card "
+                                     f"{losses[:OPT_CPU_STEPS]} vs cpu "
+                                     f"{c_losses}")
+            err = 0.0
+            for k in ("w", "v"):
+                a, b = snaps[OPT_CPU_STEPS][k].cpu(), c_params[k]
+                if not torch.allclose(a, b, rtol=TRAIN_RTOL,
+                                      atol=TRAIN_ATOL):
+                    raise AssertionError(
+                        f"ingest (b) {name}: {k} after {OPT_CPU_STEPS} steps "
+                        f"differs card vs cpu, max abs "
+                        f"{float((a - b).abs().max())}")
+                err = max(err, float((a - b).abs().max()))
+            opt_runs[name] = {
+                "kwargs": kw, "steps": OPT_STEPS, "launches": launches,
+                "losses": losses, "cpu_steps": OPT_CPU_STEPS,
+                "loss_rel_err_vs_cpu": max(abs(a - b) / abs(b) for a, b in
+                                           zip(losses, c_losses)),
+                "max_abs_err_vs_cpu": err,
+                "step_ms": 1e3 * wall / (OPT_STEPS - WARMUP_STEPS),
+                "host_launch_ms": 1e3 * host}
+            del tr, snaps, c_params
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if not repair.get("tables_bit_identical"):
+        raise AssertionError(f"ingest (c): {repair}")
+    return {
+        "phase": "ingest", "model": "fm", "fields": N_FIELDS,
+        "vocab": VOCAB, "factor_dim": DIM, "batch": TRAIN_BATCH,
+        "rows": INGEST_ROWS, "heldout_rows": EVAL_ROWS,
+        "file": {"write_s": write_s, "batches": n_batches,
+                 "parse_ms_per_batch": parse_ms, "native": True},
+        "stream": {
+            "prefetch": INGEST_PREFETCH, "steps": SPARSE_STEPS,
+            "launches": launch_pre, "launches_sync": launch_sync,
+            "losses_bit_identical": True, "tables_bit_identical": True,
+            "loss_first5": l_pre[:5], "loss_last5": l_pre[-5:],
+            "heldout": ev,
+            "examples_per_s_prefetch": SPARSE_STEPS * TRAIN_BATCH / wall_pre,
+            "examples_per_s_sync": SPARSE_STEPS * TRAIN_BATCH / wall_sync,
+            "step_ms_prefetch": 1e3 * wall_pre / SPARSE_STEPS,
+            "step_ms_sync": 1e3 * wall_sync / SPARSE_STEPS,
+            "ingest_overlap_ratio": overlap,
+            "prefetch_ready": snap["counters"].get(
+                "ingest_prefetch_ready_total", 0),
+            "timing_note": "fit_stream reads each step's loss (a sync a "
+                           "step), health feed off, whole runs"},
+        "optimizers": opt_runs,
+        "repair": repair,
+        "launches": {k: launch_pre[k] + launch_sync[k] + sum(
+            r["launches"][k] for r in opt_runs.values()) for k in sk.KERNELS},
+    }
 
 
 # -- phase: attention ---------------------------------------------------------
@@ -2747,9 +3104,8 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
     head = per_d[0]
     out.append(kernel_row(
         sk, "merge_rows", launches=launches["merge_rows"],
-        launches_note="0 on the dp path since merge_apply fuses the merge; "
-                      "the bench phase and the collectives' sparse "
-                      "all-reduce launch it",
+        launches_note="dp phase, rank 0 over its three runs (the "
+                      "gather's backward, w and v a step)",
         max_abs_err=kern["merge_rows"]["max_abs_err"],
         shape={"m": m, "d": DIM, "nseg": m, "distinct": real},
         ms=head["ms"], plain_ms=head["plain_ms"],
@@ -2851,6 +3207,42 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
                    ids64, sorted=True, return_inverse=True), reps=50),
                "bound_ms": bound_ms(20 * ids64.numel())}
     return out, {"int64": dedup64}, {"merge_mode": merge_mode}
+
+
+def lookup_timing(np, torch, sk, seed) -> list:
+    """merge_rows as the backward of ``embed.table.lookup`` on the training
+    paths, beside ``index_add_`` into zeros (``index_select``'s own
+    backward): one batch's 159,744 slot gradients summed into the whole
+    2^20-row table (CTRTrainer) and into the sparse trainer's 159,744
+    deduped rows, at d = 32 (v) and d = 1 (w)."""
+    rng = np.random.default_rng(seed + 13)
+    ids = torch.from_numpy(criteo_fids(np, rng, TRAIN_BATCH).reshape(-1)) \
+        .cuda()
+    _, inv, _ = sk.dedup_ids(ids)
+    m = ids.numel()
+    gen = torch.Generator(device="cuda").manual_seed(53)
+    out = []
+    for trainer, seg, nseg in (("CTRTrainer", ids.to(torch.int32), VOCAB),
+                               ("SparseTableCTRTrainer", inv, m)):
+        seg64 = seg.to(torch.int64)
+        for d in (DIM, 1):
+            grad = torch.randn((m, d), generator=gen, device="cuda")
+            nbytes = m * d * 4 + m * 4 + nseg * d * 4
+            out.append({
+                "trainer": trainer, "m": m, "nseg": nseg, "d": d,
+                "workspace_bytes": sk.load("merge_rows")
+                .merge_rows_workspace_bytes(m, nseg, d),
+                "ms": graph_ms(torch, lambda: sk.merge_rows(grad, seg,
+                                                            nseg)),
+                "plain_ms": call_ms(torch, lambda: sk.merge_rows_plain(
+                    grad, seg, nseg), reps=3),
+                "library_ms": graph_ms(torch, lambda: torch.zeros(
+                    (nseg, d), device="cuda").index_add_(0, seg64, grad)),
+                "library_call": "torch.zeros(...).index_add_, the backward "
+                                "of index_select",
+                "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+                "bytes": nbytes})
+    return out
 
 
 def rs_timing(np, torch, sk, seed) -> dict:
@@ -3034,6 +3426,9 @@ def main(argv=None) -> int:
     emit(dp_info | {"nvidia_smi": smi})
     rs_info = phase_dp_rs(np, torch, sk, args.seed)
     emit(rs_info | {"nvidia_smi": smi})
+    ingest_info = phase_ingest(np, torch, sk, args.seed,
+                               rs_info["repeat_coded_step"])
+    emit(ingest_info | {"nvidia_smi": smi})
     attn_info = phase_attention(torch, sk, fl, args.seed)
     emit(attn_info | {"nvidia_smi": smi})
     bench_info = phase_bench(torch, sk)
@@ -3063,20 +3458,26 @@ def main(argv=None) -> int:
         "flash_attention": attn_info["launches"]["flash_attention"]}, kern,
         attn_info["flash_route"])
     rs_extra = rs_timing(np, torch, sk, args.seed)
+    train_merge = lookup_timing(np, torch, sk, args.seed)
     for row in rows:
         name = row["name"]
         row["launches_bench"] = bench_info["launches"].get(name, 0)
         row["launches_dp_rs"] = rs_info["launches_rank0"].get(name, 0)
+        row["launches_ingest"] = ingest_info["launches"].get(name, 0)
         if name in rs_extra:
             row["dp_rs"] = rs_extra[name]
         if name == "merge_rows":
-            # its main path since the reduce-scatter: the owner's merge
+            # its main path since it became the gather's backward: every
+            # training path, two launches a step (w and v)
             row.update(launches_dp=row["launches"],
-                       launches=row["launches_dp_rs"],
-                       launches_note="dp_rs phase, rank 0 over its four "
-                                     "runs (the reduce-scatter's owner "
-                                     "merge); 0 in dp, where merge_apply "
-                                     "fuses the merge")
+                       launches=train_info["train_launches"]["merge_rows"],
+                       launches_note="train phase (50 sparse and 10 fused "
+                                     "steps, w and v a step: the backward "
+                                     "of embed.table.lookup); launches_dp "
+                                     "and launches_dp_rs count rank 0's "
+                                     "there, launches_ingest the ingest "
+                                     "phase's",
+                       per_shape_train=train_merge)
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

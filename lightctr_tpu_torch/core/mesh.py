@@ -128,10 +128,11 @@ def local_mesh(n_data: Optional[int] = None, device="cuda") -> Mesh:
     return make_mesh(MeshSpec(data=n), device=device)
 
 
-def shard_batch(mesh: Mesh, batch) -> dict:
+def shard_batch(mesh: Mesh, batch, non_blocking: bool = False) -> dict:
     """This rank's rows of a host batch, on its device: rows
     ``[r*B/W, (r+1)*B/W)`` of every field (``P("data")``).  Each field's
-    leading size must divide by the world."""
+    leading size must divide by the world.  ``non_blocking`` copies from
+    pinned host memory asynchronously (the prefetch stage's staging)."""
     mesh.require_axis("data", "shard_batch")
     w, r = mesh.size, mesh.rank
     out = {}
@@ -141,7 +142,8 @@ def shard_batch(mesh: Mesh, batch) -> dict:
         if n % w:
             raise ValueError(f"batch field {k!r} has {n} rows, not a multiple "
                              f"of the {w}-rank data axis")
-        out[k] = t[r * (n // w):(r + 1) * (n // w)].to(mesh.device)
+        out[k] = t[r * (n // w):(r + 1) * (n // w)].to(
+            mesh.device, non_blocking=non_blocking)
     return out
 
 

@@ -25,10 +25,14 @@ Differences from the JAX trainer, by design:
     the mesh (the plain mean, or the quantile-coded ring with
     ``compress_bits``).  Evaluation and prediction run the whole input on
     each rank (the params are replicated).
+  - ``fit(prefetch=)`` and ``fit_stream(prefetch=)`` stage each batch on
+    the prefetch worker: on a card, a pinned host copy and an asynchronous
+    copy on a side stream, whose event the step waits on before it reads
+    the batch (:class:`StagedBatch`).  Prefetch changes when a batch is
+    produced, never what is trained.
   - ``param_shardings``, ``zero_sharded``, the quality and resources
-    planes (``quality_bins``, ``resources``) and ``fit(prefetch=)`` or a
-    shard-cache input are not ported yet: passing one raises
-    ``ValueError``.
+    planes (``quality_bins``, ``resources``) and a shard-cache input are
+    not ported yet: passing one raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from lightctr_tpu_torch import optim as optim_lib
 from lightctr_tpu_torch.core.config import TrainConfig
 from lightctr_tpu_torch.core.device import resolve_device
 from lightctr_tpu_torch.core.mesh import Mesh, shard_batch
+from lightctr_tpu_torch.data import ingest as ingest_mod
 from lightctr_tpu_torch.data.batching import minibatches
 from lightctr_tpu_torch.dist import collectives
 from lightctr_tpu_torch.models._common import tree_copy
@@ -89,6 +94,15 @@ def sum_squares(tree, device=None) -> torch.Tensor:
     if not leaves:
         return torch.zeros((), device=device)
     return sum(torch.sum(g * g) for g in leaves)
+
+
+class StagedBatch(NamedTuple):
+    """A batch the prefetch worker put on the trainer's device: the
+    tensors, and on a card the CUDA event recorded after their copies on
+    the worker's side stream (``None`` on the CPU)."""
+
+    batch: Dict[str, torch.Tensor]
+    ready: Optional[Any]
 
 
 class CompressedRingState(NamedTuple):
@@ -249,6 +263,8 @@ class CTRTrainer:
         # rides the per-step drain and marks phases
         self.stepwatch = stepwatch_mod.maybe_from_env(self.health)
         self._steps_seen = 0
+        # the prefetch worker's copy stream on a card, made at first use
+        self._stage_stream = None
         self.opt_state = self._init_opt_state(self.params)
         self._step = self._build_step()
 
@@ -414,41 +430,94 @@ class CTRTrainer:
                     dtype=torch.float32, device=self.device))
         return self.tx.init(params)
 
-    def _put(self, batch) -> Dict[str, torch.Tensor]:
+    def _put(self, batch, non_blocking: bool = False
+             ) -> Dict[str, torch.Tensor]:
         """A training batch on this trainer's device: with a mesh, this
         rank's rows of it."""
         if self.mesh is not None:
-            return shard_batch(self.mesh, batch)
-        return self._put_whole(batch)
+            return shard_batch(self.mesh, batch, non_blocking=non_blocking)
+        return self._put_whole(batch, non_blocking=non_blocking)
 
-    def _put_whole(self, batch) -> Dict[str, torch.Tensor]:
-        return {k: torch.as_tensor(v).to(self.device)
+    def _put_whole(self, batch, non_blocking: bool = False
+                   ) -> Dict[str, torch.Tensor]:
+        return {k: torch.as_tensor(v).to(self.device,
+                                         non_blocking=non_blocking)
                 for k, v in batch.items()}
 
-    def train_step(self, batch) -> torch.Tensor:
+    def _prefetch_prepare(self) -> Optional[Callable]:
+        """The per-batch transform a prefetch stage runs OFF the step's
+        critical path: :meth:`_stage` for this trainer.  Subclasses whose
+        step plans against the HOST batch (the sparse trainer's exchange
+        planner) return None: prefetch then overlaps only the parse, and
+        the step keeps its own ``_put``."""
+        return self._stage
+
+    def _stage(self, batch) -> StagedBatch:
+        """:meth:`_put` on the prefetch worker's thread.  On a card the
+        worker copies the batch into pinned host memory and from there to
+        the device on its own stream (a copy from pageable memory would
+        block the worker and hide nothing), and records an event after the
+        copies; :meth:`_claim` makes the step's stream wait on it."""
+        if self.device.type != "cuda":
+            return StagedBatch(self._put(batch), None)
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(device=self.device)
+        with torch.cuda.stream(self._stage_stream):
+            pinned = {k: torch.as_tensor(v).pin_memory()
+                      for k, v in batch.items()}
+            dev = self._put(pinned, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._stage_stream)
+        return StagedBatch(dev, ready)
+
+    def _claim(self, batch) -> Dict[str, torch.Tensor]:
+        """A prepared batch for the step: a :class:`StagedBatch`'s tensors
+        after the step's stream waits on their copies, each marked as used
+        on that stream (the caching allocator then keeps its memory from
+        the worker's next batch until the step's kernels are done with
+        it); any other dict as it is."""
+        if not isinstance(batch, StagedBatch):
+            return batch
+        if batch.ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(batch.ready)
+            for t in batch.batch.values():
+                t.record_stream(stream)
+        return batch.batch
+
+    def train_step(self, batch, *, device_ready: bool = False
+                   ) -> torch.Tensor:
         """One optimizer step; returns the 0-d loss tensor on the device
-        (reading it synchronises, as reading the JAX device scalar does)."""
+        (reading it synchronises, as reading the JAX device scalar does).
+        ``device_ready=True`` says the batch already went through the
+        prefetch stage's :meth:`_stage` (or :meth:`_put`), so the step
+        skips the transfer."""
         if not obs.enabled():
+            dev_batch = (self._claim(batch) if device_ready
+                         else self._put(batch))
             self.params, self.opt_state, loss, _ = self._step(
-                self.params, self.opt_state, self._put(batch))
+                self.params, self.opt_state, dev_batch)
             return loss
         if trace_mod.enabled():
             # separate path so the default (tracing-off) step pays exactly
             # one extra branch
-            return self._train_step_traced(batch)
+            return self._train_step_traced(batch, device_ready=device_ready)
         t0 = time.perf_counter()
         sw = self.stepwatch
         if sw is not None:
             sw.mark("input")
-        dev_batch = self._put(batch)
+        dev_batch = self._claim(batch) if device_ready else self._put(batch)
         if sw is not None:
             sw.mark("exec")
         self.params, self.opt_state, loss, health = self._step(
             self.params, self.opt_state, dev_batch)
-        self._record_step(time.perf_counter() - t0, batch, health=health)
+        self._record_step(time.perf_counter() - t0,
+                          dev_batch if device_ready else batch,
+                          health=health)
         return loss
 
-    def _train_step_traced(self, batch) -> torch.Tensor:
+    def _train_step_traced(self, batch, *, device_ready: bool = False
+                           ) -> torch.Tensor:
         """Phase-spanned step: ``annotate`` puts the same names on the
         PyTorch profiler's timeline and the wire trace (obs/trace.py)."""
         t0 = time.perf_counter()
@@ -457,13 +526,16 @@ class CTRTrainer:
             with annotate("trainer/input"):
                 if sw is not None:
                     sw.mark("input")
-                dev_batch = self._put(batch)
+                dev_batch = (self._claim(batch) if device_ready
+                             else self._put(batch))
             with annotate("trainer/exec"):
                 if sw is not None:
                     sw.mark("exec")
                 self.params, self.opt_state, loss, health = self._step(
                     self.params, self.opt_state, dev_batch)
-        self._record_step(time.perf_counter() - t0, batch, health=health)
+        self._record_step(time.perf_counter() - t0,
+                          dev_batch if device_ready else batch,
+                          health=health)
         return loss
 
     # -- telemetry ------------------------------------------------------
@@ -472,8 +544,9 @@ class CTRTrainer:
         """Per-step metrics + one JSONL ``step`` event + the health feed.
         ``trainer_step_seconds`` measures the host's launch of the step on
         the card (the caller's loss read is what synchronises).  ``batch``
-        is the caller's host batch, so the health signals read ids without
-        a device round trip."""
+        is the caller's host batch (the device batch after a prefetch
+        stage put it there), so the health signals read ids without a
+        device round trip where they can."""
         reg = self.telemetry
         self._steps_seen += 1
         n = int(len(batch["labels"])) if "labels" in batch else 0
@@ -548,6 +621,45 @@ class CTRTrainer:
         trainer reports per-table touched-uid counts here)."""
         return {}
 
+    def _prefetched(self, stream, prefetch: int):
+        """``stream`` behind a prefetch stage of ``depth=prefetch``, and
+        whether its batches arrive staged on the device."""
+        prep = self._prefetch_prepare()
+        return ingest_mod.prefetch_batches(
+            stream, depth=prefetch, prepare=prep,
+            registry=self.telemetry), prep is not None
+
+    def fit_stream(
+        self,
+        stream,
+        max_steps: Optional[int] = None,
+        prefetch: Optional[int] = None,
+    ) -> list:
+        """Drain a stream of padded batch dicts (the streaming reader, …)
+        through :meth:`train_step`.  ``prefetch=K`` interposes
+        :func:`~lightctr_tpu_torch.data.ingest.prefetch_batches` with
+        ``depth=K``: a worker thread keeps K parsed and staged batches in
+        flight behind the step (device transfer included whenever
+        :meth:`_prefetch_prepare` provides one).  Returns the per-step
+        losses."""
+        staged = False
+        if prefetch:
+            stream, staged = self._prefetched(stream, prefetch)
+        losses = []
+        try:
+            for batch in stream:
+                losses.append(float(self.train_step(batch,
+                                                    device_ready=staged)))
+                if max_steps is not None and len(losses) >= max_steps:
+                    break
+        finally:
+            if hasattr(stream, "close"):
+                stream.close()  # stop the prefetch worker promptly
+        self.flush_health()
+        if self.stepwatch is not None:
+            self.stepwatch.pause()
+        return losses
+
     def fit(
         self,
         arrays: Dict[str, np.ndarray],
@@ -558,7 +670,10 @@ class CTRTrainer:
         verbose: bool = False,
         prefetch: Optional[int] = None,
     ) -> Dict[str, list]:
-        not_yet_ported(f"{type(self).__name__}.fit", prefetch=prefetch)
+        """Train ``epochs`` epochs over ``arrays``: full-batch steps
+        (``batch_size=None``) or shuffled minibatches, which
+        ``prefetch=K`` stages K ahead on a worker thread (as in
+        :meth:`fit_stream`)."""
         if isinstance(arrays, (str, os.PathLike)):
             raise ValueError(f"{type(self).__name__}.fit: a shard-cache "
                              "path is not yet ported; pass an array dict")
@@ -578,9 +693,13 @@ class CTRTrainer:
                     self.params, self.opt_state, full_batch)
             else:
                 loss = None
-                for batch in minibatches(arrays, batch_size,
-                                         seed=self.cfg.seed + epoch):
-                    loss = self.train_step(batch)
+                inner = minibatches(arrays, batch_size,
+                                    seed=self.cfg.seed + epoch)
+                staged = False
+                if prefetch:
+                    inner, staged = self._prefetched(inner, prefetch)
+                for batch in inner:
+                    loss = self.train_step(batch, device_ready=staged)
             history["loss"].append(float(loss))
             ev = None
             if (eval_every and eval_arrays is not None

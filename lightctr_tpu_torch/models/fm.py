@@ -8,6 +8,10 @@ the same batched sumVX formulation of ``train_fm_algo.cpp:63-88``:
     sumvx   = sum_p vx                           # [B, k]
     pred    = W[fids]·vals + 0.5 * (|sumvx|^2 - sum_p |vx|^2)
 
+Every gather of a table goes through ``embed.table.lookup``, whose
+gradient sums duplicate ids in slot order (``merge_rows`` on the card), so
+a step's gradient is the same from run to run and in XLA's order.
+
 Parameters are a plain dict ``{"w": [F], "v": [F, k]}`` of tensors;
 :func:`params_from_numpy` carries the JAX package's params (as numpy) in,
 and :func:`opt_state_from_numpy` its trainers' optimizer state.
@@ -21,6 +25,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from lightctr_tpu_torch.embed.table import lookup
 from lightctr_tpu_torch.optim.updaters import AdagradState
 
 
@@ -88,11 +93,9 @@ def logits_with_l2(params: Dict[str, torch.Tensor],
     mask = batch["mask"]
     vals = batch["vals"] * mask                                  # [B, P]
     fids = batch["fids"]
-    flat = fids.reshape(-1)
-    w = params["w"].index_select(0, flat).reshape(fids.shape)   # [B, P]
+    w = lookup(params["w"], fids)                                # [B, P]
     linear = torch.sum(w * vals, dim=-1)                         # [B]
-    v = params["v"].index_select(0, flat).reshape(
-        fids.shape + params["v"].shape[1:])                      # [B, P, k]
+    v = lookup(params["v"], fids)                                # [B, P, k]
     vx = v * vals[..., None]                                     # [B, P, k]
     sumvx = torch.sum(vx, dim=1)                                 # [B, k]
     second = 0.5 * (
@@ -108,11 +111,8 @@ def l2_penalty(params: Dict[str, torch.Tensor],
     ``L2Reg_ratio * W[fid]`` per occurrence (train_fm_algo.cpp:108-115)
     rather than decaying the whole table."""
     mask = batch["mask"]
-    fids = batch["fids"]
-    flat = fids.reshape(-1)
-    w = params["w"].index_select(0, flat).reshape(fids.shape)
-    v = params["v"].index_select(0, flat).reshape(
-        fids.shape + params["v"].shape[1:])
+    w = lookup(params["w"], batch["fids"])
+    v = lookup(params["v"], batch["fids"])
     return 0.5 * (torch.sum(w * w * mask)
                   + torch.sum(v * v * mask[..., None]))
 

@@ -628,15 +628,22 @@ class SparseTableCTRTrainer(CTRTrainer):
         finally:
             self._step = primary
 
-    def train_step(self, batch) -> torch.Tensor:
+    def _prefetch_prepare(self):
+        # the exchange planner (_exchange_plan / _rs_batch_fits) and the
+        # health feed read HOST ids before the step, so a prefetch stage
+        # hands this trainer host batches: it overlaps the parse only, and
+        # the step keeps its own _put
+        return None
+
+    def train_step(self, batch, **kw) -> torch.Tensor:
         # decided from the caller's global batch, before this rank takes
         # its rows: a rank that decided from its own rows could take the
         # other exchange than its peers and wait on them forever
         self._last_step_fallback = self._needs_fallback(batch)
         if not self._last_step_fallback:
-            return super().train_step(batch)
+            return super().train_step(batch, **kw)
         with self._fallback_step():
-            return super().train_step(batch)
+            return super().train_step(batch, **kw)
 
     def fit(self, arrays, epochs=None, batch_size=None, eval_arrays=None,
             eval_every=0, verbose=False, prefetch=None):

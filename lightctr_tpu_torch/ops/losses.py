@@ -7,7 +7,7 @@ separate gradient methods exist.
 
 All losses return the **sum** over elements by default (the reference
 accumulates sums, e.g. loss.h:45-52), with ``mean`` and ``none``
-reductions.  Only the binary losses the CTR trainers run are here so far.
+reductions.
 """
 
 from __future__ import annotations
@@ -52,9 +52,20 @@ def bce_on_probs(probs: torch.Tensor, labels: torch.Tensor,
                      + (1.0 - labels) * torch.log1p(-p)), reduction)
 
 
+def softmax_cross_entropy(logits: torch.Tensor, onehot: torch.Tensor,
+                          temperature: float = 1.0,
+                          reduction: str = "sum") -> torch.Tensor:
+    """CE for one-hot targets (Logistic_Softmax, loss.h:65-86).  The
+    gradient w.r.t. the logits is softmax(z) - onehot (the reference writes
+    its negative: its backward convention is "direction of increase")."""
+    logp = torch.log_softmax(logits / temperature, dim=-1)
+    return _reduce(-torch.sum(onehot * logp, dim=-1), reduction)
+
+
 LOSSES = {
     "square": square_loss,
     "logistic": logistic_loss,
+    "softmax_ce": softmax_cross_entropy,
 }
 
 

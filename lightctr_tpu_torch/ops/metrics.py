@@ -1,8 +1,8 @@
-"""Evaluation metrics on tensors: AUC, accuracy, logloss.
+"""Evaluation metrics on tensors: AUC, accuracy, precision/recall/F1,
+logloss.
 
 The port's counterpart of ``lightctr_tpu/ops/metrics.py`` (a redesign of
-``LightCTR/util/evaluator.h``), with the functions ``CTRTrainer.evaluate``
-needs.  The AUC is the reference's histogram formulation: scores bucketed
+``LightCTR/util/evaluator.h``).  The AUC is the reference's histogram formulation: scores bucketed
 into ``num_bins`` bins on the device, then a trapezoid sweep from the top
 bin down on the host in float64 (evaluator.h:61-94):
 
@@ -131,6 +131,22 @@ def auc_exact(scores, labels) -> float:
 
 def accuracy(pred_labels: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     return torch.mean((pred_labels == labels).to(torch.float32))
+
+
+def precision_recall_f1(pred_labels: torch.Tensor, labels: torch.Tensor):
+    """Binary P/R/F1 (evaluator.h:20-49 Precision/Recall/F1Score), each a
+    0-d float32 tensor; 0 where its denominator is 0."""
+    pred = pred_labels.to(torch.bool)
+    lab = labels.to(torch.bool)
+    tp = torch.sum(pred & lab).to(torch.float32)
+    fp = torch.sum(pred & ~lab).to(torch.float32)
+    fn = torch.sum(~pred & lab).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=tp.device)
+    precision = torch.where(tp + fp > 0, tp / (tp + fp), zero)
+    recall = torch.where(tp + fn > 0, tp / (tp + fn), zero)
+    f1 = torch.where(precision + recall > 0,
+                     2 * precision * recall / (precision + recall), zero)
+    return precision, recall, f1
 
 
 def logloss(probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:

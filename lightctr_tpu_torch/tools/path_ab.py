@@ -1,5 +1,5 @@
 """A/B of two checkouts' host-bound paths on one card: the ring attention
-call and the data-parallel steps.
+call, the data-parallel steps and the one-card training steps.
 
 Each root named on the command line is a checkout of the repo (the tree
 under test, or a parent unpacked with ``git archive``).  For each, in the
@@ -13,7 +13,11 @@ that checkout's code at ``chip_smoke.py``'s shapes:
   ``dp_rank``    FM at Criteo width trained over 2 gloo ranks on the card,
                  its three runs (exact, 8-bit dynamic range, 8-bit with
                  EF) at the smoke's steps; each run's steady step on each
-                 rank (steps 4 onward).
+                 rank (steps 4 onward);
+  ``train``      the train phase's two trainers on one card, health feed
+                 off, 20 steps each: ``SparseTableCTRTrainer`` and
+                 ``CTRTrainer(fused_adagrad=True)``; the steady step (steps
+                 4 onward, synchronised) and its median host launch time.
 
 Step times on this path move between hosts by more than the change under
 test, so compare roots only within one run, in an order such as parent,
@@ -64,9 +68,38 @@ try:
             dp[name].append(1e3 * rec["steady_wall_s"] / rec["steady_steps"])
 finally:
     shutil.rmtree(tmp, ignore_errors=True)
+import numpy as np
+from lightctr_tpu_torch.core.config import TrainConfig
+from lightctr_tpu_torch.models import fm
+from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
+from lightctr_tpu_torch.models.sparse_trainer import SparseTableCTRTrainer
+rng = np.random.default_rng(seed + 2)
+n = 20
+data = cs.criteo_rows(np, rng, n * cs.TRAIN_BATCH)
+batches = [{k: v[i * cs.TRAIN_BATCH:(i + 1) * cs.TRAIN_BATCH]
+            for k, v in data.items()} for i in range(n)]
+params = cs.train_params(np, seed)
+cfg = TrainConfig(learning_rate=cs.LR, lambda_l2=cs.LAMBDA_L2)
+train = {}
+for name in ("sparse", "fused"):
+    p = fm.params_from_numpy(params, "cuda")
+    if name == "sparse":
+        tr = SparseTableCTRTrainer(p, fm.logits, cfg,
+                                   sparse_tables={"w": ["fids"],
+                                                  "v": ["fids"]},
+                                   fused_fn=fm.logits_with_l2, device="cuda")
+    else:
+        tr = CTRTrainer(p, fm.logits, cfg, fused_fn=fm.logits_with_l2,
+                        fused_adagrad=True, device="cuda")
+    tr.health = None
+    _, _, wall, host = cs.run_steps(torch, tr, batches)
+    train[name] = {"step_ms": 1e3 * wall / (n - cs.WARMUP_STEPS),
+                   "host_launch_ms": 1e3 * host}
+    del tr, p
+    torch.cuda.empty_cache()
 print(json.dumps({"root": root, "ring_call_ms": ring,
                   "ring_world_seconds": ring_s, "dp_steps": steps,
-                  "dp_step_ms": dp}), flush=True)
+                  "dp_step_ms": dp, "train": train}), flush=True)
 """
 
 
@@ -82,7 +115,12 @@ def summarize(recs: list) -> dict:
             "dp_step_ms_rank0": {
                 name: statistics.median(r["dp_step_ms"][name][0]
                                         for r in recs)
-                for name in recs[0]["dp_step_ms"]}}
+                for name in recs[0]["dp_step_ms"]},
+            "train": {
+                name: {k: statistics.median(r["train"][name][k]
+                                            for r in recs)
+                       for k in ("step_ms", "host_launch_ms")}
+                for name in recs[0]["train"]}}
 
 
 def main(argv=None) -> int:

@@ -945,3 +945,95 @@ def test_trainers_on_card_match_cpu(dev, fused):
                                    rtol=1e-5, atol=1e-6)
     ev = card.evaluate(b, batch_size=40)
     assert set(ev) == {"logloss", "accuracy", "auc"}
+
+
+@pytest.mark.parametrize("d", [1, 32])
+def test_lookup_backward_is_merge_rows_bit_for_bit(dev, d):
+    """The gather's backward on the card launches merge_rows once and
+    equals ``merge_rows_plain`` (slot-order sums) and the CPU's
+    ``index_add_`` bit for bit, and itself across two calls; the ids carry
+    the Criteo layout's long runs (a numeric field's id in every row)."""
+    from lightctr_tpu_torch.embed.table import lookup
+
+    rng = np.random.default_rng(d)
+    rows = 1 << 16
+    shape = (rows,) if d == 1 else (rows, d)
+    table = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    ids = (rng.random((2048, 39)) ** 4 * rows).astype(np.int32)
+    ids[:, 26:] = np.arange(26, 39)
+    grad = torch.from_numpy(rng.normal(
+        size=ids.shape + shape[1:]).astype(np.float32))
+    got = []
+    for _ in range(2):
+        t = table.to(dev).requires_grad_()
+        before = sk.launches("merge_rows")
+        lookup(t, torch.from_numpy(ids).to(dev)).backward(grad.to(dev))
+        assert sk.launches("merge_rows") == before + 1
+        got.append(t.grad)
+    assert torch.equal(got[0], got[1])
+    m = ids.size
+    plain = sk.merge_rows_plain(grad.to(dev).reshape(m, -1),
+                                torch.from_numpy(ids).to(dev).reshape(-1),
+                                rows).reshape(shape)
+    assert torch.equal(got[0], plain)
+    cpu = table.clone().requires_grad_()
+    cpu.index_select(0, torch.from_numpy(ids).reshape(-1).long()) \
+        .reshape(grad.shape).backward(grad)
+    assert torch.equal(got[0].cpu(), cpu.grad)
+
+
+def test_coded_hybrid_step_twice_is_bit_identical(dev, tmp_path):
+    """One coded hybrid step (8 bits, measured range) over 2 gloo ranks
+    on the card, run twice from the same state: every rank's tables and
+    accumulators bit-identical across the two runs and across the ranks
+    (the measured range follows the gradients, which now sum in slot
+    order)."""
+    import torch_dp_worlds
+
+    from lightctr_tpu_torch.core.mesh import spawn_world
+
+    spawn_world(torch_dp_worlds.repeat_step_rank, 2, "gloo", deadline_s=300,
+                args=(str(tmp_path),))
+    runs = [torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    for rank_runs in runs:
+        for k, v in rank_runs[0].items():
+            np.testing.assert_array_equal(rank_runs[1][k], v, err_msg=k)
+            np.testing.assert_array_equal(runs[0][0][k], v, err_msg=k)
+
+
+def test_prefetch_with_a_cuda_prepare_matches_the_synchronous_batches(dev):
+    """``prefetch_batches`` with the dense trainer's staging (pinned host
+    copies and a side stream) delivers, once claimed on the step's
+    stream, tensors equal to the synchronous ``_put``; ``fit_stream``
+    with prefetch trains bit-identically to the run without."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.data import ingest
+
+    p = fm.init(torch.Generator().manual_seed(0), 512, 8)
+    cfg = TrainConfig(learning_rate=0.1, lambda_l2=0.001)
+
+    def make():
+        tr = CTRTrainer(p, fm.logits, cfg, fused_fn=fm.logits_with_l2,
+                        device=dev)
+        tr.health = None
+        tr.telemetry = obs.MetricsRegistry()
+        return tr
+
+    tr = make()
+    batches = [fm_batch(s, n=4096, nnz=39) for s in range(8)]
+    staged = list(ingest.prefetch_batches(iter(batches), depth=2,
+                                          prepare=tr._stage,
+                                          registry=obs.MetricsRegistry()))
+    for b, s in zip(batches, staged):
+        assert s.ready is not None
+        got = tr._claim(s)
+        want = tr._put(b)
+        for k in want:
+            assert got[k].is_cuda and torch.equal(got[k], want[k]), k
+    a, b = make(), make()
+    la = a.fit_stream(iter(batches))
+    lb = b.fit_stream(iter(batches), prefetch=2)
+    assert la == lb
+    for k in ("w", "v"):
+        assert torch.equal(a.params[k], b.params[k])

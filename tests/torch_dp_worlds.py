@@ -536,3 +536,32 @@ def attention_rank(rank, world, out_dir):
     except ValueError as e:
         out["data_axis"] = str(e)
     _save(out_dir, rank, out)
+
+
+def repeat_step_rank(rank, world, out_dir):
+    """One coded step (8 bits, measured range) of the hybrid trainer run
+    twice from the same state on this rank's card: a fresh trainer steps
+    one batch, its state is copied, it steps a second batch, the copy is
+    restored and it steps the second batch again.  Saves the tables and
+    accumulators after each of the two runs."""
+    from lightctr_tpu_torch.optim.updaters import tree_map
+
+    mesh = make_mesh(MeshSpec(data=world))
+    torch.cuda.set_device(mesh.device)
+    tr = SparseTableCTRTrainer(
+        tfm.params_from_numpy(fm_params(4096, 32), mesh.device), tfm.logits,
+        TrainConfig(**CFG), sparse_tables=TABLES,
+        fused_fn=tfm.logits_with_l2, mesh=mesh, compress_bits=8,
+        compress_range="dynamic")
+    tr.health = None
+    tr.train_step(fm_batch(0, n=128, nnz=39))
+    saved = tree_map(torch.clone, (tr.params, tr.opt_state))
+    runs = []
+    for _ in range(2):
+        tr.params, tr.opt_state = tree_map(torch.clone, saved)
+        tr.train_step(fm_batch(1, n=128, nnz=39))
+        runs.append({k: _np(t) for k, t in (
+            ("w", tr.params["w"]), ("v", tr.params["v"]),
+            ("accum_w", tr.opt_state["accum"]["w"]),
+            ("accum_v", tr.opt_state["accum"]["v"]))})
+    _save(out_dir, rank, runs)
