@@ -1,9 +1,15 @@
-"""Shared trainer plumbing, the port's counterpart of
-``lightctr_tpu/models/_common.py``."""
+"""Shared model and trainer plumbing, the port's counterpart of
+``lightctr_tpu/models/_common.py``: carrying the JAX package's parameter
+trees and optimizer state (as numpy) across, and copying trees."""
 
 from __future__ import annotations
 
-from lightctr_tpu_torch.optim.updaters import tree_map
+from typing import Dict
+
+import numpy as np
+import torch
+
+from lightctr_tpu_torch.optim.updaters import AdagradState, tree_map
 
 
 def tree_copy(tree):
@@ -11,3 +17,46 @@ def tree_copy(tree):
     update their params and optimizer state in place, so a tree the caller
     keeps (an init tree that seeds several trainers) is copied first."""
     return tree_map(lambda x: x.detach().clone(), tree)
+
+
+def _tensor(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+
+def params_from_numpy(np_params: Dict, device) -> Dict:
+    """A (nested) dict of numpy arrays — e.g. the JAX package's params
+    through ``np.asarray``: FM's ``{"w", "v"}``, or the Wide&Deep family's
+    ``{"w", "embed", "fc1": {"w", "b"}, ...}`` — as tensors on ``device``,
+    the same tree."""
+    return {k: params_from_numpy(v, device) if isinstance(v, dict)
+            else _tensor(v, device) for k, v in np_params.items()}
+
+
+def opt_state_from_numpy(np_state, device, rank: int = 0):
+    """The JAX trainers' optimizer state (as numpy) -> the port's: an
+    ``AdagradState`` (anything with an ``accum`` tree, ``CTRTrainer``'s
+    state), the compressed ring's ``CompressedRingState`` (``inner`` and
+    ``residual``), or the sparse trainer's ``{"dense": AdagradState,
+    "accum": {table: [rows, ...]}}`` with, on a mesh, ``residual`` and
+    ``sres``.  Accumulator trees may nest (a model's dense sub-layers).
+    The JAX mesh state stacks one EF residual per rank (``[n, ...]``);
+    rank ``rank`` takes its slice."""
+    if hasattr(np_state, "inner") and hasattr(np_state, "residual"):
+        from lightctr_tpu_torch.models.ctr_trainer import CompressedRingState
+
+        return CompressedRingState(
+            inner=opt_state_from_numpy(np_state.inner, device),
+            residual=_tensor(np_state.residual[rank], device))
+    if hasattr(np_state, "accum"):
+        return AdagradState(accum=params_from_numpy(np_state.accum, device))
+    if isinstance(np_state, dict) and {"dense", "accum"} <= set(np_state) \
+            <= {"dense", "accum", "residual", "sres"}:
+        out = {"dense": opt_state_from_numpy(np_state["dense"], device),
+               "accum": params_from_numpy(np_state["accum"], device)}
+        if "residual" in np_state:
+            out["residual"] = _tensor(np_state["residual"][rank], device)
+        if "sres" in np_state:
+            out["sres"] = {k: _tensor(v[rank], device)
+                           for k, v in np_state["sres"].items()}
+        return out
+    raise ValueError(f"not an Adagrad optimizer state: {type(np_state)}")

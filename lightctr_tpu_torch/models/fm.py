@@ -14,7 +14,8 @@ a step's gradient is the same from run to run and in XLA's order.
 
 Parameters are a plain dict ``{"w": [F], "v": [F, k]}`` of tensors;
 :func:`params_from_numpy` carries the JAX package's params (as numpy) in,
-and :func:`opt_state_from_numpy` its trainers' optimizer state.
+and :func:`opt_state_from_numpy` its trainers' optimizer state (both
+shared with the rest of the model family, ``models/_common.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +27,10 @@ import numpy as np
 import torch
 
 from lightctr_tpu_torch.embed.table import lookup
-from lightctr_tpu_torch.optim.updaters import AdagradState
+from lightctr_tpu_torch.models._common import (  # noqa: F401 (re-exported)
+    opt_state_from_numpy,
+    params_from_numpy,
+)
 
 
 def init(generator: torch.Generator, feature_cnt: int, factor_cnt: int,
@@ -39,46 +43,6 @@ def init(generator: torch.Generator, feature_cnt: int, factor_cnt: int,
         "w": torch.zeros((feature_cnt,), dtype=torch.float32, device=device),
         "v": (v / math.sqrt(float(factor_cnt))).to(device),
     }
-
-
-def params_from_numpy(np_params: Dict, device) -> Dict[str, torch.Tensor]:
-    """``{"w": [F], "v": [F, k]}`` numpy arrays (e.g. the JAX package's
-    params through ``np.asarray``) -> tensors on ``device``."""
-    return {k: torch.from_numpy(np.array(v, copy=True)).to(device)
-            for k, v in np_params.items()}
-
-
-def opt_state_from_numpy(np_state, device, rank: int = 0):
-    """The JAX trainers' optimizer state (as numpy) -> the port's: an
-    ``AdagradState`` (anything with an ``accum`` dict, ``CTRTrainer``'s
-    state), the compressed ring's ``CompressedRingState`` (``inner`` and
-    ``residual``), or the sparse trainer's ``{"dense": AdagradState,
-    "accum": {table: [rows, ...]}}`` with, on a mesh, ``residual`` and
-    ``sres``.  The JAX mesh state stacks one EF residual per rank
-    (``[n, ...]``); rank ``rank`` takes its slice."""
-    if hasattr(np_state, "inner") and hasattr(np_state, "residual"):
-        from lightctr_tpu_torch.models.ctr_trainer import CompressedRingState
-
-        return CompressedRingState(
-            inner=opt_state_from_numpy(np_state.inner, device),
-            residual=_tensor(np_state.residual[rank], device))
-    if hasattr(np_state, "accum"):
-        return AdagradState(accum=params_from_numpy(np_state.accum, device))
-    if isinstance(np_state, dict) and {"dense", "accum"} <= set(np_state) \
-            <= {"dense", "accum", "residual", "sres"}:
-        out = {"dense": opt_state_from_numpy(np_state["dense"], device),
-               "accum": params_from_numpy(np_state["accum"], device)}
-        if "residual" in np_state:
-            out["residual"] = _tensor(np_state["residual"][rank], device)
-        if "sres" in np_state:
-            out["sres"] = {k: _tensor(v[rank], device)
-                           for k, v in np_state["sres"].items()}
-        return out
-    raise ValueError(f"not an Adagrad optimizer state: {type(np_state)}")
-
-
-def _tensor(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
 def logits(params: Dict[str, torch.Tensor],

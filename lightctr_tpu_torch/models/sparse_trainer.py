@@ -92,7 +92,7 @@ from lightctr_tpu_torch.models.ctr_trainer import (
 )
 from lightctr_tpu_torch.obs import health as health_mod
 from lightctr_tpu_torch.ops import sparse_kernels
-from lightctr_tpu_torch.optim.updaters import tree_map
+from lightctr_tpu_torch.optim.updaters import apply_updates, tree_map
 from lightctr_tpu_torch.utils.profiling import annotate
 
 #: every ``trainer_*`` exchange series this module emits (the JAX module's
@@ -315,8 +315,7 @@ class SparseTableCTRTrainer(CTRTrainer):
                 gnorm = global_norm({"rows": g_rows, "dense": g_dense})
                 updates, new_dense_state = tx.update(
                     g_dense, opt_state["dense"], dense)
-                dense = {k: p + updates[k].to(p.dtype)
-                         for k, p in dense.items()}
+                dense = apply_updates(dense, updates)
                 with annotate("sparse_tables/apply"):
                     for k in spec:
                         # in place on the table and its accumulator; the
@@ -433,8 +432,7 @@ class SparseTableCTRTrainer(CTRTrainer):
                 gn2 = sum_squares(g_dense, device=self.device)
                 updates, new_dense_state = tx.update(
                     g_dense, opt_state["dense"], dense)
-                dense = {k: p + updates[k].to(p.dtype)
-                         for k, p in dense.items()}
+                dense = apply_updates(dense, updates)
 
                 # -- table leaves: the pick per table, id streams shared
                 # within each (field tuple, algo, caps) group ------------

@@ -182,3 +182,20 @@ def unpack_nibbles(packed: torch.Tensor, n: int) -> torch.Tensor:
     lo = p & 0x0F
     hi = (p >> 4) & 0x0F
     return torch.stack([lo, hi], dim=1).reshape(-1)[:n]
+
+
+def lowbit_quantize(x: torch.Tensor, bits: int = 1):
+    """1/2-bit sign-magnitude helper (product_quantizer.h:24-45): codes plus
+    the per-call scale; decode = scale * signed level."""
+    scale = torch.mean(x.abs()) + 1e-12
+    if bits == 1:
+        codes = (x > 0).to(torch.uint8)
+        decoded = torch.where(codes == 1, scale, -scale)
+    elif bits == 2:
+        level = torch.clamp(torch.round(x.abs() / scale), 0, 1)
+        codes = ((x > 0).to(torch.uint8) << 1) | level.to(torch.uint8)
+        mag = torch.where(level == 0, 0.5 * scale, 1.5 * scale)
+        decoded = torch.where(x > 0, mag, -mag)
+    else:
+        raise ValueError("lowbit_quantize supports 1 or 2 bits")
+    return codes, decoded

@@ -3,7 +3,10 @@
 The port's counterpart of ``lightctr_tpu/serve`` (docs/SERVING.md):
 
   - :class:`~lightctr_tpu_torch.serve.model.ServingModel` — the batched
-    score path on one device, with optional PS-row-backed sparse leaves;
+    score path on one device, with optional PS-row-backed sparse leaves,
+    for the ``fm``, ``widedeep``, ``deepfm`` and ``dcn`` kinds;
+  - :func:`~lightctr_tpu_torch.serve.model.load_model` — a serving model
+    from a compressed artifact (``models/export.py``) of either package;
   - :class:`~lightctr_tpu_torch.serve.cache.HotEmbeddingCache` —
     LFU-admission row cache in front of PS pulls, invalidated on PS write
     versions, its rows one device tensor read by the ``gather_rows``
@@ -22,6 +25,7 @@ from lightctr_tpu_torch.serve.model import (
     ServingModel,
     fm_ps_row_leaves,
     fused_fm_rows,
+    load_model,
 )
 from lightctr_tpu_torch.serve.server import PredictionServer
 
@@ -34,4 +38,5 @@ __all__ = [
     "ServingModel",
     "fm_ps_row_leaves",
     "fused_fm_rows",
+    "load_model",
 ]

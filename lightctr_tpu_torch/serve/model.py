@@ -13,8 +13,10 @@ gathered rows.  Shapes are padded (batch to a power of two, touched rows to
 a power of two) exactly as in the JAX package, so both score the same
 padded arrays.
 
-Only the ``fm`` kind is ported so far; the compressed-artifact loader
-(``load_model``) waits for the export codecs.
+The four kinds of the JAX package are served (``fm``, ``widedeep``,
+``deepfm``, ``dcn``), and :func:`load_model` builds a model from a
+compressed artifact of either package (``models/export.py``), decoded on
+the model's device.
 """
 
 from __future__ import annotations
@@ -34,26 +36,51 @@ def _kind_fm():
     return fm.logits
 
 
+def _kind_widedeep():
+    from lightctr_tpu_torch.models import widedeep
+    return widedeep.logits
+
+
+def _kind_deepfm():
+    from lightctr_tpu_torch.models import deepfm
+    return deepfm.logits
+
+
+def _kind_dcn():
+    from lightctr_tpu_torch.models import deepfm
+    return deepfm.dcn_logits
+
+
 #: model kind -> zero-arg resolver of its ``logits(params, batch)`` fn
 MODEL_KINDS = {
     "fm": _kind_fm,
+    "widedeep": _kind_widedeep,
+    "deepfm": _kind_deepfm,
+    "dcn": _kind_dcn,
 }
-
-#: kinds the JAX package serves that the port does not have yet
-_NOT_PORTED = ("widedeep", "deepfm", "dcn")
 
 #: model kind -> the batch fields that index the per-fid table leaves
 #: (the id streams a PS-backed deployment dedups and rewrites)
 _ID_FIELDS = {
     "fm": ("fids",),
+    "widedeep": ("fids", "rep_fids"),
+    "deepfm": ("fids", "rep_fids"),
+    "dcn": ("rep_fids",),
 }
+
+#: kinds whose batch layout carries the field-representative pair
+_REP_KINDS = ("widedeep", "deepfm", "dcn")
 
 
 def fm_ps_row_leaves(factor_dim: int, w_leaf: str = "w",
                      table_leaf: str = "v") -> Dict[str, Tuple[int, int, bool]]:
     """The fused ``[w | v]`` PS row layout the training soaks use
     (tools/criteo_ps_soak ROW_DIM = 1 + dim): leaf -> (lo, hi, squeeze)
-    column slices of a pulled ``[K, 1 + factor_dim]`` row block."""
+    column slices of a pulled ``[K, 1 + factor_dim]`` row block.  Works
+    for FM (``w``/``v``) and, with ``table_leaf="embed"``, for the
+    Wide&Deep/DeepFM family; DCN, which has no wide table, reads
+    ``{"embed": (1, 1 + factor_dim, False)}`` of the same rows
+    (``row_dim=1 + factor_dim``)."""
     return {w_leaf: (0, 1, True),
             table_leaf: (1, 1 + int(factor_dim), False)}
 
@@ -97,10 +124,8 @@ class ServingModel:
         device="cuda",
     ):
         if kind not in MODEL_KINDS:
-            what = ("is not yet ported" if kind in _NOT_PORTED
-                    else "is unknown")
             raise ValueError(
-                f"model kind {kind!r} {what} (have {sorted(MODEL_KINDS)})"
+                f"unknown model kind {kind!r} (have {sorted(MODEL_KINDS)})"
             )
         self.kind = kind
         self.device = resolve_device(device)
@@ -165,7 +190,10 @@ class ServingModel:
     # -- request validation --------------------------------------------------
 
     def required_fields(self) -> Tuple[str, ...]:
-        return ("fids", "vals")
+        base = ("fids", "vals")
+        if self.kind in _REP_KINDS:
+            return base + ("rep_fids", "rep_mask")
+        return base
 
     def canonicalize_request(self, arrays: Dict) -> Dict:
         """Validate one decoded predict frame against THIS model's layout
@@ -176,7 +204,8 @@ class ServingModel:
         if missing:
             raise ValueError(
                 f"predict frame for a {self.kind!r} model is missing "
-                f"{missing}"
+                f"{missing} (send the rep_fids/rep_mask pair for the "
+                "field-representative family, omit it for fm)"
             )
         out = {f: arrays[f] for f in self.required_fields()}
         b = int(np.asarray(out["fids"]).shape[0])
@@ -196,7 +225,8 @@ class ServingModel:
         (``labels`` optional/ignored); returns [B] fp32 probabilities.
         The batch is padded to a power of two, as in the JAX package."""
         arrays = self._with_mask(arrays)
-        b = int(np.asarray(arrays["fids"]).shape[0])
+        b = int(np.asarray(arrays["fids"]).shape[0]) if "fids" in arrays \
+            else int(np.asarray(arrays["rep_fids"]).shape[0])
         batch = self._pad_batch(arrays, _next_pow2(b))
         return self._score_local(self.params, batch)[:b].cpu().numpy()
 
@@ -260,3 +290,24 @@ class ServingModel:
         dev_batch = self._pad_batch(batch, _next_pow2(b))
         return self._score_rows(self.params, rows,
                                 dev_batch)[:b].cpu().numpy()
+
+
+def load_model(
+    path: str,
+    row_leaves: Optional[Dict[str, Tuple[int, int, bool]]] = None,
+    row_dim: Optional[int] = None,
+    id_fields: Optional[Tuple[str, ...]] = None,
+    device="cuda",
+) -> ServingModel:
+    """Compressed artifact (``models/export.save_compressed_npz``, either
+    package's) -> :class:`ServingModel` on ``device``, every leaf decoded
+    there.  ``row_leaves`` switches the named table leaves to
+    PS-row-backed serving (the decoded local copies are kept, for parity
+    checks and preloads)."""
+    from lightctr_tpu_torch.models.export import load_compressed_npz
+
+    params, meta = load_compressed_npz(path, device=device)
+    return ServingModel(
+        meta["model"], params, row_leaves=row_leaves, row_dim=row_dim,
+        id_fields=id_fields, device=device,
+    )

@@ -1037,3 +1037,163 @@ def test_prefetch_with_a_cuda_prepare_matches_the_synchronous_batches(dev):
     assert la == lb
     for k in ("w", "v"):
         assert torch.equal(a.params[k], b.params[k])
+
+
+# -- the Wide&Deep family ------------------------------------------------------
+
+
+def family_batch(seed, n=64, f=512, fields=4, nnz=6):
+    from lightctr_tpu_torch.models.widedeep import field_representatives
+
+    rng = np.random.default_rng(seed)
+    fids = rng.integers(0, f, size=(n, nnz)).astype(np.int32)
+    fld = rng.integers(0, fields, size=(n, nnz)).astype(np.int32)
+    mask = np.ones((n, nnz), np.float32)
+    rep, rep_mask = field_representatives(fids, fld, mask, fields)
+    return {"fids": fids, "vals": rng.uniform(0.5, 1.5, (n, nnz)).astype(
+        np.float32), "mask": mask, "rep_fids": rep, "rep_mask": rep_mask,
+        "labels": (rng.random(n) > 0.5).astype(np.float32)}
+
+
+def family(kind):
+    """(params, logits, logits_with_l2, sparse tables) of ``kind`` at
+    vocab 512, 4 fields, D 8, hidden 16."""
+    from lightctr_tpu_torch.models import deepfm, widedeep
+
+    g = torch.Generator().manual_seed(0)
+    if kind == "dcn":
+        return (deepfm.dcn_init(g, 512, 4, 8, n_cross=2, hidden=16),
+                deepfm.dcn_logits, deepfm.dcn_logits_with_l2,
+                {"embed": ["rep_fids"]})
+    p = widedeep.init(g, 512, 4, 8, hidden=16)
+    tables = {"w": ["fids"], "embed": ["rep_fids"]}
+    if kind == "widedeep":
+        return p, widedeep.logits, None, tables
+    return p, deepfm.logits, deepfm.logits_with_l2, tables
+
+
+def flat_params(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_params(v, prefix + k + "/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.mark.parametrize("fused", [False, True])
+@pytest.mark.parametrize("kind", ["widedeep", "deepfm", "dcn"])
+def test_family_trainers_on_card_match_cpu(dev, kind, fused):
+    """Six full-batch steps of each kind on the card and on the CPU from
+    one init: the sparse trainer launches a dedup, a lookup backward and an
+    apply per table a step; the fused dense trainer a lookup backward per
+    table and an Adagrad kernel per leaf.  Losses and every leaf agree
+    (tanh on two devices: rtol 1e-4 / atol 1e-5)."""
+    p, logits, fused_fn, tables = family(kind)
+    cfg = TrainConfig(learning_rate=0.1, lambda_l2=0.001)
+    kw = {} if fused_fn is None else {"fused_fn": fused_fn}
+
+    def make(device):
+        if fused:
+            return CTRTrainer(p, logits, cfg, fused_adagrad=True,
+                              device=device, **kw)
+        return SparseTableCTRTrainer(p, logits, cfg, sparse_tables=tables,
+                                     device=device, **kw)
+
+    card, cpu = make(dev), make("cpu")
+    card.health = cpu.health = None
+    b = family_batch(1)
+    sk.reset_launches()
+    lc = card.fit_fullbatch_scan(b, 6)
+    n = sk.launches()
+    t = len(tables)
+    if fused:
+        assert n["fused_adagrad"] == 6 * len(flat_params(p))
+        assert n["merge_rows"] == 6 * t
+    else:
+        assert (n["dedup_ids"], n["merge_rows"], n["merge_apply"]) == (
+            6 * t, 6 * t, 6 * t)
+    np.testing.assert_allclose(lc, cpu.fit_fullbatch_scan(b, 6), rtol=1e-4,
+                               atol=1e-5)
+    assert lc[-1] < lc[0]
+    want = flat_params(cpu.params)
+    for k, v in flat_params(card.params).items():
+        torch.testing.assert_close(v.cpu(), want[k], rtol=1e-4, atol=1e-5)
+
+
+def test_family_sparse_step_twice_is_bit_identical(dev):
+    """One DeepFM step of the sparse trainer, run twice from the same
+    state on the card: tables, accumulators and the MLP bit-identical
+    (the lookups' backward sums in slot order; the MLP's products are
+    cuBLAS's, deterministic on one stream)."""
+    p, logits, fused_fn, tables = family("deepfm")
+    b = family_batch(2, n=256)
+    out = []
+    for _ in range(2):
+        tr = SparseTableCTRTrainer(
+            p, logits, TrainConfig(learning_rate=0.1, lambda_l2=0.001),
+            sparse_tables=tables, fused_fn=fused_fn, device=dev)
+        tr.health = None
+        tr.train_step(b)
+        out.append({**flat_params(tr.params),
+                    **flat_params(tr.opt_state["accum"], "accum/")})
+    for k, v in out[0].items():
+        assert torch.equal(v, out[1][k]), k
+
+
+@pytest.mark.parametrize("kind", ["widedeep", "deepfm", "dcn"])
+def test_family_serving_on_card_matches_cpu(dev, kind, tmp_path):
+    """A compressed artifact decoded on the card equals the CPU's decode bit
+    for bit; local and PS-row-backed scores on the card agree with the
+    CPU's."""
+    from lightctr_tpu_torch import serve
+    from lightctr_tpu_torch.models import export
+
+    p, _, _, _ = family(kind)
+    path = str(tmp_path / f"{kind}.npz")
+    export.save_compressed_npz(path, p, model=kind, device="cpu")
+    on_card, _ = export.load_compressed_npz(path, device=dev)
+    on_cpu, _ = export.load_compressed_npz(path, device="cpu")
+    want = flat_params(on_cpu)
+    for k, v in flat_params(on_card).items():
+        assert v.device.type == dev.type and torch.equal(v.cpu(), want[k]), k
+    b = family_batch(3, n=20)
+    card = serve.load_model(path, device=dev)
+    cpu = serve.load_model(path, device="cpu")
+    np.testing.assert_allclose(card.score(b), cpu.score(b), atol=1e-5)
+    leaves = ({"embed": (1, 9, False)} if kind == "dcn"
+              else serve.fm_ps_row_leaves(8, table_leaf="embed"))
+    w = on_cpu.get("w", torch.zeros(512))
+    rows = torch.cat([w[:, None], on_cpu["embed"]], dim=1)
+    ps = serve.ServingModel(kind, {k: v for k, v in on_card.items()
+                                   if k not in leaves},
+                            row_leaves=leaves, row_dim=9, device=dev)
+    uids = ps.touched_uids(b)
+    got = ps.score_rows(b, uids, rows[torch.from_numpy(uids)].to(dev))
+    np.testing.assert_allclose(got, cpu.score(b), atol=1e-5)
+
+
+def test_pq_on_the_card_matches_cpu(dev):
+    """The k-means loop from one set of initial centroids on the card and
+    on the CPU (the distances and the one-hot M step are matrix products,
+    never atomics), and encode/decode on one codebook, equal codes."""
+    from lightctr_tpu_torch.ops import pq
+
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.normal(size=(4096, 32)).astype(np.float32))
+    parts = pq._parts(x, 4)
+    c0 = parts[:, :64, :].clone()
+    got = pq._kmeans(parts.to(dev), c0.to(dev), 5)
+    want = pq._kmeans(parts, c0, 5)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    book = pq.PQCodebook(centroids=want)
+    codes = pq.encode(pq.PQCodebook(centroids=want.to(dev)), x.to(dev))
+    assert torch.equal(codes.cpu(), pq.encode(book, x))
+    assert torch.equal(pq.decode(pq.PQCodebook(centroids=want.to(dev)),
+                                 codes).cpu(), pq.decode(book, codes.cpu()))
+    again = pq.train(torch.Generator(device=dev).manual_seed(0), x.to(dev),
+                     part_cnt=4, cluster_cnt=64, iters=3)
+    assert torch.equal(again.centroids, pq.train(
+        torch.Generator(device=dev).manual_seed(0), x.to(dev), part_cnt=4,
+        cluster_cnt=64, iters=3).centroids)

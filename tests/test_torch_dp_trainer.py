@@ -377,3 +377,56 @@ def test_jax_program_table_at_a_fixed_range_of_0_05_is_not_eager():
             np.testing.assert_array_equal(getattr(port, part).numpy(), e)
             differs = bool((np.asarray(getattr(folded, part)) != e).any())
             assert differs == folded_differs, (rng, part)
+
+
+#: the field-reorder case: 4 ranks, vocab 16,384, 39 fields, dim 32, 1024
+#: rows a step, 6 steps (chip_smoke.py's JAX_REORDER_GAP records what it
+#: measured)
+REORDER_CASE = dict(world=4, vocab=16384, fields=39, dim=32, rows=1024,
+                    steps=6)
+
+
+def _reorder_run(jmesh, params, batches, **kw):
+    tr = JSparseTrainer({k: jnp.asarray(v) for k, v in params.items()},
+                        jfm.logits, JConfig(**worlds.CFG),
+                        sparse_tables=worlds.TABLES,
+                        fused_fn=jfm.logits_with_l2, mesh=jmesh, **kw)
+    tr.health = None
+    return (np.asarray([float(tr.train_step(b)) for b in batches]),
+            {k: np.asarray(v) for k, v in tr.params.items()})
+
+
+def test_jax_coded_dynamic_range_parts_under_a_field_reorder():
+    """Why ``dp_rs`` (b) on the card parts from the CPU (ROADMAP §C, "In
+    the reference"): the JAX package parts from ITSELF by the same order
+    when only the summation order of FM's forward changes.  The same
+    batches with the fields' columns permuted (fids, vals and mask
+    together) are the same function, an ulp-level reorder of the sums
+    over fields: the exact exchange stays within 1e-6 of the unpermuted
+    run, but the 8-bit exchange with a measured range (its table follows
+    the largest |g|, and the codes flip at boundaries) parts by more than
+    1e-4 within 6 steps, and its tables part."""
+    c = REORDER_CASE
+    jmesh = jmake_mesh(JMeshSpec(data=c["world"]))
+    params = worlds.fm_params(c["vocab"], c["dim"])
+    batches = [worlds.fm_batch(10 + i, n=c["rows"], f=c["vocab"],
+                               nnz=c["fields"]) for i in range(c["steps"])]
+    perm = np.random.default_rng(99).permutation(c["fields"])
+    permuted = [{k: v[:, perm] if v.ndim == 2 else v for k, v in b.items()}
+                for b in batches]
+    gaps = {}
+    for name, kw in (("exact", {}),
+                     ("coded", {"compress_bits": 8,
+                                "compress_range": "dynamic"})):
+        la, pa = _reorder_run(jmesh, params, batches, **kw)
+        lb, pb = _reorder_run(jmesh, params, permuted, **kw)
+        gaps[name] = (np.abs(la - lb) / np.abs(la),
+                      max(float(np.abs(pa[k] - pb[k]).max())
+                          for k in ("w", "v")))
+    exact_loss, exact_table = gaps["exact"]
+    coded_loss, coded_table = gaps["coded"]
+    assert exact_loss.max() < 1e-6 and exact_table < 5e-5, gaps
+    # the first step's forward is the same function in both runs
+    assert coded_loss[0] < 1e-6, coded_loss
+    assert coded_loss.max() >= 1e-4, coded_loss
+    assert coded_table > 1e-3, coded_table
