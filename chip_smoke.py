@@ -10,7 +10,9 @@ reduce-scatter exchange), and checks the training; trains it from a libFFM
 file through the streaming reader and the prefetch stage, and under the
 ftrl and adam optimizers; serves the Wide&Deep family (Wide&Deep, DeepFM,
 DCN) at Criteo width from compressed artifacts through the same PS-backed
-server, and trains DeepFM and DCN on the card; runs the long-context
+server, and trains DeepFM and DCN on the card, then over two ranks with
+both trainers; runs the port's CLI (every ported subcommand, and
+``deepfm --dp`` under ``torch.distributed.run``); runs the long-context
 attention path (flash attention on one card, ring attention over two
 ranks) and the port's two kernel benches.
 
@@ -215,6 +217,47 @@ Phases, one JSON line each:
            the card bit-identical (params and optimizer state); step ms,
            examples/s and the device's idle share over 3 profiled
            steps.
+  dp_deep  DeepFM and DCN at train_deep's width and batches, data-parallel
+           over 2 gloo ranks spawned on the card (2048 rows a rank):
+           (a) ``SparseTableCTRTrainer(mesh=...)`` exact, 10 steps a model
+           (w over fids and embed over rep_fids, two id streams on the
+           hybrid exchange; the dense leaves on the mean); (b) the same
+           with 8 bits and a measured range, 5 steps a model (the dense
+           leaves on the coded ring); (c) ``CTRTrainer(mesh=...)`` exact,
+           5 steps of DeepFM (the CLI's --dp).  DCN at ``DCN_LR``.  Per
+           rank and run the launches equal ``dp_deep_expected_launches``
+           (from ``dp_deep_plan``, the exchange ``pick_exchange_algo``
+           gives each table: dedup_ids of the local and the gathered
+           stream, merge_rows for the lookup's backward, merge_apply's
+           merge mode, quantize_pack for the coded rows and the ring's
+           hops); every rank's params and optimizer state bit-identical;
+           the loss falls in (a) and (c); their first 2 steps re-run in a
+           2-rank CPU world with the plain versions (losses rtol 1e-4,
+           touched rows and dense leaves rtol 1e-4 / atol 2e-5, the
+           family's tolerance); one step of (b) run twice from one state
+           bit-identical on every rank, EF residuals included.  Step ms;
+           rank 0's device time and idle share over 3 profiled steps of
+           (a).
+  cli      ``python -m lightctr_tpu_torch.cli`` on the card: a 65,536-row
+           Criteo-layout libFFM file and a 16,384-row held-out file
+           (``data.synth.write_criteo_proxy``), and sequence files of as
+           many rows (item vocabulary 2^20, lengths 10-50, a positive row
+           holding three of 63 intent items).  ``cli.main`` in this
+           process for fm, nfm, widedeep, deepfm and dcn at --factor 32,
+           ffm at its default 8 (v is 2^20 x 39 x 8), dcn at ``DCN_LR``
+           and seqctr at its defaults, each with --batch-size 4096
+           --epochs 2 --eval-data --ckpt-dir --dump-scores and counts reset
+           just before: the report parses, the final loss is finite and
+           below the first epoch's (the ``epoch`` events), held-out AUC >
+           0.55 (DCN, which reads no feature value: its train AUC),
+           merge_rows launched once a table gather a step and nothing
+           else, and the checkpoint restored (``ckpt.restore``) gives
+           params whose scores on the card equal the dumped file within
+           1e-6.  Then ``deepfm --dp`` and ``deepfm --dp --compress-bits
+           8`` under ``python -m torch.distributed.run --standalone
+           --nproc-per-node 2`` (gloo, one card, its own process group,
+           killed after 420 s): one report, rank 0's, finite, and its
+           checkpoint restored to its dumped scores.
   attention  the long-context path, counts reset just before it:
            ``flash_attention`` at (2, 4096, 8, 64) bf16 causal on the card,
            then ``ring_self_attention`` over a ``seq`` ring of 2 ranks
@@ -233,7 +276,8 @@ Phases, one JSON line each:
            fused merge mode, quantize_pack and quantize_pack_ef through
            their ``tree`` design); their cells are printed.
 
-Then a ``gather_floor`` line: an empty kernel at gather_rows' launch
+Every phase's line carries its seconds (``phase_s``).  Then a
+``gather_floor`` line: an empty kernel at gather_rows' launch
 shape, timed as the kernel is, at the serve and hot-row shapes (the
 least a launch of that shape takes).  Then a ``{"kernels": [...]}``
 line: each kernel at its main path's shape,
@@ -253,11 +297,13 @@ gather_rows adds ``cold_ms`` and its ``per_shape`` gives the serve and
 hot-row shapes, warm and cold, each beside ``torch.index_select``; each
 row's ``launches_dp_rs`` counts rank 0's launches in dp_rs and
 ``launches_ingest`` the ingest phase's; ``launches_serve_deep`` and
-``launches_train_deep`` count the Wide&Deep family's paths, and are added
-into ``launches``; merge_rows' ``launches`` are the train phase's (and the
-family's), and its ``per_shape_train`` times it as the gathers'
+``launches_train_deep``, ``launches_dp_deep`` (rank 0) and
+``launches_cli`` count the Wide&Deep family's paths and the CLI's, and
+are added into ``launches``; merge_rows' ``launches`` are the train
+phase's (and those), and its ``per_shape_train`` times it as the gathers'
 backward (159,744 slots into the 2^20-row table and into the sparse
-trainer's 159,744 rows, d = 32 and 1) beside ``index_add_``; dedup_ids,
+trainer's 159,744 rows, d = 32 and 1, and into the table at FFM's d =
+312) beside ``index_add_``; dedup_ids,
 merge_rows and merge_apply add their ``dp_rs`` timing at that path's
 shapes). Then the
 ``nvidia-smi`` name and power limit, and the last line ``{"ok": true,
@@ -284,6 +330,12 @@ N_CAT = 26
 VOCAB = 1 << 20
 DIM = 32
 ROW_DIM = 1 + DIM
+#: the row of FFM's v at the Criteo layout and the CLI's factor 8: one
+#: vector of 8 per field, 39 fields (a lookup row of 312 floats)
+FFM_ROW = N_FIELDS * 8
+#: graph replays (and timed eager runs of the plain version) a
+#: ``lookup_timing`` shape takes its median of
+LOOKUP_REPEATS = 7
 N_REQUESTS = 8
 REQUEST_ROWS = 256
 PRELOAD_CHUNK = 1 << 18
@@ -627,14 +679,20 @@ def check_merge_rows(np, torch, sk, rng) -> dict:
     """merge_rows kernel == plain version (slot-order rounds) bit for bit
     at the allgather merge's shape: W*K = 159,744 gathered rows, d in
     {1, 32}, nseg = W*K; the same rows with every seventh segment's rows
-    all +-0 (left at +0); and nseg = 2^24 + 77, so the radix sort moves all
-    four digits."""
+    all +-0 (left at +0); nseg = 2^24 + 77, so the radix sort moves all
+    four digits; and as FFM's lookup backward in the cli phase: one
+    batch's 159,744 Criteo ids as segments of the 2^20-row table, rows of
+    d = 312 (float4 lanes over 78 vectors a row)."""
     m = DP_WORLD * DP_LOCAL_K
     cases = []
     for d, nseg, zeros in ((1, m, False), (DIM, m, False), (DIM, m, True),
-                           (1, (1 << 24) + 77, False)):
+                           (1, (1 << 24) + 77, False),
+                           (FFM_ROW, VOCAB, False)):
         rows, inv = merge_inputs(np, torch, rng, m, d, m)
-        if nseg != m:
+        if nseg == VOCAB:
+            inv = torch.from_numpy(criteo_fids(np, rng, TRAIN_BATCH)
+                                   .reshape(-1).astype(np.int32)).cuda()
+        elif nseg != m:
             inv = torch.from_numpy(rng.integers(
                 -2, nseg + 2, size=m).astype(np.int32)).cuda()
         if zeros:
@@ -650,6 +708,8 @@ def check_merge_rows(np, torch, sk, rng) -> dict:
                                  f"max {float((got - want).abs().max())}")
         cases.append({"m": m, "d": d, "nseg": nseg, "zero_segments": zeros,
                       "dropped": int((inv < 0).sum() + (inv >= nseg).sum())})
+        del rows, got, want
+        torch.cuda.empty_cache()
     return {"bit_exact": True, "max_abs_err": 0.0, "cases": cases}
 
 
@@ -1434,25 +1494,33 @@ def dp_data(np, seed):
              for k, v in data.items()} for i in range(SPARSE_STEPS)], held_out
 
 
-def dp_rank(rank, world, out_dir, seed, device, run_steps):
-    """One rank of the dp phase: each run named in ``run_steps`` ({name:
-    steps}) trains FM at
-    Criteo width from the seed's init through ``SparseTableCTRTrainer``'s
-    hybrid exchange on the global batches (this rank takes its rows),
-    counting launches from just before the first step to just after the
-    last; writes losses, launches, digests of the trained state, the
-    rows the first DP_CPU_STEPS batches touched, and (rank 0, exact run)
-    the held-out evaluation."""
+def dp_runs(phase) -> tuple:
+    """(name, kind, trainer, kwargs, steps, lr) of a data-parallel phase's
+    runs: ``dp``'s FM through the hybrid exchange (DP_RUNS), or
+    DP_DEEP_RUNS."""
+    if phase == "dp":
+        return tuple((name, "fm", "sparse", kw, steps, LR)
+                     for name, kw, steps in DP_RUNS)
+    return DP_DEEP_RUNS
+
+
+def dp_rank(rank, world, out_dir, seed, device, run_steps, phase="dp"):
+    """One rank of the ``dp`` phase (FM) or of ``dp_deep`` (DeepFM, DCN):
+    each run of ``dp_runs(phase)`` named in ``run_steps`` ({name: steps})
+    trains at Criteo width from the seed's init on the phase's global
+    batches (this rank takes its rows), launches counted from just before
+    its first step to just after its last; writes losses, launches, the
+    replicated state's digests, a snapshot of the rows the first CPU steps
+    touched (rank 0), and on the card rank 0's profile of the phase's
+    profiled run; ``dp``: rank 0's held-out evaluation of the whole exact
+    run; ``dp_deep``: each coded run's step repeated from one state."""
     import numpy as np
     import torch
     import torch.distributed as dist
 
-    from lightctr_tpu_torch.core.config import TrainConfig
     from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh
-    from lightctr_tpu_torch.models import fm
-    from lightctr_tpu_torch.models.sparse_trainer import \
-        SparseTableCTRTrainer
     from lightctr_tpu_torch.ops import sparse_kernels as sk
+    from lightctr_tpu_torch.optim.updaters import tree_map
 
     mesh = make_mesh(MeshSpec(data=world), device=device)
     on_card = mesh.device.type == "cuda"
@@ -1463,22 +1531,29 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
         if on_card:
             torch.cuda.synchronize(mesh.device)
 
-    batches, held_out = dp_data(np, seed)
-    params = train_params(np, seed)
+    if phase == "dp":
+        batches, held_out = dp_data(np, seed)
+        cpu_steps, profiled, profile_steps = DP_CPU_STEPS, "exact", 5
+    else:
+        # train_deep's batches: the first steps of its runs on one card
+        batches = deep_batches(np, seed, max(r[3] for r in DEEP_TRAIN_RUNS))
+        held_out = None
+        cpu_steps, profiled, profile_steps = (
+            DP_DEEP_CPU_STEPS, "deepfm_sparse_exact", DP_DEEP_PROFILE_STEPS)
+    base = train_params(np, seed)
     snap_ids = torch.from_numpy(np.unique(np.concatenate(
-        [b["fids"].reshape(-1) for b in batches[:DP_CPU_STEPS]])).astype(
+        [b["fids"].reshape(-1) for b in batches[:cpu_steps]])).astype(
             np.int64)).to(mesh.device)
     out = {}
-    for name, kw, _ in DP_RUNS:
+    for name, kind, mode, kw, full, lr in dp_runs(phase):
         if name not in run_steps:
             continue
         steps = run_steps[name]
-        tr = SparseTableCTRTrainer(
-            fm.params_from_numpy(params, mesh.device), fm.logits,
-            TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2),
-            sparse_tables={"w": ["fids"], "v": ["fids"]},
-            fused_fn=fm.logits_with_l2, mesh=mesh, **kw)
-        tr.health = None  # the steady state with the health feed off
+        params = base if kind == "fm" else deep_params(
+            np, seed, kind, base["w"], base["v"])
+        tr = deep_trainer(kind, mode, params, device, lr, mesh=mesh,
+                          **dict(kw))
+        del params
         sync()
         dist.barrier()
         sk.reset_launches()
@@ -1488,42 +1563,51 @@ def dp_rank(rank, world, out_dir, seed, device, run_steps):
                 sync()
                 t0 = time.perf_counter()
             losses.append(tr.train_step(b))
-            if i + 1 == DP_CPU_STEPS and rank == 0:
-                torch.save({k: tr.params[k].index_select(0, snap_ids).cpu()
-                            for k in ("w", "v")},
+            if i + 1 == cpu_steps and rank == 0:
+                torch.save(deep_snapshot(tr, snap_ids, KIND_TABLES[kind]),
                            os.path.join(out_dir, f"snap_{name}.pt"))
         sync()
         wall = time.perf_counter() - t0 if t0 is not None else None
-        launches = sk.launches()
         rec = {"steps": steps, "losses": [float(x) for x in losses],
-               "launches": launches,
+               "launches": sk.launches(),
                "merge_apply_variants": sk.variant_launches("merge_apply"),
                "quantize_pack_variants":
                    sk.variant_launches("quantize_pack"),
                "ef_update_variants":
                    sk.variant_launches("quantize_pack_ef_update"),
-               "policy": dict(tr.exchange_policy),
-               "bytes_per_step": dict(tr.exchange_bytes_per_step),
                "device": str(mesh.device), "backend": mesh.backend}
+        if mode == "sparse":
+            rec["policy"] = dict(tr.exchange_policy)
+            rec["bytes_per_step"] = dict(tr.exchange_bytes_per_step)
         if wall is not None:
             rec["steady_steps"] = steps - WARMUP_STEPS
             rec["steady_wall_s"] = wall
-        if name == "exact" and steps == SPARSE_STEPS:
+        if held_out is not None and name == "exact" and steps == full \
+                and rank == 0:
+            rec["heldout"] = tr.evaluate(held_out, batch_size=TRAIN_BATCH)
+        if on_card and name == profiled and steps == full:
+            # rank 0's steps under the profiler, the other rank alongside
+            # for the collectives
             if rank == 0:
-                rec["heldout"] = tr.evaluate(held_out,
-                                             batch_size=TRAIN_BATCH)
-            if on_card:
-                # 5 more steps, rank 0's under the profiler (the other
-                # rank steps alongside for the collectives)
-                if rank == 0:
-                    rec["profile"] = profile_sparse_steps(torch, tr,
-                                                          batches[:5])
-                else:
-                    for b in batches[:5]:
-                        tr.train_step(b)
-                    sync()
+                rec["profile"] = profile_sparse_steps(
+                    torch, tr, batches[:profile_steps])
+            else:
+                for b in batches[:profile_steps]:
+                    tr.train_step(b)
+                sync()
         # the replicated state (each rank's EF residuals are its own)
         rec["digest"] = state_digest(tr)
+        if on_card and phase == "dp_deep" and kw:
+            # one step from one state, twice: every leaf bit-identical,
+            # each rank's EF residuals included
+            saved = tree_map(torch.clone, (tr.params, tr.opt_state))
+            digests = []
+            for _ in range(2):
+                tr.params, tr.opt_state = tree_map(torch.clone, saved)
+                tr.train_step(batches[0])
+                digests.append(state_digest(tr, replicated=False))
+            rec["repeat_step_bit_identical"] = digests[0] == digests[1]
+            del saved
         out[name] = rec
         del tr
         if on_card:
@@ -2113,17 +2197,6 @@ def dp_rs_rank(rank, world, out_dir, seed, device, run_steps, grid):
                 "overflow": int(over), "overflow_ef": int(eover)}
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
-
-
-def state_digest(tr) -> dict:
-    """sha256 of the trainer's tables and their accumulators."""
-    import hashlib
-
-    state = {"w": tr.params["w"], "v": tr.params["v"],
-             "accum_w": tr.opt_state["accum"]["w"],
-             "accum_v": tr.opt_state["accum"]["v"]}
-    return {k: hashlib.sha256(t.detach().cpu().numpy().tobytes()).hexdigest()
-            for k, t in state.items()}
 
 
 def rs_repeat_step(torch, mesh, params, batches) -> dict:
@@ -2962,8 +3035,10 @@ DEEP_TRAIN_RUNS = (("deepfm_sparse", "deepfm", "sparse", 20, LR),
                    ("deepfm_fused", "deepfm", "fused", 5, LR))
 DEEP_CPU_STEPS = 2
 DEEP_PROFILE_STEPS = 3
-#: kind -> the sparse trainer's tables (deepfm.py's module docstring)
-DEEP_TABLES = {"deepfm": {"w": ["fids"], "embed": ["rep_fids"]},
+#: kind -> the sparse trainer's tables (deepfm.py's module docstring;
+#: FM's two tables read the one id stream)
+KIND_TABLES = {"fm": {"w": ["fids"], "v": ["fids"]},
+               "deepfm": {"w": ["fids"], "embed": ["rep_fids"]},
                "dcn": {"embed": ["rep_fids"]}}
 
 
@@ -2973,7 +3048,7 @@ def deep_expected_launches(sk, kind, mode, steps, leaves) -> dict:
     (merge_rows) and the touched-row apply (merge_apply's apply mode).
     Fused dense: per table the lookup's backward over the whole table, and
     the fused Adagrad apply a leaf (``leaves``, the MLP's included)."""
-    tables = len(DEEP_TABLES[kind])
+    tables = len(KIND_TABLES[kind])
     want = dict.fromkeys(sk.KERNELS, 0)
     if mode == "sparse":
         want.update(dedup_ids=tables * steps, merge_rows=tables * steps,
@@ -2994,27 +3069,37 @@ def deep_batches(np, seed, steps):
              for k, v in data.items()} for i in range(steps)]
 
 
-def deep_trainer(kind, mode, params, device, lr):
-    """The family's trainer of ``mode`` on ``device`` from numpy
-    ``params``: each kind's ``logits_with_l2``, the health feed off."""
+def deep_trainer(kind, mode, params, device, lr, mesh=None, **kw):
+    """The trainer of ``kind`` (FM or one of the family) and ``mode``
+    (``sparse``; ``fused``: CTRTrainer with the fused Adagrad; ``dense``:
+    CTRTrainer with the optimizer transform) on ``device``, or on ``mesh``
+    with its device, from numpy ``params``: each kind's
+    ``logits_with_l2``, the health feed off; ``kw`` are the trainer's
+    exchange options."""
     from lightctr_tpu_torch.core.config import TrainConfig
-    from lightctr_tpu_torch.models import _common, deepfm
+    from lightctr_tpu_torch.models import _common, deepfm, fm
     from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
     from lightctr_tpu_torch.models.sparse_trainer import \
         SparseTableCTRTrainer
 
-    logits, fused_fn = ((deepfm.dcn_logits, deepfm.dcn_logits_with_l2)
-                        if kind == "dcn" else
-                        (deepfm.logits, deepfm.logits_with_l2))
+    logits, fused_fn = {
+        "fm": (fm.logits, fm.logits_with_l2),
+        "deepfm": (deepfm.logits, deepfm.logits_with_l2),
+        "dcn": (deepfm.dcn_logits, deepfm.dcn_logits_with_l2)}[kind]
     cfg = TrainConfig(learning_rate=lr, lambda_l2=LAMBDA_L2)
+    if mesh is not None:
+        kw["mesh"] = mesh
+        device = mesh.device
+    else:
+        kw["device"] = device
     p = _common.params_from_numpy(params, device)
     if mode == "sparse":
         tr = SparseTableCTRTrainer(p, logits, cfg,
-                                   sparse_tables=DEEP_TABLES[kind],
-                                   fused_fn=fused_fn, device=device)
+                                   sparse_tables=KIND_TABLES[kind],
+                                   fused_fn=fused_fn, **kw)
     else:
         tr = CTRTrainer(p, logits, cfg, fused_fn=fused_fn,
-                        fused_adagrad=True, device=device)
+                        fused_adagrad=mode == "fused", **kw)
     tr.health = None
     return tr
 
@@ -3132,6 +3217,576 @@ def phase_train_deep(np, torch, sk, seed) -> dict:
             "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
             "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL, "runs": runs,
             "launches": launches}
+
+
+# -- phase: dp_deep -----------------------------------------------------------
+
+#: the 8-bit exchange with a measured range (dp_deep (b))
+DP_DEEP_CODED = {"compress_bits": 8, "compress_range": "dynamic"}
+#: (name, kind, trainer, kwargs, steps, lr) of the dp_deep phase's runs:
+#: (a) the hybrid exchange exact, (b) the same 8-bit with a measured range,
+#: (c) CTRTrainer(mesh=...) exact, the CLI's --dp
+DP_DEEP_RUNS = (
+    ("deepfm_sparse_exact", "deepfm", "sparse", {}, 10, LR),
+    ("dcn_sparse_exact", "dcn", "sparse", {}, 10, DCN_LR),
+    ("deepfm_sparse_coded", "deepfm", "sparse", DP_DEEP_CODED, 5, LR),
+    ("dcn_sparse_coded", "dcn", "sparse", DP_DEEP_CODED, 5, DCN_LR),
+    ("deepfm_dense_exact", "deepfm", "dense", {}, 5, LR),
+)
+DP_DEEP_CPU_STEPS = 2       # exact steps re-run at W = 2 on the CPU
+DP_DEEP_PROFILE_STEPS = 3
+#: the family's tolerance card vs CPU (ROADMAP §C: the tanh of fc1)
+DP_DEEP_RTOL, DP_DEEP_ATOL = 1e-4, 2e-5
+
+
+def dp_deep_plan(kind, coded) -> dict:
+    """{table: exchange} the hybrid step picks at this phase's shapes: the
+    port's ``pick_exchange_algo`` on each table's local ids (DP_LOCAL_K a
+    rank), vocabulary and row width."""
+    from lightctr_tpu_torch.dist import collectives
+
+    bits = 8 if coded else None
+    return {t: collectives.pick_exchange_algo(
+        DP_WORLD, DP_LOCAL_K, VOCAB, 1 if t == "w" else DIM,
+        sparse_bits=bits, dense_bits=bits)[0] for t in KIND_TABLES[kind]}
+
+
+def dp_deep_expected_launches(sk, kind, mode, coded, steps) -> dict:
+    """Launches one rank makes in ``steps`` steps.  The hybrid exchange
+    (each table its own id stream): per table the local stream deduped
+    and the lookup's backward (merge_rows); a table on the sparse
+    allgather also dedups the gathered stream and applies in merge_apply's
+    merge mode, and coded sends its rows through quantize_pack; coded,
+    the dense ring's DP_WORLD hops (the reduce-scatter's W - 1 and the
+    owned segment's one) run quantize_pack, as does each table on the
+    dense exchange's ring.  CTRTrainer: the lookup's backward per table,
+    and coded the ring's hops."""
+    plan = dp_deep_plan(kind, coded)
+    if "sparse_rs" in plan.values():
+        raise AssertionError(f"dp_deep: no reduce-scatter at W = {DP_WORLD} "
+                             f"expected, the pick says {plan}")
+    tables = len(plan)
+    sparse = sum(1 for a in plan.values() if a == "sparse")
+    want = dict.fromkeys(sk.KERNELS, 0)
+    ring = DP_WORLD if coded else 0
+    if mode == "sparse":
+        want.update(dedup_ids=(tables + sparse) * steps,
+                    merge_rows=tables * steps, merge_apply=sparse * steps,
+                    quantize_pack=(sparse + ring * (1 + tables - sparse))
+                    * steps if coded else 0)
+    else:
+        want.update(merge_rows=tables * steps, quantize_pack=ring * steps)
+    return want
+
+
+def state_digest(tr, replicated: bool = True) -> dict:
+    """sha256 of every parameter leaf and optimizer-state leaf of a
+    trainer (FM's or the family's); ``replicated`` leaves out each rank's
+    own EF residuals."""
+    import hashlib
+
+    from lightctr_tpu_torch.optim.updaters import tree_leaves
+
+    leaves = {"param/" + k: v for k, v in flat_leaves(tr.params).items()}
+    st = tr.opt_state
+    if isinstance(st, dict):
+        parts = {k: st[k] for k in st
+                 if not replicated or k in ("dense", "accum")}
+    else:
+        parts = {"state": st.inner if replicated and hasattr(st, "inner")
+                 else st}
+    for name, sub in parts.items():
+        for i, t in enumerate(tree_leaves(sub)):
+            leaves[f"{name}/{i}"] = t
+    return {k: hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                              .tobytes()).hexdigest()
+            for k, t in leaves.items()}
+
+
+def deep_snapshot(tr, ids, tables) -> dict:
+    """CPU copies of a trainer's dense leaves and the rows ``ids`` of its
+    ``tables``."""
+    return {k: (v.index_select(0, ids) if k in tables else v)
+            .detach().cpu().clone() for k, v in flat_leaves(tr.params).items()}
+
+
+def phase_dp_deep(np, torch, sk, seed) -> dict:
+    """DeepFM and DCN at Criteo width data-parallel over DP_WORLD gloo
+    ranks on the one card: both trainers with ``mesh=``, launches against
+    the plan, every rank identical, the exact runs' first steps re-run on
+    the CPU, the coded runs' repeated step bit-identical."""
+    import shutil
+    import tempfile
+
+    from lightctr_tpu_torch.core.mesh import spawn_world
+
+    card_steps = {r[0]: r[4] for r in DP_DEEP_RUNS}
+    cpu_steps = {r[0]: DP_DEEP_CPU_STEPS for r in DP_DEEP_RUNS if not r[3]}
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_deep_")
+    try:
+        dirs = {k: os.path.join(root, k) for k in ("card", "cpu")}
+        for d in dirs.values():
+            os.makedirs(d)
+        t = time.perf_counter()
+        spawn_world(dp_rank, DP_WORLD, "gloo", deadline_s=DP_DEADLINE_S,
+                    args=(dirs["card"], seed, "cuda", card_steps,
+                          "dp_deep"))
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        spawn_world(dp_rank, DP_WORLD, "gloo", deadline_s=DP_DEADLINE_S,
+                    args=(dirs["cpu"], seed, "cpu", cpu_steps, "dp_deep"))
+        cpu_s = time.perf_counter() - t
+
+        def load(d, r):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                return json.load(f)
+
+        card = [load(dirs["card"], r) for r in range(DP_WORLD)]
+        cpu = load(dirs["cpu"], 0)
+        runs = {}
+        for name, kind, mode, kw, steps, lr in DP_DEEP_RUNS:
+            recs = [c[name] for c in card]
+            coded = bool(kw)
+            want = dp_deep_expected_launches(sk, kind, mode, coded, steps)
+            for r, rec in enumerate(recs):
+                # a spawned rank registers only the kernels its modules
+                # import: the ones it lacks launched nothing there
+                got = {k: rec["launches"].get(k, 0) for k in want}
+                if got != want:
+                    raise AssertionError(f"dp_deep {name} rank {r}: launches "
+                                         f"{got}, planned {want}")
+                want_ma = ({"merge": want["merge_apply"]}
+                           if want["merge_apply"] else {})
+                want_qp = ({"tree": want["quantize_pack"]}
+                           if want["quantize_pack"] else {})
+                if rec["merge_apply_variants"] != want_ma or \
+                        rec["quantize_pack_variants"] != want_qp:
+                    raise AssertionError(
+                        f"dp_deep {name} rank {r}: designs "
+                        f"{rec['merge_apply_variants']} "
+                        f"{rec['quantize_pack_variants']}, planned "
+                        f"{want_ma} {want_qp}")
+                if mode == "sparse" and \
+                        rec["policy"] != dp_deep_plan(kind, coded):
+                    raise AssertionError(f"dp_deep {name}: policy "
+                                         f"{rec['policy']}, planned "
+                                         f"{dp_deep_plan(kind, coded)}")
+                if rec["digest"] != recs[0]["digest"]:
+                    raise AssertionError(f"dp_deep {name}: rank {r}'s state "
+                                         "is not bit-identical to rank 0's")
+                if coded and not rec["repeat_step_bit_identical"]:
+                    raise AssertionError(f"dp_deep {name} rank {r}: a step "
+                                         "run twice from one state differs")
+            losses = recs[0]["losses"]
+            if not all(np.isfinite(losses)):
+                raise AssertionError(f"dp_deep {name}: losses {losses}")
+            third = max(1, steps // 3)
+            if not coded and \
+                    np.mean(losses[-third:]) >= np.mean(losses[:third]):
+                raise AssertionError(f"dp_deep {name}: loss did not fall "
+                                     f"{losses}")
+            run = {"kind": kind, "trainer": mode, "kwargs": kw,
+                   "steps": steps, "lr": lr, "launches_per_rank": want,
+                   "losses": losses, "ranks_bit_identical": True}
+            if mode == "sparse":
+                run["policy"] = recs[0]["policy"]
+                run["bytes_per_step"] = recs[0]["bytes_per_step"]
+            if coded:
+                run["repeat_step_bit_identical"] = True
+            if name in cpu:
+                c_losses = cpu[name]["losses"]
+                if not np.allclose(losses[:len(c_losses)], c_losses,
+                                   rtol=DP_DEEP_RTOL, atol=0):
+                    raise AssertionError(f"dp_deep {name}: losses card "
+                                         f"{losses[:len(c_losses)]} vs cpu "
+                                         f"{c_losses}")
+                got = torch.load(os.path.join(dirs["card"],
+                                              f"snap_{name}.pt"))
+                want_snap = torch.load(os.path.join(dirs["cpu"],
+                                                    f"snap_{name}.pt"))
+                err = 0.0
+                for k, a in got.items():
+                    b = want_snap[k]
+                    if not torch.allclose(a, b, rtol=DP_DEEP_RTOL,
+                                          atol=DP_DEEP_ATOL):
+                        raise AssertionError(
+                            f"dp_deep {name}: {k} differs card vs cpu after "
+                            f"{DP_DEEP_CPU_STEPS} steps, max abs "
+                            f"{float((a - b).abs().max())}")
+                    err = max(err, float((a - b).abs().max()))
+                run.update(cpu_steps=len(c_losses),
+                           loss_rel_err_vs_cpu=max(
+                               abs(a - b) / abs(b)
+                               for a, b in zip(losses, c_losses)),
+                           max_abs_err_vs_cpu=err)
+            if "steady_wall_s" in recs[0]:
+                steady = recs[0]["steady_steps"]
+                run["step_ms"] = 1e3 * recs[0]["steady_wall_s"] / steady
+                run["examples_per_s_gloo_host_staged"] = (
+                    steady * TRAIN_BATCH / recs[0]["steady_wall_s"])
+            if "profile" in recs[0]:
+                prof = recs[0]["profile"]
+                prof["idle_share"] = 1.0 - prof["device_ms_per_step"] / \
+                    run["step_ms"]
+                run["profile_rank0"] = prof
+            runs[name] = run
+        launches = {k: sum(card[0][r[0]]["launches"].get(k, 0)
+                           for r in DP_DEEP_RUNS) for k in sk.KERNELS}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "dp_deep", "world": DP_WORLD,
+            "backend": "gloo (host-staged), all ranks on cuda:0",
+            "fields": N_FIELDS, "vocab": VOCAB, "factor_dim": DIM,
+            "hidden": HIDDEN, "batch": TRAIN_BATCH,
+            "local_rows": DP_LOCAL_ROWS, "lambda_l2": LAMBDA_L2,
+            "rtol": DP_DEEP_RTOL, "atol": DP_DEEP_ATOL, "runs": runs,
+            "seconds": {"card_world": card_s, "cpu_world": cpu_s},
+            "launches_rank0": launches}
+
+
+# -- phase: cli ---------------------------------------------------------------
+
+CLI_ROWS = 65536
+CLI_EVAL_ROWS = 16384
+CLI_EPOCHS = 2
+#: (subcommand, its flags beyond the common ones) of the in-process runs:
+#: factor 32 but for ffm (the CLI's default 8: its v is 2^20 x 39 x 8),
+#: DCN at DCN_LR, seqctr at its defaults (dim 32, 4 heads, 2 layers)
+CLI_RUNS = (("fm", ("--factor", "32")), ("ffm", ()),
+            ("nfm", ("--factor", "32")), ("widedeep", ("--factor", "32")),
+            ("deepfm", ("--factor", "32")),
+            ("dcn", ("--factor", "32", "--lr", str(DCN_LR))),
+            ("seqctr", ()))
+#: table gathers a step of each subcommand (each one merge_rows launch in
+#: the backward of ``embed.table.lookup``)
+CLI_LOOKUPS = {"fm": 2, "ffm": 2, "nfm": 2, "widedeep": 2, "deepfm": 2,
+               "dcn": 1, "seqctr": 1}
+#: subcommands whose model reads no feature value: DCN's only inputs are
+#: the per-field embeddings of ``rep_fids`` (the JAX model's too), and the
+#: proxy's label is a logistic in two numeric fields' values plus the
+#: parity of field 0's id, which an embedding learns id by id.  Its
+#: held-out AUC is reported (0.504 in this phase on an NVIDIA H100 80GB
+#: HBM3 at 700 W, PERF.md section 5) and its train AUC held to MIN_AUC
+#: instead.
+CLI_VALUE_BLIND = ("dcn",)
+#: the sequence file: item vocabulary, lengths, and the "intent" items
+#: (ids 1..63) a positive row holds three of
+SEQ_VOCAB = 1 << 20
+SEQ_LENGTHS = (10, 50)
+SEQ_INTENT = 64
+CLI_SCORE_ATOL = 1e-6
+CLI_LAUNCHER_TIMEOUT_S = 420
+#: ``deepfm --dp`` trains full-batch, one step an epoch: at the CLI's
+#: default lr 0.1 those steps overshoot and the loss climbs past the
+#: init's, so the --dp runs take lr 0.01 and four epochs, over which the
+#: exact run's loss falls step by step
+CLI_DP_LR = 0.01
+CLI_DP_EPOCHS = 4
+#: the exact two-rank launcher run against the one-rank in-process run
+#: (the same mean gradient, summed in another order): final loss and
+#: train AUC within this relative distance, the family's rtol
+CLI_DP_RTOL = 1e-4
+
+
+def write_seq_file(np, path, rows, seed) -> str:
+    """``label id id ...`` rows: lengths uniform in SEQ_LENGTHS, items
+    skewed over the vocabulary (u^4 head/tail) above the intent ids; a
+    positive row (half of them) carries three intent ids at random
+    places, so the label depends on the items."""
+    rng = np.random.default_rng(seed)
+    lo, hi = SEQ_LENGTHS
+    with open(path, "w") as f:
+        for start in range(0, rows, 8192):
+            n = min(8192, rows - start)
+            lens = rng.integers(lo, hi + 1, n)
+            y = rng.random(n) < 0.5
+            ids = SEQ_INTENT + (rng.random((n, hi)) ** 4 * (
+                SEQ_VOCAB - SEQ_INTENT)).astype(np.int64)
+            lines = []
+            for i in range(n):
+                row = ids[i, :lens[i]]
+                if y[i]:
+                    row[rng.integers(0, lens[i], 3)] = rng.integers(
+                        1, SEQ_INTENT, 3)
+                lines.append(f"{int(y[i])} " + " ".join(map(str, row))
+                             + "\n")
+            f.writelines(lines)
+    return path
+
+
+def cli_files(np, seed, root) -> dict:
+    """The phase's files: a Criteo-layout libFFM file and its held-out
+    file (``data.synth.write_criteo_proxy``), and two sequence files."""
+    from lightctr_tpu_torch.data import synth
+
+    kw = dict(n_fields=N_FIELDS, n_cat=N_CAT, vocab=VOCAB)
+    t = time.perf_counter()
+    files = {
+        "train": synth.write_criteo_proxy(os.path.join(root, "train.ffm"),
+                                          CLI_ROWS, seed=seed + 31, **kw),
+        "eval": synth.write_criteo_proxy(os.path.join(root, "eval.ffm"),
+                                         CLI_EVAL_ROWS, seed=seed + 32, **kw),
+        "seq": write_seq_file(np, os.path.join(root, "seq.txt"), CLI_ROWS,
+                              seed + 33),
+        "seq_eval": write_seq_file(np, os.path.join(root, "seq_eval.txt"),
+                                   CLI_EVAL_ROWS, seed + 34)}
+    files["write_s"] = time.perf_counter() - t
+    return files
+
+
+def cli_score_batch(np, model, path, params):
+    """The batch a run's ``--dump-scores`` scored: the held-out libFFM file
+    read against the trained vocabulary (the family with its
+    field-representative pair), or seqctr's training file."""
+    from lightctr_tpu_torch.cli.__main__ import parse_seq_file
+    from lightctr_tpu_torch.data import load_libffm
+    from lightctr_tpu_torch.models import widedeep
+
+    if model == "seqctr":
+        return parse_seq_file(path, 128)[0]
+    table = params["w"] if "w" in params else params["embed"]
+    ev = load_libffm(path, feature_cnt=int(table.shape[0]),
+                     field_cnt=N_FIELDS)
+    if model in ("widedeep", "deepfm", "dcn"):
+        return widedeep.make_batch(ev, *widedeep.field_representatives(
+            ev.fids, ev.fields, ev.mask, N_FIELDS))
+    return ev.batch_dict()
+
+
+def cli_restored_scores(np, torch, model, ck_dir, path) -> tuple:
+    """The latest checkpoint under ``ck_dir`` restored, and the scores its
+    params give the run's scored batch on the card."""
+    from lightctr_tpu_torch import ckpt
+    from lightctr_tpu_torch.models import (attention_ctr, deepfm, ffm, fm,
+                                           nfm, widedeep)
+    from lightctr_tpu_torch.ops.activations import sigmoid
+
+    step = ckpt.latest_step(ck_dir)
+    state = ckpt.restore(ck_dir)
+    params = state["params"]
+    logits = {"fm": fm.logits, "ffm": ffm.logits, "nfm": nfm.logits,
+              "widedeep": widedeep.logits, "deepfm": deepfm.logits,
+              "dcn": deepfm.dcn_logits,
+              "seqctr": attention_ctr.make_logits(4)}[model]
+    batch = cli_score_batch(np, model, path, params)
+    with torch.no_grad():
+        probs = sigmoid(logits(params, {k: torch.from_numpy(v).cuda()
+                                        for k, v in batch.items()}))
+    devices = sorted({str(t.device) for t in flat_leaves(params).values()
+                      if hasattr(t, "device")})
+    return step, probs.cpu().numpy(), devices, type(state["opt_state"])
+
+
+def cli_run(torch, sk, argv) -> tuple:
+    """``cli.main(argv)`` in this process: the report it printed, the
+    per-epoch losses of its ``epoch`` events, its launches (counts reset
+    just before) and its seconds."""
+    import contextlib
+    import io
+
+    from lightctr_tpu_torch.cli import __main__ as cli
+    from lightctr_tpu_torch.obs import events, gate
+
+    log = events.configure()
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    t = time.perf_counter()
+    with gate.override(True), contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = sk.launches()
+    if rc != 0:
+        raise AssertionError(f"cli {argv[0]}: exit {rc}")
+    report = json.loads(out.getvalue().strip().splitlines()[-1])
+    epochs = [r["loss"] for r in log.records() if r["kind"] == "epoch"]
+    events.configure()
+    return report, epochs, launches, secs
+
+
+def cli_dp_argv(files) -> list:
+    """The --dp runs' arguments after the subcommand's name."""
+    return ["--data", files["train"], "--eval-data", files["eval"],
+            "--epochs", str(CLI_DP_EPOCHS), "--lr", str(CLI_DP_LR),
+            "--factor", str(DIM), "--dp", "--device", "cuda"]
+
+
+def cli_dp_reference(np, torch, sk, files) -> dict:
+    """``deepfm --dp`` in this process without a launcher: a one-rank
+    group over the card, the whole batch a step.  Its loss must fall at
+    every step; the launcher runs are held to it."""
+    argv = ["deepfm", *cli_dp_argv(files)]
+    rep, epochs, launches, secs = cli_run(torch, sk, argv)
+    want = dict.fromkeys(sk.KERNELS, 0)
+    want["merge_rows"] = CLI_LOOKUPS["deepfm"] * CLI_DP_EPOCHS
+    if launches != want:
+        raise AssertionError(f"cli deepfm --dp, one rank: launches "
+                             f"{launches}, planned {want}")
+    if rep.get("parallel") != {"devices": 1, "compress_bits": None} or \
+            len(epochs) != CLI_DP_EPOCHS or not all(np.isfinite(epochs)) or \
+            rep["final_loss"] != epochs[-1] or \
+            not all(b < a for a, b in zip(epochs, epochs[1:])):
+        raise AssertionError(f"cli deepfm --dp, one rank: epochs {epochs}, "
+                             f"report {rep}")
+    return {"argv": argv[:1] + argv[3:], "seconds": secs, "report": rep,
+            "epoch_losses": epochs, "launches": launches}
+
+
+def cli_launcher(np, torch, files, root, compress, ref) -> dict:
+    """``deepfm --dp`` (``compress``: with ``--compress-bits 8``) under
+    ``python -m torch.distributed.run --nproc-per-node 2``: two ranks
+    sharing the card over gloo, full batch a step; the report, and the
+    checkpoint restored to the dumped held-out scores.  Against ``ref``
+    (``cli_dp_reference``): the exact run's final loss and train AUC
+    within CLI_DP_RTOL, and either run's final loss below the init's (the
+    reference's first, the same init and batch)."""
+    import signal
+
+    tag = "dp8" if compress else "dp"
+    ck, scores = os.path.join(root, f"ck_{tag}"), os.path.join(
+        root, f"scores_{tag}.txt")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(DP_WORLD), "-m",
+           "lightctr_tpu_torch.cli", "deepfm", *cli_dp_argv(files),
+           "--ckpt-dir", ck, "--dump-scores", scores]
+    if compress:
+        cmd += ["--compress-bits", "8"]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo",
+               PYTHONPATH=os.pathsep.join(
+                   [REPO] + [p for p in [os.environ.get("PYTHONPATH")]
+                             if p]))
+    t = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=CLI_LAUNCHER_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"cli {tag}: the launcher ran past "
+                             f"{CLI_LAUNCHER_TIMEOUT_S} s")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+    secs = time.perf_counter() - t
+    if proc.returncode != 0:
+        raise AssertionError(f"cli {tag}: exit {proc.returncode}: "
+                             f"{stderr[-3000:]}")
+    reports = [json.loads(line) for line in stdout.splitlines()
+               if line.startswith("{")]
+    if len(reports) != 1:
+        raise AssertionError(f"cli {tag}: {len(reports)} reports, not rank "
+                             f"0's one: {stdout[-2000:]}")
+    rep = reports[0]
+    if rep["parallel"] != {"devices": DP_WORLD,
+                           "compress_bits": 8 if compress else None} or \
+            not np.isfinite(rep["final_loss"]) or \
+            not np.isfinite(rep["eval"]["auc"]):
+        raise AssertionError(f"cli {tag}: report {rep}")
+    want = ref["report"]
+    gaps = {k: abs(got - w) / abs(w) for k, got, w in (
+        ("final_loss", rep["final_loss"], want["final_loss"]),
+        ("train_auc", rep["train"]["auc"], want["train"]["auc"]))}
+    if not compress and max(gaps.values()) > CLI_DP_RTOL:
+        raise AssertionError(f"cli {tag}: {rep} against the one-rank run's "
+                             f"{want}: relative gaps {gaps}")
+    if not rep["final_loss"] < ref["epoch_losses"][0]:
+        raise AssertionError(f"cli {tag}: final loss {rep['final_loss']} "
+                             f"not below the init's "
+                             f"{ref['epoch_losses'][0]}")
+    step, probs, devices, _ = cli_restored_scores(np, torch, "deepfm", ck,
+                                                  files["eval"])
+    dumped = np.loadtxt(scores)
+    err = float(np.abs(probs - dumped).max())
+    if step != CLI_DP_EPOCHS or err > CLI_SCORE_ATOL:
+        raise AssertionError(f"cli {tag}: checkpoint step {step}, restored "
+                             f"scores {err} from the dump")
+    return {"argv": cmd[3:], "seconds": secs, "report": rep,
+            "rel_gap_vs_one_rank": gaps,
+            "held_to_one_rank": not compress,
+            "restored_step": step, "restored_devices": devices,
+            "restored_scores_max_abs_err": err}
+
+
+def phase_cli(np, torch, sk, seed) -> dict:
+    """Each ported subcommand of ``python -m lightctr_tpu_torch.cli`` run
+    in this process on the card, then ``deepfm --dp`` on one rank in this
+    process and on two under the launcher, held to the one-rank run:
+    reports, the loss falling, held-out AUC, launches against the plan,
+    and every checkpoint restored to its dumped scores."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        files = cli_files(np, seed, root)
+        runs = {}
+        launches = dict.fromkeys(sk.KERNELS, 0)
+        for model, extra in CLI_RUNS:
+            seq = model == "seqctr"
+            ck = os.path.join(root, f"ck_{model}")
+            scores = os.path.join(root, f"scores_{model}.txt")
+            argv = [model, "--data", files["seq" if seq else "train"],
+                    "--eval-data", files["seq_eval" if seq else "eval"],
+                    "--epochs", str(CLI_EPOCHS),
+                    "--batch-size", str(TRAIN_BATCH), "--ckpt-dir", ck,
+                    "--dump-scores", scores, "--device", "cuda", *extra]
+            rep, epochs, got, secs = cli_run(torch, sk, argv)
+            steps = CLI_EPOCHS * (CLI_ROWS // TRAIN_BATCH)
+            want = dict.fromkeys(sk.KERNELS, 0)
+            want["merge_rows"] = CLI_LOOKUPS[model] * steps
+            if got != want:
+                raise AssertionError(f"cli {model}: launches {got}, planned "
+                                     f"{want}")
+            for k in ("train", "final_loss", "eval", "checkpoint",
+                      "scores"):
+                if k not in rep:
+                    raise AssertionError(f"cli {model}: no {k!r} in {rep}")
+            if len(epochs) != CLI_EPOCHS or \
+                    not np.isfinite(rep["final_loss"]) or \
+                    rep["final_loss"] != epochs[-1] or \
+                    not rep["final_loss"] < epochs[0]:
+                raise AssertionError(f"cli {model}: final loss "
+                                     f"{rep['final_loss']}, epochs {epochs}")
+            gated = "train" if model in CLI_VALUE_BLIND else "eval"
+            if not rep[gated]["auc"] > MIN_AUC:
+                raise AssertionError(f"cli {model}: {gated} AUC "
+                                     f"{rep[gated]['auc']} <= {MIN_AUC}")
+            step, probs, devices, state_type = cli_restored_scores(
+                np, torch, model, ck,
+                files["seq"] if seq else files["eval"])
+            dumped = np.loadtxt(scores)
+            err = float(np.abs(probs - dumped).max())
+            if step != CLI_EPOCHS or probs.shape != dumped.shape or \
+                    err > CLI_SCORE_ATOL:
+                raise AssertionError(f"cli {model}: checkpoint step {step}, "
+                                     f"restored scores {err} from the dump")
+            for k in launches:
+                launches[k] += got[k]
+            runs[model] = {"argv": argv[:1] + list(extra), "seconds": secs,
+                           "auc_gated": gated,
+                           "steps": steps, "launches": got,
+                           "epoch_losses": epochs, "report": rep,
+                           "restored_step": step,
+                           "restored_devices": devices,
+                           "restored_opt_state": state_type.__name__,
+                           "restored_scores_max_abs_err": err}
+            torch.cuda.empty_cache()
+        ref = cli_dp_reference(np, torch, sk, files)
+        for k in launches:
+            launches[k] += ref["launches"][k]
+        launcher = {"dp_one_rank": ref,
+                    "dp": cli_launcher(np, torch, files, root, False, ref),
+                    "dp_compress8": cli_launcher(np, torch, files, root,
+                                                 True, ref)}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "cli", "rows": CLI_ROWS, "eval_rows": CLI_EVAL_ROWS,
+            "epochs": CLI_EPOCHS, "batch": TRAIN_BATCH,
+            "files_write_s": files["write_s"], "runs": runs,
+            "launcher": launcher, "launches": launches}
 
 
 # -- phase: attention ---------------------------------------------------------
@@ -3310,6 +3965,11 @@ def graph_ms(torch, fn, reps: int = 100, repeats: int = 7) -> float:
     """Device time of one ``fn()`` call: ``reps`` calls captured in one
     CUDA graph (so host launch overhead does not hide the device time),
     replayed ``repeats`` times between CUDA events; median per call."""
+    return statistics.median(graph_times(torch, fn, reps, repeats))
+
+
+def graph_times(torch, fn, reps: int = 100, repeats: int = 7) -> list:
+    """``graph_ms``'s per-call time of each of the ``repeats`` replays."""
     s = torch.cuda.Stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
@@ -3331,7 +3991,7 @@ def graph_ms(torch, fn, reps: int = 100, repeats: int = 7) -> float:
         b.record()
         b.synchronize()
         per.append(a.elapsed_time(b) / reps)
-    return statistics.median(per)
+    return per
 
 
 #: bytes a cold timing reads between two calls: four times the H100's
@@ -3381,10 +4041,10 @@ def cold_ms(torch, fn, reps: int = 20, repeats: int = 7) -> float:
     return statistics.median(per)
 
 
-def call_ms(torch, fn, reps: int = 200) -> float:
+def call_ms(torch, fn, reps: int = 200, warmup: int = 10) -> float:
     """Time of one eager call, host included: ``reps`` calls back to
-    back between CUDA events after a warm-up."""
-    for _ in range(10):
+    back between CUDA events after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
@@ -3759,7 +4419,12 @@ def lookup_timing(np, torch, sk, seed) -> list:
     paths, beside ``index_add_`` into zeros (``index_select``'s own
     backward): one batch's 159,744 slot gradients summed into the whole
     2^20-row table (CTRTrainer) and into the sparse trainer's 159,744
-    deduped rows, at d = 32 (v) and d = 1 (w)."""
+    deduped rows, at d = 32 (v) and d = 1 (w); and into the whole table at
+    d = 312 (FFM's v in the cli phase, 1.3 GB out: fewer calls a graph).
+    Each shape's kernel is first held bit for bit to its plain version.
+    ``ms`` and ``library_ms`` are medians of LOOKUP_REPEATS graph replays,
+    ``plain_ms`` the median of as many timed eager runs; the ``*_min_max``
+    keys give each one's spread."""
     rng = np.random.default_rng(seed + 13)
     ids = torch.from_numpy(criteo_fids(np, rng, TRAIN_BATCH).reshape(-1)) \
         .cuda()
@@ -3767,26 +4432,47 @@ def lookup_timing(np, torch, sk, seed) -> list:
     m = ids.numel()
     gen = torch.Generator(device="cuda").manual_seed(53)
     out = []
-    for trainer, seg, nseg in (("CTRTrainer", ids.to(torch.int32), VOCAB),
-                               ("SparseTableCTRTrainer", inv, m)):
+    for trainer, seg, nseg, ds in (
+            ("CTRTrainer", ids.to(torch.int32), VOCAB, (DIM, 1, FFM_ROW)),
+            ("SparseTableCTRTrainer", inv, m, (DIM, 1))):
         seg64 = seg.to(torch.int64)
-        for d in (DIM, 1):
+        for d in ds:
             grad = torch.randn((m, d), generator=gen, device="cuda")
+            got = sk.merge_rows(grad, seg, nseg)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), sk.merge_rows_plain(
+                    grad, seg, nseg).view(torch.int32)):
+                raise AssertionError(f"merge_rows kernel != plain at "
+                                     f"{trainer}'s d={d}, nseg={nseg}")
+            del got
             nbytes = m * d * 4 + m * 4 + nseg * d * 4
+            big = d == FFM_ROW
+            reps = 5 if big else 100
+            ms = graph_times(torch, lambda: sk.merge_rows(grad, seg, nseg),
+                             reps=reps, repeats=LOOKUP_REPEATS)
+            plain = [call_ms(torch, lambda: sk.merge_rows_plain(
+                grad, seg, nseg), reps=1, warmup=1)
+                for _ in range(LOOKUP_REPEATS)]
+            lib = graph_times(torch, lambda: torch.zeros(
+                (nseg, d), device="cuda").index_add_(0, seg64, grad),
+                reps=reps, repeats=LOOKUP_REPEATS)
             out.append({
                 "trainer": trainer, "m": m, "nseg": nseg, "d": d,
                 "workspace_bytes": sk.load("merge_rows")
                 .merge_rows_workspace_bytes(m, nseg, d),
-                "ms": graph_ms(torch, lambda: sk.merge_rows(grad, seg,
-                                                            nseg)),
-                "plain_ms": call_ms(torch, lambda: sk.merge_rows_plain(
-                    grad, seg, nseg), reps=3),
-                "library_ms": graph_ms(torch, lambda: torch.zeros(
-                    (nseg, d), device="cuda").index_add_(0, seg64, grad)),
+                "bit_exact_vs_plain": True,
+                "ms": statistics.median(ms),
+                "ms_min_max": [min(ms), max(ms)],
+                "plain_ms": statistics.median(plain),
+                "plain_ms_min_max": [min(plain), max(plain)],
+                "library_ms": statistics.median(lib),
+                "library_ms_min_max": [min(lib), max(lib)],
                 "library_call": "torch.zeros(...).index_add_, the backward "
                                 "of index_select",
                 "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
                 "bytes": nbytes})
+            del grad
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3944,10 +4630,18 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = nvidia_smi()
-    emit(phase_build(sk, bindings) | {"nvidia_smi": smi})
+
+    def timed(fn, *a):
+        """``fn(*a)``'s line with the phase's seconds."""
+        t = time.perf_counter()
+        info = fn(*a)
+        return info | {"phase_s": time.perf_counter() - t}
+
+    emit(timed(phase_build, sk, bindings) | {"nvidia_smi": smi})
     requests = make_requests(np, args.seed)
     serve_ns = serve_gather_ns(np, sk, requests)
     krng = np.random.default_rng(args.seed + 4)
+    t_kern = time.perf_counter()
     kern = phase_kernels(torch, sk, serve_ns)
     kern["dedup_ids"] = check_dedup(np, torch, sk, krng)
     kern["dedup_ids_int64"] = check_dedup64(np, torch, sk, krng)
@@ -3962,26 +4656,32 @@ def main(argv=None) -> int:
     kern["quantize_pack_ef"] = check_quantize_pack_ef(np, torch, sk, qz)
     kern["flash_attention"] = check_flash(torch, sk, fl)
     kern["dp_rs_path"] = check_rs_path(np, torch, sk, qz, krng)
-    emit(kern)
-    serve_info = phase_serve(np, torch, sk, args.seed, requests)
+    emit(kern | {"phase_s": time.perf_counter() - t_kern})
+    serve_info = timed(phase_serve, np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
-    train_info = phase_train(np, torch, sk, args.seed)
+    train_info = timed(phase_train, np, torch, sk, args.seed)
     emit(train_info | {"nvidia_smi": smi})
-    dp_info = phase_dp(np, torch, sk, args.seed)
+    dp_info = timed(phase_dp, np, torch, sk, args.seed)
     emit(dp_info | {"nvidia_smi": smi})
-    rs_info = phase_dp_rs(np, torch, sk, args.seed)
+    rs_info = timed(phase_dp_rs, np, torch, sk, args.seed)
     emit(rs_info | {"nvidia_smi": smi})
-    ingest_info = phase_ingest(np, torch, sk, args.seed,
-                               rs_info["repeat_coded_step"])
+    ingest_info = timed(phase_ingest, np, torch, sk, args.seed,
+                        rs_info["repeat_coded_step"])
     emit(ingest_info | {"nvidia_smi": smi})
-    serve_deep_info = phase_serve_deep(np, torch, sk, args.seed, requests)
+    serve_deep_info = timed(phase_serve_deep, np, torch, sk, args.seed,
+                            requests)
     emit(serve_deep_info | {"nvidia_smi": smi})
-    train_deep_info = phase_train_deep(np, torch, sk, args.seed)
+    train_deep_info = timed(phase_train_deep, np, torch, sk, args.seed)
     emit(train_deep_info | {"nvidia_smi": smi})
-    attn_info = phase_attention(torch, sk, fl, args.seed)
+    dp_deep_info = timed(phase_dp_deep, np, torch, sk, args.seed)
+    emit(dp_deep_info | {"nvidia_smi": smi})
+    cli_info = timed(phase_cli, np, torch, sk, args.seed)
+    emit(cli_info | {"nvidia_smi": smi})
+    attn_info = timed(phase_attention, torch, sk, fl, args.seed)
     emit(attn_info | {"nvidia_smi": smi})
-    bench_info = phase_bench(torch, sk)
+    bench_info = timed(phase_bench, torch, sk)
     emit(bench_info | {"nvidia_smi": smi})
+    t_timing = time.perf_counter()
     gather_row, gather_floor = gather_timing(
         torch, sk, serve_ns, serve_info["launches"],
         kern["gather_rows"]["max_abs_err"])
@@ -4028,12 +4728,17 @@ def main(argv=None) -> int:
                                      "phase's",
                        per_shape_train=train_merge)
         # the Wide&Deep family's paths: B3 in serve_deep, B1, B2, B4 and
-        # B5 in train_deep, counted into each row's launches
+        # B5 in train_deep, B2, B4, B5 and B6 in dp_deep (rank 0), and B4
+        # in the CLI's in-process runs, counted into each row's launches
         deep = {"launches_serve_deep":
                 serve_deep_info["launches"].get(name, 0),
                 "launches_train_deep":
-                train_deep_info["launches"].get(name, 0)}
+                train_deep_info["launches"].get(name, 0),
+                "launches_dp_deep":
+                dp_deep_info["launches_rank0"].get(name, 0),
+                "launches_cli": cli_info["launches"].get(name, 0)}
         row.update(deep, launches=row["launches"] + sum(deep.values()))
+    emit({"timing_s": time.perf_counter() - t_timing})
     emit({"kernels": rows})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

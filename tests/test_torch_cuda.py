@@ -1197,3 +1197,90 @@ def test_pq_on_the_card_matches_cpu(dev):
     assert torch.equal(again.centroids, pq.train(
         torch.Generator(device=dev).manual_seed(0), x.to(dev), part_cnt=4,
         cluster_cnt=64, iters=3).centroids)
+
+
+def test_lookup_backward_on_ffms_3d_table_is_merge_rows_bit_for_bit(dev):
+    """FFM's v is [V, 39, 8] at the Criteo layout: the gather's backward
+    runs merge_rows on rows of 312 floats (float4 lanes), launched once,
+    equal to ``merge_rows_plain`` and to the CPU's slot-order sums bit for
+    bit, and to itself across two calls."""
+    from lightctr_tpu_torch.embed.table import lookup
+
+    rng = np.random.default_rng(5)
+    rows, fields, k = 1 << 14, 39, 8
+    table = torch.from_numpy(rng.normal(size=(rows, fields, k)).astype(
+        np.float32))
+    ids = (rng.random((512, fields)) ** 4 * rows).astype(np.int32)
+    ids[:, 26:] = np.arange(26, 39)
+    grad = torch.from_numpy(rng.normal(size=ids.shape + (fields, k)).astype(
+        np.float32))
+    got = []
+    for _ in range(2):
+        t = table.to(dev).requires_grad_()
+        before = sk.launches("merge_rows")
+        lookup(t, torch.from_numpy(ids).to(dev)).backward(grad.to(dev))
+        assert sk.launches("merge_rows") == before + 1
+        got.append(t.grad)
+    assert torch.equal(got[0], got[1])
+    plain = sk.merge_rows_plain(grad.to(dev).reshape(ids.size, -1),
+                                torch.from_numpy(ids).to(dev).reshape(-1),
+                                rows).reshape(table.shape)
+    assert torch.equal(got[0], plain)
+    cpu = table.clone().requires_grad_()
+    lookup(cpu, torch.from_numpy(ids)).backward(grad)
+    assert torch.equal(got[0].cpu(), cpu.grad)
+
+
+def test_ffm_step_run_twice_is_bit_identical(dev):
+    """One CTRTrainer step of FFM (39 fields, k 8, the gathers' backward
+    on merge_rows) from one state, twice on the card: params and Adagrad
+    state bit-identical; the loss within 1e-5 of the CPU's."""
+    from lightctr_tpu_torch.models import ffm
+
+    rng = np.random.default_rng(6)
+    n, fields, vocab = 1024, 39, 4096
+    fids = (rng.random((n, fields)) ** 4 * vocab).astype(np.int32)
+    batch = {"fids": fids,
+             "fields": np.tile(np.arange(fields, dtype=np.int32), (n, 1)),
+             "vals": rng.uniform(0.5, 1.5, (n, fields)).astype(np.float32),
+             "mask": np.ones((n, fields), np.float32),
+             "labels": (rng.random(n) > 0.5).astype(np.float32)}
+    p = ffm.init(torch.Generator().manual_seed(0), vocab, fields, 8)
+    cfg = TrainConfig(learning_rate=0.1, lambda_l2=0.001)
+    states, losses = [], []
+    for device in (dev, dev, "cpu"):
+        tr = CTRTrainer(p, ffm.logits, cfg, fused_fn=ffm.logits_with_l2,
+                        device=device)
+        tr.health = None
+        losses.append(float(tr.train_step(batch)))
+        states.append([t.cpu() for t in (tr.params["w"], tr.params["v"],
+                                         tr.opt_state.accum["w"],
+                                         tr.opt_state.accum["v"])])
+    for a, b in zip(states[0], states[1]):
+        assert torch.equal(a, b)
+    assert losses[0] == losses[1]
+    assert abs(losses[0] - losses[2]) <= 1e-5 * abs(losses[2])
+
+
+def test_ckpt_round_trips_cuda_params_to_the_same_device(dev, tmp_path):
+    """``ckpt.save`` of CUDA params and optimizer state writes CPU tensors;
+    ``restore`` without a template puts each back on the card it came
+    from, and with one on the template's device, bit for bit."""
+    from lightctr_tpu_torch import ckpt
+    from lightctr_tpu_torch.models import nfm
+
+    p = nfm.init(torch.Generator(device=dev).manual_seed(0), 1000, 8, 16,
+                 device=dev)
+    tr = CTRTrainer(p, nfm.logits, TrainConfig(), device=dev)
+    state = {"params": tr.params, "opt_state": tr.opt_state}
+    ckpt.save(str(tmp_path), 1, state)
+    saved = torch.load(tmp_path / "step_1" / "leaves.pt", weights_only=True)
+    assert all(t.device.type == "cpu" for t in saved)
+    for out in (ckpt.restore(str(tmp_path)),
+                ckpt.restore(str(tmp_path), like=state)):
+        assert type(out["opt_state"]) is type(tr.opt_state)
+        for a, b in ((out["params"]["fc1"]["w"], p["fc1"]["w"]),
+                     (out["params"]["v"], p["v"]),
+                     (out["opt_state"].accum["v"],
+                      tr.opt_state.accum["v"])):
+            assert a.device == b.device and torch.equal(a, b)

@@ -32,7 +32,9 @@ from lightctr_tpu import TrainConfig as JConfig
 from lightctr_tpu.core.mesh import MeshSpec as JMeshSpec
 from lightctr_tpu.core.mesh import make_mesh as jmake_mesh
 from lightctr_tpu.dist import collectives as jcoll
+from lightctr_tpu.models import deepfm as jdeepfm
 from lightctr_tpu.models import fm as jfm
+from lightctr_tpu.models import widedeep as jwidedeep
 from lightctr_tpu.models.ctr_trainer import CTRTrainer as JCTRTrainer
 from lightctr_tpu.models.sparse_trainer import \
     SparseTableCTRTrainer as JSparseTrainer
@@ -40,6 +42,10 @@ from lightctr_tpu_torch.core.mesh import spawn_world
 
 RTOL, ATOL = 2e-5, 2e-6   # tests/test_torch_trainer.py's bound
 CODED_RTOL = 1e-4         # the coded trainers' loss bound
+#: the Wide&Deep family's bound (the tanh of fc1, ROADMAP §C), and its
+#: coded runs' loss bound
+FAMILY_TOL = dict(rtol=1e-4, atol=2e-5)
+FAMILY_CODED_RTOL = 1e-3
 CARRY_KW = {"compress_bits": 8, "compress_mode": "uniform"}
 
 
@@ -88,10 +94,31 @@ def world(request, tmp_path_factory):
     return w, jmesh, carry, ranks
 
 
+def _arrays(rec, keys=None, prefix=""):
+    """{path: array} of every numpy array in a rank's record (nested
+    dicts walked), or of the named top-level ``keys``."""
+    out = {}
+    for k, v in rec.items():
+        if keys is not None and not prefix and k not in keys:
+            continue
+        if isinstance(v, dict):
+            out.update(_arrays(v, None, f"{prefix}{k}/"))
+        elif isinstance(v, np.ndarray):
+            out[prefix + k] = v
+    return out
+
+
 def _assert_ranks_identical(ranks, name, keys=("w", "v")):
+    """Every rank's arrays of run ``name`` equal rank 0's bit for bit:
+    the named ``keys``, or with ``keys=None`` every array of the record
+    (a model's nested parameters and accumulators)."""
+    want = _arrays(ranks[0][name], keys)
+    assert want, name
     for out in ranks[1:]:
-        for k in keys:
-            np.testing.assert_array_equal(out[name][k], ranks[0][name][k])
+        got = _arrays(out[name], keys)
+        assert sorted(got) == sorted(want), name
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=f"{name} {k}")
 
 
 @pytest.mark.parametrize("name, policy", [("sparse_exact", "sparse"),
@@ -430,3 +457,105 @@ def test_jax_coded_dynamic_range_parts_under_a_field_reorder():
     assert coded_loss[0] < 1e-6, coded_loss
     assert coded_loss.max() >= 1e-4, coded_loss
     assert coded_table > 1e-3, coded_table
+
+
+# -- the Wide&Deep family on a mesh --------------------------------------------
+
+#: kind -> the JAX (logits, logits_with_l2 or None)
+JFAMILY = {"widedeep": (jwidedeep.logits, None),
+           "deepfm": (jdeepfm.logits, jdeepfm.logits_with_l2),
+           "dcn": (jdeepfm.dcn_logits, jdeepfm.dcn_logits_with_l2)}
+
+
+def jflat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(jflat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def jfamily_run(name, jmesh):
+    """The JAX trainer of family case ``name`` on the sub-mesh, stepped
+    over the worlds' batches: (losses, trainer)."""
+    kind, trainer, kw = worlds.FAMILY_CASES[name]
+    jl, jl2 = JFAMILY[kind]
+    jp = jax.tree_util.tree_map(jnp.asarray, worlds.family_params(kind))
+    extra = {} if jl2 is None else {"fused_fn": jl2}
+    if trainer == "sparse":
+        tr = JSparseTrainer(jp, jl, JConfig(**worlds.CFG),
+                            sparse_tables=worlds.FAMILY_TABLES[kind],
+                            mesh=jmesh, **extra, **kw)
+    else:
+        tr = JCTRTrainer(jp, jl, JConfig(**worlds.CFG), mesh=jmesh,
+                         **extra, **kw)
+    tr.health = None
+    return [float(tr.train_step(b)) for b in worlds.family_batches()], tr
+
+
+def _family_names(trainer, coded):
+    return sorted(n for n, (_, t, kw) in worlds.FAMILY_CASES.items()
+                  if t == trainer and bool(kw) == coded)
+
+
+@pytest.mark.parametrize("name", _family_names("sparse", False))
+def test_family_hybrid_trainer_exact_matches_jax(world, name):
+    """``SparseTableCTRTrainer(mesh=...)`` over Wide&Deep, DeepFM and DCN:
+    two id streams (``w`` over fids, ``embed`` over rep_fids; DCN's embed
+    alone) on the hybrid exchange, the nested dense leaves on the mean.
+    The pick, its bytes per table, the losses, every parameter and the
+    table accumulators follow the JAX trainer on a sub-mesh at the
+    family's bound; every rank is identical."""
+    w, jmesh, _, ranks = world
+    lj, jt = jfamily_run(name, jmesh)
+    got = ranks[0]["family_" + name]
+    assert got["policy"] == jt.exchange_policy
+    assert got["bytes"] == jt.exchange_bytes_per_step
+    np.testing.assert_allclose(got["loss"], lj, **FAMILY_TOL)
+    want = jflat(jt.params)
+    assert sorted(got["params"]) == sorted(want)
+    for k, v in want.items():
+        np.testing.assert_allclose(got["params"][k], v, err_msg=k,
+                                   **FAMILY_TOL)
+    for k, v in jflat(jt.opt_state["accum"]).items():
+        np.testing.assert_allclose(got["accum"][k], v, err_msg=k,
+                                   **FAMILY_TOL)
+    _assert_ranks_identical(ranks, "family_" + name, keys=None)
+
+
+@pytest.mark.parametrize("name", _family_names("sparse", True))
+def test_family_hybrid_trainer_coded_matches_jax(world, name):
+    """The same over the 8-bit exchange with a measured range: the dense
+    leaves ride the coded ring and both tables' rows are coded; the
+    losses agree within rtol 1e-3 (a code may flip at a boundary) and
+    every rank is identical."""
+    w, jmesh, _, ranks = world
+    lj, jt = jfamily_run(name, jmesh)
+    got = ranks[0]["family_" + name]
+    assert got["policy"] == jt.exchange_policy
+    assert got["bytes"] == jt.exchange_bytes_per_step
+    np.testing.assert_allclose(got["loss"], lj, rtol=FAMILY_CODED_RTOL)
+    _assert_ranks_identical(ranks, "family_" + name, keys=None)
+
+
+@pytest.mark.parametrize("name", _family_names("dense", False)
+                         + _family_names("dense", True))
+def test_family_ctr_trainer_on_a_mesh_matches_jax(world, name):
+    """``CTRTrainer(mesh=...)`` over the family (the CLI's ``--dp``): the
+    whole nested tree's gradient on the plain mean (every parameter at the
+    family's bound) or on the 8-bit coded ring with EF (losses within rtol
+    1e-3); every rank identical."""
+    w, jmesh, _, ranks = world
+    lj, jt = jfamily_run(name, jmesh)
+    got = ranks[0]["family_" + name]
+    coded = bool(worlds.FAMILY_CASES[name][2])
+    if coded:
+        np.testing.assert_allclose(got["loss"], lj, rtol=FAMILY_CODED_RTOL)
+    else:
+        np.testing.assert_allclose(got["loss"], lj, **FAMILY_TOL)
+        for k, v in jflat(jt.params).items():
+            np.testing.assert_allclose(got["params"][k], v, err_msg=k,
+                                       **FAMILY_TOL)
+    _assert_ranks_identical(ranks, "family_" + name, keys=None)

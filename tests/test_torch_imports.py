@@ -82,7 +82,14 @@ def test_importing_the_serving_slice_loads_no_jax():
             "lightctr_tpu_torch.models.deepfm, "
             "lightctr_tpu_torch.models.export, "
             "lightctr_tpu_torch.ops.pq, "
-            "lightctr_tpu_torch.nn.dense; "
+            "lightctr_tpu_torch.nn.dense, "
+            "lightctr_tpu_torch.models.ffm, "
+            "lightctr_tpu_torch.models.nfm, "
+            "lightctr_tpu_torch.models.attention_ctr, "
+            "lightctr_tpu_torch.ckpt, "
+            "lightctr_tpu_torch.ckpt.checkpoint, "
+            "lightctr_tpu_torch.cli, "
+            "lightctr_tpu_torch.cli.__main__; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

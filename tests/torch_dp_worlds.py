@@ -24,7 +24,10 @@ from lightctr_tpu_torch import obs
 from lightctr_tpu_torch.core.config import TrainConfig
 from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh, shard_batch
 from lightctr_tpu_torch.dist import collectives as tcoll
+from lightctr_tpu_torch.models import _common
+from lightctr_tpu_torch.models import deepfm as tdeepfm
 from lightctr_tpu_torch.models import fm as tfm
+from lightctr_tpu_torch.models import widedeep as twidedeep
 from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
 from lightctr_tpu_torch.models.sparse_trainer import SparseTableCTRTrainer
 from lightctr_tpu_torch.nn.ring_attention import ring_self_attention
@@ -439,6 +442,128 @@ def _rs_trainers(mesh, world):
     return out
 
 
+# -- the Wide&Deep family on a mesh ---------------------------------------------
+
+#: the family's width in the worlds: vocab, fields, slots a row, factor
+#: dim, hidden, DCN's crosses, global rows a step
+FAMILY_SHAPE = dict(f=512, fields=4, nnz=5, d=8, hidden=16, n_cross=2,
+                    rows=64)
+FAMILY_STEPS = 3
+#: kind -> the sparse trainer's tables (tests/test_deepfm_dcn.py:61)
+FAMILY_TABLES = {"widedeep": {"w": ["fids"], "embed": ["rep_fids"]},
+                 "deepfm": {"w": ["fids"], "embed": ["rep_fids"]},
+                 "dcn": {"embed": ["rep_fids"]}}
+#: name -> (kind, trainer, kwargs) of the family's mesh runs: the hybrid
+#: exchange exact for every kind and 8-bit dynamic for DeepFM and DCN; the
+#: plain gradient mean of CTRTrainer(mesh=...) for every kind and its
+#: coded ring for DeepFM
+FAMILY_CASES = {
+    **{f"{k}_sparse_exact": (k, "sparse", {}) for k in FAMILY_TABLES},
+    **{f"{k}_sparse_coded": (k, "sparse", {"compress_bits": 8,
+                                           "compress_range": "dynamic"})
+       for k in ("deepfm", "dcn")},
+    **{f"{k}_dense_mean": (k, "dense", {}) for k in FAMILY_TABLES},
+    "deepfm_dense_ring": ("deepfm", "dense", {"compress_bits": 8,
+                                              "compress_range": "dynamic"}),
+}
+
+
+def family_logits(kind):
+    """(logits, logits_with_l2 or None) of the port's ``kind``."""
+    if kind == "widedeep":
+        return twidedeep.logits, None
+    if kind == "dcn":
+        return tdeepfm.dcn_logits, tdeepfm.dcn_logits_with_l2
+    return tdeepfm.logits, tdeepfm.logits_with_l2
+
+
+def family_params(kind, seed=0):
+    """The family's init (the JAX package's distributions) from a numpy
+    seed, with W and the biases non-zero so every term counts."""
+    s = FAMILY_SHAPE
+    rng = np.random.default_rng(seed)
+    f, d = s["f"], s["d"]
+    x = s["fields"] * d
+
+    def layer(n_in, n_out):
+        return {"w": (rng.random((n_out, n_in)) - 0.5).astype(np.float32),
+                "b": rng.normal(0, 0.1, n_out).astype(np.float32)}
+
+    p = {"embed": (rng.standard_normal((f, d)) / np.sqrt(d)).astype(
+        np.float32)}
+    if kind == "dcn":
+        p["cross_w"] = (rng.standard_normal((s["n_cross"], x))
+                        / np.sqrt(x)).astype(np.float32)
+        p["cross_b"] = rng.normal(0, 0.1, (s["n_cross"], x)).astype(
+            np.float32)
+        p["fc1"] = layer(x, s["hidden"])
+        p["out"] = layer(x + s["hidden"], 1)
+    else:
+        p["w"] = rng.normal(0, 0.1, f).astype(np.float32)
+        p["fc1"] = layer(x, s["hidden"])
+        p["fc2"] = layer(s["hidden"], 1)
+    return p
+
+
+def family_batch(seed):
+    """tests/test_deepfm_dcn.py's layout from a numpy seed (random fields,
+    a partial mask) with the field-representative pair."""
+    s = FAMILY_SHAPE
+    rng = np.random.default_rng(seed)
+    n, nnz = s["rows"], s["nnz"]
+    fids = rng.integers(1, s["f"], size=(n, nnz)).astype(np.int32)
+    fld = rng.integers(0, s["fields"], size=(n, nnz)).astype(np.int32)
+    mask = (rng.random((n, nnz)) < 0.9).astype(np.float32)
+    rep, rep_mask = twidedeep.field_representatives(fids, fld, mask,
+                                                    s["fields"])
+    return {"fids": fids, "fields": fld,
+            "vals": rng.uniform(0.5, 1.5, size=(n, nnz)).astype(np.float32),
+            "mask": mask, "labels": (rng.random(n) > 0.5).astype(np.float32),
+            "rep_fids": rep, "rep_mask": rep_mask}
+
+
+def family_batches():
+    return [family_batch(70 + i) for i in range(FAMILY_STEPS)]
+
+
+def flat_tree(tree, prefix=""):
+    """{"fc1/w": array, ...} of a (nested) dict of tensors, copied."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_tree(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = _np(v)
+    return out
+
+
+def _family_trainers(mesh):
+    """Each of :data:`FAMILY_CASES` on this rank over FAMILY_STEPS steps
+    from one init: losses, every parameter and, for the hybrid exchange,
+    the table accumulators, the pick and its bytes."""
+    cfg = TrainConfig(**CFG)
+    out = {}
+    for name, (kind, trainer, kw) in FAMILY_CASES.items():
+        logits, fused = family_logits(kind)
+        p = _common.params_from_numpy(family_params(kind), "cpu")
+        extra = {} if fused is None else {"fused_fn": fused}
+        if trainer == "sparse":
+            tr = SparseTableCTRTrainer(p, logits, cfg,
+                                       sparse_tables=FAMILY_TABLES[kind],
+                                       mesh=mesh, **extra, **kw)
+        else:
+            tr = CTRTrainer(p, logits, cfg, mesh=mesh, **extra, **kw)
+        tr.health = None
+        losses = [float(tr.train_step(b)) for b in family_batches()]
+        rec = {"loss": losses, "params": flat_tree(tr.params)}
+        if trainer == "sparse":
+            rec.update(accum=flat_tree(tr.opt_state["accum"]),
+                       policy=dict(tr.exchange_policy),
+                       bytes=dict(tr.exchange_bytes_per_step))
+        out["family_" + name] = rec
+    return out
+
+
 def trainers_rank(rank, world, out_dir, carry_path):
     """The hybrid sparse trainer in each of :data:`TRAINER_CASES`, the
     dense trainer with the plain mean and with the coded ring, the
@@ -471,6 +596,7 @@ def trainers_rank(rank, world, out_dir, carry_path):
                      "proba": tr.predict_proba(held),
                      "eval": tr.evaluate(held)}
     out.update(_rs_trainers(mesh, world))
+    out.update(_family_trainers(mesh))
     # the weight carry-over: continue from the JAX trainer's params and
     # mesh optimizer state (EF residuals included), one step
     carry = torch.load(carry_path, weights_only=False)
