@@ -11,10 +11,11 @@ file through the streaming reader and the prefetch stage, and under the
 ftrl and adam optimizers; serves the Wide&Deep family (Wide&Deep, DeepFM,
 DCN) at Criteo width from compressed artifacts through the same PS-backed
 server, and trains DeepFM and DCN on the card, then over two ranks with
-both trainers; runs the port's CLI (every ported subcommand, and
-``deepfm --dp`` under ``torch.distributed.run``); runs the long-context
-attention path (flash attention on one card, ring attention over two
-ranks) and the port's two kernel benches.
+both trainers; runs the port's CLI (the CTR half, ``deepfm --dp`` under
+``torch.distributed.run``, then the DL zoo, GBM and its stack, GMM, PLSA
+and word2vec); runs the long-context attention path (flash attention on
+one card, ring attention over two ranks) and the port's two kernel
+benches.
 
     python3 chip_smoke.py [--seed N]
 
@@ -68,7 +69,11 @@ Phases, one JSON line each:
            the [8, 3245, 32] buckets, quantize_pack_ef_update of one
            rank's [19,968, 32] rows into a [65,536, 32] carry (all
            bit-exact), merge_apply's apply mode on the 65,544 gathered
-           shard slots with their non-zero id-0 pads (2 ulp).
+           shard slots with their non-zero id-0 pads (2 ulp); and
+           merge_rows at the zoo's shapes, bit-exact: GBM's root
+           histogram (10,000 x 784 slots at d 1 into 784 x 33 segments)
+           and word2vec's context gather backward (256 x 12 slots at d
+           100 into 5,000 rows).
   serve    FM, 39 fields (26 categorical + 13 numeric), vocabulary 2^20,
            factor dim 32: a port ``AsyncParamServer`` (rows ``[w | v]`` of
            width 33) behind ``ParamServerService``, a ``PredictionServer``
@@ -258,6 +263,36 @@ Phases, one JSON line each:
            --nproc-per-node 2`` (gloo, one card, its own process group,
            killed after 420 s): one report, rank 0's, finite, and its
            checkpoint restored to its dumped scores.
+  zoo      the CLI's other eight subcommands in this process on the
+           card, on a 10,000-row ``data.synth.write_synthetic_dense_csv``
+           file (28 x 28 pixels, 10 classes, MNIST's 60,000 rows cut to
+           a sixth) and a 4,000-line text of 8 topics (Zipf words over a
+           5,000-word vocabulary): cnn (at --lr 0.01: the default rmsprop
+           0.1 stays at chance here, in the JAX package too), rnn and vae
+           at their defaults for 2 epochs (batch 10); gbm binary and
+           with --n-classes 10 (10 trees of depth 6), stack, gmm
+           --clusters 10 (on the same file), plsa --topics 8, embed
+           --mode negative --quantize --cluster 20 and embed --mode
+           hierarchical, each with counts reset just before: the report
+           parses and is finite; the loss or log-likelihood moves the
+           right way (per epoch, or against the CLI's init evaluated
+           here); cnn and rnn train accuracy > 0.5, gbm and stack train
+           AUC > 0.9; merge_rows launched once a planned scatter (14 a
+           tree: GBM's grad and hess histograms at 6 levels and 2 leaf
+           sums; one a step of the stack's LR gather; 3 or 2 a word2vec
+           step) and nothing else.  Beside the runs: the CLI's inits and
+           first 3 steps re-run on the CPU (cnn, rnn, vae fed the card's
+           noise: losses rtol 1e-4 / atol 2e-5, params rtol 1e-2 / atol
+           5e-4); GBM's root histograms bit for bit and the first trees
+           (binary, and class 0 of 10) equal on the card and the CPU;
+           two whole binary fits on the card tree for tree bit-identical;
+           the stack's LR steps over the card's trees (rtol 1e-4 / atol
+           1e-5); the first EM step of gmm and plsa (log-likelihood rtol
+           1e-5, params rtol 1e-4 / atol 1e-5); one word2vec epoch from
+           one state run twice on the card bit-identical (tables and
+           accumulators), and 3 steps of either mode on the card and the
+           CPU within 1e-4.  Seconds a run and a step; the device's time
+           over 5 cnn and rnn steps.
   attention  the long-context path, counts reset just before it:
            ``flash_attention`` at (2, 4096, 8, 64) bf16 causal on the card,
            then ``ring_self_attention`` over a ``seq`` ring of 2 ranks
@@ -303,7 +338,8 @@ are added into ``launches``; merge_rows' ``launches`` are the train
 phase's (and those), and its ``per_shape_train`` times it as the gathers'
 backward (159,744 slots into the 2^20-row table and into the sparse
 trainer's 159,744 rows, d = 32 and 1, and into the table at FFM's d =
-312) beside ``index_add_``; dedup_ids,
+312) beside ``index_add_``, and its ``per_shape_zoo`` the zoo's two
+shapes likewise; ``launches_zoo`` counts the zoo phase's; dedup_ids,
 merge_rows and merge_apply add their ``dp_rs`` timing at that path's
 shapes). Then the
 ``nvidia-smi`` name and power limit, and the last line ``{"ok": true,
@@ -3789,6 +3825,504 @@ def phase_cli(np, torch, sk, seed) -> dict:
             "launcher": launcher, "launches": launches}
 
 
+# -- phase: zoo ---------------------------------------------------------------
+
+#: the image file: the reference's width (28 x 28) and 10 classes, 10,000
+#: rows (MNIST's 60,000 training rows cut to a sixth)
+ZOO_ROWS = 10000
+ZOO_FEATURES = 784
+ZOO_CLASSES = 10
+#: the text file of plsa and embed: lines of one topic each, words drawn
+#: from a Zipf law over a 5,000-word vocabulary in that topic's own order
+ZOO_LINES = 4000
+ZOO_LINE_WORDS = (20, 40)
+ZOO_VOCAB = 5000
+ZOO_TOPICS = 8
+ZOO_ZIPF = 1.1
+#: the DL runs' epochs (1,000 steps each at the CLI's batch of 10); cnn
+#: under its CLI optimizer (rmsprop) at lr 0.01: the default 0.1 overshoots
+#: on this data and the net stays at chance, in the JAX package too
+#: (tests/test_dl_models.py trains the CNN at 0.01)
+ZOO_DL_EPOCHS = 2
+ZOO_CNN_LR = 0.01
+ZOO_GBM_TREES, ZOO_GBM_DEPTH = 10, 6       # the CLI's defaults
+ZOO_LR_STEPS = 200                         # stack's --lr-steps default
+ZOO_W2V_EPOCHS, ZOO_W2V_BATCH, ZOO_W2V_WINDOW = 10, 256, 6   # embed's
+ZOO_RUNS = (
+    ("cnn", ("cnn", "--data", "{dense}", "--epochs", str(ZOO_DL_EPOCHS),
+             "--lr", str(ZOO_CNN_LR))),
+    ("rnn", ("rnn", "--data", "{dense}", "--epochs", str(ZOO_DL_EPOCHS))),
+    ("vae", ("vae", "--data", "{dense}", "--epochs", str(ZOO_DL_EPOCHS))),
+    ("gbm", ("gbm", "--data", "{dense}", "--n-trees", str(ZOO_GBM_TREES),
+             "--max-depth", str(ZOO_GBM_DEPTH))),
+    ("gbm10", ("gbm", "--data", "{dense}", "--n-trees", str(ZOO_GBM_TREES),
+               "--max-depth", str(ZOO_GBM_DEPTH), "--n-classes",
+               str(ZOO_CLASSES))),
+    ("stack", ("stack", "--data", "{dense}")),
+    ("gmm", ("gmm", "--data", "{dense}", "--clusters", "10")),
+    ("plsa", ("plsa", "--data", "{text}", "--topics", str(ZOO_TOPICS))),
+    ("embed", ("embed", "--data", "{text}", "--mode", "negative",
+               "--quantize", "--cluster", "20")),
+    ("embed_hs", ("embed", "--data", "{text}", "--mode", "hierarchical")),
+)
+#: "well above chance" (0.1) for cnn and rnn; train AUC of gbm and stack
+ZOO_MIN_ACCURACY = 0.5
+ZOO_MIN_AUC = 0.9
+#: card against CPU: steps re-run, and the CPU tests' tolerances
+ZOO_CPU_STEPS = 3
+ZOO_TRAJ = dict(rtol=1e-4, atol=2e-5)      # tanh paths' trajectories
+ZOO_PARAM = dict(rtol=1e-2, atol=5e-4)     # their params after the steps
+ZOO_STEP = dict(rtol=1e-5, atol=1e-6)      # an EM step's log-likelihood
+ZOO_FIT = dict(rtol=1e-4, atol=1e-5)       # EM params, the stack's LR
+ZOO_W2V = dict(rtol=1e-4, atol=1e-4)       # word2vec tables
+ZOO_PROFILE_STEPS = 5
+#: (role, device) of the card-against-CPU checks
+ZOO_ROLES = (("card", "cuda"), ("cpu", "cpu"))
+
+
+def zoo_words() -> list:
+    """ZOO_VOCAB distinct three-letter words (the tokenizer keeps
+    letters only)."""
+    return ["".join(chr(97 + (i // 26 ** k) % 26) for k in (2, 1, 0))
+            for i in range(ZOO_VOCAB)]
+
+
+def write_topic_text(np, path, seed) -> str:
+    rng = np.random.default_rng(seed)
+    words = zoo_words()
+    p = np.arange(1, ZOO_VOCAB + 1, dtype=np.float64) ** -ZOO_ZIPF
+    p /= p.sum()
+    order = [rng.permutation(ZOO_VOCAB) for _ in range(ZOO_TOPICS)]
+    with open(path, "w") as f:
+        for _ in range(ZOO_LINES):
+            topic = order[rng.integers(ZOO_TOPICS)]
+            ids = topic[rng.choice(ZOO_VOCAB, rng.integers(*ZOO_LINE_WORDS),
+                                   p=p)]
+            f.write(" ".join(words[i] for i in ids) + "\n")
+    return path
+
+
+def zoo_corpus(np, path, seed) -> tuple:
+    """embed's host preparation of ``path`` (the CLI's): (vocabulary size,
+    counts, centers, contexts, mask)."""
+    from lightctr_tpu_torch.data import text
+    from lightctr_tpu_torch.models import embedding
+
+    with open(path) as f:
+        docs = [text.tokenize(line) for line in f if line.strip()]
+    words, counts, w2i = text.build_vocab(docs, max_size=ZOO_VOCAB)
+    pairs = embedding.cbow_pairs(text.docs_to_ids(docs, w2i), ZOO_W2V_WINDOW,
+                                 counts=counts, seed=seed)
+    return (len(words), counts) + pairs
+
+
+def zoo_expected_launches(sk, name, rep) -> dict:
+    """The plan of one run: merge_rows once a histogram or leaf-sum merge
+    of every tree (gbm, gbm10, stack) plus once a step of the stack's LR
+    gather, once a table gather a word2vec step, nothing else anywhere."""
+    from lightctr_tpu_torch.models import embedding, gbm
+
+    want = dict.fromkeys(sk.KERNELS, 0)
+    if name in ("gbm", "gbm10", "stack"):
+        trees = ZOO_GBM_TREES * (ZOO_CLASSES if name == "gbm10" else 1)
+        want["merge_rows"] = trees * gbm.histogram_merges(ZOO_GBM_DEPTH) + (
+            ZOO_LR_STEPS if name == "stack" else 0)
+    elif name.startswith("embed"):
+        mode = "hierarchical" if name == "embed_hs" else "negative"
+        steps = rep["n_pairs"] // min(ZOO_W2V_BATCH, rep["n_pairs"])
+        want["merge_rows"] = embedding.GATHERS[mode] * steps * ZOO_W2V_EPOCHS
+    return want
+
+
+def zoo_steps(name, rep) -> int:
+    """Steps (trees for GBM, EM iterations left out) of one run."""
+    if name in ("cnn", "rnn", "vae"):
+        return ZOO_DL_EPOCHS * (ZOO_ROWS // 10)
+    if name in ("gbm", "gbm10"):
+        return ZOO_GBM_TREES * (ZOO_CLASSES if name == "gbm10" else 1)
+    if name == "stack":
+        return ZOO_GBM_TREES + ZOO_LR_STEPS
+    if name.startswith("embed"):
+        return ZOO_W2V_EPOCHS * (rep["n_pairs"] // ZOO_W2V_BATCH)
+    return 0
+
+
+def close_err(np, got, want, what, rtol, atol) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or \
+            not np.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"zoo {what}: card and CPU differ, max abs "
+                             f"{float(np.abs(got - want).max())}")
+    return float(np.abs(got - want).max()) if got.size else 0.0
+
+
+def tree_numpy(tree) -> dict:
+    from lightctr_tpu_torch.optim.updaters import tree_leaves
+
+    return [t.detach().cpu().numpy() for t in tree_leaves(tree)]
+
+
+def zoo_classifier(np, torch, name, ds, seed) -> dict:
+    """cnn / rnn: the CLI's init (its generator on the card) and optimizer;
+    its loss over the whole file (the bar the trained net must go
+    under); ZOO_CPU_STEPS steps of the first minibatches on the card and,
+    from a copy of the init, on the CPU; a profile of more steps."""
+    from lightctr_tpu_torch import optim
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import cnn, rnn
+    from lightctr_tpu_torch.models.dl_trainer import ClassifierTrainer
+    from lightctr_tpu_torch.optim.updaters import tree_map
+
+    model = cnn if name == "cnn" else rnn
+    hidden = 200 if name == "cnn" else 50
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = model.init(gen, hidden=hidden, n_classes=ZOO_CLASSES,
+                        device="cuda")
+    opt = (lambda: optim.rmsprop(ZOO_CNN_LR)) if name == "cnn" else \
+        (lambda: optim.adagrad(0.03))
+    perm = np.arange(ZOO_ROWS)
+    np.random.default_rng(seed).shuffle(perm)
+    idx = perm[:ZOO_CPU_STEPS * 10].reshape(ZOO_CPU_STEPS, 10)
+    out, losses, trainers = {}, {}, {}
+    for role, dev in ZOO_ROLES:
+        tr = ClassifierTrainer(tree_map(lambda t: t.to(dev), params),
+                               model.logits, TrainConfig(seed=seed),
+                               n_classes=ZOO_CLASSES, optimizer=opt(),
+                               device=dev)
+        if role == "card":
+            out["init_train"] = tr.evaluate(ds.features, ds.labels)
+        losses[role] = tr.fit_steps_loop(ds.features, ds.labels,
+                                         ZOO_CPU_STEPS, 10, idx=idx)
+        trainers[role] = tr
+    card, cpu = trainers["card"], trainers["cpu"]
+    out["loss_max_abs_err"] = close_err(np, losses["card"], losses["cpu"],
+                                        f"{name} losses", **ZOO_TRAJ)
+    out["param_max_abs_err"] = max(
+        close_err(np, a, b, f"{name} params", **ZOO_PARAM)
+        for a, b in zip(tree_numpy(card.params), tree_numpy(cpu.params)))
+    x = torch.from_numpy(ds.features[idx[0]]).cuda()
+    y = torch.from_numpy(ds.labels[idx[0]]).cuda()
+    try:
+        out["profile"] = profile_calls(torch, [
+            lambda: card._step(x, y) for _ in range(ZOO_PROFILE_STEPS)])
+    except NoDeviceTime as e:
+        out["profile"] = {"error": str(e)}
+    return out
+
+
+def zoo_vae(np, torch, ds, seed) -> dict:
+    """vae: the CLI's init; its loss over the whole file with fresh
+    noise; ZOO_CPU_STEPS steps on the card and on the CPU fed the same
+    noise, drawn on the card."""
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import vae
+    from lightctr_tpu_torch.models.dl_trainer import grad_step
+    from lightctr_tpu_torch.optim.updaters import tree_map
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    params = vae.init(gen, ZOO_FEATURES, device="cuda")
+    x_all = torch.from_numpy(ds.features).cuda()
+    with torch.no_grad():
+        eps = torch.randn((ZOO_ROWS, 20), generator=gen, device="cuda")
+        init_loss = float(vae.loss_fn(params, x_all, eps, 1.0))
+    perm = np.arange(ZOO_ROWS)
+    np.random.default_rng(seed).shuffle(perm)
+    batches = [(torch.from_numpy(ds.features[perm[i * 10:(i + 1) * 10]]),
+                torch.randn((10, 20), generator=gen, device="cuda").cpu())
+               for i in range(ZOO_CPU_STEPS)]
+    runs = {}
+    for role, dev in ZOO_ROLES:
+        tr = vae.VAETrainer(tree_map(lambda t: t.to(dev), params),
+                            TrainConfig(seed=seed), device=dev)
+        losses = []
+        for xb, e in batches:
+            tr.params, tr.opt_state, loss = grad_step(
+                tr._loss, tr.tx, tr.params, tr.opt_state, xb.to(dev),
+                e.to(dev))
+            losses.append(float(loss))
+        runs[role] = (losses, tree_numpy(tr.params))
+    return {"init_loss": init_loss,
+            "loss_max_abs_err": close_err(np, runs["card"][0], runs["cpu"][0],
+                                          "vae losses", **ZOO_TRAJ),
+            "param_max_abs_err": max(
+                close_err(np, a, b, "vae params", **ZOO_PARAM)
+                for a, b in zip(runs["card"][1], runs["cpu"][1]))}
+
+
+def zoo_gbm(np, torch, ds, seed) -> dict:
+    """GBM on the card against the CPU: the binary task's root histograms
+    (the first round's gradients and row mask) bit for bit, its first tree
+    and the 10-class task's first tree of class 0 equal; two whole binary
+    fits at the CLI's configuration bit-identical, tree by tree; the
+    stack's LR steps over the card's trees on both."""
+    from lightctr_tpu_torch.models import gbm
+    from lightctr_tpu_torch.models.stacking import GBMLRStack
+
+    y = (ds.labels > 0).astype(np.float32)
+    bins_np, _ = gbm.quantile_bins(ds.features, 32)
+    rng = np.random.default_rng(seed)
+    row_mask = (rng.random(ZOO_ROWS) < 0.7).astype(np.float32)
+    feat_mask = (rng.random(ZOO_FEATURES) < 0.7).astype(np.float32)
+    onehot0 = (ds.labels == 0).astype(np.float32)
+    p10 = np.float32(0.1)
+    cases = {"binary": (0.5 - y, np.full(ZOO_ROWS, 0.25, np.float32)),
+             "class0_of_10": (p10 - onehot0,
+                              np.full(ZOO_ROWS, 2.0 * p10 * (1 - p10),
+                                      np.float32))}
+    out = {}
+    for what, (g, h) in cases.items():
+        trees, hists = [], []
+        for _, dev in ZOO_ROLES:
+            args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                    for a in (bins_np, g, h, row_mask, feat_mask)]
+            hists.append(gbm.root_histograms(*args[:4], 32))
+            trees.append(gbm.build_tree(*args, ZOO_GBM_DEPTH, 32, 1e-5, 1.0))
+        for a, b in zip(*hists):
+            if not torch.equal(a.cpu().view(torch.int32),
+                               b.view(torch.int32)):
+                raise AssertionError(f"zoo gbm {what}: root histograms "
+                                     "differ between the card and the CPU")
+        for a, b in zip(*trees):
+            if not torch.equal(a.cpu(), b):
+                raise AssertionError(f"zoo gbm {what}: first tree differs "
+                                     "between the card and the CPU")
+        out[what] = {"root_histograms_bit_exact": True,
+                     "first_tree_equal": True,
+                     "splits": int((trees[0].feature >= 0).sum())}
+    cfg = gbm.GBMConfig(n_trees=ZOO_GBM_TREES, max_depth=ZOO_GBM_DEPTH,
+                        seed=seed)
+    fits, secs = [], []
+    for _ in range(2):
+        t = time.perf_counter()
+        m = gbm.GBMModel(cfg, device="cuda")
+        m.fit(ds.features, y)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        fits.append(m)
+    for i, (a, b) in enumerate(zip(*(f.trees for f in fits))):
+        for u, v in zip(a, b):
+            if not torch.equal(u, v):
+                raise AssertionError(f"zoo gbm: tree {i} differs between "
+                                     "two fits on the card")
+    out["repeat_fit"] = {"trees": len(fits[0].trees), "bit_identical": True,
+                         "seconds": secs}
+    lr = {}
+    for role, dev in ZOO_ROLES:
+        st = GBMLRStack(gbm.GBMConfig(max_depth=ZOO_GBM_DEPTH),
+                        lr_steps=ZOO_CPU_STEPS, device=dev)
+        st.gbm.edges = fits[0].edges
+        st.gbm.trees = [type(t)(*(a.to(dev) for a in t))
+                        for t in fits[0].trees]
+        lr[role] = (st.fit_lr(ds.features, y), st.w.cpu().numpy())
+    out["stack_lr_loss_max_abs_err"] = close_err(
+        np, lr["card"][0], lr["cpu"][0], "stack LR losses", **ZOO_FIT)
+    out["stack_w_max_abs_err"] = close_err(
+        np, lr["card"][1], lr["cpu"][1], "stack LR weights", **ZOO_FIT)
+    return out
+
+
+def zoo_em(np, torch, dense_path, text_path, seed) -> dict:
+    """gmm and plsa: the CLI's inits on the card; the init's
+    log-likelihood (the bar the fit must pass) and the first EM step on
+    the card and on the CPU from a copy."""
+    from lightctr_tpu_torch.data import text
+    from lightctr_tpu_torch.models import gmm, plsa
+
+    raw = np.loadtxt(dense_path, delimiter=",", dtype=np.float32)
+    with open(text_path) as f:
+        docs = [text.tokenize(line) for line in f if line.strip()]
+    words, _, w2i = text.build_vocab(docs, max_size=ZOO_VOCAB)
+    counts = text.doc_term_matrix(docs, w2i)
+    gen = torch.Generator(device="cuda")
+    inits = {"gmm": (gmm.init_from_data(gen.manual_seed(seed), 10, raw,
+                                        device="cuda"), raw, gmm.em_step),
+             "plsa": (plsa.init(gen.manual_seed(seed), counts.shape[0],
+                                ZOO_TOPICS, counts.shape[1], device="cuda"),
+                      counts, plsa.em_step)}
+    out = {}
+    for name, (p0, data, step) in inits.items():
+        res = {}
+        for role, dev in ZOO_ROLES:
+            p = type(p0)(*(t.to(dev) for t in p0))
+            res[role] = step(p, torch.from_numpy(data).to(dev))
+        ll = [float(res[r][1]) for r in ("card", "cpu")]
+        out[name] = {
+            "init_loglik": ll[0],
+            "loglik_max_abs_err": close_err(np, ll[0], ll[1],
+                                            f"{name} loglik", **ZOO_STEP),
+            "param_max_abs_err": max(
+                close_err(np, a.cpu().numpy(), b.numpy(), f"{name} params",
+                          **ZOO_FIT)
+                for a, b in zip(res["card"][0], res["cpu"][0]))}
+    return out
+
+
+def zoo_word2vec(np, torch, corpus, seed) -> dict:
+    """word2vec at embed's width (dim 100, the file's vocabulary): one
+    epoch of negative sampling from one state run twice on the card
+    (tables and accumulators bit-identical, the negatives' generator
+    restored), and ZOO_CPU_STEPS steps of either mode on the card and on
+    the CPU from one state (the CPU fed the card's negatives)."""
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import embedding
+
+    vocab, counts, centers, contexts, mask = corpus
+    cfg = TrainConfig(learning_rate=0.3, seed=seed)
+    tr = embedding.Word2VecTrainer(vocab, 100, cfg, counts, device="cuda")
+    start = (tuple(t.clone() for t in tr.params),
+             tuple(t.clone() for t in tr.opt_state.accum),
+             tr.generator.get_state())
+    runs, secs = [], []
+    for _ in range(2):
+        tr.params = type(tr.params)(*(t.clone() for t in start[0]))
+        tr.opt_state = type(tr.opt_state)(
+            accum=type(tr.params)(*(t.clone() for t in start[1])))
+        tr.generator.set_state(start[2])
+        t = time.perf_counter()
+        tr.fit(centers, contexts, mask, epochs=1, batch_size=ZOO_W2V_BATCH)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        runs.append(list(tr.params) + list(tr.opt_state.accum))
+    for a, b in zip(*runs):
+        if not torch.equal(a, b):
+            raise AssertionError("zoo word2vec: one epoch from one state "
+                                 "differs between two runs on the card")
+    out = {"repeat_epoch": {"bit_identical": True, "seconds": secs,
+                            "steps": len(centers) // ZOO_W2V_BATCH}}
+    b = ZOO_W2V_BATCH
+    for mode in ("negative", "hierarchical"):
+        card = embedding.Word2VecTrainer(vocab, 100, cfg, counts, mode=mode,
+                                         device="cuda")
+        cpu = embedding.Word2VecTrainer(vocab, 100, cfg, counts, mode=mode,
+                                        device="cpu")
+        cpu.params = type(cpu.params)(*(t.cpu() for t in card.params))
+        cpu.opt_state = cpu.tx.init(cpu.params)
+        drawn = []
+        if mode == "negative":
+            real = card._negatives
+            card._negatives = lambda rows: drawn.append(real(rows)) or \
+                drawn[-1]
+            cpu._negatives = lambda rows: drawn.pop(0).cpu()
+        for i in range(ZOO_CPU_STEPS):
+            sel = slice(i * b, (i + 1) * b)
+            lc = card.step(*(torch.from_numpy(a[sel]).cuda()
+                             for a in (centers, contexts, mask)))
+            lp = cpu.step(*(torch.from_numpy(a[sel])
+                            for a in (centers, contexts, mask)))
+            close_err(np, float(lc), float(lp), f"word2vec {mode} loss",
+                      **ZOO_W2V)
+        out[mode] = {"table_max_abs_err": max(
+            close_err(np, a.cpu().numpy(), c.numpy(),
+                      f"word2vec {mode} tables", **ZOO_W2V)
+            for a, c in zip(card.params, cpu.params))}
+    return out
+
+
+def phase_zoo(np, torch, sk, seed) -> dict:
+    """The CLI's other eight subcommands in this process on the card (the
+    DL zoo, GBM and its stack, the EM models, word2vec with its PQ and GMM
+    hooks), each with counts reset just before: reports, the loss or
+    log-likelihood moving the right way, train accuracy or AUC, launches
+    against the plan; GBM's trees and word2vec's tables repeating bit for
+    bit; each model's first steps re-run on the CPU."""
+    import shutil
+    import tempfile
+
+    from lightctr_tpu_torch.data import load_dense_csv, synth
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    try:
+        t = time.perf_counter()
+        files = {"dense": synth.write_synthetic_dense_csv(
+            os.path.join(root, "digits.csv"), ZOO_ROWS, ZOO_FEATURES,
+            ZOO_CLASSES, seed=seed + 41),
+            "text": write_topic_text(np, os.path.join(root, "topics.txt"),
+                                     seed + 42)}
+        write_s = time.perf_counter() - t
+        ds = load_dense_csv(files["dense"])
+        t = time.perf_counter()
+        checks = {"cnn": zoo_classifier(np, torch, "cnn", ds, seed),
+                  "rnn": zoo_classifier(np, torch, "rnn", ds, seed),
+                  "vae": zoo_vae(np, torch, ds, seed),
+                  "gbm": zoo_gbm(np, torch, ds, seed),
+                  "em": zoo_em(np, torch, files["dense"], files["text"],
+                               seed)}
+        corpus = zoo_corpus(np, files["text"], seed)
+        checks["word2vec"] = zoo_word2vec(np, torch, corpus, seed)
+        checks_s = time.perf_counter() - t
+        runs = {}
+        launches = dict.fromkeys(sk.KERNELS, 0)
+        for name, argv in ZOO_RUNS:
+            argv = [files[a[1:-1]] if a.startswith("{") else a
+                    for a in argv] + ["--seed", str(seed), "--device", "cuda"]
+            rep, epochs, got, secs = cli_run(torch, sk, argv)
+            want = zoo_expected_launches(sk, name, rep)
+            if got != want:
+                raise AssertionError(f"zoo {name}: launches {got}, planned "
+                                     f"{want}")
+            zoo_check_report(np, name, rep, epochs, checks)
+            for k in launches:
+                launches[k] += got[k]
+            steps = zoo_steps(name, rep)
+            runs[name] = {"argv": argv[:1] + argv[3:-4], "seconds": secs,
+                          "steps": steps,
+                          "ms_per_step": 1e3 * secs / steps if steps
+                          else None,
+                          "launches": got, "epoch_losses": epochs,
+                          "report": rep}
+            torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"phase": "zoo", "rows": ZOO_ROWS, "features": ZOO_FEATURES,
+            "classes": ZOO_CLASSES, "text_lines": ZOO_LINES,
+            "vocab": corpus[0], "cbow_pairs": int(len(corpus[2])),
+            "files_write_s": write_s, "checks_s": checks_s,
+            "checks": checks, "runs": runs, "launches": launches}
+
+
+def zoo_check_report(np, name, rep, epochs, checks) -> None:
+    """A run's report: finite, the loss (per epoch, or against the
+    init's) moving the right way, and its quality bar."""
+    def fail(msg):
+        raise AssertionError(f"zoo {name}: {msg}: report {rep}, epochs "
+                             f"{epochs}")
+
+    final = rep.get("final_loss", rep.get("final_loglik"))
+    if final is None or not np.isfinite(final):
+        fail("no finite final loss")
+    if name in ("cnn", "rnn"):
+        if len(epochs) != ZOO_DL_EPOCHS or \
+                not rep["train"]["loss"] < checks[name]["init_train"]["loss"]:
+            fail("train loss not below the init's")
+        if not rep["train"]["accuracy"] > ZOO_MIN_ACCURACY:
+            fail("train accuracy at chance")
+    elif name == "vae":
+        if len(epochs) != ZOO_DL_EPOCHS or \
+                not max(epochs) < checks["vae"]["init_loss"]:
+            fail("epoch losses not below the init's")
+    elif name in ("gbm", "gbm10", "stack"):
+        if len(epochs) != ZOO_GBM_TREES or not epochs[-1] < epochs[0]:
+            fail("boosting loss not falling")
+        if name != "gbm10" and not rep["train"]["auc"] > ZOO_MIN_AUC:
+            fail("train AUC too low")
+        if name == "stack" and not rep["train"]["nonzero_weights"] > 0:
+            fail("no LR weight")
+    elif name in ("gmm", "plsa"):
+        if not final > checks["em"][name]["init_loglik"]:
+            fail("log-likelihood not above the init's")
+        if name == "gmm" and sum(rep["cluster_sizes"]) != ZOO_ROWS:
+            fail("cluster sizes")
+        if name == "plsa" and len(rep["topics"]) != ZOO_TOPICS:
+            fail("topics")
+    elif name.startswith("embed"):
+        if len(epochs) != ZOO_W2V_EPOCHS or not epochs[-1] < epochs[0]:
+            fail("loss not falling")
+        if name == "embed" and (rep["pq_codes_shape"][1] != 10 or
+                                sum(rep["cluster_sizes"]) !=
+                                rep["pq_codes_shape"][0]):
+            fail("PQ codes or clusters")
+
+
 # -- phase: attention ---------------------------------------------------------
 
 
@@ -4476,6 +5010,80 @@ def lookup_timing(np, torch, sk, seed) -> list:
     return out
 
 
+def zoo_merge_inputs(np, torch, seed) -> list:
+    """merge_rows at the zoo phase's shapes: GBM's root histogram (10,000 x
+    784 slots at d 1 into 784 x 33 segments, a row's gradient in each of
+    its 784 slots, 3 rows in 10 masked to 0) and word2vec's context gather
+    backward (256 x 12 slots at d 100 into the 5,000-row table, Zipf
+    ids): (name, rows, seg, nseg) each."""
+    rng = np.random.default_rng(seed + 61)
+    n, f, slots = ZOO_ROWS, ZOO_FEATURES, 33
+    seg = (np.arange(f)[None, :] * slots + rng.integers(0, slots, (n, f))
+           ).reshape(-1).astype(np.int32)
+    stat = (rng.normal(size=n) * (rng.random(n) < 0.7)).astype(np.float32)
+    rows = torch.from_numpy(stat).cuda()[:, None].expand(n, f).reshape(
+        -1, 1).contiguous()
+    m = ZOO_W2V_BATCH * 2 * ZOO_W2V_WINDOW
+    ids = np.minimum(rng.zipf(1.2, m) - 1, ZOO_VOCAB - 1).astype(np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 62)
+    ctx = torch.randn((m, 100), generator=gen, device="cuda")
+    return [("gbm_root_histogram", rows, torch.from_numpy(seg).cuda(),
+             f * slots),
+            ("word2vec_context", ctx, torch.from_numpy(ids).cuda(),
+             ZOO_VOCAB)]
+
+
+def check_merge_rows_zoo(np, torch, sk, seed) -> dict:
+    """merge_rows kernel == plain version bit for bit at the zoo's two
+    shapes (``zoo_merge_inputs``)."""
+    cases = []
+    for what, rows, seg, nseg in zoo_merge_inputs(np, torch, seed):
+        got = sk.merge_rows(rows, seg, nseg)
+        torch.cuda.synchronize()
+        want = sk.merge_rows_plain(rows, seg, nseg)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"merge_rows kernel != plain at {what}: "
+                                 f"max {float((got - want).abs().max())}")
+        cases.append({"shape": what, "m": rows.shape[0], "d": rows.shape[1],
+                      "nseg": nseg})
+    return {"bit_exact": True, "max_abs_err": 0.0, "cases": cases}
+
+
+def zoo_merge_timing(np, torch, sk, seed) -> list:
+    """merge_rows at the zoo's shapes beside ``index_add_`` into zeros:
+    ``ms`` and ``library_ms`` medians of LOOKUP_REPEATS graph replays,
+    ``plain_ms`` of as many eager runs; the bound is the bytes (rows and
+    ids read once, the output written once)."""
+    out = []
+    for what, rows, seg, nseg in zoo_merge_inputs(np, torch, seed):
+        m, d = rows.shape
+        seg64 = seg.to(torch.int64)
+        reps = 10 if m > (1 << 20) else 100
+        ms = graph_times(torch, lambda: sk.merge_rows(rows, seg, nseg),
+                         reps=reps, repeats=LOOKUP_REPEATS)
+        plain = [call_ms(torch, lambda: sk.merge_rows_plain(rows, seg, nseg),
+                         reps=1, warmup=1) for _ in range(LOOKUP_REPEATS)]
+        lib = graph_times(torch, lambda: torch.zeros(
+            (nseg, d), device="cuda").index_add_(0, seg64, rows),
+            reps=reps, repeats=LOOKUP_REPEATS)
+        nbytes = m * d * 4 + m * 4 + nseg * d * 4
+        out.append({
+            "shape": what, "m": m, "nseg": nseg, "d": d,
+            "workspace_bytes": sk.load("merge_rows")
+            .merge_rows_workspace_bytes(m, nseg, d),
+            "ms": statistics.median(ms), "ms_min_max": [min(ms), max(ms)],
+            "plain_ms": statistics.median(plain),
+            "plain_ms_min_max": [min(plain), max(plain)],
+            "library_ms": statistics.median(lib),
+            "library_ms_min_max": [min(lib), max(lib)],
+            "library_call": "torch.zeros(...).index_add_",
+            "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+            "bytes": nbytes})
+        del rows, seg, seg64
+        torch.cuda.empty_cache()
+    return out
+
+
 def rs_timing(np, torch, sk, seed) -> dict:
     """dedup_ids, merge_rows and merge_apply's apply mode at the dp_rs
     path's shapes (owner 0's 25,960 bucket ids cut at 8,193; its [25,960,
@@ -4656,6 +5264,7 @@ def main(argv=None) -> int:
     kern["quantize_pack_ef"] = check_quantize_pack_ef(np, torch, sk, qz)
     kern["flash_attention"] = check_flash(torch, sk, fl)
     kern["dp_rs_path"] = check_rs_path(np, torch, sk, qz, krng)
+    kern["merge_rows_zoo"] = check_merge_rows_zoo(np, torch, sk, args.seed)
     emit(kern | {"phase_s": time.perf_counter() - t_kern})
     serve_info = timed(phase_serve, np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
@@ -4677,6 +5286,8 @@ def main(argv=None) -> int:
     emit(dp_deep_info | {"nvidia_smi": smi})
     cli_info = timed(phase_cli, np, torch, sk, args.seed)
     emit(cli_info | {"nvidia_smi": smi})
+    zoo_info = timed(phase_zoo, np, torch, sk, args.seed)
+    emit(zoo_info | {"nvidia_smi": smi})
     attn_info = timed(phase_attention, torch, sk, fl, args.seed)
     emit(attn_info | {"nvidia_smi": smi})
     bench_info = timed(phase_bench, torch, sk)
@@ -4708,6 +5319,7 @@ def main(argv=None) -> int:
         attn_info["flash_route"])
     rs_extra = rs_timing(np, torch, sk, args.seed)
     train_merge = lookup_timing(np, torch, sk, args.seed)
+    zoo_merge = zoo_merge_timing(np, torch, sk, args.seed)
     for row in rows:
         name = row["name"]
         row["launches_bench"] = bench_info["launches"].get(name, 0)
@@ -4726,17 +5338,21 @@ def main(argv=None) -> int:
                                      "and launches_dp_rs count rank 0's "
                                      "there, launches_ingest the ingest "
                                      "phase's",
-                       per_shape_train=train_merge)
+                       per_shape_train=train_merge,
+                       per_shape_zoo=zoo_merge)
         # the Wide&Deep family's paths: B3 in serve_deep, B1, B2, B4 and
         # B5 in train_deep, B2, B4, B5 and B6 in dp_deep (rank 0), and B4
-        # in the CLI's in-process runs, counted into each row's launches
+        # in the CLI's in-process runs (the CTR half in cli, GBM's merges
+        # and the LR and word2vec gathers' backward in zoo), counted into
+        # each row's launches
         deep = {"launches_serve_deep":
                 serve_deep_info["launches"].get(name, 0),
                 "launches_train_deep":
                 train_deep_info["launches"].get(name, 0),
                 "launches_dp_deep":
                 dp_deep_info["launches_rank0"].get(name, 0),
-                "launches_cli": cli_info["launches"].get(name, 0)}
+                "launches_cli": cli_info["launches"].get(name, 0),
+                "launches_zoo": zoo_info["launches"].get(name, 0)}
         row.update(deep, launches=row["launches"] + sum(deep.values()))
     emit({"timing_s": time.perf_counter() - t_timing})
     emit({"kernels": rows})

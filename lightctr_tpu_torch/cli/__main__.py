@@ -10,11 +10,20 @@ subcommands, flags and defaults (the reference's recommended configs,
     python -m lightctr_tpu_torch.cli seqctr --data seq.txt --dim 32
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m lightctr_tpu_torch.cli deepfm --data train.ffm --dp
+    python -m lightctr_tpu_torch.cli cnn   --data train_dense.csv --epochs 8
+    python -m lightctr_tpu_torch.cli rnn   --data train_dense.csv
+    python -m lightctr_tpu_torch.cli vae   --data train_dense.csv
+    python -m lightctr_tpu_torch.cli gbm   --data train_dense.csv --n-classes 10
+    python -m lightctr_tpu_torch.cli stack --data train_dense.csv
+    python -m lightctr_tpu_torch.cli gmm   --data points.csv --clusters 10
+    python -m lightctr_tpu_torch.cli plsa  --data docs.txt --topics 8
+    python -m lightctr_tpu_torch.cli embed --data docs.txt --quantize --cluster 20
 
-Ported: the CTR half (``fm``, ``ffm``, ``nfm``, ``widedeep``, ``deepfm``,
-``dcn`` and ``seqctr``).  The rest of the zoo (``cnn``, ``rnn``, ``vae``,
-``gbm``, ``stack``, ``gmm``, ``plsa``, ``embed``) parses as in the JAX
-package and exits with status 2 (ROADMAP.md §A.7).
+Every subcommand of the JAX CLI: the CTR family (``fm``, ``ffm``, ``nfm``,
+``widedeep``, ``deepfm``, ``dcn``), the sequence CTR model (``seqctr``),
+the DL zoo (``cnn``, ``rnn``, ``vae``), GBM and its LR stack (``gbm``,
+``stack``), the EM models (``gmm``, ``plsa``) and word2vec with its PQ and
+GMM hooks (``embed``).
 
 Differences from the JAX CLI, by design:
 
@@ -43,8 +52,6 @@ import sys
 import numpy as np
 
 CTR_MODELS = ("fm", "ffm", "nfm", "widedeep", "deepfm", "dcn")
-#: the JAX CLI's subcommands the port does not run yet
-NOT_PORTED = ("cnn", "rnn", "vae", "gbm", "stack", "gmm", "plsa", "embed")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -224,14 +231,12 @@ def _process_group(device):
 
 def _ctr(args, cfg, device, report) -> bool:
     """The CTR family's branch; returns whether this rank reports."""
-    import torch
-
     from lightctr_tpu_torch.data import load_libffm
     from lightctr_tpu_torch.models import deepfm, ffm, fm, nfm, widedeep
     from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
 
     ds = load_libffm(args.data)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    gen = _generator(device, args.seed)
     fused = None
     if args.model == "fm":
         params, logits = fm.init(gen, ds.feature_cnt, args.factor,
@@ -326,15 +331,13 @@ def _ctr(args, cfg, device, report) -> bool:
 
 
 def _seqctr(args, cfg, device, report) -> None:
-    import torch
-
     from lightctr_tpu_torch import optim
     from lightctr_tpu_torch.models import attention_ctr
     from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
 
     batch, t = parse_seq_file(args.data, args.max_len)
     vocab = int(batch["seq_ids"].max()) + 1
-    gen = torch.Generator(device=device).manual_seed(args.seed)
+    gen = _generator(device, args.seed)
     params, logits = attention_ctr.build(
         gen, vocab, dim=args.dim, n_heads=args.heads, n_layers=args.layers,
         max_len=t, device=device)
@@ -362,12 +365,145 @@ def _seqctr(args, cfg, device, report) -> None:
             "params": tr.params, "opt_state": tr.opt_state})
 
 
+def _generator(device, seed: int):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def _classifier(args, cfg, device, report) -> None:
+    """``cnn`` / ``rnn``: a dense CSV, the trainer under ``--optimizer``."""
+    from lightctr_tpu_torch import optim
+    from lightctr_tpu_torch.data import load_dense_csv
+    from lightctr_tpu_torch.models import cnn, rnn
+    from lightctr_tpu_torch.models.dl_trainer import ClassifierTrainer
+
+    ds = load_dense_csv(args.data)
+    model = cnn if args.model == "cnn" else rnn
+    params = model.init(_generator(device, args.seed), hidden=args.hidden,
+                        n_classes=args.n_classes, device=device)
+    opt = optim.get(args.optimizer, learning_rate=args.lr)
+    tr = ClassifierTrainer(params, model.logits, cfg,
+                           n_classes=args.n_classes, optimizer=opt,
+                           device=device)
+    hist = tr.fit(ds.features, ds.labels, epochs=args.epochs,
+                  batch_size=cfg.minibatch_size)
+    report["train"] = tr.evaluate(ds.features, ds.labels)
+    report["final_loss"] = hist["loss"][-1]
+    report["wall_time_s"] = round(hist["wall_time_s"], 3)
+
+
+def _vae(args, cfg, device, report) -> None:
+    from lightctr_tpu_torch.data import load_dense_csv
+    from lightctr_tpu_torch.models import vae
+
+    ds = load_dense_csv(args.data)
+    params = vae.init(_generator(device, args.seed), ds.features.shape[1],
+                      hidden=args.hidden, gauss_cnt=args.gauss, device=device)
+    tr = vae.VAETrainer(params, cfg, device=device)
+    hist = tr.fit(ds.features, epochs=args.epochs,
+                  batch_size=cfg.minibatch_size)
+    report["final_loss"] = hist["loss"][-1]
+    report["wall_time_s"] = round(hist["wall_time_s"], 3)
+
+
+def _gbm(args, cfg, device, report) -> None:
+    """``gbm`` and ``stack`` (GBM leaf ids -> FTRL-LR, BASELINE config
+    5); binary on ``label > 0`` unless ``gbm --n-classes`` > 1."""
+    from lightctr_tpu_torch.data import load_dense_csv
+    from lightctr_tpu_torch.models import gbm
+    from lightctr_tpu_torch.models.stacking import GBMLRStack
+
+    ds = load_dense_csv(args.data)
+    n_classes = getattr(args, "n_classes", 1)
+    gcfg = gbm.GBMConfig(n_trees=args.n_trees, max_depth=args.max_depth,
+                         n_classes=n_classes, seed=args.seed,
+                         shrinkage=args.lr)
+    y = ds.labels if n_classes > 1 else (ds.labels > 0).astype(np.float32)
+    if args.model == "gbm":
+        model = gbm.GBMModel(gcfg, device=device)
+        report["final_loss"] = model.fit(ds.features, y)[-1]
+    else:
+        model = GBMLRStack(gcfg, lr_steps=args.lr_steps, device=device)
+        report["final_loss"] = model.fit(ds.features, y)["lr_loss"][-1]
+    report["train"] = model.evaluate(ds.features, y)
+    if args.dump_scores:
+        _dump_scores(args.dump_scores, model.predict_proba(ds.features),
+                     report)
+
+
+def _gmm(args, cfg, device, report) -> None:
+    from lightctr_tpu_torch.models import gmm
+
+    raw = np.loadtxt(args.data, delimiter=",", dtype=np.float32)
+    params = gmm.init_from_data(_generator(device, args.seed), args.clusters,
+                                raw, device=device)
+    params, hist = gmm.fit(params, raw, epochs=args.epochs, device=device)
+    report["final_loglik"] = hist[-1]
+    report["cluster_sizes"] = np.bincount(
+        gmm.predict(params, raw), minlength=args.clusters).tolist()
+
+
+def _read_docs(path):
+    from lightctr_tpu_torch.data import text as text_lib
+
+    with open(path) as f:
+        return [text_lib.tokenize(line) for line in f if line.strip()]
+
+
+def _plsa(args, cfg, device, report) -> None:
+    from lightctr_tpu_torch.data import text as text_lib
+    from lightctr_tpu_torch.models import plsa
+
+    docs = _read_docs(args.data)
+    words, counts, w2i = text_lib.build_vocab(docs, max_size=args.vocab_size)
+    m = text_lib.doc_term_matrix(docs, w2i)
+    params = plsa.init(_generator(device, args.seed), m.shape[0], args.topics,
+                       m.shape[1], device=device)
+    params, hist = plsa.fit(params, m, epochs=args.epochs, device=device)
+    report["final_loglik"] = hist[-1]
+    report["topics"] = plsa.topic_keywords(params, words, top_k=args.top_words)
+
+
+def _embed(args, cfg, device, report) -> None:
+    """word2vec -> optional text export, PQ codes and GMM clusters (the
+    reference's TEST_EMB pipeline)."""
+    from lightctr_tpu_torch.data import text as text_lib
+    from lightctr_tpu_torch.models import embedding, export
+
+    docs_tok = _read_docs(args.data)
+    words, counts, w2i = text_lib.build_vocab(docs_tok,
+                                              max_size=args.vocab_size)
+    docs = text_lib.docs_to_ids(docs_tok, w2i)
+    centers, contexts, mask = embedding.cbow_pairs(
+        docs, args.window, counts=counts, seed=args.seed)
+    tr = embedding.Word2VecTrainer(len(words), args.dim, cfg, counts,
+                                   mode=args.mode, device=device)
+    hist = tr.fit(centers, contexts, mask, epochs=args.epochs,
+                  batch_size=cfg.minibatch_size)
+    report["final_loss"] = hist[-1]
+    report["n_pairs"] = int(len(centers))
+    if args.out:
+        export.save_embeddings_text(args.out, words,
+                                    tr.normalized_embeddings())
+        report["embeddings"] = args.out
+    if args.quantize:
+        _, codes = tr.quantize()
+        report["pq_codes_shape"] = list(codes.shape)
+    if args.cluster:
+        clusters = tr.cluster(n_clusters=args.cluster)
+        report["cluster_sizes"] = np.bincount(
+            clusters, minlength=args.cluster).tolist()
+
+
+#: the branch of each subcommand outside the CTR family
+BRANCHES = {"seqctr": _seqctr, "cnn": _classifier, "rnn": _classifier,
+            "vae": _vae, "gbm": _gbm, "stack": _gbm, "gmm": _gmm,
+            "plsa": _plsa, "embed": _embed}
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.model in NOT_PORTED:
-        print(f"lightctr_tpu_torch.cli: {args.model!r} is not yet ported to "
-              "lightctr_tpu_torch (see ROADMAP.md §A.7)", file=sys.stderr)
-        return 2
     from lightctr_tpu_torch.core.config import TrainConfig
     from lightctr_tpu_torch.core.device import resolve_device
 
@@ -383,7 +519,7 @@ def main(argv=None) -> int:
         if not _ctr(args, cfg, device, report):
             return 0
     else:
-        _seqctr(args, cfg, device, report)
+        BRANCHES[args.model](args, cfg, device, report)
     print(json.dumps(report))
     return 0
 

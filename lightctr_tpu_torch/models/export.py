@@ -5,8 +5,8 @@ The port's counterpart of ``lightctr_tpu/models/export.py``.  The text
 writers and readers keep the reference's interchange layout: FM's
 ``model_epoch_N.txt`` with a sparse ``fid:w`` line then per-fid factor
 lines (fm_algo_abst.h:109-135), and word embeddings as ``word vec...``
-lines (train_embed_algo.cpp:208-230).  The GMM text codec waits for the
-port's ``models/gmm``.
+lines (train_embed_algo.cpp:208-230), and the GMM's per-cluster
+``weight | mu... | sigma...`` lines (train_gmm_algo.cpp:153-174).
 
 The compressed artifact is the JAX package's format, byte layout and
 ``__meta__`` JSON included, so an artifact written by either package loads
@@ -97,6 +97,38 @@ def load_embeddings_text(path: str) -> Tuple[List[str], np.ndarray]:
             words.append(parts[0])
             rows.append([float(x) for x in parts[1:]])
     return words, np.asarray(rows, np.float32)
+
+
+def save_gmm_text(path: str, params) -> None:
+    """Per-cluster ``weight | mu... | sigma...`` lines
+    (train_gmm_algo.cpp:153-174)."""
+    mu = _numpy(params.mu)
+    sigma = _numpy(params.sigma)
+    weight = _numpy(params.weight)
+    with open(path, "w") as f:
+        for k in range(mu.shape[0]):
+            f.write(f"{weight[k]:.6g} | "
+                    + " ".join(f"{x:.6g}" for x in mu[k]) + " | "
+                    + " ".join(f"{x:.6g}" for x in sigma[k]) + "\n")
+
+
+def load_gmm_text(path: str):
+    """Inverse of :func:`save_gmm_text`: a ``models.gmm.GMMParams`` of CPU
+    tensors."""
+    from lightctr_tpu_torch.models.gmm import GMMParams
+
+    ws, mus, sigmas = [], [], []
+    with open(path) as f:
+        for line in f:
+            if not line.strip():
+                continue
+            w_part, mu_part, sg_part = line.split("|")
+            ws.append(float(w_part))
+            mus.append([float(x) for x in mu_part.split()])
+            sigmas.append([float(x) for x in sg_part.split()])
+    return GMMParams(mu=torch.tensor(mus, dtype=torch.float32),
+                     sigma=torch.tensor(sigmas, dtype=torch.float32),
+                     weight=torch.tensor(ws, dtype=torch.float32))
 
 
 def _numpy(x) -> np.ndarray:

@@ -10,11 +10,13 @@ from lightctr_tpu_torch.optim.updaters import (  # noqa: F401
     adam,
     add_decayed_regularization,
     apply_updates,
+    chain,
     clip_by_value,
     dcasgd,
     dcasgda,
     ftrl,
     get,
+    identity,
     rmsprop,
     sgd,
 )
@@ -30,6 +32,8 @@ __all__ = [
     "dcasgd",
     "dcasgda",
     "clip_by_value",
+    "chain",
+    "identity",
     "add_decayed_regularization",
     "get",
     "apply_updates",

@@ -359,6 +359,35 @@ def clip_by_value(threshold: float) -> GradientTransformation:
     return GradientTransformation(init_fn, update_fn)
 
 
+def identity() -> GradientTransformation:
+    """The no-op transform (``optax.identity``)."""
+
+    def init_fn(params):
+        return EmptyState()
+
+    def update_fn(grads, state, params=None):
+        return grads, state
+
+    return GradientTransformation(init_fn, update_fn)
+
+
+def chain(*transforms: GradientTransformation) -> GradientTransformation:
+    """Transforms applied in turn (``optax.chain``): each one's updates are
+    the next one's gradients; the state is the tuple of their states."""
+
+    def init_fn(params):
+        return tuple(t.init(params) for t in transforms)
+
+    def update_fn(grads, state, params=None):
+        new_state = []
+        for t, s in zip(transforms, state):
+            grads, s = t.update(grads, s, params)
+            new_state.append(s)
+        return grads, tuple(new_state)
+
+    return GradientTransformation(init_fn, update_fn)
+
+
 def add_decayed_regularization(lambda_l2: float = 0.0,
                                lambda_l1: float = 0.0
                                ) -> GradientTransformation:

@@ -12,8 +12,12 @@ cases and tests/test_harness.py::test_cli_fm_end_to_end.
     devices, on a batch they split evenly;
   - ``--ckpt-dir`` and ``--dump-scores``: the checkpoint restores to
     params whose scores equal the dumped file within 1e-6;
-  - the unported subcommands exit 2 naming ROADMAP §A.7, and the default
-    device is CUDA, which raises here."""
+  - the rest of the zoo (cnn, rnn, vae, gbm, stack, gmm, plsa, embed)
+    beside the JAX CLI on tests/test_cli_zoo.py's tiny files, the port's
+    inits replaced by the JAX inits carried across and its draws (the
+    VAE's noise, word2vec's negatives) by the JAX CLI's: the same report
+    keys and numbers, at each model's tolerance (``ZOO_TOL``);
+  - the default device is CUDA, which raises here."""
 
 import json
 import os
@@ -21,6 +25,7 @@ import subprocess
 import sys
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -63,8 +68,7 @@ def test_parser_has_the_jax_subcommands_flags_and_defaults():
         dev = extra.pop("device")
         assert dev[:2] == (("--device",), "cuda"), name
         assert extra == flags, name
-    assert sorted(tcli.NOT_PORTED + tcli.CTR_MODELS + ("seqctr",)) == \
-        sorted(want)
+    assert sorted(tcli.CTR_MODELS + tuple(tcli.BRANCHES)) == sorted(want)
 
 
 @pytest.fixture(scope="module")
@@ -233,12 +237,157 @@ def test_checkpoint_restores_to_the_dumped_scores(capsys, tmp_path,
     np.testing.assert_allclose(torch.sigmoid(z).numpy(), dumped, atol=1e-6)
 
 
-@pytest.mark.parametrize("model", tcli.NOT_PORTED)
-def test_unported_subcommands_exit_2_naming_the_roadmap(capsys, model):
-    argv = [model, "--data", "x"]
-    assert tcli.main(argv) == 2
-    err = capsys.readouterr().err
-    assert "ROADMAP.md §A.7" in err and model in err
+#: per subcommand: the relative tolerance of its numbers against the JAX
+#: CLI's (the tanh paths' trajectory bound, the GBM's, word2vec's, the
+#: EM steps')
+ZOO_TOL = {"cnn": 1e-4, "rnn": 1e-4, "vae": 1e-4, "gbm": 1e-5,
+           "gbm10": 1e-5, "stack": 1e-4, "gmm": 1e-5, "plsa": 1e-5,
+           "embed": 1e-4, "embed_hs": 1e-4}
+
+
+@pytest.fixture(scope="module")
+def zoo_files(tmp_path_factory):
+    """tests/test_cli_zoo.py's files: 30 dense rows of 784 random pixels
+    with a 0/1 label, 16 lines of two topics, 60 points in two blobs."""
+    root = tmp_path_factory.mktemp("zoo")
+    rng = np.random.default_rng(1)
+    rows = [",".join([str(rng.integers(0, 2))]
+                     + [str(p) for p in rng.integers(0, 255, size=784)])
+            for _ in range(30)]
+    (root / "train.csv").write_text("\n".join(rows) + "\n")
+    docs = ["tpu mesh shard collective matmul",
+            "mesh shard pjit collective tpu",
+            "gradient descent loss curve adagrad",
+            "loss gradient optimizer descent step"] * 4
+    (root / "docs.txt").write_text("\n".join(docs) + "\n")
+    rng = np.random.default_rng(2)
+    pts = np.concatenate([rng.normal(0, 0.3, size=(30, 2)),
+                          rng.normal(4, 0.3, size=(30, 2))])
+    np.savetxt(root / "pts.csv", pts, delimiter=",", fmt="%.4f")
+    return {k: str(root / f) for k, f in (("dense", "train.csv"),
+                                          ("text", "docs.txt"),
+                                          ("pts", "pts.csv"))}
+
+
+ZOO_ARGV = {
+    "cnn": ["cnn", "--data", "dense", "--epochs", "2", "--n-classes", "2",
+            "--hidden", "16"],
+    "rnn": ["rnn", "--data", "dense", "--epochs", "2", "--n-classes", "2",
+            "--hidden", "12"],
+    "vae": ["vae", "--data", "dense", "--epochs", "2", "--hidden", "12",
+            "--gauss", "4"],
+    "gbm": ["gbm", "--data", "dense", "--n-trees", "3", "--max-depth", "3"],
+    "gbm10": ["gbm", "--data", "dense", "--n-trees", "1", "--max-depth", "3",
+              "--n-classes", "2"],
+    "stack": ["stack", "--data", "dense", "--n-trees", "3", "--max-depth",
+              "3", "--lr-steps", "20"],
+    "gmm": ["gmm", "--data", "pts", "--clusters", "2", "--epochs", "10"],
+    "plsa": ["plsa", "--data", "text", "--topics", "2", "--epochs", "10"],
+    "embed": ["embed", "--data", "text", "--epochs", "2", "--dim", "8",
+              "--quantize", "--cluster", "2"],
+    "embed_hs": ["embed", "--data", "text", "--epochs", "3", "--dim", "8",
+                 "--mode", "hierarchical", "--batch-size", "2"],
+}
+
+
+def _carry_zoo(monkeypatch, case, argv):
+    """The port's inits -> the JAX CLI's (``PRNGKey(seed)``) carried
+    across; the VAE's noise and word2vec's negatives -> the JAX CLI's
+    draws, in its order."""
+    from lightctr_tpu.models import cnn as jcnn
+    from lightctr_tpu.models import embedding as jemb
+    from lightctr_tpu.models import gmm as jgmm
+    from lightctr_tpu.models import plsa as jplsa
+    from lightctr_tpu.models import rnn as jrnn
+    from lightctr_tpu.models import vae as jvae
+    from lightctr_tpu_torch.models import cnn as tcnn
+    from lightctr_tpu_torch.models import embedding as temb
+    from lightctr_tpu_torch.models import gmm as tgmm
+    from lightctr_tpu_torch.models import plsa as tplsa
+    from lightctr_tpu_torch.models import rnn as trnn
+    from lightctr_tpu_torch.models import vae as tvae
+
+    def carried(jinit, key=jax.random.PRNGKey(0)):
+        def init(gen, *args, device="cpu", **kw):
+            p = jinit(key, *args, **kw)
+            if isinstance(p, tuple):
+                p = type(p)(*(np.asarray(a) for a in p))
+            return _common.params_from_numpy(
+                jax.tree_util.tree_map(np.asarray, p), device)
+        return init
+
+    model = argv[0]
+    for mod, jmod in ((tcnn, jcnn), (trnn, jrnn), (tvae, jvae),
+                      (tplsa, jplsa), (temb, jemb)):
+        if mod.__name__.rsplit(".", 1)[1] in (model, "embedding") and \
+                (model != "embed" or mod is temb):
+            monkeypatch.setattr(mod, "init", carried(jmod.init))
+    if model == "gmm":
+        monkeypatch.setattr(tgmm, "init_from_data",
+                            carried(jgmm.init_from_data))
+    draws = []
+    if model == "vae":
+        key = jax.random.PRNGKey(0)
+        for _ in range(2 * 3):
+            key, sub = jax.random.split(key)
+            draws.append(np.asarray(jax.random.normal(sub, (10, 4))))
+        monkeypatch.setattr(tvae.VAETrainer, "_noise",
+                            lambda self, rows: torch.from_numpy(draws.pop(0).copy()))
+    if case == "embed":
+        # the JAX trainer's categorical draws from PRNGKey(seed + 1), one
+        # split a step, for as many steps as the run takes
+        from lightctr_tpu.data import text as jtext
+
+        docs = [jtext.tokenize(line) for line in open(argv[2])
+                if line.strip()]
+        words, counts, w2i = jtext.build_vocab(docs, max_size=5000)
+        n = len(jemb.cbow_pairs(jtext.docs_to_ids(docs, w2i), 6,
+                                counts=counts, seed=0)[0])
+        b = min(256, n)
+        key = jax.random.PRNGKey(1)
+        logits = jnp.asarray(jemb.negative_table_logits(counts))
+        for _ in range(2 * (n // b)):
+            key, sub = jax.random.split(key)
+            draws.append(np.asarray(jax.random.categorical(
+                sub, logits, shape=(b, 5))))
+        monkeypatch.setattr(temb.Word2VecTrainer, "_negatives",
+                            lambda self, rows: torch.from_numpy(draws.pop(0).copy()))
+    return draws
+
+
+def _close(got, want, rtol, path=""):
+    """Report values equal (strings, lists of ints, shapes) or within
+    ``rtol`` (floats), key by key."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            _close(got[k], want[k], rtol, f"{path}.{k}")
+    elif isinstance(want, float):
+        np.testing.assert_allclose(got, want, rtol=rtol, atol=1e-7,
+                                   err_msg=path)
+    else:
+        assert got == want, path
+
+
+@pytest.mark.parametrize("case", sorted(ZOO_ARGV))
+def test_zoo_subcommand_matches_the_jax_cli(monkeypatch, capsys, zoo_files,
+                                           case):
+    argv = [zoo_files.get(a, a) for a in ZOO_ARGV[case]]
+    draws = _carry_zoo(monkeypatch, case, argv)
+    rj = run(capsys, jcli.main, argv)
+    rt = run(capsys, tcli.main, argv + ["--device", "cpu"])
+    assert not draws
+    assert _keys(rt) == _keys(rj)
+    rj.pop("wall_time_s", None), rt.pop("wall_time_s", None)
+    if case == "embed":
+        # the GMM over the embeddings draws its init in either package
+        assert sum(rt.pop("cluster_sizes")) == sum(rj.pop("cluster_sizes"))
+    if case == "plsa":
+        # words of equal counts tie in P(w|t) up to the last place, so
+        # their order within a topic may differ
+        assert [set(t) for t in rt.pop("topics")] == \
+            [set(t) for t in rj.pop("topics")]
+    _close(rt, rj, ZOO_TOL[case])
 
 
 def test_the_cli_defaults_to_cuda(monkeypatch, libffm_file):
@@ -267,10 +416,18 @@ def test_cli_fm_end_to_end(tmp_path):
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert report["model"] == "fm" and "train" in report
     assert np.isfinite(report["final_loss"])
+    pts = str(tmp_path / "pts.csv")
+    np.savetxt(pts, np.concatenate([rng.normal(0, 0.3, size=(30, 2)),
+                                    rng.normal(4, 0.3, size=(30, 2))]),
+               delimiter=",", fmt="%.4f")
     out = subprocess.run(
         [sys.executable, "-m", "lightctr_tpu_torch.cli", "gmm", "--data",
-         data], capture_output=True, text=True, timeout=300, cwd=REPO_ROOT)
-    assert out.returncode == 2 and out.stdout == ""
+         pts, "--clusters", "2", "--device", "cpu"], capture_output=True,
+        text=True, timeout=300, cwd=REPO_ROOT)
+    assert out.returncode == 0, out.stderr[-2000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert sum(report["cluster_sizes"]) == 60
+    assert np.isfinite(report["final_loglik"])
 
 
 def test_dcn_reads_no_feature_value_in_either_package():

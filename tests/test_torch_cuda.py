@@ -1284,3 +1284,135 @@ def test_ckpt_round_trips_cuda_params_to_the_same_device(dev, tmp_path):
                      (out["opt_state"].accum["v"],
                       tr.opt_state.accum["v"])):
             assert a.device == b.device and torch.equal(a, b)
+
+
+def gbm_data(rows, feats, seed):
+    """Templated rows with NaNs, a binary label: the GBM tests' data."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, feats)).astype(np.float32)
+    x[rng.random(x.shape) < 0.02] = np.nan
+    y = (np.nan_to_num(x[:, 0]) + 0.5 * np.nan_to_num(x[:, 3]) > 0).astype(
+        np.float32)
+    return x, y
+
+
+def test_gbm_fit_twice_gives_bit_identical_trees(dev):
+    """The histograms and leaf sums are merge_rows (slot-order sums), so a
+    second fit on the card repeats every tree bit for bit; the first tree
+    equals the CPU's (p = 1/2 exactly at the root)."""
+    from lightctr_tpu_torch.models import gbm
+
+    x, y = gbm_data(4000, 64, 0)
+    cfg = gbm.GBMConfig(n_trees=4, max_depth=6)
+    fits = []
+    for _ in range(2):
+        before = sk.launches("merge_rows")
+        m = gbm.GBMModel(cfg, device="cuda")
+        m.fit(x, y)
+        assert sk.launches("merge_rows") - before == \
+            4 * gbm.histogram_merges(6)
+        fits.append(m)
+    for a, b in zip(*(f.trees for f in fits)):
+        for u, v in zip(a, b):
+            assert torch.equal(u.view(torch.uint8) if u.dtype == torch.bool
+                               else u, v.view(torch.uint8)
+                               if v.dtype == torch.bool else v)
+    cpu = gbm.GBMModel(gbm.GBMConfig(n_trees=1, max_depth=6), device="cpu")
+    cpu.fit(x, y)
+    for u, v in zip(fits[0].trees[0], cpu.trees[0]):
+        assert torch.equal(u.cpu(), v)
+
+
+def test_gbm_root_histograms_on_card_equal_cpu_bit_for_bit(dev):
+    from lightctr_tpu_torch.models import gbm
+
+    x, y = gbm_data(3000, 100, 1)
+    bins, _ = gbm.quantile_bins(x, 32)
+    rng = np.random.default_rng(2)
+    g = rng.normal(size=len(y)).astype(np.float32)
+    h = rng.random(len(y)).astype(np.float32)
+    m = (rng.random(len(y)) < 0.7).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (bins, g, h, m)]
+    want = gbm.root_histograms(*args, 32)
+    got = gbm.root_histograms(*(a.cuda() for a in args), 32)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+def test_merge_rows_at_the_gbm_root_histogram_shape(dev):
+    """B4 at GBM's CLI shape: 10,000 x 784 slots (7.84 M) at d 1 into
+    784 x 33 segments, bit for bit against its plain version."""
+    rng = np.random.default_rng(3)
+    n, f, slots = 10000, 784, 33
+    bins = rng.integers(0, slots, (n, f))
+    seg = torch.from_numpy((np.arange(f)[None, :] * slots + bins).reshape(-1)
+                           .astype(np.int32)).cuda()
+    stat = torch.from_numpy(rng.normal(size=n).astype(np.float32)).cuda()
+    rows = stat[:, None].expand(n, f).reshape(-1, 1).contiguous()
+    got = sk.merge_rows(rows, seg, f * slots)
+    want = sk.merge_rows_plain(rows, seg, f * slots)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("mode", ["negative", "hierarchical"])
+def test_word2vec_step_twice_is_bit_identical(dev, mode):
+    """One step from one state, run twice: the tables and the Adagrad
+    accumulators bit-identical (the gathers' backward is merge_rows)."""
+    from lightctr_tpu_torch.models import embedding
+
+    rng = np.random.default_rng(4)
+    vocab, b = 5000, 256
+    counts = (rng.zipf(1.3, vocab) % 100000 + 1).astype(np.int64)
+    tr = embedding.Word2VecTrainer(vocab, 100, TrainConfig(learning_rate=0.3),
+                                   counts, mode=mode, device="cuda")
+    centers = torch.from_numpy((rng.random(b) ** 3 * vocab).astype(
+        np.int32)).cuda()
+    contexts = torch.from_numpy((rng.random((b, 12)) ** 3 * vocab).astype(
+        np.int32)).cuda()
+    mask = torch.ones((b, 12), device="cuda")
+    tr.step(centers, contexts, mask)        # rows of out away from zero
+    start = ([t.clone() for t in tr.params],
+             [t.clone() for t in tr.opt_state.accum])
+    gen_state = tr.generator.get_state()
+    runs = []
+    for _ in range(2):
+        tr.params = type(tr.params)(*(t.clone() for t in start[0]))
+        tr.opt_state = type(tr.opt_state)(
+            accum=type(tr.params)(*(t.clone() for t in start[1])))
+        tr.generator.set_state(gen_state)
+        before = sk.launches("merge_rows")
+        tr.step(centers, contexts, mask)
+        assert sk.launches("merge_rows") - before == \
+            embedding.GATHERS[mode]
+        runs.append(list(tr.params) + list(tr.opt_state.accum))
+    for a, b_ in zip(*runs):
+        assert torch.equal(a, b_)
+
+
+def test_conv_ignores_a_global_tf32_setting(dev):
+    """``nn.conv.apply`` runs cuDNN in float32 (TF32 off, deterministic
+    algorithms) whatever ``torch.backends.cudnn.allow_tf32`` says: its
+    forward and its gradients equal the float32 run's bit for bit."""
+    from lightctr_tpu_torch.nn import conv
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = conv.init(gen, 5, 16, 32, device="cuda")
+    x = torch.randn((64, 28, 28, 16), generator=gen, device="cuda")
+    saved = torch.backends.cudnn.allow_tf32
+    outs = []
+    try:
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            w = params["w"].detach().clone().requires_grad_()
+            xi = x.clone().requires_grad_()
+            y = conv.apply({"w": w, "b": params["b"]}, xi, stride=1)
+            (y * y).sum().backward()
+            outs.append((y.detach(), w.grad, xi.grad))
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    want = torch.nn.functional.conv2d(
+        x.permute(0, 3, 1, 2).double(),
+        params["w"].permute(3, 2, 0, 1).double()).permute(0, 2, 3, 1)
+    assert float((outs[0][0].double() - want).abs().max()) < 1e-4
