@@ -13,9 +13,12 @@ DCN) at Criteo width from compressed artifacts through the same PS-backed
 server, and trains DeepFM and DCN on the card, then over two ranks with
 both trainers; runs the port's CLI (the CTR half, ``deepfm --dp`` under
 ``torch.distributed.run``, then the DL zoo, GBM and its stack, GMM, PLSA
-and word2vec); runs the long-context attention path (flash attention on
-one card, ring attention over two ranks) and the port's two kernel
-benches.
+and word2vec); runs the zoo's last four modules (top-k and the ANN index,
+PCA, ensembling, the DAG builder); runs the long-context attention path
+(flash attention on one card, ring attention over two ranks) and the
+port's two kernel benches.  The ingest phase also compiles its file into
+the shard cache and trains from the replay, with and without the quality
+sketch armed, and the serve phase checks the server's drift hook.
 
     python3 chip_smoke.py [--seed N]
 
@@ -73,7 +76,9 @@ Phases, one JSON line each:
            merge_rows at the zoo's shapes, bit-exact: GBM's root
            histogram (10,000 x 784 slots at d 1 into 784 x 33 segments)
            and word2vec's context gather backward (256 x 12 slots at d
-           100 into 5,000 rows).
+           100 into 5,000 rows); and at the quality sketch's shape (4,096
+           stacked [1, label, p, logloss] rows, d 4, into 512 buckets),
+           bit-exact, ``obs.quality.quality_sketch`` equal to it.
   serve    FM, 39 fields (26 categorical + 13 numeric), vocabulary 2^20,
            factor dim 32: a port ``AsyncParamServer`` (rows ``[w | v]`` of
            width 33) behind ``ParamServerService``, a ``PredictionServer``
@@ -82,7 +87,14 @@ Phases, one JSON line each:
            OK, scores within 2e-3 of a float64 numpy FM forward (the wire
            carries rows, values and scores in fp16), the cache block a
            CUDA tensor, hits > 0 on the second pass, and ``gather_rows``
-           launched at least once per scored micro-batch.
+           launched at least once per scored micro-batch.  Then, its launch
+           counts read: a second FM server over the same PS with
+           ``drift=DriftMonitor(...)`` (16 score bins, 64 coverage
+           buckets, 2,048-row windows): the first pass freezes the
+           reference, the second (the same traffic) scores below
+           ``DriftDetector``'s degraded band, and two passes whose
+           categorical ids collapse onto 4 trip it: ``/healthz`` (an
+           ``OpsServer`` on localhost) answers 503 naming the server.
 
   train    FM at Criteo width on synthetic Criteo batches made in memory
            (data/synth.py's recipe: u^4 head/tail ids, exponential numeric
@@ -180,7 +192,20 @@ Phases, one JSON line each:
            merge_rows launched twice a step and nothing else, the loss
            falling, the first 2 steps re-run on the CPU (losses rtol 1e-4,
            the whole tables rtol 1e-4 / atol 1e-5); (c) the dp_rs phase's
-           repeated step, bit-identical.
+           repeated step, bit-identical; (d) the file compiled once by
+           ``data.ingest.compile_shards`` (seconds, shard bytes against
+           the file's; a second compile a cache hit), then replayed
+           through ``fit_stream(iter_shard_batches(cache, 4096),
+           prefetch=2)`` from (a)'s init: losses and tables bit for bit
+           (a)'s live-parse run, launches the plan's; ``fit(<cache dir>,
+           epochs=1, batch_size=4096)`` bit for bit ``fit(<its rows as
+           arrays>)``; the replay's decode ms a batch beside the parse's,
+           examples/s with and without the cache; (e) (d)'s replay with
+           ``quality_bins=512``, twice: losses and tables (d)'s, one more
+           merge_rows launch a step (the sketch), the tracker's totals,
+           window AUC, calibration ratio and logloss, the two runs'
+           sketches bit-identical, armed against unarmed step ms and the
+           device's idle share over 5 profiled armed steps.
   serve_deep  the Wide&Deep family at the serve phase's width (39
            fields, vocabulary 2^20, factor dim 32, hidden 50; DCN's fc1
            [50, 1248], crosses [3, 1248], out [1, 1298]), parameters from
@@ -293,6 +318,23 @@ Phases, one JSON line each:
            accumulators), and 3 steps of either mode on the card and the
            CPU within 1e-4.  Seconds a run and a step; the device's time
            over 5 cnn and rnn steps.
+  algos    the zoo's last four modules (no kernel of the port; the
+           counts, reset just before, stay 0), each on the card and on the
+           CPU: ``models.ann.brute_force_topk`` of 256 queries over the
+           serve table's v (2^20 x 32), dot and l2, held to a float64
+           top-10 where the 10th and 11th scores are apart by more than
+           1e-4 (relative); ``ANNIndex`` (8 trees, leaf 32, budget 2,048)
+           on 2^17 of those rows, 128 queries, its re-rank on the card
+           and the CPU equal up to such ties, recall@10 and the build's
+           host seconds; ``ops.pca`` on the zoo's 10,000 x 784 file:
+           ``fit_svd`` (16 rows; rows with a singular-value gap over 1e-2
+           equal up to sign) and ``fit_gha`` (100 epochs, lr 0.01: its defaults) whose
+           top row is aligned with SVD's (|cos| > 0.95, test_algos.py's
+           criterion); ``ops.ensembling``'s votes over 5 models x 10,000
+           rows x 10 classes equal, and 10 AdaBoost rounds within 2e-6
+           (alphas) and rtol 1e-5 (weights) of a float64 run on either
+           device; the DAG builder's demo, 100 SGD steps at batch 4,096,
+           losses within rtol 1e-5.
   attention  the long-context path, counts reset just before it:
            ``flash_attention`` at (2, 4096, 8, 64) bf16 causal on the card,
            then ``ring_self_attention`` over a ``seq`` ring of 2 ranks
@@ -339,7 +381,8 @@ phase's (and those), and its ``per_shape_train`` times it as the gathers'
 backward (159,744 slots into the 2^20-row table and into the sparse
 trainer's 159,744 rows, d = 32 and 1, and into the table at FFM's d =
 312) beside ``index_add_``, and its ``per_shape_zoo`` the zoo's two
-shapes likewise; ``launches_zoo`` counts the zoo phase's; dedup_ids,
+shapes likewise, its ``per_shape_quality`` the quality sketch's;
+``launches_zoo`` counts the zoo phase's; dedup_ids,
 merge_rows and merge_apply add their ``dp_rs`` timing at that path's
 shapes). Then the
 ``nvidia-smi`` name and power limit, and the last line ``{"ok": true,
@@ -1127,6 +1170,115 @@ def check_served(srv, passes, launches, what):
     return cache, batches
 
 
+#: the drift check's monitor: 16 score bins, 64 coverage buckets, the
+#: first pass (8 x 256 rows) frozen as the reference, 2,048-row windows
+DRIFT_SCORE_BINS = 16
+DRIFT_BUCKETS = 64
+DRIFT_WINDOW = N_REQUESTS * REQUEST_ROWS
+#: the shifted request set: its categorical ids collapse onto this many
+#: (test_quality.py's collapsed vocabulary)
+DRIFT_SHIFT_IDS = 4
+
+
+def shifted_requests(np, requests, seed) -> list:
+    """The requests with every categorical id redrawn from the first
+    DRIFT_SHIFT_IDS ids: a vocabulary shift."""
+    rng = np.random.default_rng(seed + 7)
+    out = []
+    for r in requests:
+        fids = r["fids"].copy()
+        fids[:, :N_CAT] = rng.integers(0, DRIFT_SHIFT_IDS,
+                                       (REQUEST_ROWS, N_CAT))
+        out.append({"fids": fids.astype(np.int32), "vals": r["vals"]})
+    return out
+
+
+def drift_settled(dm, windows, timeout_s=10.0) -> None:
+    """Wait until ``dm`` has scored ``windows`` windows and holds no live
+    rows: the scorer thread feeds the monitor after it answers a batch."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        snap = dm.snapshot()
+        if snap["windows"] == windows and snap["live_examples"] == 0:
+            return
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve drift: {snap['windows']} windows "
+                                 f"and {snap['live_examples']} live rows, "
+                                 f"not {windows} and 0")
+        time.sleep(0.01)
+
+
+def serve_drift(np, serve, svc, requests, refs, seed) -> dict:
+    """The FM server with ``drift=DriftMonitor(...)`` over the same PS: the
+    first pass freezes the reference, the same traffic again scores below
+    ``DriftDetector``'s degraded band, and two windows of shifted requests
+    (the server's monitor trips after two) trip it, which ``/healthz``
+    shows as a 503 naming the server."""
+    import urllib.error
+    import urllib.request
+
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.dist.ps_server import PSClient
+    from lightctr_tpu_torch.obs import exporter, health, quality
+
+    dm = quality.DriftMonitor(
+        component="serve_drift", score_bins=DRIFT_SCORE_BINS,
+        coverage_buckets=DRIFT_BUCKETS, reference_examples=DRIFT_WINDOW,
+        window_examples=DRIFT_WINDOW, registry=obs.MetricsRegistry())
+    model = serve.ServingModel(
+        "fm", {}, row_leaves=serve.fm_ps_row_leaves(DIM), row_dim=ROW_DIM,
+        device="cuda")
+    ops = exporter.OpsServer(port=0)
+    srv = serve.PredictionServer(model, ps=PSClient(svc.address, ROW_DIM),
+                                 max_batch=256, drift=dm, device="cuda")
+    cli = serve.PredictClient(srv.address)
+    try:
+        if dm.monitor is not srv.health:
+            raise AssertionError("serve drift: the monitor is not bound to "
+                                 "the server's health monitor")
+        t = time.perf_counter()
+        serve_passes(np, cli, srv, requests, refs, "fm drift")
+        same_s = time.perf_counter() - t
+        drift_settled(dm, 1)
+        same = dict(dm.last_scores)
+        degraded = quality.DriftDetector().degraded
+        if max(same.values()) >= degraded or \
+                srv.health.verdict()["detectors"]["drift"]["status"] != \
+                health.OK:
+            raise AssertionError(f"serve drift: the same traffic scored "
+                                 f"{same} (degraded at {degraded})")
+        shifted = shifted_requests(np, requests, seed)
+        for _ in range(2):
+            for r in shifted:
+                scores = cli.predict(r)
+                if not np.all(np.isfinite(scores)):
+                    raise AssertionError("serve drift: non-finite scores")
+        drift_settled(dm, 3)
+        verdict = srv.health.verdict()["detectors"]["drift"]
+        if verdict["status"] == health.OK:
+            raise AssertionError(f"serve drift: the shift did not trip the "
+                                 f"detector: {verdict} {dm.last_scores}")
+        url = f"http://{ops.address[0]}:{ops.address[1]}/healthz"
+        try:
+            with urllib.request.urlopen(url, timeout=5) as r:
+                code, body = r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            code, body = e.code, json.loads(e.read())
+        comp = body.get("components", {}).get(srv._flight_name, {})
+        if code != 503 or comp.get("status") == health.OK:
+            raise AssertionError(f"serve drift: /healthz {code} {comp}")
+        return {"reference_frozen": True, "windows": dm.windows,
+                "same_traffic_scores": same, "degraded_at": degraded,
+                "shifted_scores": dict(dm.last_scores),
+                "detector": verdict, "healthz_code": code,
+                "healthz_status": comp.get("status"),
+                "same_traffic_pass_s": same_s}
+    finally:
+        cli.close()
+        srv.close()
+        ops.close()
+
+
 def phase_serve(np, torch, sk, seed, requests) -> dict:
     from lightctr_tpu_torch import serve
     from lightctr_tpu_torch.dist.ps_server import ParamServerService, PSClient
@@ -1156,6 +1308,7 @@ def phase_serve(np, torch, sk, seed, requests) -> dict:
         passes, max_err = serve_passes(np, cli, srv, requests, refs, "fm")
         launches = sk.launches()
         cache, batches = check_served(srv, passes, launches, "fm")
+        drift = serve_drift(np, serve, svc, requests, refs, seed)
     finally:
         for c in (cli, admin):
             if c is not None:
@@ -1170,7 +1323,8 @@ def phase_serve(np, torch, sk, seed, requests) -> dict:
             "max_abs_score_err": max_err, "score_atol": SCORE_ATOL,
             "batches_scored": batches, "launches": launches,
             "cache": {k: cache[k] for k in ("entries", "capacity", "hits",
-                                            "misses", "device_rows")}}
+                                            "misses", "device_rows")},
+            "drift": drift}
 
 
 # -- phase: train -------------------------------------------------------------
@@ -2597,6 +2751,10 @@ INGEST_OPTIMIZERS = (("ftrl", {"lambda1": 1e-3, "lambda2": 1e-3}),
                      ("adam", {"learning_rate": 1e-2}))
 OPT_STEPS = 10
 OPT_CPU_STEPS = 2
+#: probability bins of the armed replay (e): the sketch's merge_rows
+#: launch is [TRAIN_BATCH, 4] rows into QUALITY_BINS segments
+QUALITY_BINS = 512
+QUALITY_PROFILE_STEPS = 5
 
 
 def ingest_files(seed, root) -> tuple:
@@ -2625,10 +2783,9 @@ def ingest_stream(path):
                                          feature_cnt=VOCAB, native=True)
 
 
-def ingest_fit(np, torch, sk, params, path, prefetch, max_steps=None):
-    """SparseTableCTRTrainer FM at Criteo width through ``fit_stream`` over
-    the file, the health feed off; launches counted from just before the
-    stream to just after it."""
+def ingest_trainer(params, quality_bins=None):
+    """SparseTableCTRTrainer FM at Criteo width on the card, the health
+    feed off (an armed trainer drains its sketches all the same)."""
     from lightctr_tpu_torch import obs
     from lightctr_tpu_torch.core.config import TrainConfig
     from lightctr_tpu_torch.models import fm
@@ -2639,24 +2796,181 @@ def ingest_fit(np, torch, sk, params, path, prefetch, max_steps=None):
         fm.params_from_numpy(params, "cuda"), fm.logits,
         TrainConfig(learning_rate=LR, lambda_l2=LAMBDA_L2),
         sparse_tables={"w": ["fids"], "v": ["fids"]},
-        fused_fn=fm.logits_with_l2, device="cuda")
+        fused_fn=fm.logits_with_l2, quality_bins=quality_bins,
+        device="cuda")
     tr.health = None
     tr.telemetry = obs.MetricsRegistry()
+    return tr
+
+
+def ingest_fit(np, torch, sk, params, path, prefetch, max_steps=None,
+               stream=None, quality_bins=None):
+    """``ingest_trainer`` through ``fit_stream`` over the file (or over
+    ``stream``); launches counted from just before the stream to just
+    after it."""
+    tr = ingest_trainer(params, quality_bins)
     torch.cuda.synchronize()
     sk.reset_launches()
     t = time.perf_counter()
-    losses = tr.fit_stream(ingest_stream(path), max_steps=max_steps,
-                           prefetch=prefetch)
+    losses = tr.fit_stream(ingest_stream(path) if stream is None else stream,
+                           max_steps=max_steps, prefetch=prefetch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     return tr, losses, wall, sk.launches(), tr.telemetry.snapshot()
+
+
+def check_same_run(torch, what, got, want) -> None:
+    """Two runs' (losses, w, v) equal bit for bit."""
+    if got[0] != want[0]:
+        raise AssertionError(f"{what}: losses {got[0][:5]}... are not "
+                             f"{want[0][:5]}...")
+    for k, a, b in (("w", got[1], want[1]), ("v", got[2], want[2])):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {k} differs")
+
+
+def ingest_cache(np, torch, sk, params, path, root, want_run) -> dict:
+    """(d) the file compiled once into the shard cache and replayed: the
+    replay under ``fit_stream(prefetch=2)`` and ``fit(<cache dir>)``
+    against ``want_run`` (the live parse's (losses, w, v)) and
+    ``fit(<the same rows as arrays>)``, bit for bit; (e) the replay again
+    with the quality sketch armed, twice."""
+    import itertools
+
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.data import ingest
+
+    reg = obs.MetricsRegistry()
+    kw = dict(cache_dir=os.path.join(root, "train.lcshards"),
+              feature_cnt=VOCAB, registry=reg)
+    t = time.perf_counter()
+    cache = ingest.compile_shards(path, N_FIELDS, **kw)
+    compile_s = time.perf_counter() - t
+    t = time.perf_counter()
+    again = ingest.compile_shards(path, N_FIELDS, **kw)
+    hit_s = time.perf_counter() - t
+    counters = reg.snapshot()["counters"]
+    if counters.get("ingest_shard_compiles_total") != 1 or \
+            counters.get("ingest_shard_cache_hits_total") != 1 or \
+            again.manifest != cache.manifest:
+        raise AssertionError(f"ingest (d): the second compile is no cache "
+                             f"hit: {counters}")
+    t = time.perf_counter()
+    n_batches = sum(1 for _ in ingest.iter_shard_batches(cache, TRAIN_BATCH))
+    replay_ms = 1e3 * (time.perf_counter() - t) / n_batches
+    if n_batches != SPARSE_STEPS or cache.rows != INGEST_ROWS:
+        raise AssertionError(f"ingest (d): {cache.rows} rows, {n_batches} "
+                             "batches in the cache")
+    want_launches = sparse_expected_launches(sk, SPARSE_STEPS)
+
+    def replay(quality_bins=None):
+        return ingest_fit(np, torch, sk, params, None, INGEST_PREFETCH,
+                          stream=ingest.iter_shard_batches(cache,
+                                                           TRAIN_BATCH),
+                          quality_bins=quality_bins)
+
+    tr, losses, wall, launches, snap = replay()
+    if launches != want_launches:
+        raise AssertionError(f"ingest (d) replay: launches {launches}")
+    check_same_run(torch, "ingest (d) replay against the live parse",
+                   (losses, tr.params["w"], tr.params["v"]), want_run)
+    del tr
+    fits = []
+    for src in (cache.dir, ingest.as_arrays(cache)):
+        ft = ingest_trainer(params)
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        t = time.perf_counter()
+        hist = ft.fit(src, epochs=1, batch_size=TRAIN_BATCH)
+        torch.cuda.synchronize()
+        fits.append({"run": (hist["loss"], ft.params["w"], ft.params["v"]),
+                     "wall_s": time.perf_counter() - t,
+                     "launches": sk.launches()})
+        del ft
+    check_same_run(torch, "ingest (d) fit(<cache dir>) against fit(arrays)",
+                   fits[0]["run"], fits[1]["run"])
+    for f in fits:
+        if f["launches"] != sparse_expected_launches(sk, SPARSE_STEPS):
+            raise AssertionError(f"ingest (d) fit: launches {f['launches']}")
+    # (e) armed: one more merge_rows launch a step, at the sketch's shape
+    want_armed = dict(want_launches,
+                      merge_rows=want_launches["merge_rows"] + SPARSE_STEPS)
+    armed = []
+    for rep in range(2):
+        ta, la, wall_a, launch_a, _ = replay(QUALITY_BINS)
+        if launch_a != want_armed:
+            raise AssertionError(f"ingest (e) run {rep}: launches "
+                                 f"{launch_a}, planned {want_armed}")
+        check_same_run(torch, f"ingest (e) run {rep} against the unarmed "
+                       "replay", (la, ta.params["w"], ta.params["v"]),
+                       want_run)
+        q = ta.quality
+        if q.total.count != INGEST_ROWS or q.total.updates != SPARSE_STEPS:
+            raise AssertionError(f"ingest (e): the tracker saw "
+                                 f"{q.total.count} examples in "
+                                 f"{q.total.updates} sketches")
+        rec = {"rows": q.total.rows.copy(), "wall_s": wall_a,
+               "launches": launch_a, "last_window": q.last_window,
+               "windows": q.windows,
+               "total": {"auc": q.total.auc(), "logloss": q.total.logloss(),
+                         "calibration_ratio": q.total.calibration_ratio()}}
+        if rep == 1:
+            batches = list(itertools.islice(
+                ingest.iter_shard_batches(cache, TRAIN_BATCH),
+                QUALITY_PROFILE_STEPS))
+            prof = profile_sparse_steps(torch, ta, batches)
+            prof["idle_share"] = 1.0 - prof["device_ms_per_step"] / (
+                1e3 * wall_a / SPARSE_STEPS)
+            rec["profile"] = prof
+        q.close()
+        armed.append(rec)
+        del ta
+    if not np.array_equal(armed[0]["rows"], armed[1]["rows"]):
+        raise AssertionError("ingest (e): the two armed runs' sketches "
+                             "differ")
+    launches_all = {k: launches[k] + sum(f["launches"][k] for f in fits)
+                    + sum(a["launches"][k] for a in armed)
+                    for k in sk.KERNELS}
+    file_bytes = os.path.getsize(path)
+    shard_bytes = sum(x["bytes"] for x in cache.manifest["shards"])
+    return {
+        "launches": launches_all,
+        "compile": {"seconds": compile_s, "cache_hit_s": hit_s,
+                    "shards": cache.n_shards, "shard_bytes": shard_bytes,
+                    "file_bytes": file_bytes,
+                    "shard_to_file": shard_bytes / file_bytes},
+        "replay": {
+            "prefetch": INGEST_PREFETCH, "steps": SPARSE_STEPS,
+            "launches": launches, "equals_live_parse": True,
+            "decode_ms_per_batch": replay_ms,
+            "examples_per_s": INGEST_ROWS / wall,
+            "step_ms": 1e3 * wall / SPARSE_STEPS,
+            "overlap_ratio": snap["gauges"].get("ingest_overlap_ratio")},
+        "fit_cache_dir": {"equals_fit_arrays": True,
+                          "wall_s_cache_dir": fits[0]["wall_s"],
+                          "wall_s_arrays": fits[1]["wall_s"],
+                          "launches": fits[0]["launches"]},
+        "quality": {
+            "bins": QUALITY_BINS, "equals_unarmed": True,
+            "sketches_bit_identical_run_to_run": True,
+            "launches": armed[0]["launches"],
+            "step_ms_armed": [1e3 * a["wall_s"] / SPARSE_STEPS
+                              for a in armed],
+            "step_ms_unarmed": 1e3 * wall / SPARSE_STEPS,
+            "windows": armed[0]["windows"],
+            "last_window": armed[0]["last_window"],
+            "total": armed[0]["total"],
+            "profile": armed[1]["profile"]},
+    }
 
 
 def phase_ingest(np, torch, sk, seed, repair) -> dict:
     """FM at Criteo width trained from a libFFM file: (a) the sparse
     trainer through ``fit_stream(..., prefetch=2)`` and again without
     prefetch, bit-identical; (b) CTRTrainer under ftrl and adam, held to
-    the CPU; (c) the dp_rs phase's repeated coded step (``repair``)."""
+    the CPU; (c) the dp_rs phase's repeated coded step (``repair``); (d)
+    the file compiled into the shard cache and replayed, bit for bit the
+    live parse's run; (e) that replay with the quality sketch armed."""
     import itertools
     import shutil
     import tempfile
@@ -2709,6 +3023,8 @@ def phase_ingest(np, torch, sk, seed, repair) -> dict:
         if snap["counters"].get("ingest_prefetch_batches_total") != \
                 SPARSE_STEPS or overlap is None:
             raise AssertionError(f"ingest (a): prefetch telemetry {snap}")
+        cached = ingest_cache(np, torch, sk, params, path, root,
+                              (l_pre, tr_p.params["w"], tr_p.params["v"]))
         del tr_p, tr_s
 
         # (b) the optimizers, on the file's first batches
@@ -2788,8 +3104,10 @@ def phase_ingest(np, torch, sk, seed, repair) -> dict:
                            "step), health feed off, whole runs"},
         "optimizers": opt_runs,
         "repair": repair,
+        "shard_cache": {k: v for k, v in cached.items() if k != "launches"},
         "launches": {k: launch_pre[k] + launch_sync[k] + sum(
-            r["launches"][k] for r in opt_runs.values()) for k in sk.KERNELS},
+            r["launches"][k] for r in opt_runs.values())
+            + cached["launches"][k] for k in sk.KERNELS},
     }
 
 
@@ -4323,6 +4641,311 @@ def zoo_check_report(np, name, rep, epochs, checks) -> None:
             fail("PQ codes or clusters")
 
 
+# -- phase: algos -------------------------------------------------------------
+
+ALGO_QUERIES = 256
+ALGO_K = 10
+#: float64 top-k rows are held where the k-th and (k+1)-th scores are
+#: apart by more than this, relative to max(1, |score|): a float32 score
+#: on the card or the CPU may swap two nearer neighbours
+ALGO_TIE_GAP = 1e-4
+ANN_ROWS = 1 << 17
+ANN_TREES, ANN_LEAF, ANN_BUDGET = 8, 32, 2048
+ANN_QUERIES = 128
+PCA_COMPONENTS = 16
+PCA_GHA_EPOCHS = 100        # fit_gha's defaults
+PCA_GHA_LR = 0.01
+PCA_ALIGN = 0.95            # test_algos.py's criterion for the top row
+ENS_MODELS, ENS_ROWS, ENS_CLASSES, ADA_ROUNDS = 5, 10000, 10, 10
+ADA_ALPHA_ATOL = 2e-6
+DAG_STEPS, DAG_BATCH, DAG_LR = 100, 4096, 0.5
+ALGO_RTOL = 1e-5
+
+
+def topk64(np, queries, corpus, k, metric):
+    """float64 top-(k+1) scores and the top-k ids of every query, in
+    chunks of 32 queries."""
+    c64 = corpus.astype(np.float64)
+    cn = (c64 * c64).sum(1)
+    ids, vals = [], []
+    for lo in range(0, len(queries), 32):
+        q = queries[lo:lo + 32].astype(np.float64)
+        s = q @ c64.T
+        if metric == "l2":
+            s = 2 * s - (q * q).sum(1)[:, None] - cn[None, :]
+        part = np.argpartition(-s, k + 1, axis=1)[:, :k + 1]
+        ps = np.take_along_axis(s, part, axis=1)
+        order = np.argsort(-ps, axis=1)
+        ids.append(np.take_along_axis(part, order, axis=1)[:, :k])
+        vals.append(np.take_along_axis(ps, order, axis=1))
+    return np.concatenate(ids), np.concatenate(vals)
+
+
+def topk_agrees(np, got, ids64, vals64) -> int:
+    """How many rows hold (the k-th and (k+1)-th float64 scores apart):
+    each such row's ids must be the float64 top-k's set."""
+    k = got.shape[1]
+    held = 0
+    for r in range(got.shape[0]):
+        gap = vals64[r, k - 1] - vals64[r, k]
+        if gap <= ALGO_TIE_GAP * max(1.0, abs(vals64[r, k - 1])):
+            continue
+        held += 1
+        if set(got[r].tolist()) != set(ids64[r].tolist()):
+            raise AssertionError(f"algos: top-{k} of query {r} is not the "
+                                 "float64 top-k")
+    if held < got.shape[0] // 2:
+        raise AssertionError(f"algos: only {held} rows apart from ties")
+    return held
+
+
+def algos_topk(np, torch, ann, corpus, queries) -> dict:
+    """brute_force_topk on the card and the CPU, dot and l2, held to the
+    float64 top-k and to each other."""
+    out = {}
+    for metric in ("dot", "l2"):
+        ids64, vals64 = topk64(np, queries, corpus, ALGO_K, metric)
+        t = time.perf_counter()
+        gi, gv = ann.brute_force_topk(queries, corpus, ALGO_K,
+                                      metric=metric, device="cuda")
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        ci, cv = ann.brute_force_topk(queries, corpus, ALGO_K,
+                                      metric=metric, device="cpu")
+        cpu_s = time.perf_counter() - t
+        held = topk_agrees(np, gi, ids64, vals64)
+        topk_agrees(np, ci, ids64, vals64)
+        err = float(np.abs(gv - vals64[:, :ALGO_K]).max())
+        if not np.allclose(gv, cv, rtol=ALGO_RTOL, atol=1e-4):
+            raise AssertionError(f"algos {metric}: card and CPU scores "
+                                 "differ")
+        out[metric] = {"rows_held": held, "max_abs_err_vs_f64": err,
+                       "call_s_card": card_s, "call_s_cpu": cpu_s}
+    return out
+
+
+def algos_ann(np, torch, ann, corpus, queries) -> dict:
+    """The RP forest on ANN_ROWS rows: built once (host), queried with its
+    re-rank on the card and on the CPU; their top-10 equal up to ties of
+    the float64 scores; recall@10 against the exact top-10."""
+    rows = corpus[:ANN_ROWS]
+    t = time.perf_counter()
+    index = ann.ANNIndex(n_trees=ANN_TREES, leaf_size=ANN_LEAF, seed=0,
+                         device="cuda").build(rows)
+    build_s = time.perf_counter() - t
+    exact, _ = topk64(np, queries, rows, ALGO_K, "dot")
+    r64 = rows.astype(np.float64)
+    recalls, differ = [], 0
+    secs = {"cuda": 0.0, "cpu": 0.0}
+    for qi, q in enumerate(queries):
+        got = {}
+        for dev in ("cuda", "cpu"):
+            index.device = torch.device(dev)
+            t = time.perf_counter()
+            got[dev] = index.query(q, ALGO_K, search_budget=ANN_BUDGET)[0]
+            secs[dev] += time.perf_counter() - t
+        a, b = set(got["cuda"].tolist()), set(got["cpu"].tolist())
+        if a != b:
+            s = r64 @ q.astype(np.float64)
+            kth = min(s[list(a)].min(), s[list(b)].min())
+            for i in a ^ b:
+                if abs(s[i] - kth) > ALGO_TIE_GAP * max(1.0, abs(kth)):
+                    raise AssertionError(f"algos ann: query {qi} card "
+                                         f"{sorted(a)} cpu {sorted(b)}")
+            differ += 1
+        recalls.append(len(a & set(exact[qi].tolist())) / ALGO_K)
+    index.device = torch.device("cuda")
+    return {"rows": ANN_ROWS, "trees": ANN_TREES, "leaf": ANN_LEAF,
+            "budget": ANN_BUDGET, "queries": len(queries),
+            "build_host_s": build_s,
+            "recall_at_10": float(np.mean(recalls)),
+            "queries_differing_by_ties": differ,
+            "query_ms_card": 1e3 * secs["cuda"] / len(queries),
+            "query_ms_cpu": 1e3 * secs["cpu"] / len(queries)}
+
+
+def algos_pca(np, torch, pca, x) -> dict:
+    """fit_svd and fit_gha (PCA_COMPONENTS rows) on the card and the CPU:
+    the SVD rows whose singular values stand apart (relative gap > 1e-2)
+    equal up to sign; GHA's top row aligned with SVD's (|cos| >
+    PCA_ALIGN) on both, from one init."""
+    xc = (x - x.mean(axis=0, keepdims=True)).astype(np.float64)
+    sv = np.linalg.svd(xc, compute_uv=False)[:PCA_COMPONENTS + 1]
+    out = {}
+    t = time.perf_counter()
+    card = pca.fit_svd(x, PCA_COMPONENTS, device="cuda").cpu().numpy()
+    out["svd_card_s"] = time.perf_counter() - t
+    cpu = pca.fit_svd(x, PCA_COMPONENTS, device="cpu").numpy()
+    apart = [i for i in range(PCA_COMPONENTS)
+             if (sv[i] - sv[i + 1]) / sv[i] > 1e-2
+             and (i == 0 or (sv[i - 1] - sv[i]) / sv[i - 1] > 1e-2)]
+    cos = [abs(float(card[i] @ cpu[i])) for i in apart]
+    if not apart or min(cos) < 1 - 1e-4:
+        raise AssertionError(f"algos pca: SVD rows card vs CPU {cos}")
+    out.update(svd_rows_held=len(apart), svd_min_cos=min(cos))
+    gha = {}
+    for dev in ("cuda", "cpu"):
+        gen = torch.Generator().manual_seed(0)
+        t = time.perf_counter()
+        w = pca.fit_gha(gen, x, PCA_COMPONENTS, epochs=PCA_GHA_EPOCHS,
+                        lr=PCA_GHA_LR, device=dev).cpu().numpy()
+        gha[dev] = (w, time.perf_counter() - t)
+        align = abs(float(w[0] @ cpu[0]))
+        if align <= PCA_ALIGN:
+            raise AssertionError(f"algos pca: GHA on {dev} aligned {align}")
+        out[f"gha_align_{dev}"] = align
+        out[f"gha_s_{dev}"] = gha[dev][1]
+    out["gha_card_vs_cpu_top_cos"] = abs(float(gha["cuda"][0][0]
+                                               @ gha["cpu"][0][0]))
+    out["singular_values"] = sv[:PCA_COMPONENTS].tolist()
+    return out
+
+
+def adaboost64(np, preds, true, rounds):
+    """ADA_ROUNDS AdaBoost rounds in float64 numpy: (alphas, weights)."""
+    w = np.full(len(true), 1.0 / len(true))
+    alphas, ws = [], []
+    for r in range(rounds):
+        wrong = (preds[r % len(preds)] != true).astype(np.float64)
+        err = np.clip((w * wrong).sum() / w.sum(), 1e-7, 1 - 1e-7)
+        a = 0.5 * np.log((1 - err) / err)
+        w = w * np.where(wrong == 1, np.exp(a), np.exp(-a))
+        w /= w.sum()
+        alphas.append(a)
+        ws.append(w.copy())
+    return np.asarray(alphas), ws
+
+
+def algos_ensembling(np, torch, ens, seed) -> dict:
+    """vote_hard and vote_soft over ENS_MODELS models' predictions, and
+    ADA_ROUNDS AdaBoost rounds, on the card and the CPU: votes equal;
+    each device's alphas within ADA_ALPHA_ATOL and sample weights within
+    rtol 1e-5 of a float64 run (an alpha near 0, where a model's weighted
+    error nears 0.5, has no relative bound: float32 sums of 10,000
+    weights part in the 7th digit)."""
+    rng = np.random.default_rng(seed + 81)
+    true = rng.integers(0, ENS_CLASSES, ENS_ROWS)
+    probs = rng.random((ENS_MODELS, ENS_ROWS, ENS_CLASSES)).astype(
+        np.float32)
+    probs[:, np.arange(ENS_ROWS), true] += 0.5
+    preds = probs.argmax(-1)
+    weights = rng.random(ENS_MODELS).astype(np.float32)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        pr = torch.from_numpy(preds).to(dev)
+        pb = torch.from_numpy(probs).to(dev)
+        tl = torch.from_numpy(true).to(dev)
+        w = torch.full((ENS_ROWS,), 1.0 / ENS_ROWS, device=dev)
+        alphas, ws = [], []
+        for r in range(ADA_ROUNDS):
+            w, a = ens.adaboost_step(w, pr[r % ENS_MODELS], tl)
+            alphas.append(float(a))
+            ws.append(w.cpu().numpy())
+        res[dev] = {"hard": ens.vote_hard(pr, ENS_CLASSES).cpu().numpy(),
+                    "soft": ens.vote_soft(pb).cpu().numpy(),
+                    "soft_w": ens.vote_soft(
+                        pb, torch.from_numpy(weights).to(dev)).cpu().numpy(),
+                    "alphas": alphas, "w": ws}
+    for k in ("hard", "soft", "soft_w"):
+        if not np.array_equal(res["cuda"][k], res["cpu"][k]):
+            raise AssertionError(f"algos ensembling: {k} votes differ")
+    a64, w64 = adaboost64(np, preds, true, ADA_ROUNDS)
+    errs = {}
+    for dev, r in res.items():
+        ea = float(np.abs(np.asarray(r["alphas"]) - a64).max())
+        ew = max(float((np.abs(w - v) / v).max()) for w, v in zip(r["w"],
+                                                                 w64))
+        if ea > ADA_ALPHA_ATOL or ew > ALGO_RTOL:
+            raise AssertionError(f"algos ensembling: AdaBoost on {dev} "
+                                 f"alpha err {ea}, weight rel err {ew}")
+        errs[dev] = {"alpha_abs_err_vs_f64": ea, "weight_rel_err_vs_f64": ew}
+    return {"models": ENS_MODELS, "rows": ENS_ROWS,
+            "classes": ENS_CLASSES, "rounds": ADA_ROUNDS,
+            "hard_accuracy": float((res["cuda"]["hard"] == true).mean()),
+            "soft_accuracy": float((res["cuda"]["soft"] == true).mean()),
+            "alphas": res["cuda"]["alphas"], "adaboost_vs_f64": errs}
+
+
+def algos_dag(np, torch, graph, optim, seed) -> dict:
+    """The DAG builder's demo (sigma(w.x + b), logistic loss, SGD) for
+    DAG_STEPS steps at DAG_BATCH on the card and the CPU: the loss falls,
+    the two within rtol 1e-5."""
+    rng = np.random.default_rng(seed + 82)
+    x = rng.normal(size=(DAG_BATCH, 4)).astype(np.float32)
+    w_true = rng.normal(size=4)
+    y = (rng.random(DAG_BATCH) < 1 / (1 + np.exp(-x @ w_true))).astype(
+        np.float32)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        g = graph.Graph(device=dev)
+        xi = g.add_node(graph.source("x"))
+        w = g.add_node(graph.trainable("w", torch.zeros(4)))
+        b = g.add_node(graph.trainable("b", torch.zeros(())))
+        z = g.add_node(graph.add(g.add_node(graph.matmul(xi, w)), b))
+        p = g.add_node(graph.activation(z, "sigmoid"))
+        loss = g.add_node(graph.logistic_loss_node(p, label_name="y"))
+        step, st = g.compile_train_step(loss, optim.sgd(DAG_LR))
+        params = g.init_params()
+        feeds = {"x": torch.from_numpy(x).to(dev),
+                 "y": torch.from_numpy(y).to(dev)}
+        t = time.perf_counter()
+        losses = []
+        for _ in range(DAG_STEPS):
+            params, st, lv = step(params, st, feeds)
+            losses.append(lv)
+        losses = [float(v) for v in losses]
+        runs[dev] = (losses, time.perf_counter() - t)
+    lc, lp = runs["cuda"][0], runs["cpu"][0]
+    if not lc[-1] < lc[0] or not np.allclose(lc, lp, rtol=ALGO_RTOL):
+        raise AssertionError(f"algos dag: card {lc[-3:]} cpu {lp[-3:]}")
+    return {"steps": DAG_STEPS, "batch": DAG_BATCH, "loss_first": lc[0],
+            "loss_last": lc[-1],
+            "max_rel_err_vs_cpu": max(abs(a - b) / abs(b)
+                                      for a, b in zip(lc, lp)),
+            "step_ms_card": 1e3 * runs["cuda"][1] / DAG_STEPS,
+            "step_ms_cpu": 1e3 * runs["cpu"][1] / DAG_STEPS}
+
+
+def phase_algos(np, torch, sk, seed) -> dict:
+    """The zoo's last four modules on the card, each held to the same call
+    on the CPU: ``brute_force_topk`` at the serve table's 2^20 x 32 and
+    ``ANNIndex`` on 2^17 of its rows, PCA on the zoo's 10,000 x 784 file,
+    voting and AdaBoost, and the DAG builder's demo.  None of them runs a
+    kernel of the port: the launch counts stay 0."""
+    import shutil
+    import tempfile
+
+    from lightctr_tpu_torch import graph, optim
+    from lightctr_tpu_torch.data import load_dense_csv, synth
+    from lightctr_tpu_torch.models import ann
+    from lightctr_tpu_torch.ops import ensembling, pca
+
+    corpus = make_params(np, seed)["v"]
+    queries = np.random.default_rng(seed + 80).normal(
+        size=(ALGO_QUERIES, DIM)).astype(np.float32)
+    root = tempfile.mkdtemp(prefix="chip_smoke_algos_")
+    try:
+        x = load_dense_csv(synth.write_synthetic_dense_csv(
+            os.path.join(root, "digits.csv"), ZOO_ROWS, ZOO_FEATURES,
+            ZOO_CLASSES, seed=seed + 41)).features
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    sk.reset_launches()
+    out = {"phase": "algos", "corpus": list(corpus.shape),
+           "queries": ALGO_QUERIES, "k": ALGO_K,
+           "brute_force_topk": algos_topk(np, torch, ann, corpus, queries),
+           "ann": algos_ann(np, torch, ann, corpus,
+                            queries[:ANN_QUERIES]),
+           "pca": dict(algos_pca(np, torch, pca, x), rows=x.shape[0],
+                       features=x.shape[1], components=PCA_COMPONENTS),
+           "ensembling": algos_ensembling(np, torch, ensembling, seed),
+           "dag": algos_dag(np, torch, graph, optim, seed)}
+    out["launches"] = sk.launches()
+    if any(out["launches"].values()):
+        raise AssertionError(f"algos: kernels launched {out['launches']}")
+    return out
+
+
 # -- phase: attention ---------------------------------------------------------
 
 
@@ -5084,6 +5707,71 @@ def zoo_merge_timing(np, torch, sk, seed) -> list:
     return out
 
 
+def quality_merge_inputs(np, torch, seed):
+    """merge_rows at the quality sketch's shape: one step's TRAIN_BATCH
+    stacked [1, label, p, logloss] rows (d 4) into QUALITY_BINS segments
+    by the bucket of p, ``obs.quality.quality_sketch``'s layout."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 63)
+    p = torch.sigmoid(torch.randn(TRAIN_BATCH, generator=gen,
+                                  device="cuda"))
+    y = (torch.rand(TRAIN_BATCH, generator=gen, device="cuda") < p).float()
+    idx = torch.clamp((p * QUALITY_BINS).to(torch.int32), 0,
+                      QUALITY_BINS - 1)
+    pc = torch.clamp(p, 1e-7, 1 - 1e-7)
+    ll = -(y * torch.log(pc) + (1 - y) * torch.log1p(-pc))
+    return torch.stack([torch.ones_like(p), y, p, ll], dim=1), idx
+
+
+def check_merge_rows_quality(np, torch, sk, seed) -> dict:
+    """merge_rows kernel == plain version bit for bit at the quality
+    sketch's shape, and ``quality_sketch`` on the card equal to its rows
+    merged by the plain version."""
+    from lightctr_tpu_torch.obs import quality
+
+    rows, idx = quality_merge_inputs(np, torch, seed)
+    got = sk.merge_rows(rows, idx, QUALITY_BINS)
+    torch.cuda.synchronize()
+    want = sk.merge_rows_plain(rows, idx, QUALITY_BINS)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("merge_rows kernel != plain at the quality "
+                             f"sketch: max {float((got - want).abs().max())}")
+    sketch = quality.quality_sketch(rows[:, 2], rows[:, 1], QUALITY_BINS)
+    if not torch.equal(sketch.view(torch.int32),
+                       want.t().reshape(-1).view(torch.int32)):
+        raise AssertionError("quality_sketch != its plain merge")
+    return {"bit_exact": True, "max_abs_err": 0.0, "m": TRAIN_BATCH,
+            "d": 4, "nseg": QUALITY_BINS}
+
+
+def quality_merge_timing(np, torch, sk, seed) -> list:
+    """merge_rows at the quality sketch's shape beside ``index_add_`` into
+    zeros (``zoo_merge_timing``'s fields)."""
+    rows, idx = quality_merge_inputs(np, torch, seed)
+    m, d = rows.shape
+    idx64 = idx.to(torch.int64)
+    ms = graph_times(torch, lambda: sk.merge_rows(rows, idx, QUALITY_BINS),
+                     repeats=LOOKUP_REPEATS)
+    plain = [call_ms(torch, lambda: sk.merge_rows_plain(rows, idx,
+                                                        QUALITY_BINS),
+                     reps=1, warmup=1) for _ in range(LOOKUP_REPEATS)]
+    lib = graph_times(torch, lambda: torch.zeros(
+        (QUALITY_BINS, d), device="cuda").index_add_(0, idx64, rows),
+        repeats=LOOKUP_REPEATS)
+    nbytes = m * d * 4 + m * 4 + QUALITY_BINS * d * 4
+    return [{
+        "shape": "quality_sketch", "m": m, "nseg": QUALITY_BINS, "d": d,
+        "workspace_bytes": sk.load("merge_rows")
+        .merge_rows_workspace_bytes(m, QUALITY_BINS, d),
+        "ms": statistics.median(ms), "ms_min_max": [min(ms), max(ms)],
+        "plain_ms": statistics.median(plain),
+        "plain_ms_min_max": [min(plain), max(plain)],
+        "library_ms": statistics.median(lib),
+        "library_ms_min_max": [min(lib), max(lib)],
+        "library_call": "torch.zeros(...).index_add_",
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes",
+        "bytes": nbytes}]
+
+
 def rs_timing(np, torch, sk, seed) -> dict:
     """dedup_ids, merge_rows and merge_apply's apply mode at the dp_rs
     path's shapes (owner 0's 25,960 bucket ids cut at 8,193; its [25,960,
@@ -5265,6 +5953,8 @@ def main(argv=None) -> int:
     kern["flash_attention"] = check_flash(torch, sk, fl)
     kern["dp_rs_path"] = check_rs_path(np, torch, sk, qz, krng)
     kern["merge_rows_zoo"] = check_merge_rows_zoo(np, torch, sk, args.seed)
+    kern["merge_rows_quality"] = check_merge_rows_quality(np, torch, sk,
+                                                          args.seed)
     emit(kern | {"phase_s": time.perf_counter() - t_kern})
     serve_info = timed(phase_serve, np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
@@ -5288,6 +5978,8 @@ def main(argv=None) -> int:
     emit(cli_info | {"nvidia_smi": smi})
     zoo_info = timed(phase_zoo, np, torch, sk, args.seed)
     emit(zoo_info | {"nvidia_smi": smi})
+    algos_info = timed(phase_algos, np, torch, sk, args.seed)
+    emit(algos_info | {"nvidia_smi": smi})
     attn_info = timed(phase_attention, torch, sk, fl, args.seed)
     emit(attn_info | {"nvidia_smi": smi})
     bench_info = timed(phase_bench, torch, sk)
@@ -5320,6 +6012,7 @@ def main(argv=None) -> int:
     rs_extra = rs_timing(np, torch, sk, args.seed)
     train_merge = lookup_timing(np, torch, sk, args.seed)
     zoo_merge = zoo_merge_timing(np, torch, sk, args.seed)
+    quality_merge = quality_merge_timing(np, torch, sk, args.seed)
     for row in rows:
         name = row["name"]
         row["launches_bench"] = bench_info["launches"].get(name, 0)
@@ -5337,9 +6030,13 @@ def main(argv=None) -> int:
                                      "of embed.table.lookup); launches_dp "
                                      "and launches_dp_rs count rank 0's "
                                      "there, launches_ingest the ingest "
-                                     "phase's",
+                                     "phase's (its shard-cache replays "
+                                     "and fits too, and one launch a step "
+                                     "at the quality sketch's shape in "
+                                     "the two armed replays)",
                        per_shape_train=train_merge,
-                       per_shape_zoo=zoo_merge)
+                       per_shape_zoo=zoo_merge,
+                       per_shape_quality=quality_merge)
         # the Wide&Deep family's paths: B3 in serve_deep, B1, B2, B4 and
         # B5 in train_deep, B2, B4, B5 and B6 in dp_deep (rank 0), and B4
         # in the CLI's in-process runs (the CTR half in cli, GBM's merges

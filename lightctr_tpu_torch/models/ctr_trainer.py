@@ -30,9 +30,14 @@ Differences from the JAX trainer, by design:
     copy on a side stream, whose event the step waits on before it reads
     the batch (:class:`StagedBatch`).  Prefetch changes when a batch is
     produced, never what is trained.
-  - ``param_shardings``, ``zero_sharded``, the quality and resources
-    planes (``quality_bins``, ``resources``) and a shard-cache input are
-    not ported yet: passing one raises ``ValueError``.
+  - ``fit`` and ``fit_fullbatch_scan`` take a compiled shard cache (a
+    :class:`~lightctr_tpu_torch.data.ingest.ShardCache` or its directory)
+    wherever they take an array dict.
+  - ``quality_bins`` (or ``LIGHTCTR_QUALITY``) arms the model-quality
+    sketch (``obs/quality.py``) on every step variant: it rides the health
+    vector and its drain, and is summed over the ranks under a mesh.
+  - ``param_shardings``, ``zero_sharded`` and the resources plane
+    (``resources``) are not ported yet: passing one raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -55,6 +60,7 @@ from lightctr_tpu_torch.data.batching import minibatches
 from lightctr_tpu_torch.dist import collectives
 from lightctr_tpu_torch.models._common import tree_copy
 from lightctr_tpu_torch.obs import health as health_mod
+from lightctr_tpu_torch.obs import quality as quality_mod
 from lightctr_tpu_torch.obs import stepwatch as stepwatch_mod
 from lightctr_tpu_torch.obs import trace as trace_mod
 from lightctr_tpu_torch.ops import losses as losses_lib
@@ -165,11 +171,17 @@ class CTRTrainer:
         Default: "normal" for ``compress_bits <= 8``, "uniform" above.
     error_feedback: carry each rank's quantization error into its next
         encode (EF-SGD).  Default: on for ``compress_bits <= 8``.
+    quality_bins: arm the model-quality sketch with this many probability
+        bins (``0`` forces it off; ``None`` defers to ``LIGHTCTR_QUALITY``):
+        every step appends an ``f32[4 * bins]`` calibration/AUC/logloss
+        sketch of its own forward's probabilities to the health vector, and
+        the drain folds it into ``self.quality``, a
+        :class:`~lightctr_tpu_torch.obs.quality.QualityTracker`.
     device: the torch device of params, state and batches (default
         ``"cuda"``, or the mesh's device).
-    param_shardings, zero_sharded, quality_bins, resources: the JAX
-        trainer's sharded-parameter and telemetry-plane options, not yet
-        ported; giving one raises ``ValueError``.
+    param_shardings, zero_sharded, resources: the JAX trainer's
+        sharded-parameter and resources-plane options, not yet ported;
+        giving one raises ``ValueError``.
     """
 
     def __init__(
@@ -193,8 +205,7 @@ class CTRTrainer:
         device=None,
     ):
         not_yet_ported(type(self).__name__, param_shardings=param_shardings,
-                       zero_sharded=zero_sharded, quality_bins=quality_bins,
-                       resources=resources)
+                       zero_sharded=zero_sharded, resources=resources)
         if fused_adagrad and optimizer is not None:
             raise ValueError("fused_adagrad replaces the optimizer argument")
         if fused_adagrad and compress_bits is not None:
@@ -259,6 +270,16 @@ class CTRTrainer:
         # has completed — reading the in-flight step's values would sync
         # the device every step and stall the launch queue
         self._health_pending: list = []
+        # model-quality sketch (obs/quality.py): when armed (ctor arg or
+        # LIGHTCTR_QUALITY) every step variant appends a fixed-size
+        # f32[4*bins] sketch to the health vector, drained with it; an
+        # unarmed trainer keeps the [loss, grad_norm] vector as it was
+        self._quality_bins = quality_mod.resolve_bins(quality_bins)
+        self.quality: Optional[quality_mod.QualityTracker] = None
+        if self._quality_bins is not None:
+            self.quality = quality_mod.QualityTracker(
+                component="trainer", num_bins=self._quality_bins,
+                monitor=self.health, registry=self.telemetry)
         # step stall watchdog (obs/stepwatch.py), armed by LIGHTCTR_STALL=1;
         # rides the per-step drain and marks phases
         self.stepwatch = stepwatch_mod.maybe_from_env(self.health)
@@ -289,7 +310,7 @@ class CTRTrainer:
         return tree_copy(tree_map(
             lambda x: torch.as_tensor(x).to(self.device), params))
 
-    def _make_loss_fn(self):
+    def _make_loss_fn(self, with_probs: bool = False):
         lambda_l2 = self.cfg.lambda_l2
         l2_fn = self.l2_fn
         logits_fn = self.logits_fn
@@ -306,23 +327,55 @@ class CTRTrainer:
                                             reduction="sum")
             if lambda_l2 > 0.0:
                 loss = loss + lambda_l2 * l2
+            if with_probs:
+                # for the quality sketch: the predicted probabilities of
+                # the same forward (no second scoring pass)
+                return loss / n, sigmoid(z.detach())
             return loss / n
 
         return loss_fn
+
+    def _make_grad_fn(self):
+        """``(params, batch) -> (loss, probs, grads)``, ``loss`` detached;
+        ``probs`` is the forward's probabilities when the quality sketch is
+        armed, else None: one builder, so every step variant gets the same
+        arming rule."""
+        armed = self._quality_bins is not None
+        loss_fn = self._make_loss_fn(with_probs=armed)
+
+        def grad_fn(params, batch):
+            leaves = leaves_requiring_grad(params)
+            out = loss_fn(leaves, batch)
+            loss, probs = out if armed else (out, None)
+            loss.backward()
+            return loss.detach(), probs, grads_of(leaves)
+
+        return grad_fn
+
+    def _append_sketch(self, health, probs, batch, mesh=None):
+        """The health vector with the quality sketch of ``probs`` against
+        the batch's labels appended; ``health`` itself when unarmed.  With
+        ``mesh`` the rank sketches are summed over the ranks (the JAX
+        step's ``psum``), so every rank's tracker covers the global
+        batch."""
+        qb = self._quality_bins
+        if qb is None:
+            return health
+        sk = quality_mod.quality_sketch(probs, batch["labels"], qb)
+        if mesh is not None:
+            sk = collectives.all_reduce(mesh, sk)
+        return torch.cat([health, sk])
 
     def _make_step(self):
         """The training step ``(params, opt_state, batch) -> (params,
         opt_state, loss, health)``; ``health`` is one f32[2] device vector
         ``[loss, grad_norm]``, so the health feed costs one fetch."""
-        loss_fn = self._make_loss_fn()
+        local_grad_fn = self._make_grad_fn()
         tx = self.tx
         mesh = self.mesh
 
         def grad_fn(params, batch):
-            leaves = leaves_requiring_grad(params)
-            loss = loss_fn(leaves, batch)
-            loss.backward()
-            loss, grads = loss.detach(), grads_of(leaves)
+            loss, probs, grads = local_grad_fn(params, batch)
             if mesh is not None:
                 # the replicas' local means averaged: the global batch's
                 # mean loss and gradient (what XLA's psum gives the JAX
@@ -331,7 +384,7 @@ class CTRTrainer:
                     loss = collectives.pmean(mesh, loss)
                     grads = tree_map(lambda g: collectives.pmean(mesh, g),
                                      grads)
-            return loss, grads
+            return loss, probs, grads
 
         if self.fused_adagrad:
             from lightctr_tpu_torch.optim.fused_adagrad import \
@@ -340,9 +393,11 @@ class CTRTrainer:
             lr, eps = self.cfg.learning_rate, 1e-7
 
             def step(params, opt_state, batch):
-                loss, grads = grad_fn(params, batch)
+                loss, probs, grads = grad_fn(params, batch)
                 with torch.no_grad():
-                    health = _health_pack(loss, global_norm(grads))
+                    health = self._append_sketch(
+                        _health_pack(loss, global_norm(grads)), probs,
+                        batch, mesh)
                     # one kernel launch per leaf, in place on w and accum
                     for w, a, g in zip(tree_leaves(params),
                                        tree_leaves(opt_state.accum),
@@ -353,9 +408,11 @@ class CTRTrainer:
             return step
 
         def step(params, opt_state, batch):
-            loss, grads = grad_fn(params, batch)
+            loss, probs, grads = grad_fn(params, batch)
             with torch.no_grad():
-                health = _health_pack(loss, global_norm(grads))
+                health = self._append_sketch(
+                    _health_pack(loss, global_norm(grads)), probs, batch,
+                    mesh)
                 updates, opt_state = tx.update(grads, opt_state, params)
                 params = optim_lib.apply_updates(params, updates)
             return params, opt_state, loss, health
@@ -369,7 +426,7 @@ class CTRTrainer:
         computes its local gradient, the flattened tree rides the coded
         ring (with this rank's EF residual when ``error_feedback``), and
         every rank applies the identical decoded mean."""
-        loss_fn = self._make_loss_fn()
+        grad_fn = self._make_grad_fn()
         tx = self.tx
         mesh = self.mesh
         n = mesh.size
@@ -378,10 +435,7 @@ class CTRTrainer:
         padded = self._ring_pad
 
         def step(params, state, batch):
-            leaves = leaves_requiring_grad(params)
-            loss = loss_fn(leaves, batch)
-            loss.backward()
-            grads = grads_of(leaves)
+            loss, probs, grads = grad_fn(params, batch)
             with torch.no_grad():
                 flat, unravel = collectives.ravel_tree(grads,
                                                        device=self.device)
@@ -400,12 +454,14 @@ class CTRTrainer:
                 grads = unravel(flat[:length])
                 # the decoded mean is the same on every rank: so is its norm
                 gnorm = global_norm(grads)
-                loss = collectives.pmean(mesh, loss.detach())
+                loss = collectives.pmean(mesh, loss)
                 updates, inner = tx.update(grads, state.inner, params)
                 params = optim_lib.apply_updates(params, updates)
+                health = self._append_sketch(_health_pack(loss, gnorm),
+                                             probs, batch, mesh)
             return (params, CompressedRingState(inner=inner,
                                                 residual=new_res),
-                    loss, _health_pack(loss, gnorm))
+                    loss, health)
 
         return step
 
@@ -571,14 +627,18 @@ class CTRTrainer:
         pinned host memory on the step's stream, a CUDA event recorded
         after the copy, and the pair queued; entries are drained
         oldest-first once their event has completed — the feed never syncs
-        the in-flight step (a plain ``.cpu()`` would wait for it)."""
+        the in-flight step (a plain ``.cpu()`` would wait for it).  The
+        quality tracker drains the same vector (its sketch tail), so an
+        armed trainer queues it even with health monitoring off."""
         hm = self.health
-        if hm is None or not health_mod.enabled():
-            return
-        sig = self._health_signals(batch)
-        if sig:
-            hm.observe(**sig)
-        if health is None or not hm.wants("loss", "grad_norm"):
+        on = hm is not None and health_mod.enabled()
+        if on:
+            sig = self._health_signals(batch)
+            if sig:
+                hm.observe(**sig)
+        want = (on and hm.wants("loss", "grad_norm")) \
+            or self.quality is not None
+        if health is None or not want:
             return
         event = None
         if health.is_cuda:
@@ -597,29 +657,49 @@ class CTRTrainer:
                     break
                 ev.synchronize()  # backpressure: the device fell behind
             pend.pop(0)
-            self._observe_scalars(hm, vec)
+            self._observe_scalars(hm if on else None, vec)
 
-    @staticmethod
-    def _observe_scalars(hm, health) -> None:
+    def _observe_scalars(self, hm, health) -> None:
         vals = health.numpy()  # a host tensor whose copy has completed
-        hm.observe(loss=float(vals[0]), grad_norm=float(vals[1]))
+        if hm is not None:
+            hm.observe(loss=float(vals[0]), grad_norm=float(vals[1]))
+        self._feed_quality(vals, 2)
+
+    def _feed_quality(self, vals: np.ndarray, head: int) -> None:
+        """Everything past the ``head`` scalars of a drained health vector
+        is the quality sketch (when armed): fold it into the tracker, from
+        the same copy."""
+        if self.quality is not None and vals.shape[0] > head:
+            self.quality.update(vals[head:])
 
     def flush_health(self) -> None:
         """Drain every queued health vector now, waiting for any still in
         flight (end of a run, or a test that wants the verdict)."""
         pend, self._health_pending = self._health_pending, []
         hm = self.health
-        if hm is None or not health_mod.enabled():
+        on = hm is not None and health_mod.enabled()
+        if not on and self.quality is None:
             return
         for vec, ev in pend:
             if ev is not None:
                 ev.synchronize()
-            self._observe_scalars(hm, vec)
+            self._observe_scalars(hm if on else None, vec)
 
     def _health_signals(self, batch) -> Dict:
         """Extra health signals subclasses contribute per step (the sparse
         trainer reports per-table touched-uid counts here)."""
         return {}
+
+    def _resolve_arrays(self, arrays):
+        """``fit`` / ``fit_fullbatch_scan`` take a compiled shard cache (a
+        :class:`~lightctr_tpu_torch.data.ingest.ShardCache` or a cache
+        directory) anywhere they take an array dict: re-runs load
+        pre-tokenized rows with no parse work."""
+        if isinstance(arrays, ingest_mod.ShardCache):
+            return ingest_mod.as_arrays(arrays)
+        if isinstance(arrays, (str, os.PathLike)):
+            return ingest_mod.as_arrays(os.fspath(arrays))
+        return arrays
 
     def _prefetched(self, stream, prefetch: int):
         """``stream`` behind a prefetch stage of ``depth=prefetch``, and
@@ -670,13 +750,12 @@ class CTRTrainer:
         verbose: bool = False,
         prefetch: Optional[int] = None,
     ) -> Dict[str, list]:
-        """Train ``epochs`` epochs over ``arrays``: full-batch steps
+        """Train ``epochs`` epochs over ``arrays`` (an array dict, or a
+        shard cache or its directory): full-batch steps
         (``batch_size=None``) or shuffled minibatches, which
         ``prefetch=K`` stages K ahead on a worker thread (as in
         :meth:`fit_stream`)."""
-        if isinstance(arrays, (str, os.PathLike)):
-            raise ValueError(f"{type(self).__name__}.fit: a shard-cache "
-                             "path is not yet ported; pass an array dict")
+        arrays = self._resolve_arrays(arrays)
         epochs = epochs if epochs is not None else self.cfg.epochs
         n_rows = len(next(iter(arrays.values())))
         if batch_size is not None and batch_size > n_rows:
@@ -725,8 +804,8 @@ class CTRTrainer:
         """Run ``epochs`` full-batch steps back to back (the JAX trainer's
         ``lax.scan``; the reference's T-epoch re-train loops,
         main.cpp:227-229) and return the loss trajectory, read once at the
-        end."""
-        batch = self._put(arrays)
+        end.  ``arrays`` may be a shard cache or its directory."""
+        batch = self._put(self._resolve_arrays(arrays))
         losses = []
         for _ in range(epochs):
             self.params, self.opt_state, loss, _ = self._step(

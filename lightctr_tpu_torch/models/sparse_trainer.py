@@ -65,8 +65,15 @@ type (arXiv:1808.02621) with SparCML's sparse allreduce
     residual and all, CTRTrainer's compressed path), the plain mean
     otherwise.
 
-Not yet ported: ``param_shardings``, ``hier_exchange`` and the quality
-plane (``quality_bins``); giving one raises ``ValueError``.
+Every step variant (one device, the allgather exact and coded, the
+reduce-scatter and its fallback) carries the model-quality sketch when
+``quality_bins`` arms it: the forward's probabilities bucketed by
+``obs.quality.quality_sketch`` (``merge_rows`` in slot order) and, under a
+mesh, summed over the ranks.  ``fit`` takes a compiled shard cache or its
+directory.
+
+Not yet ported: ``param_shardings`` and ``hier_exchange``; giving one
+raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -85,8 +92,6 @@ from lightctr_tpu_torch.models.ctr_trainer import (
     _health_pack,
     _host,
     global_norm,
-    grads_of,
-    leaves_requiring_grad,
     not_yet_ported,
     sum_squares,
 )
@@ -294,8 +299,13 @@ class SparseTableCTRTrainer(CTRTrainer):
             rows = {k: tables[k].index_select(0, uids[k]) for k in spec}
         return tables, dense, batch2, uids, rows
 
+    def _split_grads(self, grads):
+        """(table rows' grads, dense leaves' grads) of one grad tree."""
+        return ({k: g for k, g in grads.items() if k in self._spec},
+                {k: g for k, g in grads.items() if k not in self._spec})
+
     def _make_step(self):
-        loss_fn = self._make_loss_fn()
+        grad_fn = self._make_grad_fn()
         tx = self.tx
         spec = self._spec
         lr, eps = self.cfg.learning_rate, self._eps
@@ -304,11 +314,8 @@ class SparseTableCTRTrainer(CTRTrainer):
         def step(params, opt_state, batch):
             tables, dense, batch2, uids, rows = dedup_and_gather(
                 spec, params, batch)
-            rows = leaves_requiring_grad(rows)
-            dense_leaves = leaves_requiring_grad(dense)
-            loss = loss_fn({**dense_leaves, **rows}, batch2)
-            loss.backward()
-            g_rows, g_dense = grads_of(rows), grads_of(dense_leaves)
+            loss, probs, grads = grad_fn({**dense, **rows}, batch2)
+            g_rows, g_dense = self._split_grads(grads)
             with torch.no_grad():
                 # grad global norm over touched rows + dense leaves: the
                 # health scalar (one reduction; fetched only when read)
@@ -325,10 +332,11 @@ class SparseTableCTRTrainer(CTRTrainer):
                             tables[k], opt_state["accum"][k], uids[k],
                             g_rows[k], None, lr=lr, eps=eps)
             params = {**dense, **tables}
-            health = _health_pack(loss.detach(), gnorm)
+            health = self._append_sketch(_health_pack(loss, gnorm), probs,
+                                         batch2)
             return (params, {"dense": new_dense_state,
                              "accum": opt_state["accum"]},
-                    loss.detach(), health)
+                    loss, health)
 
         return step
 
@@ -341,7 +349,7 @@ class SparseTableCTRTrainer(CTRTrainer):
         share the exchanged id stream: only the first table of a
         (stream, algo, caps) group pays the id bytes.  ``force_ag`` builds
         the overflow fallback: ``sparse_rs`` picks take the allgather."""
-        loss_fn = self._make_loss_fn()
+        grad_fn = self._make_grad_fn()
         tx = self.tx
         spec = self._spec
         lr, eps = self.cfg.learning_rate, self._eps
@@ -394,15 +402,12 @@ class SparseTableCTRTrainer(CTRTrainer):
             tables, dense, batch2, uids, rows = dedup_and_gather(
                 spec, params, batch)
             picks = {k: pick(uids[k].shape[0], tables[k]) for k in spec}
-            rows = leaves_requiring_grad(rows)
-            dense_leaves = leaves_requiring_grad(dense)
-            loss = loss_fn({**dense_leaves, **rows}, batch2)
-            loss.backward()
-            g_rows, g_dense = grads_of(rows), grads_of(dense_leaves)
+            loss, probs, grads = grad_fn({**dense, **rows}, batch2)
+            g_rows, g_dense = self._split_grads(grads)
             accum = opt_state["accum"]
             with torch.no_grad():
                 # replica losses are local means; their mean is the global
-                loss = collectives.pmean(mesh, loss.detach())
+                loss = collectives.pmean(mesh, loss)
 
                 # -- dense leaves: Parallax's ring half ------------------
                 new_res = opt_state["residual"] if bits is not None else None
@@ -548,6 +553,9 @@ class SparseTableCTRTrainer(CTRTrainer):
                              .to(torch.float32).reshape(1))
                 health = torch.cat([_health_pack(loss, torch.sqrt(gn2)),
                                     over_slot])
+                # the quality sketch of the global batch: each rank's rows
+                # summed over the ranks
+                health = self._append_sketch(health, probs, batch2, mesh)
             return params, new_state, loss, health
 
         return step
@@ -646,17 +654,19 @@ class SparseTableCTRTrainer(CTRTrainer):
     def fit(self, arrays, epochs=None, batch_size=None, eval_arrays=None,
             eval_every=0, verbose=False, prefetch=None):
         # the full-batch path steps self._step itself; minibatches go
-        # through train_step, which checks each batch
+        # through train_step, which checks each batch.  A shard cache is
+        # loaded first, so the check reads its rows
+        arrays = self._resolve_arrays(arrays)
         kw = dict(epochs=epochs, batch_size=batch_size,
                   eval_arrays=eval_arrays, eval_every=eval_every,
                   verbose=verbose, prefetch=prefetch)
-        if batch_size is None and isinstance(arrays, dict) and \
-                self._needs_fallback(arrays):
+        if batch_size is None and self._needs_fallback(arrays):
             with self._fallback_step():
                 return super().fit(arrays, **kw)
         return super().fit(arrays, **kw)
 
     def fit_fullbatch_scan(self, arrays, epochs):
+        arrays = self._resolve_arrays(arrays)
         if self._needs_fallback(arrays):
             with self._fallback_step():
                 return super().fit_fullbatch_scan(arrays, epochs)
@@ -685,12 +695,18 @@ class SparseTableCTRTrainer(CTRTrainer):
     def _observe_scalars(self, hm, health) -> None:
         """The hybrid step's health vector carries a third slot, the JAX
         step's reduce-scatter overflow count: a nonzero count is surfaced
-        (``trainer_rs_overflow_total``) instead of silently dropped."""
+        (``trainer_rs_overflow_total``) instead of silently dropped.
+        Anything past the head scalars is the quality sketch (when armed),
+        so the overflow slot is addressed by step family, not by
+        length."""
         vals = health.numpy()
-        hm.observe(loss=float(vals[0]), grad_norm=float(vals[1]))
-        if self._hybrid_dp and vals.shape[0] > 2 and vals[2] > 0:
+        if hm is not None:
+            hm.observe(loss=float(vals[0]), grad_norm=float(vals[1]))
+        head = 3 if self._hybrid_dp else 2
+        if head == 3 and vals.shape[0] > 2 and vals[2] > 0:
             self.telemetry.inc("trainer_rs_overflow_total", int(vals[2]))
             obs.emit_event("rs_overflow", count=int(vals[2]))
+        self._feed_quality(vals, head)
 
     def _record_step(self, dt: float, batch, health=None) -> None:
         """CTRTrainer's per-step record plus, for the hybrid exchange, the

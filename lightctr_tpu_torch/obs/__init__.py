@@ -3,8 +3,10 @@ registry, structured event log, causal span tracer, flight recorder,
 health monitors, step stall watchdog, HTTP ops endpoints and queue
 saturation telemetry.
 
-The JAX package's quality, device and compile-tracking planes read jit
-programs and device buffers the port does not have yet; they are not here.
+``quality`` is the model-quality plane (the trainers' ``quality_bins=``
+sketch, the server's ``drift=`` monitor, their detectors and
+``/qualityz``).  The JAX package's device and compile-tracking planes are
+not ported yet.
 """
 
 from lightctr_tpu_torch.obs.gate import enabled, override, set_enabled  # noqa: F401
@@ -24,6 +26,7 @@ from lightctr_tpu_torch.obs import health  # noqa: F401
 from lightctr_tpu_torch.obs import stepwatch  # noqa: F401
 from lightctr_tpu_torch.obs import exporter  # noqa: F401
 from lightctr_tpu_torch.obs import resources  # noqa: F401
+from lightctr_tpu_torch.obs import quality  # noqa: F401
 
 import logging as _logging
 

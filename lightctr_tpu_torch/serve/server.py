@@ -35,8 +35,11 @@ The port's counterpart of ``lightctr_tpu/serve/server.py``: the same wire,
 batching, admission and invalidation.  The server runs on ``device``
 (``"cuda"`` by default); on CUDA the cache's gather kernel is built at
 construction, so a kernel that does not build fails the server's start
-instead of turning every later request into a shed.  The JAX server's
-model-quality drift hook waits for the port of ``obs/quality.py``.
+instead of turning every later request into a shed.  ``drift=`` takes an
+:class:`~lightctr_tpu_torch.obs.quality.DriftMonitor`, fed from each scored
+batch's scores and its per-field deduped id streams (host numpy, no
+launch): a score or coverage shift against its frozen reference degrades
+this server's ``/healthz``.
 """
 
 from __future__ import annotations
@@ -71,6 +74,7 @@ MAX_PREDICT_FRAME_BYTES = 16 * 1024 * 1024
 from lightctr_tpu_torch.obs import flight as obs_flight
 from lightctr_tpu_torch.obs import gate as obs_gate
 from lightctr_tpu_torch.obs import health as obs_health
+from lightctr_tpu_torch.obs import quality as obs_quality
 from lightctr_tpu_torch.obs import resources as obs_resources
 from lightctr_tpu_torch.obs import trace as obs_trace
 from lightctr_tpu_torch.core.device import resolve_device
@@ -120,7 +124,10 @@ class PredictionServer:
     version at most this often (0 disables; :meth:`refresh_version`
     polls on demand).  ``score_delay_s``: deliberate per-batch scoring
     delay — a test/bench hook for driving the server into overload
-    deterministically; never set it in production.  ``device``: where
+    deterministically; never set it in production.  ``drift``: a
+    :class:`~lightctr_tpu_torch.obs.quality.DriftMonitor` fed from every
+    scored batch (one built without a health monitor binds this
+    server's).  ``device``: where
     the cache block lives and scoring runs — the model's device type
     must match (``"cuda"`` by default; raises on a host without CUDA
     unless ``"cpu"`` is passed).
@@ -144,6 +151,7 @@ class PredictionServer:
         slo_feed_every: int = 8,
         health: Optional[obs_health.HealthMonitor] = None,
         score_delay_s: float = 0.0,
+        drift: Optional[obs_quality.DriftMonitor] = None,
         device="cuda",
     ):
         if model.row_leaves and ps is None:
@@ -189,6 +197,13 @@ class PredictionServer:
             p99_slo_s=slo_p99_s, p50_slo_s=slo_p50_s,
         ))
         self.health = health
+        # model-quality drift (obs/quality.py): score-distribution and
+        # per-field coverage sketches off the scored batches; a monitor
+        # built without its own HealthMonitor inherits this server's, so a
+        # drift trip degrades THIS server's /healthz
+        self.drift = drift
+        if drift is not None and drift.monitor is None:
+            drift.bind_monitor(self.health)
         # resource plane (obs/resources.py): micro-batch queue saturation
         # telemetry — depth/capacity against the row bound, per-request
         # queue wait; a sustained-full queue degrades /healthz BEFORE
@@ -480,6 +495,8 @@ class PredictionServer:
                         buckets=_BATCH_BUCKETS)
             reg.observe("serve_score_seconds", dt)
         self._batches_scored += 1
+        if self.drift is not None:
+            self._feed_drift(arrays, scores)
         if self._batches_scored % self._slo_feed_every == 0:
             self._feed_slo()
         if (self.ps is not None and self.version_poll_s
@@ -527,6 +544,24 @@ class PredictionServer:
                 rows[~present] = pulled
             cache.insert(miss, pulled)
         return self.model.score_rows(arrays, uids, rows)
+
+    # -- quality drift feed --------------------------------------------------
+
+    def _feed_drift(self, arrays: Dict, scores) -> None:
+        """Label-free quality sketches off data the scorer already holds:
+        the batch scores and the per-field id streams (deduped, the streams
+        ``touched_uids`` folds for the PS path).  A failed feed is logged
+        and never fails the batch it rides."""
+        try:
+            fields: Dict[str, np.ndarray] = {}
+            for f in getattr(self.model, "id_fields", ()):
+                col = arrays.get(f)
+                if col is not None:
+                    fields[f] = np.unique(
+                        np.asarray(col).reshape(-1).astype(np.int64))
+            self.drift.observe(scores=np.asarray(scores), fields=fields)
+        except Exception:
+            _LOG.debug("drift feed failed", exc_info=True)
 
     # -- SLO feed -----------------------------------------------------------
 
@@ -648,6 +683,8 @@ class PredictionServer:
             self._cond.notify_all()
         obs_flight.unregister_registry(self._flight_name)
         self._rq.close()
+        if self.drift is not None:
+            self.drift.close()
         if self._owns_health:
             self.health.close()
         try:

@@ -5,5 +5,6 @@ checkouts' ring call and data-parallel steps
 (``python -m lightctr_tpu_torch.tools.path_ab``) and of their row,
 touched-row and quantize kernels
 (``python -m lightctr_tpu_torch.tools.kernel_ab``), both on ``ab_roots``,
-and the stress of the launcher's rendezvous
-(``python -m lightctr_tpu_torch.tools.world_stress``)."""
+the stress of the launcher's rendezvous
+(``python -m lightctr_tpu_torch.tools.world_stress``) and the shard-cache
+compiler (``python -m lightctr_tpu_torch.tools.ingest_compile``)."""

@@ -1416,3 +1416,176 @@ def test_conv_ignores_a_global_tf32_setting(dev):
         x.permute(0, 3, 1, 2).double(),
         params["w"].permute(3, 2, 0, 1).double()).permute(0, 2, 3, 1)
     assert float((outs[0][0].double() - want).abs().max()) < 1e-4
+
+
+# -- the quality sketch, the shard cache, ANN and the DAG builder ---------------
+
+
+def test_quality_sketch_on_the_card_is_merge_rows_bit_for_bit(dev):
+    """The sketch at the trainers' shape (4,096 probabilities, 512 bins):
+    one merge_rows launch, equal bit for bit to the sketch through the
+    plain version on the card, the same bits run to run, and the CPU's
+    counts, label and probability sums bit for bit (its logloss sums
+    within rtol 1e-6: the card's log may differ in the last place)."""
+    from lightctr_tpu_torch.obs import quality
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    p = torch.rand(4096, generator=gen, device="cuda")
+    y = (torch.rand(4096, generator=gen, device="cuda") > 0.7).float()
+    before = sk.launches("merge_rows")
+    a = quality.quality_sketch(p, y, 512)
+    assert sk.launches("merge_rows") == before + 1
+    b = quality.quality_sketch(p, y, 512)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    pc = torch.clamp(p, 1e-7, 1 - 1e-7)
+    ll = -(y * torch.log(pc) + (1 - y) * torch.log1p(-pc))
+    idx = torch.clamp((p * 512).to(torch.int32), 0, 511)
+    plain = sk.merge_rows_plain(
+        torch.stack([torch.ones_like(p), y, p, ll], dim=1), idx, 512)
+    assert torch.equal(a.view(torch.int32),
+                       plain.t().reshape(-1).view(torch.int32))
+    cpu = quality.quality_sketch(p.cpu(), y.cpu(), 512).reshape(4, 512)
+    got = a.cpu().reshape(4, 512)
+    assert torch.equal(got[:3].view(torch.int32), cpu[:3].view(torch.int32))
+    torch.testing.assert_close(got[3], cpu[3], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_quality_armed_step_on_the_card_equals_unarmed(dev, kind):
+    """Arming the sketch on the card trains nothing differently: losses
+    and tables bit for bit; one more merge_rows launch a step; every
+    example reaches the tracker."""
+    p = fm.init(torch.Generator().manual_seed(0), 4096, 8)
+    cfg = TrainConfig(learning_rate=0.05, lambda_l2=0.001)
+    batches = [fm_batch(s, n=1024, f=4096, nnz=39) for s in range(4)]
+    runs = []
+    for qb in (None, 512):
+        if kind == "sparse":
+            tr = SparseTableCTRTrainer(
+                p, fm.logits, cfg, sparse_tables={"w": ["fids"],
+                                                  "v": ["fids"]},
+                fused_fn=fm.logits_with_l2, quality_bins=qb, device=dev)
+        else:
+            tr = CTRTrainer(p, fm.logits, cfg, fused_fn=fm.logits_with_l2,
+                            quality_bins=qb, device=dev)
+        tr.health = None
+        sk.reset_launches()
+        losses = [float(tr.train_step(b)) for b in batches]
+        tr.flush_health()
+        runs.append((losses, tr.params, sk.launches("merge_rows"),
+                     tr.quality))
+    (l0, p0, m0, _), (l1, p1, m1, q1) = runs
+    assert l0 == l1
+    for k in ("w", "v"):
+        assert torch.equal(p0[k], p1[k]), k
+    assert m1 == m0 + len(batches)
+    assert q1.total.count == 4 * 1024
+    q1.close()
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_shard_cache_replay_under_prefetch_equals_the_live_parse(
+        dev, kind, tmp_path):
+    """A Criteo-proxy file compiled into the shard cache and replayed
+    through ``fit_stream(iter_shard_batches(...), prefetch=2)`` trains on
+    the card bit for bit as the live parse without prefetch."""
+    from lightctr_tpu_torch.data import ingest, streaming, synth
+
+    path = synth.write_criteo_proxy(str(tmp_path / "c.ffm"), 4096, seed=2,
+                                    vocab=4096)
+    cache = ingest.compile_shards(path, 39, feature_cnt=4096,
+                                  block_rows=1536)
+    p = fm.init(torch.Generator().manual_seed(0), 4096, 8)
+    cfg = TrainConfig(learning_rate=0.05, lambda_l2=0.001)
+
+    def make():
+        if kind == "sparse":
+            tr = SparseTableCTRTrainer(
+                p, fm.logits, cfg, sparse_tables={"w": ["fids"],
+                                                  "v": ["fids"]},
+                fused_fn=fm.logits_with_l2, device=dev)
+        else:
+            tr = CTRTrainer(p, fm.logits, cfg, fused_fn=fm.logits_with_l2,
+                            device=dev)
+        tr.health = None
+        return tr
+
+    a, b = make(), make()
+    la = a.fit_stream(streaming.iter_libffm_batches(
+        path, 512, 39, feature_cnt=4096, native=True))
+    lb = b.fit_stream(ingest.iter_shard_batches(cache, 512), prefetch=2)
+    assert len(la) == 8 and la == lb
+    for k in ("w", "v"):
+        assert torch.equal(a.params[k], b.params[k]), k
+
+
+@pytest.mark.parametrize("metric", ["dot", "l2"])
+def test_ann_brute_force_topk_on_the_card_matches_cpu(dev, metric):
+    """The card's top-10 of 2^16 rows x 32 for 64 queries: the CPU's set
+    wherever the 10th and 11th float64 scores are apart by more than
+    1e-4, scores within rtol 1e-5 / atol 1e-4."""
+    from lightctr_tpu_torch.models import ann
+
+    rng = np.random.default_rng(4)
+    corpus = rng.normal(size=(1 << 16, 32)).astype(np.float32)
+    q = rng.normal(size=(64, 32)).astype(np.float32)
+    gi, gv = ann.brute_force_topk(q, corpus, 10, metric=metric, device=dev)
+    ci, cv = ann.brute_force_topk(q, corpus, 10, metric=metric,
+                                  device="cpu")
+    np.testing.assert_allclose(gv, cv, rtol=1e-5, atol=1e-4)
+    q64, c64 = q.astype(np.float64), corpus.astype(np.float64)
+    s = q64 @ c64.T
+    if metric == "l2":
+        s = 2 * s - (q64 ** 2).sum(1)[:, None] - (c64 ** 2).sum(1)[None]
+    srt = -np.sort(-s, axis=1)
+    for r in range(64):
+        if srt[r, 9] - srt[r, 10] > 1e-4:
+            assert set(gi[r]) == set(ci[r]), r
+
+
+def test_ann_index_on_the_card_matches_cpu(dev):
+    """One forest, queried with its re-rank on the card and on the CPU:
+    the same top-10."""
+    from lightctr_tpu_torch.models import ann
+
+    rng = np.random.default_rng(5)
+    corpus = rng.normal(size=(4096, 16)).astype(np.float32)
+    idx = ann.ANNIndex(n_trees=4, leaf_size=32, seed=0, device=dev)
+    idx.build(corpus)
+    for qv in rng.normal(size=(8, 16)).astype(np.float32):
+        g, gv = idx.query(qv, 10, search_budget=512)
+        idx.device = torch.device("cpu")
+        c, cv = idx.query(qv, 10, search_budget=512)
+        idx.device = torch.device(dev)
+        assert set(g.tolist()) == set(c.tolist())
+        np.testing.assert_allclose(gv, cv, rtol=1e-5, atol=1e-5)
+
+
+def test_dag_step_on_the_card_matches_cpu(dev):
+    """The DAG builder's demo (sigma(w.x + b), logistic loss, SGD 0.5) for
+    20 steps at batch 4,096 on the card and the CPU: losses within rtol
+    1e-5."""
+    from lightctr_tpu_torch import graph, optim
+
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(4096, 4)).astype(np.float32)
+    y = (rng.random(4096) < 1 / (1 + np.exp(-x @ [1.0, -2.0, 0.5, 0.0]))
+         ).astype(np.float32)
+    runs = []
+    for device in (dev, "cpu"):
+        g = graph.Graph(device=device)
+        xi = g.add_node(graph.source("x"))
+        w = g.add_node(graph.trainable("w", torch.zeros(4)))
+        b = g.add_node(graph.trainable("b", torch.zeros(())))
+        z = g.add_node(graph.add(g.add_node(graph.matmul(xi, w)), b))
+        p = g.add_node(graph.activation(z, "sigmoid"))
+        loss = g.add_node(graph.logistic_loss_node(p, label_name="y"))
+        step, st = g.compile_train_step(loss, optim.sgd(0.5))
+        params = g.init_params()
+        losses = []
+        for _ in range(20):
+            params, st, l = step(params, st, {"x": x, "y": y})
+            losses.append(float(l))
+        runs.append(losses)
+    assert runs[0][-1] < runs[0][0]
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-5)

@@ -17,7 +17,10 @@ init and batches.
     its pick, the overflow fallback to the allgather (train steps and a
     full-batch scan), and the stage-1 EF carry, at the exact bound;
   - the weight carry-over: each rank restarts from the JAX trainer's
-    params and mesh optimizer state (its slice of the EF residuals).
+    params and mesh optimizer state (its slice of the EF residuals);
+  - the quality sketch on a mesh (``quality_bins``) in every step variant:
+    armed runs train bit for bit as the unarmed ones, and every rank's
+    tracker covers the global batch as the JAX trainer's does.
 
 Every rank must end bit-identical to rank 0."""
 
@@ -559,3 +562,83 @@ def test_family_ctr_trainer_on_a_mesh_matches_jax(world, name):
             np.testing.assert_allclose(got["params"][k], v, err_msg=k,
                                        **FAMILY_TOL)
     _assert_ranks_identical(ranks, "family_" + name, keys=None)
+
+
+# -- the quality sketch on a mesh ---------------------------------------------
+
+#: the armed trackers against the JAX trainers': the example and positive
+#: totals exactly; AUC within 1e-3 and logloss and the calibration ratio
+#: within rtol 1e-4 (a probability within an ulp of a bin edge may land in
+#: the next bin, and the coded runs' trajectories part by up to 1e-4)
+QUALITY_AUC_ATOL = 1e-3
+QUALITY_RTOL = 1e-4
+
+
+def jquality(name, w, jmesh):
+    """The JAX trainer of ``worlds.QUALITY_CASES[name]``, armed, and the
+    case's global batches."""
+    kind, f, dim, kw, batches = worlds.QUALITY_CASES[name]
+    qb = {"quality_bins": worlds.QUALITY_BINS}
+    if kind == "sparse_rs":
+        return rs_jsparse(jmesh, worlds.fm_params(f, dim, seed=1),
+                          **qb), batches(w)
+    params = {k: jnp.asarray(v) for k, v in worlds.fm_params(f, dim).items()}
+    if kind == "dense":
+        jt = JCTRTrainer(params, jfm.logits, JConfig(**worlds.CFG),
+                         fused_fn=jfm.logits_with_l2, mesh=jmesh, **kw, **qb)
+    else:
+        jt = JSparseTrainer(params, jfm.logits, JConfig(**worlds.CFG),
+                            sparse_tables=worlds.TABLES,
+                            fused_fn=jfm.logits_with_l2, mesh=jmesh,
+                            **kw, **qb)
+    jt.health = None
+    return jt, batches(w)
+
+
+@pytest.mark.parametrize("name", sorted(worlds.QUALITY_CASES))
+def test_armed_trainers_on_a_mesh_match_the_jax_trackers(world, name):
+    """Each armed run (the hybrid exchange exact and 8-bit dynamic, the
+    reduce-scatter pick and its overflow fallback, CTRTrainer's mean and
+    coded ring), the health feed off: losses and tables bit for bit the
+    unarmed run's, every rank's tracker the same sketch rows (the ranks'
+    sketches summed over the mesh), covering every example of the global
+    batches, and within the stated tolerances of the JAX trainer's
+    tracker."""
+    w, jmesh, _, ranks = world
+    got = ranks[0]["quality_" + name]
+    base = ranks[0][name]
+    if name.startswith("dense"):
+        # the unarmed run is a full-batch scan over the same batch
+        assert got["loss"] == [float(x) for x in base["loss"]]
+    else:
+        assert got["loss"] == base["loss"]
+    for k in ("w", "v"):
+        np.testing.assert_array_equal(got[k], base[k], err_msg=k)
+    if name == "rs_pick":
+        assert got["policy"]["v"] == ("sparse_rs" if w == 4 else "sparse")
+    if name == "rs_fallback":
+        assert got["fallback"] == (w == 4)
+    _assert_ranks_identical(ranks, "quality_" + name, ("rows",))
+    jt, batches = jquality(name, w, jmesh)
+    try:
+        for b in batches:
+            jt.train_step(b)
+        jt.flush_health()
+        want = jt.quality.total
+        rows = got["rows"]
+        assert got["updates"] == want.updates == len(batches)
+        n = sum(len(b["labels"]) for b in batches)
+        assert rows[0].sum() == want.count == n
+        assert rows[1].sum() == want.pos_hist.sum() == sum(
+            float(b["labels"].sum()) for b in batches)
+        from lightctr_tpu_torch.obs import quality as tquality
+
+        acc = tquality.QualityAccumulator(worlds.QUALITY_BINS)
+        acc.update(rows.reshape(-1))
+        assert acc.auc() == pytest.approx(want.auc(), abs=QUALITY_AUC_ATOL)
+        assert acc.logloss() == pytest.approx(want.logloss(),
+                                              rel=QUALITY_RTOL)
+        assert acc.calibration_ratio() == pytest.approx(
+            want.calibration_ratio(), rel=QUALITY_RTOL)
+    finally:
+        jt.quality.close()

@@ -335,30 +335,41 @@ def test_train_step_returns_loss_tensor_and_feeds_health():
 
 #: what each of the JAX trainers' multi-device and telemetry arguments
 #: meets in the port when given alone: ``mesh`` and ``compress_bits`` are
-#: ported (a mesh must be a port Mesh; compress_bits needs one), the rest
-#: are not yet ported
+#: ported (a mesh must be a port Mesh; compress_bits needs one),
+#: ``quality_bins`` is ported and arms the quality sketch, the rest are not
+#: yet ported
 REFUSALS = {"mesh": "mesh must be a lightctr_tpu_torch",
             "compress_bits": "compress_bits requires a mesh"}
+
+
+def _build_or_refuse(arg, build):
+    """``quality_bins`` arms the trainer's quality tracker; any other
+    argument given alone raises."""
+    if arg == "quality_bins":
+        tr = build()
+        assert tr._quality_bins == 8 and tr.quality is not None
+        tr.quality.close()
+        return
+    with pytest.raises(ValueError,
+                       match=REFUSALS.get(arg, f"{arg} not yet ported")):
+        build()
 
 
 @pytest.mark.parametrize("arg", ["mesh", "param_shardings", "compress_bits",
                                  "zero_sharded", "quality_bins",
                                  "resources"])
 def test_ctr_trainer_refuses_unported_arguments(arg):
-    with pytest.raises(ValueError,
-                       match=REFUSALS.get(arg, f"{arg} not yet ported")):
-        CTRTrainer(tparams(init_params()), tfm.logits, TrainConfig(),
-                   device="cpu", **{arg: 8 if arg != "zero_sharded" else True})
+    _build_or_refuse(arg, lambda: CTRTrainer(
+        tparams(init_params()), tfm.logits, TrainConfig(), device="cpu",
+        **{arg: 8 if arg != "zero_sharded" else True}))
 
 
 @pytest.mark.parametrize("arg", ["mesh", "param_shardings", "compress_bits",
                                  "hier_exchange", "quality_bins"])
 def test_sparse_trainer_refuses_unported_arguments(arg):
-    with pytest.raises(ValueError,
-                       match=REFUSALS.get(arg, f"{arg} not yet ported")):
-        SparseTableCTRTrainer(tparams(init_params()), tfm.logits,
-                              TrainConfig(), sparse_tables=TABLES,
-                              device="cpu", **{arg: 8})
+    _build_or_refuse(arg, lambda: SparseTableCTRTrainer(
+        tparams(init_params()), tfm.logits, TrainConfig(),
+        sparse_tables=TABLES, device="cpu", **{arg: 8}))
 
 
 def test_sparse_trainer_ctor_validation_and_fit_refusals():
@@ -380,7 +391,9 @@ def test_sparse_trainer_ctor_validation_and_fit_refusals():
     tt = CTRTrainer(p, tfm.logits, TrainConfig(), device="cpu")
     with pytest.raises(ValueError, match="prefetch depth must be >= 1"):
         tt.fit(fm_batch(), epochs=1, batch_size=32, prefetch=-1)
-    with pytest.raises(ValueError, match="shard-cache path"):
+    # a path that is no cache directory is a raw file to compile, which
+    # needs max_nnz (as_arrays' refusal, the JAX package's too)
+    with pytest.raises(ValueError, match="needs max_nnz"):
         tt.fit("/nonexistent/cache", epochs=1)
     with pytest.raises(ValueError, match="exceeds dataset size"):
         tt.fit(fm_batch(), epochs=1, batch_size=10_000)

@@ -564,10 +564,70 @@ def _family_trainers(mesh):
     return out
 
 
+# -- the quality sketch on a mesh ----------------------------------------------
+
+#: probability bins of the armed runs
+QUALITY_BINS = 64
+#: name -> (kind, trainer kwargs, batches(world), steps through
+#: ``train_step``) of the armed runs, each the unarmed case of the same
+#: name above stepped over the same batches with ``quality_bins`` set:
+#: the hybrid exchange exact, 8-bit dynamic, the reduce-scatter pick (at 4
+#: ranks) and its overflow fallback; CTRTrainer's mean and coded ring
+QUALITY_CASES = {
+    "sparse_exact": ("sparse", 4096, 4, TRAINER_CASES["sparse_exact"][1],
+                     lambda w: trainer_batches(4096)),
+    "coded_dynamic": ("sparse", 4096, 4, TRAINER_CASES["coded_dynamic"][1],
+                      lambda w: trainer_batches(4096)),
+    "rs_pick": ("sparse", 1024, 32, {}, rs_pick_batches),
+    "rs_fallback": ("sparse_rs", RS_TRAINER[0], RS_TRAINER[1], {},
+                    lambda w: [rs_skewed_batch(w)] * RS_FALLBACK_STEPS),
+    "dense_mean": ("dense", 512, 4, DENSE_CASES["dense_mean"],
+                   lambda w: [fm_batch(20, f=512)] * 4),
+    "dense_ring": ("dense", 512, 4, DENSE_CASES["dense_ring"],
+                   lambda w: [fm_batch(20, f=512)] * 4),
+}
+
+
+def _quality_trainers(mesh, world):
+    """Each of :data:`QUALITY_CASES` armed with ``quality_bins``, the
+    health feed off (the armed trainer drains its vector all the same):
+    losses, tables and the tracker's total sketch rows."""
+    out = {}
+    for name, (kind, f, dim, kw, batches) in QUALITY_CASES.items():
+        if kind == "sparse_rs":
+            params, cfg = fm_params(f, dim, seed=1), TrainConfig(
+                learning_rate=0.1)
+            extra = {}
+        else:
+            params, cfg = fm_params(f, dim), TrainConfig(**CFG)
+            extra = {"fused_fn": tfm.logits_with_l2}
+        p = tfm.params_from_numpy(params, "cpu")
+        if kind == "dense":
+            tr = CTRTrainer(p, tfm.logits, cfg, mesh=mesh,
+                            quality_bins=QUALITY_BINS, **extra, **kw)
+        else:
+            tr = SparseTableCTRTrainer(p, tfm.logits, cfg,
+                                       sparse_tables=TABLES, mesh=mesh,
+                                       quality_bins=QUALITY_BINS,
+                                       **extra, **kw)
+        tr.health = None
+        losses = [float(tr.train_step(b)) for b in batches(world)]
+        tr.flush_health()
+        out["quality_" + name] = {
+            "loss": losses, "w": _np(tr.params["w"]),
+            "v": _np(tr.params["v"]), "rows": tr.quality.total.rows.copy(),
+            "updates": tr.quality.total.updates,
+            "policy": dict(getattr(tr, "exchange_policy", {})),
+            "fallback": getattr(tr, "_last_step_fallback", False)}
+        tr.quality.close()
+    return out
+
+
 def trainers_rank(rank, world, out_dir, carry_path):
     """The hybrid sparse trainer in each of :data:`TRAINER_CASES`, the
     dense trainer with the plain mean and with the coded ring, the
-    reduce-scatter scenarios, and a restart from the JAX trainer's mesh
+    reduce-scatter scenarios, the armed runs of :data:`QUALITY_CASES`, and
+    a restart from the JAX trainer's mesh
     state (``carry_path``)."""
     mesh = make_mesh(MeshSpec(data=world), device="cpu")
     cfg = TrainConfig(**CFG)
@@ -597,6 +657,7 @@ def trainers_rank(rank, world, out_dir, carry_path):
                      "eval": tr.evaluate(held)}
     out.update(_rs_trainers(mesh, world))
     out.update(_family_trainers(mesh))
+    out.update(_quality_trainers(mesh, world))
     # the weight carry-over: continue from the JAX trainer's params and
     # mesh optimizer state (EF residuals included), one step
     carry = torch.load(carry_path, weights_only=False)
