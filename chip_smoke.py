@@ -113,7 +113,21 @@ Phases, one JSON line each:
            on the card agreeing after 10 steps from one init.  Launch
            counts are reset just before (a) and (b) and read just after.
            Steady-state examples/s (after 3 warm-up steps, synchronised)
-           and a profiler window of the sparse step's device time.
+           and a profiler window of the sparse step's device time.  (d)
+           (a) and (b) again with ``resources=True,
+           device_telemetry=True``: losses and tables bit for bit the
+           unarmed runs', the same launches, the armed-minus-unarmed step
+           ms; the compile tracker one signature and no
+           ``recompile_storm``; the catalog's ``trainer_step`` FLOPs,
+           bytes, memory and utilization against ``peak_spec`` of the
+           card (FP32 peak); the census' ``trainer_state`` bytes exactly
+           the params' and optimizer state's; on (a)'s trainer a census
+           budget below ``trainer_state`` trips ``hbm_pressure`` on
+           ``/healthz`` (503) and one above recovers it; ``POST
+           /profilez`` refused (409) while another torch.profiler session
+           runs, then ``?steps=3`` lands a trace holding the port's
+           kernels; ``verify_donation`` on B5's in-place apply clean, a
+           copying control tripping ``donation_miss``.
   dp       the same model, data and global batch trained by
            ``SparseTableCTRTrainer(mesh=...)`` over 2 ranks, spawned
            processes sharing the card over gloo (2048 rows, 79,872 ids a
@@ -206,6 +220,30 @@ Phases, one JSON line each:
            window AUC, calibration ratio and logloss, the two runs'
            sketches bit-identical, armed against unarmed step ms and the
            device's idle share over 5 profiled armed steps.
+  online   online learning on the card against a live PS (the
+           reference's never-stopping PS worker: pull, grad, push): FM at
+           the serve phase's width, the 2^20 x 33 table preloaded into a
+           ``ParamServerService`` (its write log sized for 16 steps'
+           ids); ``online.OnlineTrainer`` on the card over
+           ``iter_libffm_batches(loop=True)`` of the ingest phase's file
+           with ``prefetch=2``, 20 steps of 4,096 rows (10 while a
+           ``PredictionServer`` with its 65,536-row hot cache on the card
+           and a ``FreshnessSubscriber`` answer the serve phase's 8 x 256
+           rows from the same live rows, 7 after a hold, 3 profiled).
+           Held: the served scores equal a float64 forward of rows pulled
+           straight off the PS within 2e-3 (check 1), the freshness age
+           (SLO 2 s) trips ``freshness_slo`` on ``/healthz`` and resumed
+           training recovers it (check 2).  Then ``OnlineTrainer``
+           Wide&Deep at serve_deep's width (hidden 50), 10 steps, fp32
+           exports every 5: the shadow gate (``ModelSwapper``) swaps the
+           faithful artifact in and refuses a corrupted one (check 3).
+           Counts reset just before the path: merge_rows twice a step
+           (the lookups' backward), gather_rows at least once a scored
+           micro-batch, nothing else; every delta per key (no full cache
+           drop); the first 3 FM steps re-run on the CPU port against a
+           second PS preloaded with the same rows (losses rtol 1e-4).  ms
+           a step split into pull, step and push, and the device's idle
+           share over the 3 profiled steps.
   serve_deep  the Wide&Deep family at the serve phase's width (39
            fields, vocabulary 2^20, factor dim 32, hidden 50; DCN's fc1
            [50, 1248], crosses [3, 1248], out [1, 1298]), parameters from
@@ -287,7 +325,12 @@ Phases, one JSON line each:
            8`` under ``python -m torch.distributed.run --standalone
            --nproc-per-node 2`` (gloo, one card, its own process group,
            killed after 420 s): one report, rank 0's, finite, and its
-           checkpoint restored to its dumped scores.
+           checkpoint restored to its dumped scores.  Each rank runs
+           through this script's rank probe (``--cli-rank``, which wraps
+           ``CTRTrainer._put``): the rows a rank was handed, mapped back to
+           the global batch by their content, must be its own — the
+           ranks' rows disjoint, together the batch the CLI trims to a
+           multiple of the world.
   zoo      the CLI's other eight subcommands in this process on the
            card, on a 10,000-row ``data.synth.write_synthetic_dense_csv``
            file (28 x 28 pixels, 10 classes, MNIST's 60,000 rows cut to
@@ -375,7 +418,8 @@ hot-row shapes, warm and cold, each beside ``torch.index_select``; each
 row's ``launches_dp_rs`` counts rank 0's launches in dp_rs and
 ``launches_ingest`` the ingest phase's; ``launches_serve_deep`` and
 ``launches_train_deep``, ``launches_dp_deep`` (rank 0) and
-``launches_cli`` count the Wide&Deep family's paths and the CLI's, and
+``launches_cli`` count the Wide&Deep family's paths and the CLI's,
+``launches_online`` the online phase's (B3 and B4), and
 are added into ``launches``; merge_rows' ``launches`` are the train
 phase's (and those), and its ``per_shape_train`` times it as the gathers'
 backward (159,744 slots into the 2^20-row table and into the sparse
@@ -397,8 +441,10 @@ import argparse
 import json
 import os
 import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1523,7 +1569,8 @@ def phase_train(np, torch, sk, seed) -> dict:
         sparse_tables=tables, fused_fn=fm.logits_with_l2, device="cuda")
     sk.reset_launches()
     s_losses, s_snaps, s_wall, s_host = run_steps(
-        torch, sparse, batches, snapshots=(CPU_SPARSE_STEPS, PARITY_STEPS))
+        torch, sparse, batches,
+        snapshots=(CPU_SPARSE_STEPS, PARITY_STEPS, SPARSE_STEPS))
     s_launch = sk.launches()
     s_losses = [float(x) for x in s_losses]
     # per step: one dedup, and per table the gather's backward (merge_rows)
@@ -1607,6 +1654,13 @@ def phase_train(np, torch, sk, seed) -> dict:
                    zip(s_losses[:CPU_SPARSE_STEPS] + f_losses[
                        :CPU_FUSED_STEPS], c_losses + cf_losses))
     steady = SPARSE_STEPS - WARMUP_STEPS
+
+    # (d) both runs again with the resources and device planes armed
+    del sparse, fused
+    torch.cuda.empty_cache()
+    armed = train_armed(np, torch, sk, params, batches, cfg, tables, {
+        "sparse": (s_losses, s_snaps[SPARSE_STEPS], s_wall, SPARSE_STEPS),
+        "fused": (f_losses, f_snaps[PARITY_STEPS], f_wall, FUSED_STEPS)})
     return {
         "phase": "train", "model": "fm", "fields": N_FIELDS, "vocab": VOCAB,
         "factor_dim": DIM, "batch": TRAIN_BATCH, "lr": LR,
@@ -1646,12 +1700,255 @@ def phase_train(np, torch, sk, seed) -> dict:
             "max_abs_err_sparse_vs_fused_10_steps": err_sparse_fused,
             "rtol": TRAIN_RTOL, "atol": TRAIN_ATOL,
         },
+        "armed": armed,
         "train_launches": {"dedup_ids": s_launch["dedup_ids"],
                            "merge_apply": s_launch["merge_apply"],
                            "merge_rows": s_launch["merge_rows"]
                            + f_launch["merge_rows"],
                            "fused_adagrad": f_launch["fused_adagrad"]},
     }
+
+
+#: the port's kernels' symbol names as a profiler trace shows them
+#: (csrc/*.cu and the headers they share)
+KERNEL_SYMBOLS = ("make_keys", "rank_scatter", "radix_onesweep",
+                  "seg_keys", "walk_runs", "walk_long", "apply_rows",
+                  "sum_partials", "gather_rows_kernel", "adagrad_vec4",
+                  "adagrad_scalar", "ef_pack", "ef_update", "flash_")
+PROFILEZ_STEPS = 3
+
+
+def http_json(url, method="GET"):
+    """(status, JSON body) of one request to the ops server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(url, data=b"" if method == "POST" else None,
+                                 method=method)
+    try:
+        with urllib.request.urlopen(req, timeout=10) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def detector_status(body, component, detector):
+    comp = (body.get("components") or {}).get(component) or {}
+    return ((comp.get("detectors") or {}).get(detector) or {}).get("status")
+
+
+def trace_kernels(path) -> list:
+    """The kernel names of a Chrome trace that are the port's kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted({e["name"][:80] for e in events
+                   if e.get("cat") == "kernel"
+                   and any(k in e.get("name", "") for k in KERNEL_SYMBOLS)})
+
+
+def armed_trainer(params, cfg, name, tables):
+    from lightctr_tpu_torch.models import fm
+    from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
+    from lightctr_tpu_torch.models.sparse_trainer import \
+        SparseTableCTRTrainer
+
+    kw = dict(fused_fn=fm.logits_with_l2, device="cuda", resources=True,
+              device_telemetry=True)
+    if name == "sparse":
+        return SparseTableCTRTrainer(fm.params_from_numpy(params, "cuda"),
+                                     fm.logits, cfg, sparse_tables=tables,
+                                     **kw)
+    return CTRTrainer(fm.params_from_numpy(params, "cuda"), fm.logits, cfg,
+                      fused_adagrad=True, **kw)
+
+
+def armed_checks(np, torch, sk, tr, batches, ops, state) -> dict:
+    """On the armed sparse trainer: a census budget below trainer_state
+    trips hbm_pressure on /healthz (and one above it recovers);
+    ``POST /profilez`` is refused while another torch.profiler session
+    runs, then captures the next steps into a trace holding the port's
+    kernels; ``verify_donation`` on B5's in-place apply is clean and a
+    copying control trips donation_miss."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.obs import device as obs_device
+    from lightctr_tpu_torch.obs import health
+
+    base = f"http://{ops.address[0]}:{ops.address[1]}"
+    comp = tr.health.component
+    out = {}
+    cen = tr.device_census
+    _, body = http_json(base + "/healthz")
+    before = detector_status(body, comp, "hbm_pressure")
+    cen.set_budget("trainer_state", state / 2)
+    cen.sample()
+    code, body = http_json(base + "/healthz")
+    tripped = detector_status(body, comp, "hbm_pressure")
+    cen.set_budget("trainer_state", state * 4)
+    cen.sample()
+    _, body = http_json(base + "/healthz")
+    after = detector_status(body, comp, "hbm_pressure")
+    if before == health.UNHEALTHY or code != 503 or \
+            tripped != health.UNHEALTHY or after != health.OK:
+        raise AssertionError(f"hbm_pressure: {before} -> {code} "
+                             f"{tripped} -> {after}")
+    out["hbm_pressure"] = {"budget_bytes": state / 2, "healthz": code,
+                           "tripped": tripped, "recovered": after}
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        busy, bbody = http_json(base + f"/profilez?steps={PROFILEZ_STEPS}",
+                                "POST")
+    code, body = http_json(base + f"/profilez?steps={PROFILEZ_STEPS}",
+                           "POST")
+    if busy != 409 or bbody.get("refused") != "busy" or code != 200:
+        raise AssertionError(f"/profilez: {busy} {bbody} then {code} "
+                             f"{body}")
+    for b in batches[:PROFILEZ_STEPS + 1]:  # the start boundary + N steps
+        tr.train_step(b)
+    caps = obs_device.profile_trigger().payload()["captures"]
+    if len(caps) != 1 or not caps[0]["trace"]:
+        raise AssertionError(f"/profilez: captures {caps}")
+    kernels = trace_kernels(caps[0]["trace"])
+    if not kernels:
+        raise AssertionError("/profilez: the trace holds none of the "
+                             "port's kernels")
+    out["profilez"] = {"refused_while_busy": busy, "armed": code,
+                       "steps": PROFILEZ_STEPS, "files": caps[0]["files"],
+                       "port_kernels_in_trace": kernels}
+
+    hm = health.HealthMonitor(component="chip_smoke_donation",
+                              registry=obs.MetricsRegistry(),
+                              flight_min_interval_s=0.0)
+    watch = obs_device.DonationWatch(registry=hm.registry, monitor=hm,
+                                     register=False)
+
+    def apply(table, accum, uids, g):
+        return sk.merge_apply(table, accum, uids, g, lr=LR, eps=EPS)
+
+    def copy(table, accum, uids, g):
+        return apply(table.clone(), accum.clone(), uids, g)
+
+    ok = obs_device.verify_donation("merge_apply", apply,
+                                    donate_argnums=(0, 1), watch=watch,
+                                    sample_every=1)
+    bad = obs_device.verify_donation("merge_apply_copy", copy,
+                                     donate_argnums=(0, 1), watch=watch,
+                                     sample_every=1)
+    ids = torch.from_numpy(batches[0]["fids"].reshape(-1)).cuda()
+    uids, _, _ = sk.dedup_ids(ids)
+    g = torch.randn((uids.numel(), DIM), device="cuda") * 0.01
+    for f in (ok, bad):
+        with obs.override(True):
+            f(tr.params["v"].clone(), tr.opt_state["accum"]["v"].clone(),
+              uids, g)
+    progs = watch.snapshot()["programs"]
+    det = hm.verdict()["detectors"]["donation_miss"]
+    hm.close()
+    if progs != {"merge_apply": {"checks": 1, "misses": 0},
+                 "merge_apply_copy": {"checks": 1, "misses": 1}} or \
+            det["status"] != health.DEGRADED or \
+            det["detail"]["worst_program"] != "merge_apply_copy":
+        raise AssertionError(f"verify_donation: {progs}, {det}")
+    out["donation"] = {"programs": progs, "detector": det["status"]}
+    return out
+
+
+def train_armed(np, torch, sk, params, batches, cfg, tables, unarmed):
+    """The train phase's sparse (50 steps) and fused (10) runs again with
+    ``resources=True, device_telemetry=True``: losses and tables bit for
+    bit the unarmed runs', the same launches; the tracker one signature
+    and no recompile_storm; the catalog's trainer_step FLOPs, bytes and
+    utilization against the card's peak (``peak_spec``); the census'
+    trainer_state bytes exactly the params' and optimizer state's; then
+    ``armed_checks`` on the sparse trainer."""
+    from lightctr_tpu_torch.obs import device as obs_device
+    from lightctr_tpu_torch.obs import exporter, health
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_armed_")
+    obs_device.reset_profile_trigger()
+    obs_device.profile_trigger(base_dir=root, min_interval_s=0.0)
+    ops = exporter.OpsServer(port=0)
+    out = {}
+    try:
+        for name in ("sparse", "fused"):
+            want_l, want_snap, want_wall, steps = unarmed[name]
+            tr = armed_trainer(params, cfg, name, tables)
+            sk.reset_launches()
+            losses, snaps, wall, host = run_steps(
+                torch, tr, batches[:steps], snapshots=(steps,))
+            launches = sk.launches()
+            losses = [float(x) for x in losses]
+            plan = (sparse_expected_launches(sk, steps) if name == "sparse"
+                    else dense_expected_launches(sk, steps, fused=True))
+            if losses != want_l or launches != plan or not all(
+                    torch.equal(snaps[steps][k], want_snap[k])
+                    for k in ("w", "v")):
+                raise AssertionError(f"armed {name}: not the unarmed run "
+                                     f"(launches {launches})")
+            tr.resources.poll()
+            fns = tr.resources.snapshot()["fns"]
+            storm = tr.health.verdict()["detectors"].get(
+                "recompile_storm", {}).get("status")
+            if fns["trainer_step"]["cache_entries"] != 1 or \
+                    storm not in (None, health.OK):
+                raise AssertionError(f"armed {name}: signatures {fns}, "
+                                     f"recompile_storm {storm}")
+            ana = tr.device_catalog.analyze()["trainer_step"]
+            prog = tr.device_catalog.snapshot()["programs"]["trainer_step"]
+            kind = torch.cuda.get_device_name(0)
+            peak = obs_device.peak_spec(kind)
+            steady = steps - WARMUP_STEPS
+            step_s = wall / steady
+            state = sum(t.numel() * t.element_size()
+                        for t in obs_device.tensor_leaves(
+                            (tr.params, tr.opt_state)))
+            cen = tr.device_census.sample()
+            if cen["tags"]["trainer_state"]["bytes"] != state or \
+                    not ana.get("available") or not ana["flops"] > 0:
+                raise AssertionError(f"armed {name}: census {cen['tags']} "
+                                     f"for {state} state bytes; {ana}")
+            out[name] = {
+                "steps": steps, "losses_bit_identical": True,
+                "tables_bit_identical": True, "launches": launches,
+                "step_ms": 1e3 * step_s,
+                "unarmed_step_ms": 1e3 * want_wall / steady,
+                "armed_minus_unarmed_step_ms":
+                    1e3 * (wall - want_wall) / steady,
+                "signatures": fns, "recompile_storm": storm or health.OK,
+                "trainer_step": {
+                    "flops": ana["flops"],
+                    "bytes_accessed": ana["bytes_accessed"],
+                    "intensity": ana.get("intensity"),
+                    "library": ana["library"], "kernels": ana["kernels"],
+                    "memory": ana["memory"],
+                    "device_kind": kind, "peak": peak,
+                    "peak_precision": obs_device.PEAK_PRECISION,
+                    "utilization_at_step_ms":
+                        None if peak is None
+                        else ana["flops"] / step_s / peak[0],
+                    "bandwidth_utilization_at_step_ms":
+                        None if peak is None
+                        else ana["bytes_accessed"] / step_s / peak[1],
+                    "catalog_ewma_s": prog["ewma_seconds"],
+                    "catalog_utilization": prog["utilization"]},
+                "census": {"trainer_state_bytes":
+                           cen["tags"]["trainer_state"]["bytes"],
+                           "params_plus_state_bytes": state,
+                           "untagged_bytes": cen["untagged_bytes"],
+                           "total_bytes": cen["total_bytes"]},
+            }
+            if name == "sparse":
+                out["checks"] = armed_checks(np, torch, sk, tr, batches, ops,
+                                             state)
+            for c in (tr.resources, tr.device_catalog, tr.device_census):
+                c.close()
+            del tr
+            torch.cuda.empty_cache()
+    finally:
+        ops.close()
+        obs_device.reset_profile_trigger()
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 # -- phase: dp ----------------------------------------------------------------
@@ -2964,7 +3261,7 @@ def ingest_cache(np, torch, sk, params, path, root, want_run) -> dict:
     }
 
 
-def phase_ingest(np, torch, sk, seed, repair) -> dict:
+def phase_ingest(np, torch, sk, seed, repair, keep_dir=None) -> dict:
     """FM at Criteo width trained from a libFFM file: (a) the sparse
     trainer through ``fit_stream(..., prefetch=2)`` and again without
     prefetch, bit-identical; (b) CTRTrainer under ftrl and adam, held to
@@ -3077,6 +3374,9 @@ def phase_ingest(np, torch, sk, seed, repair) -> dict:
                 "host_launch_ms": 1e3 * host}
             del tr, snaps, c_params
             torch.cuda.empty_cache()
+        if keep_dir is not None:
+            # the online phase streams the same file
+            os.replace(path, os.path.join(keep_dir, "train.ffm"))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     if not repair.get("tables_bit_identical"):
@@ -3109,6 +3409,332 @@ def phase_ingest(np, torch, sk, seed, repair) -> dict:
             r["launches"][k] for r in opt_runs.values())
             + cached["launches"][k] for k in sk.KERNELS},
     }
+
+
+# -- phase: online ------------------------------------------------------------
+
+ONLINE_LEG1 = 10            # FM steps while the server answers requests
+ONLINE_LEG2 = 7             # FM steps after the hold (freshness recovers)
+ONLINE_PROFILE_STEPS = 3    # FM steps under torch.profiler (idle share)
+ONLINE_STEPS = ONLINE_LEG1 + ONLINE_LEG2 + ONLINE_PROFILE_STEPS   # 20
+ONLINE_SLO_S = 2.0          # the freshness SLO the subscriber feeds
+ONLINE_CPU_STEPS = 3        # first steps re-run on the CPU port
+ONLINE_RTOL = 1e-4
+ONLINE_WD_STEPS = 10
+ONLINE_WD_EXPORT_EVERY = 5
+ONLINE_SWAP_TOL = 1e-4      # fp32 exports: a faithful one scores equal
+ONLINE_DEADLINE_S = 30.0
+ONLINE_LOG_UIDS = 1 << 21   # the PS write log's bound, about 16 steps
+
+
+def online_stream(path):
+    """The ingest phase's file as the online trainer's endless stream."""
+    from lightctr_tpu_torch.data import streaming
+
+    return streaming.iter_libffm_batches(path, TRAIN_BATCH, N_FIELDS,
+                                         feature_cnt=VOCAB, native=True,
+                                         loop=True)
+
+
+def online_expected_launches(sk, fm_steps, wd_steps) -> dict:
+    """Launches of the online path: the lookups' backward (merge_rows)
+    twice a step, FM's w and v and Wide&Deep's w and embed; the server's
+    cache gathers (gather_rows, at least one a scored micro-batch, counted
+    from the server) are checked apart; nothing else."""
+    want = dict.fromkeys(sk.KERNELS, 0)
+    want["merge_rows"] = 2 * (fm_steps + wd_steps)
+    return want
+
+
+def wait_for(cond, timeout_s, what):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if cond():
+            return time.monotonic() - (deadline - timeout_s)
+        time.sleep(0.05)
+    raise AssertionError(f"online: timed out waiting for {what}")
+
+
+def online_cpu_rerun(np, rows0, batches) -> list:
+    """The first online steps on the CPU port, against a second PS
+    preloaded with the same rows (the ones those batches touch)."""
+    from lightctr_tpu_torch import obs, online
+    from lightctr_tpu_torch.dist.ps_server import ParamServerService, PSClient
+    from lightctr_tpu_torch.embed.async_ps import AsyncParamServer
+
+    keys = np.unique(np.concatenate([b["fids"].reshape(-1)
+                                     for b in batches]).astype(np.int64))
+    svc = ParamServerService(AsyncParamServer(
+        dim=ROW_DIM, n_workers=1, seed=0, learning_rate=LR,
+        staleness_threshold=1 << 30))
+    cli = PSClient(svc.address, ROW_DIM)
+    try:
+        cli.preload_arrays(keys, rows0[keys])
+        tr = online.OnlineTrainer(cli, "fm", DIM,
+                                  registry=obs.MetricsRegistry(),
+                                  device="cpu")
+        return [tr.step(b) for b in batches]
+    finally:
+        cli.close()
+        svc.close()
+
+
+def online_swap(np, serve, online, admin, tr, export_dir, requests):
+    """Check 3: the Wide&Deep trainer's faithful export swaps in behind
+    the shadow gate, a corrupted one is refused."""
+    model = serve.ServingModel(
+        "widedeep", {k: tr.dense[k] for k in ("fc1", "fc2")},
+        row_leaves={"w": (0, 1, True), "embed": (1, ROW_DIM, False)},
+        row_dim=ROW_DIM, device="cuda")
+    replay = [{k: r[k] for k in ("fids", "vals", "rep_fids", "rep_mask")}
+              for r in deep_requests(np, requests[:2])]
+    sw = online.ModelSwapper(
+        model, replay, tolerance=ONLINE_SWAP_TOL,
+        pull_rows=lambda uids: admin.pull_arrays(
+            uids, worker_epoch=0, worker_id=None, create=False)[1])
+    faithful = os.path.join(export_dir,
+                            f"model_{ONLINE_WD_STEPS:010d}.npz")
+    corrupt = {k: dict(v) for k, v in tr.dense.items()}
+    corrupt["fc1"]["w"] = corrupt["fc1"]["w"] + np.float32(3.0)
+    bad = online.publish_export(export_dir, corrupt, model="widedeep",
+                                step=ONLINE_WD_STEPS + 1, codec="fp32",
+                                device="cuda")
+    refused = sw.offer(bad)
+    accepted = sw.offer(faithful)
+    st = sw.stats()
+    if refused or not accepted or st["refusals"] != {"parity": 1} or \
+            model.version != 1:
+        raise AssertionError(f"online swap: refused {refused}, accepted "
+                             f"{accepted}, {st}")
+    return {"corrupted_refused": True, "faithful_accepted": True,
+            "refusals": st["refusals"], "last_shadow_diff": st["last_diff"],
+            "tolerance": ONLINE_SWAP_TOL, "model_version": model.version}
+
+
+def phase_online(np, torch, sk, seed, path, requests) -> dict:
+    """Online learning on the card against a live PS (the reference's
+    never-stopping PS worker): FM at the serve cell's width, the 2^20 x 33
+    table preloaded into a ``ParamServerService``; ``OnlineTrainer`` on
+    the card over ``iter_libffm_batches(loop=True)`` of the ingest
+    phase's file with ``prefetch=2`` while a ``PredictionServer`` (its
+    65,536-row hot cache on the card, B3) and a ``FreshnessSubscriber``
+    serve the serve phase's 8 x 256 rows from the same live rows.  Held:
+    the served scores equal a float64 forward of rows pulled straight off
+    the PS within SCORE_ATOL (check 1), and the freshness age trips
+    /healthz; resumed, it recovers (check 2).  Then Wide&Deep at
+    serve_deep's width exports every 5 steps, and the shadow gate swaps a
+    faithful artifact in and refuses a corrupted one (check 3).  Counts
+    reset just before the path, held to ``online_expected_launches``;
+    the first 3 FM steps re-run on the CPU port within ONLINE_RTOL."""
+    import itertools
+
+    from lightctr_tpu_torch import online, serve
+    from lightctr_tpu_torch.dist.ps_server import ParamServerService, PSClient
+    from lightctr_tpu_torch.embed.async_ps import AsyncParamServer
+    from lightctr_tpu_torch.obs import exporter, health
+
+    t0 = time.perf_counter()
+    params = make_params(np, seed + 30)
+    keys, rows0 = serve.fused_fm_rows(params)
+    store = AsyncParamServer(dim=ROW_DIM, n_workers=2, seed=seed,
+                             learning_rate=LR, staleness_threshold=1 << 30)
+    # the write log sized for this traffic: a step at Criteo width pushes
+    # ~10^5 distinct ids, past the default 4,096-uid bound, which would
+    # turn every delta into a full cache drop
+    store.WRITE_LOG_MAX_UIDS = ONLINE_LOG_UIDS
+    svc = ParamServerService(store)
+    root = tempfile.mkdtemp(prefix="chip_smoke_online_")
+    admin = srv = sub = cli = ops = None
+    try:
+        admin = PSClient(svc.address, ROW_DIM)
+        for lo in range(0, VOCAB, PRELOAD_CHUNK):
+            admin.preload_arrays(keys[lo:lo + PRELOAD_CHUNK],
+                                 rows0[lo:lo + PRELOAD_CHUNK])
+        setup_s = time.perf_counter() - t0
+        srv = serve.PredictionServer(
+            serve.ServingModel("fm", {}, row_leaves=serve.fm_ps_row_leaves(
+                DIM), row_dim=ROW_DIM, device="cuda"),
+            ps=PSClient(svc.address, ROW_DIM), max_batch=256,
+            device="cuda")
+        sub = online.FreshnessSubscriber(
+            srv, [svc.address], ROW_DIM, slo_s=ONLINE_SLO_S, poll_ms=400
+        ).start()
+        ops = exporter.OpsServer(port=0)
+        cli = serve.PredictClient(srv.address)
+        tr = online.OnlineTrainer(admin, "fm", DIM, worker_id=0,
+                                  device="cuda")
+        losses = []
+        step = tr.step
+        tr.step = lambda mb, stop=None: losses.append(step(mb, stop)) or \
+            losses[-1]
+        wait_for(lambda: sub.stats()["versions"][0] >= 0, 10,
+                 "the subscriber's arm")
+
+        torch.cuda.synchronize()
+        sk.reset_launches()
+        # leg 1: the trainer on a thread, the server answering meanwhile
+        errs = []
+
+        def leg(n, stream):
+            try:
+                tr.run(stream, max_steps=tr.steps + n, prefetch=2)
+            except BaseException as e:  # surfaced after the join
+                errs.append(e)
+
+        t_leg = time.perf_counter()
+        th = threading.Thread(target=leg, args=(ONLINE_LEG1,
+                                                online_stream(path)))
+        th.start()
+        served = 0
+        while th.is_alive() or served < N_REQUESTS:
+            scores = cli.predict(requests[served % N_REQUESTS])
+            if scores.shape != (REQUEST_ROWS,) or \
+                    not np.all(np.isfinite(scores)):
+                raise AssertionError(f"online: bad scores {scores.shape}")
+            served += 1
+        th.join()
+        if errs:
+            raise errs[0]
+        leg1_s = time.perf_counter() - t_leg
+
+        # held: check 1 (served == a float64 forward of the live rows)
+        uids = np.unique(np.concatenate(
+            [r["fids"].reshape(-1) for r in requests]).astype(np.int64))
+        _, live = admin.pull_arrays(uids, worker_epoch=0, worker_id=None,
+                                    create=False)
+        trained = {"w": np.zeros(VOCAB, np.float32),
+                   "v": np.zeros((VOCAB, DIM), np.float32)}
+        trained["w"][uids] = live[:, 0]
+        trained["v"][uids] = live[:, 1:]
+        refs = [fm_forward64(np, trained, r) for r in requests]
+        moved = float(np.abs(live - rows0[uids]).max())
+        state = {"err": None}
+
+        def served_fresh():
+            state["err"] = max(float(np.abs(cli.predict(r) - ref).max())
+                               for r, ref in zip(requests, refs))
+            return state["err"] < SCORE_ATOL
+
+        fresh_s = wait_for(served_fresh, ONLINE_DEADLINE_S,
+                           "served scores to pick up the trained rows")
+        if not moved > 1e-3:
+            raise AssertionError(f"online: the PS rows did not move "
+                                 f"({moved})")
+        base = f"http://{ops.address[0]}:{ops.address[1]}"
+        comp = srv.health.component
+
+        def fresh_status():
+            return detector_status(http_json(base + "/healthz")[1], comp,
+                                   "freshness_slo")
+
+        degrade_s = wait_for(
+            lambda: fresh_status() in (health.DEGRADED, health.UNHEALTHY),
+            ONLINE_SLO_S * 4 + 15, "/healthz to degrade on freshness")
+        # resumed: check 2's recovery, polled while the trainer runs
+        t_leg = time.perf_counter()
+        th = threading.Thread(target=leg, args=(ONLINE_LEG2,
+                                                online_stream(path)))
+        th.start()
+        recover_s = wait_for(lambda: fresh_status() == health.OK,
+                             ONLINE_DEADLINE_S,
+                             "/healthz to recover once training resumes")
+        th.join()
+        if errs:
+            raise errs[0]
+        leg2_s = time.perf_counter() - t_leg
+        stream = online_stream(path)
+        prof = profile_calls(torch, [lambda: tr.step(next(stream))
+                                     for _ in range(ONLINE_PROFILE_STEPS)])
+        stream.close()
+        prof["idle_share"] = 1.0 - prof["device_ms_per_step"] / (
+            prof["profiled_wall_ms"] / ONLINE_PROFILE_STEPS)
+        fm_stats = tr.stats()
+        if tr.steps != ONLINE_STEPS or fm_stats["push_failures"] or \
+                not all(np.isfinite(losses)):
+            raise AssertionError(f"online FM: {fm_stats}")
+
+        # Wide&Deep at serve_deep's width, exporting every 5 steps
+        wd_p = deep_params(np, seed, "widedeep", params["w"], params["v"])
+        wd = online.OnlineTrainer(
+            admin, "widedeep", DIM, field_cnt=N_FIELDS,
+            dense_params={k: wd_p[k] for k in ("fc1", "fc2")},
+            dense_lr=0.01, worker_id=1, export_dir=os.path.join(
+                root, "exports"), export_every=ONLINE_WD_EXPORT_EVERY,
+            export_codec="fp32", device="cuda")
+        t_wd = time.perf_counter()
+        wd.run(online_stream(path), max_steps=ONLINE_WD_STEPS, prefetch=2)
+        wd_s = time.perf_counter() - t_wd
+        torch.cuda.synchronize()
+        launches = sk.launches()
+        batches_scored = srv.stats()["batches_scored"]
+        plan = online_expected_launches(sk, ONLINE_STEPS, ONLINE_WD_STEPS)
+        got = dict(launches, gather_rows=0)
+        if got != plan or launches["gather_rows"] < batches_scored or \
+                batches_scored < N_REQUESTS:
+            raise AssertionError(f"online launches {launches}, planned "
+                                 f"{plan}, gather_rows >= {batches_scored}")
+        if wd.exports != ONLINE_WD_STEPS // ONLINE_WD_EXPORT_EVERY or \
+                wd.push_failures:
+            raise AssertionError(f"online widedeep: {wd.stats()}")
+        swap = online_swap(np, serve, online, admin, wd,
+                           os.path.join(root, "exports"), requests)
+
+        # the first steps on the CPU port
+        first = list(itertools.islice(online_stream(path),
+                                      ONLINE_CPU_STEPS))
+        cpu = online_cpu_rerun(np, rows0, first)
+        if not np.allclose(losses[:ONLINE_CPU_STEPS], cpu, rtol=ONLINE_RTOL,
+                           atol=0):
+            raise AssertionError(f"online: card losses "
+                                 f"{losses[:ONLINE_CPU_STEPS]} vs cpu {cpu}")
+        sub_stats = sub.stats()
+        if sub_stats["applied_entries"] < ONLINE_LEG1 or \
+                sub_stats["full_refreshes"] or \
+                sub_stats["modes"] != ["subscribe"]:
+            raise AssertionError(f"online subscriber: {sub_stats}")
+        ph = fm_stats["phase_seconds"]
+        n_timed = ONLINE_STEPS
+        return {
+            "phase": "online", "model": "fm", "fields": N_FIELDS,
+            "vocab": VOCAB, "factor_dim": DIM, "batch": TRAIN_BATCH,
+            "setup_s": setup_s, "steps": ONLINE_STEPS,
+            "loss_first3": losses[:3], "loss_last3": losses[-3:],
+            "cpu_first3": cpu, "cpu_rtol": ONLINE_RTOL,
+            "ms_per_step": {k: 1e3 * v / n_timed for k, v in ph.items()},
+            "leg_s": {"leg1": leg1_s, "leg2": leg2_s, "widedeep": wd_s},
+            "examples_per_s_leg1": ONLINE_LEG1 * TRAIN_BATCH / leg1_s,
+            "profile": prof,
+            "requests_served_during_run": served,
+            "check1_served_equal_ps_rows": {
+                "max_abs_err": state["err"], "atol": SCORE_ATOL,
+                "seconds_to_fresh": fresh_s, "rows_moved_max": moved},
+            "check2_freshness": {"slo_s": ONLINE_SLO_S,
+                                 "seconds_to_degrade": degrade_s,
+                                 "seconds_to_recover": recover_s},
+            "check3_swap": swap,
+            "widedeep": {"steps": ONLINE_WD_STEPS, "exports": wd.exports,
+                         "hidden": HIDDEN, "loss_last": wd.last_loss,
+                         "ms_per_step": {
+                             k: 1e3 * v / ONLINE_WD_STEPS
+                             for k, v in wd.stats()["phase_seconds"].items()
+                         }},
+            "subscriber": {k: sub_stats[k] for k in (
+                "applied_entries", "dropped_rows", "full_refreshes",
+                "modes")},
+            "batches_scored": batches_scored, "launches": launches,
+        }
+    finally:
+        for c in (cli, admin):
+            if c is not None:
+                c.close()
+        if sub is not None:
+            sub.stop()
+        if srv is not None:
+            srv.close()
+        if ops is not None:
+            ops.close()
+        svc.close()
+        shutil.rmtree(root, ignore_errors=True)
 
 
 # -- phase: serve_deep --------------------------------------------------------
@@ -3987,22 +4613,119 @@ def cli_dp_reference(np, torch, sk, files) -> dict:
             "epoch_losses": epochs, "launches": launches}
 
 
+def row_keys(np, batch) -> list:
+    """One bytes key per row of a host batch (its fids, vals and label):
+    the identity the ``--dp`` rank probe maps trained rows back by."""
+    fids = np.ascontiguousarray(np.asarray(batch["fids"]))
+    vals = np.ascontiguousarray(np.asarray(batch["vals"], np.float32))
+    labels = np.asarray(batch["labels"], np.float32)
+    return [fids[i].tobytes() + vals[i].tobytes() + labels[i].tobytes()
+            for i in range(len(labels))]
+
+
+def cli_rank_main(argv) -> int:
+    """``chip_smoke.py --cli-rank OUT_DIR <cli argv>``: one rank of the
+    ``--dp`` launcher runs.  ``cli.main`` with ``CTRTrainer._put`` wrapped:
+    its first call (the full batch ``fit`` puts on the card) records which
+    rows of the global batch this rank was handed — each row of the device
+    batch mapped back to its index by its fids, vals and label — into
+    ``OUT_DIR/rank<r>.json`` with the row count and a digest of the
+    indices, and prints the count and digest to stderr."""
+    import hashlib
+
+    import numpy as np
+
+    sys.path.insert(0, REPO)
+    from lightctr_tpu_torch.cli import __main__ as cli
+    from lightctr_tpu_torch.models import ctr_trainer
+
+    out_dir, cli_argv = argv[0], argv[1:]
+    orig = ctr_trainer.CTRTrainer._put
+    seen = {}
+
+    def probe(self, batch, non_blocking=False):
+        dev = orig(self, batch, non_blocking=non_blocking)
+        if not seen and self.mesh is not None:
+            index = {k: i for i, k in enumerate(row_keys(np, batch))}
+            mine = row_keys(np, {k: dev[k].cpu().numpy()
+                                 for k in ("fids", "vals", "labels")})
+            rows = [index.get(k, -1) for k in mine]
+            digest = hashlib.sha256(
+                np.asarray(rows, np.int64).tobytes()).hexdigest()[:16]
+            seen.update(rank=self.mesh.rank, world=self.mesh.size,
+                        global_rows=len(index), rows=len(rows),
+                        digest=digest, indices=rows)
+            with open(os.path.join(out_dir, f"rank{self.mesh.rank}.json"),
+                      "w") as f:
+                json.dump(seen, f)
+            print(f"cli-rank {self.mesh.rank}: first batch {len(rows)} "
+                  f"rows, row digest {digest}", file=sys.stderr, flush=True)
+        return dev
+
+    ctr_trainer.CTRTrainer._put = probe
+    return cli.main(cli_argv)
+
+
+def check_rank_rows(np, rows_dir, world, n_rows) -> dict:
+    """The ``--dp`` ranks' probes: each rank trained its own rows, the
+    ranks' rows are disjoint, and together they are the global batch the
+    CLI trims to a multiple of the world (``cli/__main__.py``), each
+    record's digest that of its indices."""
+    import hashlib
+
+    recs = []
+    for r in range(world):
+        with open(os.path.join(rows_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    want_rows = (n_rows // world) * world
+    seen = set()
+    for rec in recs:
+        idx = rec["indices"]
+        digest = hashlib.sha256(
+            np.asarray(idx, np.int64).tobytes()).hexdigest()[:16]
+        if digest != rec["digest"] or rec["rows"] != len(idx):
+            raise AssertionError(f"cli --dp rank {rec['rank']}: its record "
+                                 "does not match its digest")
+        if rec["global_rows"] != want_rows or min(idx, default=-1) < 0:
+            raise AssertionError(
+                f"cli --dp rank {rec['rank']}: global batch "
+                f"{rec['global_rows']} rows (want {want_rows}) or rows "
+                "outside it")
+        if seen & set(idx) or len(set(idx)) != len(idx):
+            raise AssertionError(f"cli --dp rank {rec['rank']} trained rows "
+                                 "another rank trained (or one twice)")
+        seen |= set(idx)
+    if seen != set(range(want_rows)):
+        raise AssertionError(f"cli --dp: the ranks trained {len(seen)} of "
+                             f"the global batch's {want_rows} rows")
+    return {"global_rows": want_rows,
+            "rank_rows": [rec["rows"] for rec in recs],
+            "rank_digests": [rec["digest"] for rec in recs],
+            "disjoint_and_whole": True}
+
+
 def cli_launcher(np, torch, files, root, compress, ref) -> dict:
     """``deepfm --dp`` (``compress``: with ``--compress-bits 8``) under
     ``python -m torch.distributed.run --nproc-per-node 2``: two ranks
     sharing the card over gloo, full batch a step; the report, and the
-    checkpoint restored to the dumped held-out scores.  Against ``ref``
-    (``cli_dp_reference``): the exact run's final loss and train AUC
-    within CLI_DP_RTOL, and either run's final loss below the init's (the
-    reference's first, the same init and batch)."""
+    checkpoint restored to the dumped held-out scores.  Each rank runs
+    through this script's rank probe (``cli_rank_main``): the ranks' rows
+    must be disjoint and together the trimmed global batch
+    (``check_rank_rows``).  Against ``ref`` (``cli_dp_reference``): the
+    exact run's final loss and train AUC within CLI_DP_RTOL, and either
+    run's final loss below the init's (the reference's first, the same
+    init and batch)."""
     import signal
 
     tag = "dp8" if compress else "dp"
     ck, scores = os.path.join(root, f"ck_{tag}"), os.path.join(
         root, f"scores_{tag}.txt")
+    rows_dir = os.path.join(root, f"rows_{tag}")
+    os.makedirs(rows_dir, exist_ok=True)
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-           "--nproc-per-node", str(DP_WORLD), "-m",
-           "lightctr_tpu_torch.cli", "deepfm", *cli_dp_argv(files),
+           "--nproc-per-node", str(DP_WORLD),
+           os.path.join(REPO, "chip_smoke.py"), "--cli-rank", rows_dir,
+           "deepfm", *cli_dp_argv(files),
            "--ckpt-dir", ck, "--dump-scores", scores]
     if compress:
         cmd += ["--compress-bits", "8"]
@@ -4057,7 +4780,9 @@ def cli_launcher(np, torch, files, root, compress, ref) -> dict:
     if step != CLI_DP_EPOCHS or err > CLI_SCORE_ATOL:
         raise AssertionError(f"cli {tag}: checkpoint step {step}, restored "
                              f"scores {err} from the dump")
+    ranks = check_rank_rows(np, rows_dir, DP_WORLD, CLI_ROWS)
     return {"argv": cmd[3:], "seconds": secs, "report": rep,
+            "rank_rows": ranks,
             "rel_gap_vs_one_rank": gaps,
             "held_to_one_rank": not compress,
             "restored_step": step, "restored_devices": devices,
@@ -5964,9 +6689,17 @@ def main(argv=None) -> int:
     emit(dp_info | {"nvidia_smi": smi})
     rs_info = timed(phase_dp_rs, np, torch, sk, args.seed)
     emit(rs_info | {"nvidia_smi": smi})
-    ingest_info = timed(phase_ingest, np, torch, sk, args.seed,
-                        rs_info["repeat_coded_step"])
-    emit(ingest_info | {"nvidia_smi": smi})
+    online_root = tempfile.mkdtemp(prefix="chip_smoke_online_file_")
+    try:
+        ingest_info = timed(phase_ingest, np, torch, sk, args.seed,
+                            rs_info["repeat_coded_step"], online_root)
+        emit(ingest_info | {"nvidia_smi": smi})
+        online_info = timed(phase_online, np, torch, sk, args.seed,
+                            os.path.join(online_root, "train.ffm"),
+                            requests)
+        emit(online_info | {"nvidia_smi": smi})
+    finally:
+        shutil.rmtree(online_root, ignore_errors=True)
     serve_deep_info = timed(phase_serve_deep, np, torch, sk, args.seed,
                             requests)
     emit(serve_deep_info | {"nvidia_smi": smi})
@@ -6040,8 +6773,9 @@ def main(argv=None) -> int:
         # the Wide&Deep family's paths: B3 in serve_deep, B1, B2, B4 and
         # B5 in train_deep, B2, B4, B5 and B6 in dp_deep (rank 0), and B4
         # in the CLI's in-process runs (the CTR half in cli, GBM's merges
-        # and the LR and word2vec gathers' backward in zoo), counted into
-        # each row's launches
+        # and the LR and word2vec gathers' backward in zoo), and B3 and B4
+        # in the online phase (the server's cache, the online steps'
+        # lookups' backward), counted into each row's launches
         deep = {"launches_serve_deep":
                 serve_deep_info["launches"].get(name, 0),
                 "launches_train_deep":
@@ -6049,7 +6783,8 @@ def main(argv=None) -> int:
                 "launches_dp_deep":
                 dp_deep_info["launches_rank0"].get(name, 0),
                 "launches_cli": cli_info["launches"].get(name, 0),
-                "launches_zoo": zoo_info["launches"].get(name, 0)}
+                "launches_zoo": zoo_info["launches"].get(name, 0),
+                "launches_online": online_info["launches"].get(name, 0)}
         row.update(deep, launches=row["launches"] + sum(deep.values()))
     emit({"timing_s": time.perf_counter() - t_timing})
     emit({"kernels": rows})
@@ -6061,4 +6796,6 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cli-rank"]:
+        sys.exit(cli_rank_main(sys.argv[2:]))
     sys.exit(main())

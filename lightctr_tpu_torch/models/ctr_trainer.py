@@ -14,7 +14,7 @@ Differences from the JAX trainer, by design:
   - ``device=`` is the torch device the params, the optimizer state and
     each batch live on (default ``"cuda"``; it raises without CUDA unless
     the caller asks for ``"cpu"``).  The JAX trainer's ``device: bool``
-    arms its device-telemetry plane, which is not ported yet.
+    (its device-telemetry switch) is ``device_telemetry=`` here.
   - PyTorch runs eagerly: there is no jit, no donation and no
     ``lax.scan``.  The fused-Adagrad path updates params and state in
     place (what donation buys the JAX trainer); ``fit_fullbatch_scan`` is
@@ -36,8 +36,15 @@ Differences from the JAX trainer, by design:
   - ``quality_bins`` (or ``LIGHTCTR_QUALITY``) arms the model-quality
     sketch (``obs/quality.py``) on every step variant: it rides the health
     vector and its drain, and is summed over the ranks under a mesh.
-  - ``param_shardings``, ``zero_sharded`` and the resources plane
-    (``resources``) are not ported yet: passing one raises ``ValueError``.
+  - ``resources`` (or ``LIGHTCTR_RESOURCES``) arms the compile tracker
+    over the step's input signatures (``obs/resources.py``);
+    ``device_telemetry`` (or ``LIGHTCTR_DEVICE``) arms the program catalog
+    (the step's cost and memory recorded from its first armed call), the
+    live-buffer census with the trainer state tagged, and the process
+    donation watch's binding (``obs/device.py``).  Neither changes what a
+    step computes.
+  - ``param_shardings`` and ``zero_sharded`` are not ported yet: passing
+    one raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -59,8 +66,10 @@ from lightctr_tpu_torch.data import ingest as ingest_mod
 from lightctr_tpu_torch.data.batching import minibatches
 from lightctr_tpu_torch.dist import collectives
 from lightctr_tpu_torch.models._common import tree_copy
+from lightctr_tpu_torch.obs import device as device_mod
 from lightctr_tpu_torch.obs import health as health_mod
 from lightctr_tpu_torch.obs import quality as quality_mod
+from lightctr_tpu_torch.obs import resources as resources_mod
 from lightctr_tpu_torch.obs import stepwatch as stepwatch_mod
 from lightctr_tpu_torch.obs import trace as trace_mod
 from lightctr_tpu_torch.ops import losses as losses_lib
@@ -177,11 +186,17 @@ class CTRTrainer:
         sketch of its own forward's probabilities to the health vector, and
         the drain folds it into ``self.quality``, a
         :class:`~lightctr_tpu_torch.obs.quality.QualityTracker`.
+    resources: arm the compile tracker (``self.resources``, a
+        :class:`~lightctr_tpu_torch.obs.resources.CompileTracker` over the
+        step's and the scorer's input signatures; ``None`` defers to
+        ``LIGHTCTR_RESOURCES``).
+    device_telemetry: arm the device plane (``self.device_catalog``,
+        ``self.device_census``; ``None`` defers to ``LIGHTCTR_DEVICE``) —
+        the JAX trainer's ``device=`` switch.
     device: the torch device of params, state and batches (default
         ``"cuda"``, or the mesh's device).
-    param_shardings, zero_sharded, resources: the JAX trainer's
-        sharded-parameter and resources-plane options, not yet ported;
-        giving one raises ``ValueError``.
+    param_shardings, zero_sharded: the JAX trainer's sharded-parameter
+        options, not yet ported; giving one raises ``ValueError``.
     """
 
     def __init__(
@@ -202,10 +217,11 @@ class CTRTrainer:
         zero_sharded: bool = False,
         quality_bins: Optional[int] = None,
         resources: Optional[bool] = None,
+        device_telemetry: Optional[bool] = None,
         device=None,
     ):
         not_yet_ported(type(self).__name__, param_shardings=param_shardings,
-                       zero_sharded=zero_sharded, resources=resources)
+                       zero_sharded=zero_sharded)
         if fused_adagrad and optimizer is not None:
             raise ValueError("fused_adagrad replaces the optimizer argument")
         if fused_adagrad and compress_bits is not None:
@@ -283,11 +299,48 @@ class CTRTrainer:
         # step stall watchdog (obs/stepwatch.py), armed by LIGHTCTR_STALL=1;
         # rides the per-step drain and marks phases
         self.stepwatch = stepwatch_mod.maybe_from_env(self.health)
+        # resource watch (obs/resources.py): when armed (ctor arg or
+        # LIGHTCTR_RESOURCES) a per-trainer CompileTracker polls the
+        # distinct input signatures of this trainer's step and scorer
+        # every few steps and feeds the recompile-storm detector — a shape
+        # leak becomes a /healthz trip
+        self.resources: Optional[resources_mod.CompileTracker] = None
+        if resources_mod.resolve_armed(resources):
+            self.resources = resources_mod.CompileTracker(
+                component="trainer", registry=self.telemetry,
+                monitor=self.health)
+        # device plane (obs/device.py): when armed (ctor arg or
+        # LIGHTCTR_DEVICE) a per-trainer ProgramCatalog records the step's
+        # cost and memory from its first armed call and a LiveBufferCensus
+        # samples the trainer state's storages; the process donation watch
+        # binds to this trainer's registry/monitor so verify_donation
+        # misses trip the donation_miss detector here
+        self.device_catalog: Optional[device_mod.ProgramCatalog] = None
+        self.device_census: Optional[device_mod.LiveBufferCensus] = None
+        if device_mod.resolve_armed(device_telemetry):
+            self.device_catalog = device_mod.ProgramCatalog(
+                component="trainer", registry=self.telemetry,
+                monitor=self.health, device=self.device)
+            self.device_census = device_mod.LiveBufferCensus(
+                registry=self.telemetry, monitor=self.health,
+                name="trainer")
+            self.device_census.register_tag(
+                "trainer_state", lambda: (self.params, self.opt_state))
+            device_mod.default_donation_watch().bind(
+                registry=self.telemetry, monitor=self.health)
         self._steps_seen = 0
         # the prefetch worker's copy stream on a card, made at first use
         self._stage_stream = None
         self.opt_state = self._init_opt_state(self.params)
         self._step = self._build_step()
+        self._logits = self.logits_fn
+        if self.resources is not None:
+            # the JAX trainer tracks its jitted step and scorer; here the
+            # same names count the distinct input signatures of each
+            self._step = resources_mod.TrackedCallable(self._step)
+            self._logits = resources_mod.TrackedCallable(self.logits_fn)
+            self.resources.track("trainer_step", self._step)
+            self.resources.track("trainer_logits", self._logits)
 
     def _build_step(self):
         """The training step: the compressed-ring data-parallel step when
@@ -565,8 +618,7 @@ class CTRTrainer:
         dev_batch = self._claim(batch) if device_ready else self._put(batch)
         if sw is not None:
             sw.mark("exec")
-        self.params, self.opt_state, loss, health = self._step(
-            self.params, self.opt_state, dev_batch)
+        self.params, self.opt_state, loss, health = self._run_step(dev_batch)
         self._record_step(time.perf_counter() - t0,
                           dev_batch if device_ready else batch,
                           health=health)
@@ -587,12 +639,22 @@ class CTRTrainer:
             with annotate("trainer/exec"):
                 if sw is not None:
                     sw.mark("exec")
-                self.params, self.opt_state, loss, health = self._step(
-                    self.params, self.opt_state, dev_batch)
+                self.params, self.opt_state, loss, health = self._run_step(
+                    dev_batch)
         self._record_step(time.perf_counter() - t0,
                           dev_batch if device_ready else batch,
                           health=health)
         return loss
+
+    def _run_step(self, dev_batch):
+        """``self._step`` on the trainer state; with the device plane
+        armed, through the catalog, which records the first call's cost
+        and memory (the same call: nothing runs twice)."""
+        if self.device_catalog is not None:
+            return self.device_catalog.run(
+                "trainer_step", self._step,
+                (self.params, self.opt_state, dev_batch))
+        return self._step(self.params, self.opt_state, dev_batch)
 
     # -- telemetry ------------------------------------------------------
 
@@ -613,6 +675,16 @@ class CTRTrainer:
         obs.emit_event("step", step=self._steps_seen,
                        duration_s=round(dt, 6), examples=n)
         self._feed_health(batch, health)
+        if self.resources is not None:
+            self.resources.note_step()
+        if self.device_catalog is not None:
+            # EWMA time fold and the census counter — the analysis was
+            # recorded from the step's first armed call
+            self.device_catalog.note_step(dt, "trainer_step")
+            self.device_census.maybe_sample()
+        # armed profiler captures advance at step boundaries (one global
+        # + one flag read when idle)
+        device_mod.profile_step()
         if self.stepwatch is not None:
             self.stepwatch.step_completed(dt)
 
@@ -815,8 +887,8 @@ class CTRTrainer:
 
     def predict_proba(self, arrays: Dict[str, np.ndarray]) -> np.ndarray:
         with torch.no_grad():
-            probs = sigmoid(self.logits_fn(self.params,
-                                           self._put_whole(arrays)))
+            probs = sigmoid(self._logits(self.params,
+                                         self._put_whole(arrays)))
         return probs.cpu().numpy()
 
     def evaluate(self, arrays: Dict[str, np.ndarray],
@@ -850,7 +922,7 @@ class CTRTrainer:
             m = len(chunk["labels"])
             # stay on the device: logits -> sigmoid -> metrics
             dev = self._put_whole(chunk)
-            probs = sigmoid(self.logits_fn(self.params, dev))
+            probs = sigmoid(self._logits(self.params, dev))
             labels = dev["labels"]
             loss_sum += float(metrics_lib.logloss(probs, labels)) * m
             correct += float(torch.sum(

@@ -135,6 +135,8 @@ class SparseTableCTRTrainer(CTRTrainer):
     dense_switch_margin: scale on the SparCML density switch — a table
         takes the sparse exchange only while its sparse bytes stay under
         ``margin * dense_ring_bytes``.
+    resources / device_telemetry / quality_bins: CTRTrainer's planes, on
+        every step variant (the fallback step included).
     """
 
     def __init__(
@@ -155,6 +157,8 @@ class SparseTableCTRTrainer(CTRTrainer):
         dense_switch_margin: float = 1.0,
         hier_exchange=None,
         quality_bins: Optional[int] = None,
+        resources: Optional[bool] = None,
+        device_telemetry: Optional[bool] = None,
         device=None,
     ):
         if not sparse_tables:
@@ -207,6 +211,7 @@ class SparseTableCTRTrainer(CTRTrainer):
             param_shardings=param_shardings, compress_bits=compress_bits,
             compress_range=compress_range, compress_mode=compress_mode,
             error_feedback=error_feedback, quality_bins=quality_bins,
+            resources=resources, device_telemetry=device_telemetry,
             device=device,
         )
         # table trainers also watch per-table touched-uid skew

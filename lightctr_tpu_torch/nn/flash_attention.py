@@ -130,10 +130,18 @@ def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+def _cost(q, k, v, causal):
+    """q, k and v read and the output written; the two products' 4·T²·D
+    operations a (batch, head), half of them under the causal mask."""
+    b, t, h, d = q.shape
+    flops = 4.0 * b * h * t * t * d / (2 if causal else 1)
+    return 4 * q.numel() * q.element_size(), flops
+
+
 sk.register_kernel(
     "flash_attention", phase="attention", plain=flash_attention_plain,
     cuda=_flash_attention_cuda, source="flash_attention.cu", bind=_bind,
-    replaces="lightctr_tpu/nn/flash_attention.py:164",
+    replaces="lightctr_tpu/nn/flash_attention.py:164", cost=_cost,
 )
 
 

@@ -5,8 +5,14 @@ saturation telemetry.
 
 ``quality`` is the model-quality plane (the trainers' ``quality_bins=``
 sketch, the server's ``drift=`` monitor, their detectors and
-``/qualityz``).  The JAX package's device and compile-tracking planes are
-not ported yet.
+``/qualityz``).  ``resources`` is the resource & saturation plane (the
+compile tracker over input signatures and kernel builds, queue
+telemetry, memory pressure, ``/resourcez``; ``LIGHTCTR_RESOURCES=1`` arms
+the trainers' watch), and ``device`` the device & program plane (program
+cost/memory analytics with utilization against the card's peak, the
+live-buffer census, in-place verification, ``torch.profiler`` capture on
+``POST /profilez``, ``/devicez``; ``LIGHTCTR_DEVICE=1`` arms the
+trainers' catalog and census).
 """
 
 from lightctr_tpu_torch.obs.gate import enabled, override, set_enabled  # noqa: F401
@@ -27,6 +33,11 @@ from lightctr_tpu_torch.obs import stepwatch  # noqa: F401
 from lightctr_tpu_torch.obs import exporter  # noqa: F401
 from lightctr_tpu_torch.obs import resources  # noqa: F401
 from lightctr_tpu_torch.obs import quality  # noqa: F401
+from lightctr_tpu_torch.obs import device  # noqa: F401
+
+# LIGHTCTR_PROFILE_AUTO=1 couples the profiler trigger to anomaly
+# transitions (stall/memory_pressure/hbm_pressure one-shot captures)
+device.maybe_auto_capture_from_env()
 
 import logging as _logging
 

@@ -21,7 +21,16 @@ through the kernel (:func:`launches` / :func:`reset_launches`).
 Kernels are built at first use (or eagerly through :func:`load` /
 :func:`build_all`) into ``lightctr_tpu_torch/build/``, keyed by a digest
 of the source and the compiler flags.  Importing this module builds
-nothing.
+nothing.  Each library loaded is reported to the build listeners
+(:func:`add_build_listener`: the resources plane's compile tracker) with
+the seconds of its nvcc build and its ``ctypes`` load.
+
+While a cost recorder is set (:func:`record_costs`: the device plane's
+program catalog, for one call), every dispatched kernel call reports the
+bytes it must move and the operations it does, counted from its inputs
+as ``chip_smoke.py``'s bounds count them (:func:`kernel_cost`), and marks
+its extent (:func:`in_kernel`) so that the library ops a plain version
+runs are not counted twice.
 
 Every TPU kernel of the JAX package has its counterpart: ``gather_rows``
 (``_gather_pallas``), ``dedup_ids`` (``_dedup_pallas``, int32 and int64
@@ -35,13 +44,16 @@ ids), ``merge_rows`` (``_merge_pallas``), ``merge_apply`` in both modes
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import math
 import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, NamedTuple, Optional
 
@@ -91,19 +103,106 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 #: source file -> nvcc's output of its last build in this process
 BUILD_LOGS: Dict[str, str] = {}
+#: library path -> seconds of its nvcc build, until its load reports them
+_pending_build_s: Dict[str, float] = {}
+_build_listeners: list = []
+#: name -> (same arguments as the kernel) -> (bytes, operations)
+KERNEL_COSTS: Dict[str, Callable] = {}
+#: the cost recorder, ``fn(name, nbytes, flops)``, while one is set
+_cost_sink: Optional[Callable] = None
+_cost_lock = threading.Lock()
+_scope = threading.local()
 
 
 def register_kernel(name: str, *, phase: str, plain: Callable,
                     cuda: Callable, source: str,
                     bind: Callable[[ctypes.CDLL], None],
-                    replaces: str) -> None:
-    """Register a hand-written kernel with its plain PyTorch version."""
+                    replaces: str, cost: Optional[Callable] = None) -> None:
+    """Register a hand-written kernel with its plain PyTorch version and,
+    with ``cost``, the function that counts a call's bytes and operations
+    from its arguments (:func:`kernel_cost`)."""
     if phase not in KERNEL_PHASES:
         raise ValueError(f"unknown kernel phase {phase!r}")
     KERNELS[name] = KernelDef(name, phase, plain, cuda, source, bind,
                               replaces)
+    if cost is not None:
+        KERNEL_COSTS[name] = cost
     with _launch_lock:
         _launches.setdefault(name, 0)
+
+
+def add_build_listener(fn: Callable) -> None:
+    """Call ``fn("kernel_build", seconds)`` for every kernel library this
+    process loads (nvcc seconds, when it built here, plus the ``ctypes``
+    load)."""
+    if fn not in _build_listeners:
+        _build_listeners.append(fn)
+
+
+def remove_build_listener(fn: Callable) -> None:
+    if fn in _build_listeners:
+        _build_listeners.remove(fn)
+
+
+def _notify_build(seconds: float) -> None:
+    for fn in list(_build_listeners):
+        try:
+            fn("kernel_build", seconds)
+        except Exception:
+            pass  # a listener must never break a kernel load
+
+
+# =========================================================================
+# cost recording (the device plane's program analysis)
+# =========================================================================
+
+
+def kernel_cost(name: str, *args):
+    """``(bytes, operations)`` of one call of kernel ``name`` on ``args``
+    (the kernel's own arguments): each input read once and each output
+    written once, as ``chip_smoke.py``'s bounds count them; where the
+    work depends on the data (pad slots, distinct rows) it is counted from
+    these inputs.  None for a kernel without a cost function."""
+    fn = KERNEL_COSTS.get(name)
+    return None if fn is None else fn(*args)
+
+
+@contextlib.contextmanager
+def record_costs(sink: Callable):
+    """Set ``sink(name, nbytes, flops)`` as the cost recorder for the
+    block: every kernel dispatched meanwhile (from any thread — autograd's
+    backward runs on its own) reports its :func:`kernel_cost`.  One
+    recorder at a time; a nested one raises."""
+    global _cost_sink
+    with _cost_lock:
+        if _cost_sink is not None:
+            raise RuntimeError("a kernel cost recorder is already set")
+        _cost_sink = sink
+    try:
+        yield
+    finally:
+        with _cost_lock:
+            _cost_sink = None
+
+
+def in_kernel() -> bool:
+    """Whether this thread is inside a dispatched kernel call while a cost
+    recorder is set (the library ops of a plain version run there)."""
+    return getattr(_scope, "depth", 0) > 0
+
+
+def _recorded(name: str, fn: Callable, *args):
+    _scope.depth = getattr(_scope, "depth", 0) + 1
+    try:
+        out = fn(*args)
+    finally:
+        _scope.depth -= 1
+    sink = _cost_sink
+    if sink is not None:
+        cost = kernel_cost(name, *args)
+        if cost is not None:
+            sink(name, int(cost[0]), float(cost[1]))
+    return out
 
 
 def launches(name: Optional[str] = None):
@@ -186,6 +285,7 @@ def compile_source(source: str) -> str:
     # per-process, per-thread temp path, then an atomic rename: two builds
     # racing here never load a half-written library
     tmp = f"{so_path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    t0 = time.perf_counter()
     proc = subprocess.run(
         [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, source)],
         capture_output=True, text=True,
@@ -197,6 +297,9 @@ def compile_source(source: str) -> str:
                            f"{proc.stderr}")
     BUILD_LOGS[source] = proc.stdout + proc.stderr
     os.replace(tmp, so_path)
+    with _lib_lock:
+        _pending_build_s[so_path] = (_pending_build_s.get(so_path, 0.0)
+                                     + time.perf_counter() - t0)
     return so_path
 
 
@@ -207,10 +310,16 @@ def load(name: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     kd = KERNELS[name]
-    lib = ctypes.CDLL(compile_source(kd.source))
+    path = compile_source(kd.source)
+    t0 = time.perf_counter()
+    lib = ctypes.CDLL(path)
     kd.bind(lib)
+    seconds = time.perf_counter() - t0
     with _lib_lock:
-        return _libs.setdefault(name, lib)
+        seconds += _pending_build_s.pop(path, 0.0)
+        lib = _libs.setdefault(name, lib)
+    _notify_build(seconds)
+    return lib
 
 
 def build_all() -> Dict[str, str]:
@@ -230,13 +339,18 @@ def build_all() -> Dict[str, str]:
 
 def dispatch(name: str, device: torch.device) -> Callable:
     """Kernel ``name``'s implementation for ``device``: the plain version
-    on the CPU, the CUDA wrapper on a CUDA device."""
+    on the CPU, the CUDA wrapper on a CUDA device (reporting its cost
+    while a recorder is set, :func:`record_costs`)."""
     kd = KERNELS[name]
     if device.type == "cpu":
-        return kd.plain
-    if device.type == "cuda":
-        return kd.cuda
-    raise ValueError(f"{name}: no implementation for device {device}")
+        fn = kd.plain
+    elif device.type == "cuda":
+        fn = kd.cuda
+    else:
+        raise ValueError(f"{name}: no implementation for device {device}")
+    if _cost_sink is None:
+        return fn
+    return functools.partial(_recorded, name, fn)
 
 
 def run_kernel(name: str, device: torch.device, entry, *args,
@@ -368,10 +482,18 @@ def gather_rows_floor(block: torch.Tensor, idx: torch.Tensor,
                            f"{err}")
 
 
+def _gather_rows_cost(block, idx):
+    """The distinct rows read, the indices, the rows written."""
+    n, d = idx.numel(), _row_width(block)
+    read = int(torch.unique(idx.clamp(0, block.shape[0] - 1)).numel())
+    return (read * d * block.element_size() + n * idx.element_size()
+            + n * d * block.element_size()), 0.0
+
 register_kernel(
     "gather_rows", phase="gather", plain=gather_rows_plain,
     cuda=_gather_rows_cuda, source="gather_rows.cu", bind=_bind_gather_rows,
     replaces="lightctr_tpu/ops/sparse_kernels.py:733",
+    cost=_gather_rows_cost,
 )
 
 
@@ -444,10 +566,17 @@ def _dedup_ids_cuda(ids: torch.Tensor, size: int):
     return uids, inv, count
 
 
+def _dedup_ids_cost(ids, size):
+    """The ids read, the int32 inverse and the uids written."""
+    k = ids.numel()
+    return k * ids.element_size() + k * 4 + size * ids.element_size(), 0.0
+
+
 register_kernel(
     "dedup_ids", phase="dedup", plain=dedup_ids_plain, cuda=_dedup_ids_cuda,
     source="dedup_ids.cu", bind=_bind_dedup_ids,
     replaces="lightctr_tpu/ops/sparse_kernels.py:227",
+    cost=_dedup_ids_cost,
 )
 
 
@@ -561,10 +690,19 @@ def _merge_rows_cuda(rows: torch.Tensor, inv: torch.Tensor,
     return out
 
 
+def _merge_rows_cost(rows, inv, num_segments):
+    """The rows and their segment ids read, the segments written."""
+    m = rows.shape[0]
+    d = rows[0].numel() if m else 1
+    return (m * d * rows.element_size() + m * inv.element_size()
+            + num_segments * d * rows.element_size()), float(m * d)
+
+
 register_kernel(
     "merge_rows", phase="merge", plain=merge_rows_plain,
     cuda=_merge_rows_cuda, source="merge_rows.cu", bind=_bind_merge_rows,
     replaces="lightctr_tpu/ops/sparse_kernels.py:317",
+    cost=_merge_rows_cost,
 )
 
 
@@ -687,10 +825,29 @@ def _merge_apply_cuda(table, accum, uids, rows, inv, lr, eps, denom):
     return table, accum, sumsq
 
 
+def _merge_apply_cost(table, accum, uids, rows, inv, lr, eps, denom):
+    """The touched rows' weights and accumulators read and written, their
+    gradient rows (all M of them in the merge mode) and the uids read; a
+    pad slot (uid 0 past slot 0) reads its uid only."""
+    s = uids.numel()
+    d = table[0].numel() if table.shape[0] else 1
+    real = int(((uids != 0) | (torch.arange(s, device=uids.device) == 0))
+               .sum())
+    es = table.element_size()
+    nbytes = real * d * es * 4 + s * uids.element_size()
+    if inv is None:
+        nbytes += real * d * es
+    else:
+        m = rows.shape[0]
+        nbytes += m * d * es + m * inv.element_size()
+    return nbytes, float(6 * real * d)
+
+
 register_kernel(
     "merge_apply", phase="apply", plain=merge_apply_plain,
     cuda=_merge_apply_cuda, source="merge_apply.cu", bind=_bind_merge_apply,
     replaces="lightctr_tpu/ops/sparse_kernels.py:593",
+    cost=_merge_apply_cost,
 )
 
 
@@ -794,11 +951,18 @@ def _quantize_pack_cuda(table, x: torch.Tensor) -> torch.Tensor:
     return codes
 
 
+def _quantize_pack_cost(table, x):
+    """The payload read, the codes written."""
+    cb = 1 if table.bits <= 8 else 2
+    return x.numel() * (x.element_size() + cb), 0.0
+
+
 register_kernel(
     "quantize_pack", phase="pack", plain=quantize_pack_plain,
     cuda=_quantize_pack_cuda, source="quantize_pack.cu",
     bind=_bind_quantize_pack,
     replaces="lightctr_tpu/ops/sparse_kernels.py:836",
+    cost=_quantize_pack_cost,
 )
 
 
@@ -889,11 +1053,19 @@ def _quantize_pack_ef_cuda(table, rows, carried, mask):
     return codes, delta
 
 
+def _quantize_pack_ef_cost(table, rows, carried, mask):
+    """Rows, carry and mask read, codes and delta written."""
+    cb = 1 if table.bits <= 8 else 2
+    n = rows.numel()
+    return n * (4 + 4 + cb + 4) + mask.numel() * mask.element_size(), 0.0
+
+
 register_kernel(
     "quantize_pack_ef", phase="pack", plain=quantize_pack_ef_plain,
     cuda=_quantize_pack_ef_cuda, source="quantize_pack_ef.cu",
     bind=_bind_quantize_pack_ef,
     replaces="lightctr_tpu/ops/sparse_kernels.py:944",
+    cost=_quantize_pack_ef_cost,
 )
 
 
@@ -997,11 +1169,23 @@ def _quantize_pack_ef_update_cuda(table, rows, uids, residual, mask):
     return codes, residual, dec
 
 
+def _quantize_pack_ef_update_cost(table, rows, uids, residual, mask):
+    """Rows, uids and mask read, the real slots' carries read and written,
+    codes and decoded values written."""
+    cb = 1 if table.bits <= 8 else 2
+    k = uids.numel()
+    d = rows[0].numel() if rows.shape[0] else 1
+    real = int((mask.reshape(-1) != 0).sum())
+    return (k * d * 4 + real * d * 4 + k * 8 + k * d * (cb + 4)
+            + real * d * 4), 0.0
+
+
 register_kernel(
     "quantize_pack_ef_update", phase="pack",
     plain=quantize_pack_ef_update_plain, cuda=_quantize_pack_ef_update_cuda,
     source="quantize_pack_ef_update.cu", bind=_bind_quantize_pack_ef_update,
     replaces="lightctr_tpu/ops/sparse_kernels.py:1064",
+    cost=_quantize_pack_ef_update_cost,
 )
 
 

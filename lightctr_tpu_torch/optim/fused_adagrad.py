@@ -60,10 +60,18 @@ def _fused_adagrad_cuda(w: torch.Tensor, accum: torch.Tensor,
     return w, accum
 
 
+def _cost(w, accum, grad, lr, eps):
+    """w, accum and grad read, w and accum written; six operations an
+    element (the square, the add, the sqrt, the divide, the scale and
+    the subtract)."""
+    n = w.numel()
+    return 5 * n * w.element_size(), float(6 * n)
+
+
 sk.register_kernel(
     "fused_adagrad", phase="adagrad", plain=fused_adagrad_plain,
     cuda=_fused_adagrad_cuda, source="fused_adagrad.cu", bind=_bind,
-    replaces="lightctr_tpu/optim/fused_adagrad.py:55",
+    replaces="lightctr_tpu/optim/fused_adagrad.py:55", cost=_cost,
 )
 
 

@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from lightctr_tpu_torch.core.device import resolve_device
+from lightctr_tpu_torch.obs import device as obs_device
+from lightctr_tpu_torch.obs import resources as obs_resources
 from lightctr_tpu_torch.ops.activations import sigmoid
 from lightctr_tpu_torch.ops.sparse_kernels import next_pow2 as _next_pow2
 
@@ -144,6 +146,14 @@ class ServingModel:
         self.id_fields = tuple(id_fields or _ID_FIELDS[kind])
         # hot-swap generation: bumped by every swap_params flip
         self.version = 0
+        # the pow2-padded scorer ladders: registered with the process
+        # compile tracker (their distinct input signatures), so /resourcez
+        # shows each ladder's size and a shape leak trips the
+        # recompile-storm detector
+        self._jit_local = obs_resources.track_jit(
+            f"serve_score_local_{kind}", self._score_local)
+        self._jit_rows = obs_resources.track_jit(
+            f"serve_score_rows_{kind}", self._score_rows)
 
     def _score_local(self, params: Dict, batch: Dict) -> torch.Tensor:
         return sigmoid(self.logits_fn(params, batch))
@@ -228,7 +238,11 @@ class ServingModel:
         b = int(np.asarray(arrays["fids"]).shape[0]) if "fids" in arrays \
             else int(np.asarray(arrays["rep_fids"]).shape[0])
         batch = self._pad_batch(arrays, _next_pow2(b))
-        return self._score_local(self.params, batch)[:b].cpu().numpy()
+        # device-plane program record (the plain call unless
+        # LIGHTCTR_DEVICE arms the process catalog)
+        return obs_device.call(f"serve_score_local_{self.kind}",
+                               self._jit_local, (self.params, batch)
+                               )[:b].cpu().numpy()
 
     @staticmethod
     def _with_mask(arrays: Dict) -> Dict:
@@ -288,8 +302,9 @@ class ServingModel:
             rows = torch.cat([rows, rows.new_zeros(
                 (k_pad - len(uids), self.row_dim))], dim=0)
         dev_batch = self._pad_batch(batch, _next_pow2(b))
-        return self._score_rows(self.params, rows,
-                                dev_batch)[:b].cpu().numpy()
+        return obs_device.call(f"serve_score_rows_{self.kind}",
+                               self._jit_rows, (self.params, rows, dev_batch)
+                               )[:b].cpu().numpy()
 
 
 def load_model(

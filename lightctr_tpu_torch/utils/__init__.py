@@ -1,1 +1,6 @@
-"""Utilities of the port (trace annotation so far)."""
+"""Utilities of the port: profiling hooks (``annotate``, ``trace``,
+``wall_clock``)."""
+
+from lightctr_tpu_torch.utils.profiling import annotate, trace, wall_clock
+
+__all__ = ["annotate", "trace", "wall_clock"]

@@ -1589,3 +1589,136 @@ def test_dag_step_on_the_card_matches_cpu(dev):
         runs.append(losses)
     assert runs[0][-1] < runs[0][0]
     np.testing.assert_allclose(runs[0], runs[1], rtol=1e-5)
+
+
+@pytest.mark.parametrize("kind", ["dense", "fused", "sparse"])
+def test_resources_and_device_planes_armed_on_the_card_equal_unarmed(
+        dev, kind):
+    """Both planes armed on the card (the compile tracker over the step's
+    signatures, the program catalog recording the first step's cost and
+    memory, the census, the donation binding) train nothing differently:
+    losses, params and optimizer state bit for bit; the catalog saw the
+    kernels of the path and the allocator's peak; one signature over the
+    steps."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.obs import device as obs_device
+    from lightctr_tpu_torch.optim.updaters import tree_leaves
+
+    p = fm.init(torch.Generator().manual_seed(0), 4096, 8)
+    cfg = TrainConfig(learning_rate=0.05)
+    batches = [fm_batch(s, n=1024, f=4096, nnz=39) for s in range(4)]
+    runs = []
+    for armed in (False, True):
+        kw = dict(resources=armed, device_telemetry=armed, device=dev)
+        if kind == "sparse":
+            tr = SparseTableCTRTrainer(
+                p, fm.logits, cfg, sparse_tables={"w": ["fids"],
+                                                  "v": ["fids"]}, **kw)
+        else:
+            tr = CTRTrainer(p, fm.logits, cfg,
+                            fused_adagrad=kind == "fused", **kw)
+        with obs.override(True):
+            losses = [float(tr.train_step(b)) for b in batches]
+        runs.append((losses, tr))
+    (l0, t0), (l1, t1) = runs
+    assert l0 == l1
+    for a, b in zip(tree_leaves((t0.params, t0.opt_state)),
+                    tree_leaves((t1.params, t1.opt_state))):
+        assert torch.equal(a, b)
+    ana = t1.device_catalog.analyze()["trainer_step"]
+    want = {"dense": {"merge_rows"}, "fused": {"merge_rows", "fused_adagrad"},
+            "sparse": {"dedup_ids", "merge_apply", "merge_rows"}}[kind]
+    assert want <= set(ana["kernels"])
+    assert ana["memory"]["temp"] > 0 and ana["flops"] > 0
+    assert t1.device_catalog.peak == obs_device.peak_spec(
+        torch.cuda.get_device_name(dev))
+    t1.resources.poll()
+    assert t1.resources.snapshot()["fns"]["trainer_step"][
+        "cache_entries"] == 1
+    cen = t1.device_census.sample()
+    state = sum(t.numel() * t.element_size()
+                for t in tree_leaves((t1.params, t1.opt_state)))
+    assert cen["tags"]["trainer_state"]["bytes"] == state
+    assert cen["untagged_bytes"] >= 0
+    for c in (t1.resources, t1.device_catalog, t1.device_census):
+        c.close()
+
+
+def test_verify_donation_on_b5_apply_on_the_card(dev):
+    """B5's in-place apply keeps the storages it was handed (clean), a
+    copying control is a miss."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.obs import device as obs_device
+
+    watch = obs_device.DonationWatch(registry=obs.MetricsRegistry(),
+                                     register=False)
+
+    def apply(table, accum, uids, g):
+        return sk.merge_apply(table, accum, uids, g, lr=0.05, eps=1e-7)
+
+    def copy(table, accum, uids, g):
+        return apply(table.clone(), accum.clone(), uids, g)
+
+    ok = obs_device.verify_donation("b5_ok", apply, donate_argnums=(0, 1),
+                                    watch=watch, sample_every=1)
+    bad = obs_device.verify_donation("b5_copy", copy, donate_argnums=(0, 1),
+                                     watch=watch, sample_every=1)
+    uids, _, _ = sk.dedup_ids(torch.randint(0, 1 << 16, (4096,),
+                                            dtype=torch.int32, device=dev))
+    g = torch.randn((4096, 32), device=dev)
+    sk.reset_launches()
+    with obs.override(True):
+        for f in (ok, bad):
+            f(torch.randn((1 << 16, 32), device=dev),
+              torch.rand((1 << 16, 32), device=dev), uids, g)
+    assert sk.launches("merge_apply") == 2
+    progs = watch.snapshot()["programs"]
+    assert progs["b5_ok"] == {"checks": 1, "misses": 0}
+    assert progs["b5_copy"] == {"checks": 1, "misses": 1}
+
+
+@pytest.mark.parametrize("kind", ["fm", "widedeep"])
+def test_online_step_twice_is_bit_identical(dev, kind):
+    """One online gradient step from the same PS rows and batch, run
+    twice on the card, gives the same loss and the same pushed rows bit
+    for bit (the lookups' backward is merge_rows in slot order)."""
+    from lightctr_tpu_torch import obs, online
+    from lightctr_tpu_torch.models import widedeep
+
+    f, k, fl = 1 << 14, 32, 39
+    rng = np.random.default_rng(3)
+    rows = (rng.normal(size=(f, 1 + k)) * 0.1).astype(np.float32)
+    fids = (rng.random((512, fl)) ** 3 * f).astype(np.int32)
+    mb = {"fids": fids, "fields": np.tile(np.arange(fl, dtype=np.int32),
+                                          (512, 1)),
+          "vals": np.ones((512, fl), np.float32),
+          "mask": np.ones((512, fl), np.float32),
+          "labels": (rng.random(512) > .5).astype(np.float32)}
+
+    class _PS:
+        def __init__(self):
+            self.pushed = []
+
+        def pull_arrays(self, keys, worker_epoch, worker_id=None):
+            return keys, rows[keys]
+
+        def push_arrays(self, worker_id, keys, g, worker_epoch):
+            self.pushed.append(np.array(g))
+            return True
+
+    outs = []
+    for _ in range(2):
+        ps = _PS()
+        kw = {}
+        if kind == "widedeep":
+            p = widedeep.init(torch.Generator().manual_seed(1), 8, fl, k)
+            kw = dict(field_cnt=fl,
+                      dense_params={n: p[n] for n in ("fc1", "fc2")})
+        tr = online.OnlineTrainer(ps, kind, k, registry=obs.MetricsRegistry(),
+                                  device=dev, **kw)
+        sk.reset_launches()
+        loss = tr.step(mb)
+        assert sk.launches("merge_rows") == 2  # the w and table lookups
+        outs.append((loss, ps.pushed[0]))
+    assert outs[0][0] == outs[1][0]
+    assert np.array_equal(outs[0][1], outs[1][1])

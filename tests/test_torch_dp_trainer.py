@@ -20,7 +20,10 @@ init and batches.
     params and mesh optimizer state (its slice of the EF residuals);
   - the quality sketch on a mesh (``quality_bins``) in every step variant:
     armed runs train bit for bit as the unarmed ones, and every rank's
-    tracker covers the global batch as the JAX trainer's does.
+    tracker covers the global batch as the JAX trainer's does;
+  - the resources and device planes on a mesh
+    (``resources=True, device_telemetry=True``) in every step variant:
+    armed runs train bit for bit as the unarmed ones.
 
 Every rank must end bit-identical to rank 0."""
 
@@ -562,6 +565,35 @@ def test_family_ctr_trainer_on_a_mesh_matches_jax(world, name):
             np.testing.assert_allclose(got["params"][k], v, err_msg=k,
                                        **FAMILY_TOL)
     _assert_ranks_identical(ranks, "family_" + name, keys=None)
+
+
+# -- the resources and device planes on a mesh --------------------------------
+
+
+@pytest.mark.parametrize("name", sorted(worlds.QUALITY_CASES))
+def test_planes_armed_on_a_mesh_train_bit_for_bit_as_unarmed(world, name):
+    """Each mesh step variant (the hybrid exchange exact and 8-bit
+    dynamic, the reduce-scatter pick and its overflow fallback,
+    CTRTrainer's mean and coded ring) with ``resources=True,
+    device_telemetry=True``: losses and tables bit for bit the unarmed
+    run's on every rank, one input signature over the steps, and the
+    step's analysis recorded."""
+    w, _, _, ranks = world
+    for r in ranks:
+        got, base = r["planes_" + name], r[name]
+        if name.startswith("dense"):
+            assert got["loss"] == [float(x) for x in base["loss"]]
+        else:
+            assert got["loss"] == base["loss"]
+        for k in ("w", "v"):
+            np.testing.assert_array_equal(got[k], base[k], err_msg=k)
+        # the tracked step is the primary one: a run whose every step
+        # fell back to the allgather (rs_fallback at 4 ranks) leaves it
+        # uncalled, as the JAX trainer tracks no fallback program
+        assert got["signatures"] == (0 if got["fallback"] else 1)
+        assert got["analyzed"] is True
+    if name == "rs_fallback":
+        assert ranks[0]["planes_" + name]["fallback"] == (w == 4)
 
 
 # -- the quality sketch on a mesh ---------------------------------------------

@@ -343,12 +343,20 @@ REFUSALS = {"mesh": "mesh must be a lightctr_tpu_torch",
 
 
 def _build_or_refuse(arg, build):
-    """``quality_bins`` arms the trainer's quality tracker; any other
-    argument given alone raises."""
+    """``quality_bins`` arms the trainer's quality tracker and
+    ``resources`` its compile tracker (over the step's and the scorer's
+    input signatures); any other argument given alone raises."""
     if arg == "quality_bins":
         tr = build()
         assert tr._quality_bins == 8 and tr.quality is not None
         tr.quality.close()
+        return
+    if arg == "resources":
+        tr = build()
+        assert tr.resources is not None
+        assert {"trainer_step", "trainer_logits"} <= set(
+            tr.resources.snapshot()["fns"])
+        tr.resources.close()
         return
     with pytest.raises(ValueError,
                        match=REFUSALS.get(arg, f"{arg} not yet ported")):

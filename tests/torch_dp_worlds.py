@@ -588,45 +588,69 @@ QUALITY_CASES = {
 }
 
 
+def _planes_trainers(mesh, world):
+    """Each of :data:`QUALITY_CASES`' unarmed runs again with the resources
+    and device planes armed (``resources=True, device_telemetry=True``),
+    the health feed off: losses and tables, and the step's signature count
+    and recorded analysis."""
+    out = {}
+    for name in QUALITY_CASES:
+        out["planes_" + name] = _quality_case(
+            mesh, world, name, resources=True, device_telemetry=True)
+    return out
+
+
+def _quality_case(mesh, world, name, **arm):
+    kind, f, dim, kw, batches = QUALITY_CASES[name]
+    if kind == "sparse_rs":
+        params, cfg = fm_params(f, dim, seed=1), TrainConfig(
+            learning_rate=0.1)
+        extra = {}
+    else:
+        params, cfg = fm_params(f, dim), TrainConfig(**CFG)
+        extra = {"fused_fn": tfm.logits_with_l2}
+    p = tfm.params_from_numpy(params, "cpu")
+    if kind == "dense":
+        tr = CTRTrainer(p, tfm.logits, cfg, mesh=mesh, **arm, **extra, **kw)
+    else:
+        tr = SparseTableCTRTrainer(p, tfm.logits, cfg, sparse_tables=TABLES,
+                                   mesh=mesh, **arm, **extra, **kw)
+    tr.health = None
+    losses = [float(tr.train_step(b)) for b in batches(world)]
+    tr.flush_health()
+    rec = {"loss": losses, "w": _np(tr.params["w"]),
+           "v": _np(tr.params["v"]),
+           "policy": dict(getattr(tr, "exchange_policy", {})),
+           "fallback": getattr(tr, "_last_step_fallback", False)}
+    if tr.quality is not None:
+        rec.update(rows=tr.quality.total.rows.copy(),
+                   updates=tr.quality.total.updates)
+        tr.quality.close()
+    if tr.resources is not None:
+        tr.resources.poll()
+        rec["signatures"] = tr.resources.snapshot()["fns"]["trainer_step"][
+            "cache_entries"]
+        rec["analyzed"] = tr.device_catalog.analyze()["trainer_step"][
+            "available"]
+        for c in (tr.resources, tr.device_catalog, tr.device_census):
+            c.close()
+    return rec
+
+
 def _quality_trainers(mesh, world):
     """Each of :data:`QUALITY_CASES` armed with ``quality_bins``, the
     health feed off (the armed trainer drains its vector all the same):
     losses, tables and the tracker's total sketch rows."""
-    out = {}
-    for name, (kind, f, dim, kw, batches) in QUALITY_CASES.items():
-        if kind == "sparse_rs":
-            params, cfg = fm_params(f, dim, seed=1), TrainConfig(
-                learning_rate=0.1)
-            extra = {}
-        else:
-            params, cfg = fm_params(f, dim), TrainConfig(**CFG)
-            extra = {"fused_fn": tfm.logits_with_l2}
-        p = tfm.params_from_numpy(params, "cpu")
-        if kind == "dense":
-            tr = CTRTrainer(p, tfm.logits, cfg, mesh=mesh,
-                            quality_bins=QUALITY_BINS, **extra, **kw)
-        else:
-            tr = SparseTableCTRTrainer(p, tfm.logits, cfg,
-                                       sparse_tables=TABLES, mesh=mesh,
-                                       quality_bins=QUALITY_BINS,
-                                       **extra, **kw)
-        tr.health = None
-        losses = [float(tr.train_step(b)) for b in batches(world)]
-        tr.flush_health()
-        out["quality_" + name] = {
-            "loss": losses, "w": _np(tr.params["w"]),
-            "v": _np(tr.params["v"]), "rows": tr.quality.total.rows.copy(),
-            "updates": tr.quality.total.updates,
-            "policy": dict(getattr(tr, "exchange_policy", {})),
-            "fallback": getattr(tr, "_last_step_fallback", False)}
-        tr.quality.close()
-    return out
+    return {"quality_" + name: _quality_case(mesh, world, name,
+                                             quality_bins=QUALITY_BINS)
+            for name in QUALITY_CASES}
 
 
 def trainers_rank(rank, world, out_dir, carry_path):
     """The hybrid sparse trainer in each of :data:`TRAINER_CASES`, the
     dense trainer with the plain mean and with the coded ring, the
-    reduce-scatter scenarios, the armed runs of :data:`QUALITY_CASES`, and
+    reduce-scatter scenarios, the armed runs of :data:`QUALITY_CASES`
+    (the quality sketch; the resources and device planes), and
     a restart from the JAX trainer's mesh
     state (``carry_path``)."""
     mesh = make_mesh(MeshSpec(data=world), device="cpu")
@@ -658,6 +682,7 @@ def trainers_rank(rank, world, out_dir, carry_path):
     out.update(_rs_trainers(mesh, world))
     out.update(_family_trainers(mesh))
     out.update(_quality_trainers(mesh, world))
+    out.update(_planes_trainers(mesh, world))
     # the weight carry-over: continue from the JAX trainer's params and
     # mesh optimizer state (EF residuals included), one step
     carry = torch.load(carry_path, weights_only=False)
