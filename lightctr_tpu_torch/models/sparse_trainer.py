@@ -110,6 +110,11 @@ EXCHANGE_SERIES = (
     "trainer_dense_ring_bytes_total",
     "trainer_rs_fallback_total",
     "trainer_rs_overflow_total",
+    # tiered device fast path (TieredDeviceEmbedding)
+    "trainer_tiered_fast_steps_total",   # all-hot steps (no store surface)
+    "trainer_tiered_fast_rows_total",    # rows through the in-place apply
+    "trainer_tiered_pushed_rows_total",  # non-resident rows via push_batch
+    "trainer_tiered_stale_tickets_total",  # adopt refused: residency moved
 )
 
 #: the byte counter of each sparse policy (the rest are the dense ring's)
@@ -741,3 +746,251 @@ class SparseTableCTRTrainer(CTRTrainer):
                 obs.emit_event("exchange", table=k, policy=pol,
                                bytes_per_step=xbytes.get(k, 0),
                                fallback=fallback)
+
+
+# =========================================================================
+# Device-resident tiered-store fast path
+# =========================================================================
+
+
+class TieredDeviceEmbedding:
+    """Hot-resident fast path binding an in-process
+    :class:`~lightctr_tpu_torch.embed.tiered.TieredEmbeddingStore`'s pinned
+    device pair to the kernel chain (the JAX module's class of the same
+    name).
+
+    Per step: :meth:`gather` probes the store's SLOT TICKETS
+    (``hot_slots`` + ``res_epoch``) for the batch's unique cover — when
+    every id is hot-resident the forward rows are ONE ``gather_rows``
+    launch off the pinned block (no store surface call, no host row
+    traffic); any miss falls back to the authoritative ``pull_batch``
+    (creates, admission, promotion, SSP) and only the still-non-resident
+    rows ride host memory.  :meth:`apply` then runs the batch's gradient
+    rows through ONE ``merge_apply`` launch (merge mode: segment merge +
+    mean scale + health sumsq + adagrad apply) IN PLACE on the store's
+    ``(rows, accums)`` pair, so the pull → dedup → gather → grad → merge
+    → apply chain for hot-resident uids never leaves the device, and
+    reports the touched slots through ``adopt_device_tables`` (pinned to
+    the gather's ``res_epoch``: residency moved underneath means the
+    tickets were stale and the adopt fails loud instead of marking dead
+    slots).  Non-resident ids push their merged gradients through
+    ``push_batch`` (the store applies its exact in-place math wherever
+    the row lives).
+
+    Single-writer by contract: between a ``gather`` and its ``apply``
+    nothing else may mutate the store (the apply writes the live block —
+    a concurrent residency change is unrecoverable, which is why the
+    apply checks the epoch first and the adopt is epoch-guarded).  The
+    all-hot trajectory is bit-identical to the same ``merge_apply`` over
+    a dense table given the same uids, rows and segment map (the fast
+    path's parity oracle); mixed batches update miss rows with the
+    store's correctly-rounded op-by-op math instead — each per-row step
+    is the same adagrad recipe within the kernel's documented ulp.
+
+    ``prefetch_next(ids)`` forwards the NEXT batch's unique cover to
+    ``dispatch_prefetch`` so a miss-bearing pull commits off the staged
+    plan instead of faulting synchronously.
+    """
+
+    def __init__(self, store, worker_id: int = 0, denom: float = 1.0,
+                 registry=None):
+        if not getattr(store, "device_hot", False):
+            raise ValueError(
+                "TieredDeviceEmbedding needs a device_hot store "
+                "(TieredEmbeddingStore(device_hot=True))"
+            )
+        if store.updater != "adagrad":
+            raise ValueError(
+                "the fused merge_apply kernel is the sparse-adagrad "
+                f"recipe; store updater {store.updater!r} unsupported"
+            )
+        self.store = store
+        self.device = store.device
+        self.worker_id = int(worker_id)
+        self.denom = float(denom)
+        self.dim = int(store.dim)
+        self.registry = registry if registry is not None else store.registry
+        self.epoch = 0
+        self.fast_steps = 0
+        self.mixed_steps = 0
+        self.stale_tickets = 0
+        self._fused = {}
+        # single-writer discipline vs the store's OWN prefetch worker:
+        # a dispatch runs speculative admission (residency moves!) on a
+        # background thread, so no dispatch may be in flight while a
+        # slot ticket is outstanding — gather() drains the queue before
+        # ticketing, and prefetch_next() defers its dispatch to the end
+        # of the matching apply()
+        self._ticket_open = False
+        self._deferred_prefetch = None
+
+    def _put(self, arr: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+
+    # -- forward: pull -> dedup -> gather -------------------------------------
+
+    def gather(self, ids):
+        """Batch ids (any shape, duplicates welcome) -> ``(rows_u
+        [U, dim] tensor, inv [M] int32 tensor, ticket)``: the deduped row
+        cover on the device plus the position map (``rows_u[inv]`` is the
+        per-position view) and the slot ticket :meth:`apply` consumes."""
+        ids_arr = np.ascontiguousarray(
+            np.asarray(ids).reshape(-1), np.int64)
+        uniq, inv = np.unique(ids_arr, return_inverse=True)
+        store = self.store
+        # no staging may run while the ticket is live (speculative
+        # admission moves residency under the slot map — unrecoverable
+        # once the apply has written the pair).  A wedged worker must
+        # fail HERE, before any ticket exists
+        if not store.prefetch_wait(timeout=30.0):
+            raise RuntimeError(
+                "prefetch worker failed to drain within 30s — refusing "
+                "to open slot tickets over an in-flight stage"
+            )
+        self._ticket_open = True
+        slots = store.hot_slots(uniq)
+        pulled = None
+        if (slots < 0).any() or not len(uniq):
+            pulled = store.pull_batch(uniq, self.epoch, self.worker_id)
+            if pulled is None:
+                raise RuntimeError(
+                    "tiered pull withheld (SSP gate) — the adapter is "
+                    "single-worker; advance the straggler first"
+                )
+            slots = store.hot_slots(uniq)
+        epoch = store.res_epoch
+        hot = slots >= 0
+        u = len(uniq)
+        up = sparse_kernels.next_pow2(max(u, 1))
+        sp = np.zeros(up, np.int32)
+        sp[:u][hot] = slots[hot]
+        w, _ = store.device_tables()
+        rows_u = sparse_kernels.gather_rows(w, self._put(sp))[:u]
+        if not hot.all():
+            midx = np.flatnonzero(~hot)
+            rows_u.index_copy_(0, self._put(midx),
+                               self._put(pulled[midx].astype(np.float32)))
+        ticket = {
+            "uniq": uniq, "inv": inv, "slots": slots, "hot": hot,
+            "res_epoch": epoch,
+        }
+        return rows_u, self._put(inv.astype(np.int32)), ticket
+
+    # -- backward: grad -> merge -> apply -------------------------------------
+
+    def _fused_fn(self, key):
+        fn = self._fused.get(key)
+        if fn is None:
+            store = self.store
+            lr, eps, denom = store.lr, store.eps, self.denom
+
+            def f(w, a, uids, rows, seg):
+                return sparse_kernels.merge_apply(
+                    w, a, uids, rows, seg, lr=lr, eps=eps, denom=denom)
+
+            # device-plane in-place check (obs/device.py): a table that
+            # silently COPIED instead of updating in place doubles device
+            # memory — no-op wrapper unless LIGHTCTR_DEVICE armed
+            fn = obs.device.verify_donation(
+                f"merge_apply_{key[0]}x{key[1]}", f, donate_argnums=(0, 1))
+            self._fused[key] = fn
+        return fn
+
+    def apply(self, ticket, grad_rows):
+        """Apply the step's per-position gradient rows ``[M, dim]``
+        (aligned with the ``ids`` stream :meth:`gather` deduped; tensor
+        or numpy).  Hot-resident rows ride the in-place merge_apply; the
+        rest push through the store surface.  Returns the merged hot
+        rows' sum of squares (the health gradient-norm feed; a 0-d tensor
+        on the device, 0.0 when nothing was hot).  Bumps the adapter's
+        SSP epoch — one gather/apply pair per step."""
+        store = self.store
+        uniq, inv, slots = ticket["uniq"], ticket["inv"], ticket["slots"]
+        hot = ticket["hot"]
+        u = len(uniq)
+        telem = obs.enabled()
+        reg = self.registry
+        if store.res_epoch != ticket["res_epoch"]:
+            # tickets went stale before the apply ran: the WHOLE batch can
+            # still take the authoritative surface
+            self.stale_tickets += 1
+            if telem:
+                reg.inc("trainer_tiered_stale_tickets_total")
+            hot = np.zeros(u, bool)
+        ssq = 0.0
+        m = int(inv.shape[0])
+        n_hot = int(hot.sum())
+        if torch.is_tensor(grad_rows):
+            g = grad_rows.to(self.device, torch.float32).reshape(m, self.dim)
+        else:
+            g = self._put(np.asarray(grad_rows, np.float32).reshape(
+                m, self.dim))
+        if n_hot:
+            hs = slots[hot].astype(np.int64)
+            order = np.argsort(hs)
+            sp = sparse_kernels.next_pow2(n_hot)
+            uids_p = np.zeros(sp, np.int32)
+            uids_p[:n_hot] = hs[order]
+            # unique index -> merge segment (sorted-slot position); miss
+            # and padding positions land in a pad segment whose rows are
+            # zeroed below, so their merged sum is exactly zero
+            seg_of = np.full(u, sp - 1, np.int32)
+            seg_of[np.flatnonzero(hot)[order]] = np.arange(
+                n_hot, dtype=np.int32)
+            mp = sparse_kernels.next_pow2(m)
+            mask = self._put(hot[inv].astype(np.float32))[:, None]
+            rows_p = torch.zeros((mp, self.dim), dtype=torch.float32,
+                                 device=self.device)
+            rows_p[:m] = g * mask
+            inv_p = np.full(mp, sp - 1, np.int32)
+            inv_p[:m] = seg_of[inv]
+            w, a = store.device_tables()
+            fused = self._fused_fn((sp, mp))
+            uids_t, inv_t = self._put(uids_p), self._put(inv_p)
+            # register the program with the process catalog (specs
+            # captured BEFORE the call — the tables are written in place)
+            obs.device.offer(f"merge_apply_{sp}x{mp}", fused,
+                             (w, a, uids_t, rows_p, inv_t))
+            w2, a2, ssq = fused(w, a, uids_t, rows_p, inv_t)
+            store.adopt_device_tables(
+                w2, a2, touched_slots=hs,
+                expect_res_epoch=ticket["res_epoch"])
+            if telem:
+                reg.inc("trainer_tiered_fast_rows_total", n_hot)
+        miss = ~hot
+        if miss.any():
+            g_np = g.cpu().numpy()
+            gm = np.zeros((u, self.dim), np.float32)
+            np.add.at(gm, inv, g_np)
+            keys = uniq[miss]
+            store.push_batch(self.worker_id, keys,
+                             gm[miss] / self.denom, self.epoch)
+            self.mixed_steps += 1
+            if telem:
+                reg.inc("trainer_tiered_pushed_rows_total", len(keys))
+        else:
+            self.fast_steps += 1
+            if telem:
+                reg.inc("trainer_tiered_fast_steps_total")
+        self.epoch += 1
+        self._ticket_open = False
+        if self._deferred_prefetch is not None:
+            nxt, self._deferred_prefetch = self._deferred_prefetch, None
+            store.dispatch_prefetch(nxt)
+        return ssq
+
+    # -- overlapped fault prefetch -------------------------------------------
+
+    def prefetch_next(self, ids) -> int:
+        """Stage the NEXT batch's miss payloads behind this step
+        (``dispatch_prefetch`` on the batch's unique cover — exactly the
+        key stream the matching pull will carry).  Called between a
+        gather and its apply, the dispatch is DEFERRED to the end of the
+        apply: staging runs speculative admission, which must not move
+        residency under an outstanding slot ticket."""
+        ids_arr = np.unique(
+            np.ascontiguousarray(np.asarray(ids).reshape(-1), np.int64))
+        if self._ticket_open:
+            self._deferred_prefetch = ids_arr
+            return 0
+        return self.store.dispatch_prefetch(ids_arr)

@@ -1722,3 +1722,123 @@ def test_online_step_twice_is_bit_identical(dev, kind):
         outs.append((loss, ps.pushed[0]))
     assert outs[0][0] == outs[1][0]
     assert np.array_equal(outs[0][1], outs[1][1])
+
+
+# -- the tiered store's hot pair on the card -----------------------------------
+
+
+def _zipf_stream(vocab, batch, steps, seed):
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(vocab).astype(np.int64)
+    p = 1.0 / np.arange(1, vocab + 1, dtype=np.float64) ** 1.1
+    p /= p.sum()
+    return [perm[rng.choice(vocab, size=batch, p=p)] for _ in range(steps)]
+
+
+def _tiered_cycle(store, ids, step, target):
+    rows = store.pull_batch(ids, worker_epoch=step, worker_id=0)
+    uniq, first = np.unique(ids, return_index=True)
+    store.push_batch(0, uniq, (0.1 * (rows[first] - target[uniq])).astype(
+        np.float32), worker_epoch=step)
+    return rows
+
+
+def test_tiered_device_mode_on_card_matches_numpy_mode(dev, tmp_path):
+    """The hot pair on the card (B3 reads it, the scatter and the
+    updater's ops write it in place) follows the numpy-mode store bit for
+    bit below 4,096 slots a push, where both take numpy's expression:
+    pulled rows, the state snapshot, and a migration's read-back."""
+    from lightctr_tpu_torch.embed.tiered import TieredEmbeddingStore
+
+    dim, vocab = 33, 1 << 14
+    rng = np.random.default_rng(5)
+    target = (0.5 * rng.normal(size=(vocab, dim))).astype(np.float32)
+    a = TieredEmbeddingStore(dim, 256, path=str(tmp_path / "np" / "s"),
+                             device_hot=False)
+    b = TieredEmbeddingStore(dim, 256, path=str(tmp_path / "dev" / "s"),
+                             device="cuda")
+    assert b.device_tables()[0].is_cuda
+    before = sk.launches("gather_rows")
+    for step, ids in enumerate(_zipf_stream(vocab, 2048, 20, seed=11)):
+        assert len(np.unique(ids)) < 4096
+        np.testing.assert_array_equal(_tiered_cycle(a, ids, step, target),
+                                      _tiered_cycle(b, ids, step, target))
+    assert sk.launches("gather_rows") > before
+    sa, sb = a.snapshot_state_arrays(), b.snapshot_state_arrays()
+    for x, y in zip(sa, sb):
+        np.testing.assert_array_equal(x, y)
+    c = TieredEmbeddingStore(dim, 256, path=str(tmp_path / "dst" / "s"),
+                             device="cuda")
+    mr, ma = c.migrate_in_state(*sb)
+    np.testing.assert_array_equal(mr, sb[1])
+    np.testing.assert_array_equal(ma, sb[2])
+    for s in (a, b, c):
+        s.close()
+
+
+def test_tiered_fast_path_on_card_is_merge_apply_bit_for_bit(dev, tmp_path):
+    """``TieredDeviceEmbedding`` all-hot on the card: each step's rows are
+    B3 off the pair and its apply one B5 launch in place on it, equal bit
+    for bit to B5 on a dense table given the same uids, rows and inv."""
+    from lightctr_tpu_torch.embed.tiered import TieredEmbeddingStore
+    from lightctr_tpu_torch.models.sparse_trainer import TieredDeviceEmbedding
+
+    dim, vocab = 33, 1 << 12
+    store = TieredEmbeddingStore(dim, 1024, path=str(tmp_path / "f" / "s"),
+                                 prefetch=False, device="cuda")
+    emb = TieredDeviceEmbedding(store, denom=2.0)
+    rng = np.random.default_rng(0)
+    keys = np.arange(1, 513, dtype=np.int64)
+    emb.gather(keys)
+    rows0, _, known = store.pull_state_batch(keys)
+    assert known.all() and (store.hot_slots(keys) == 0).any()
+    W = torch.zeros((vocab, dim), dtype=torch.float32, device=dev)
+    A = torch.zeros_like(W)
+    W[torch.from_numpy(keys).to(dev)] = torch.from_numpy(rows0).to(dev)
+    for step in range(10):
+        ids = rng.choice(keys, size=4096)
+        rows_u, inv, tk = emb.gather(ids)
+        uq, inv_np = np.unique(ids, return_inverse=True)
+        uq_t = torch.from_numpy(uq).to(dev)
+        assert torch.equal(rows_u, W[uq_t])
+        g = torch.from_numpy(rng.normal(size=(4096, dim)).astype(
+            np.float32)).to(dev)
+        before = sk.launches("merge_apply")
+        emb.apply(tk, g)
+        assert sk.launches("merge_apply") == before + 1
+        uids_p = np.zeros(sk.next_pow2(len(uq)), np.int32)
+        uids_p[:len(uq)] = uq
+        sk.merge_apply(W, A, torch.from_numpy(uids_p).to(dev), g,
+                       torch.from_numpy(inv_np.astype(np.int32)).to(dev),
+                       lr=store.lr, eps=store.eps, denom=2.0)
+        got, accs, _ = store.pull_state_batch(keys)
+        k_t = torch.from_numpy(keys).to(dev)
+        np.testing.assert_array_equal(got, W[k_t].cpu().numpy())
+        np.testing.assert_array_equal(accs, A[k_t].cpu().numpy())
+    assert emb.fast_steps == 10
+    store.close()
+
+
+def test_tiered_store_defaults_to_cuda_and_raises_without_it(dev):
+    """The default store's pair lives on the card; with no card visible
+    the same call raises instead of falling back to the CPU."""
+    import subprocess
+    import sys
+
+    from lightctr_tpu_torch.embed.tiered import TieredEmbeddingStore
+
+    s = TieredEmbeddingStore(dim=4, hot_rows=8)
+    assert s.device.type == "cuda" and s.device_tables()[0].is_cuda
+    s.close()
+    code = ("from lightctr_tpu_torch.embed.tiered import "
+            "TieredEmbeddingStore\n"
+            "try:\n    TieredEmbeddingStore(dim=4, hot_rows=8)\n"
+            "except RuntimeError as e:\n    print('raised', e)\n")
+    import os
+
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120, env=env,
+                          cwd=os.path.dirname(os.path.dirname(
+                              os.path.abspath(__file__))))
+    assert proc.stdout.startswith("raised"), proc.stdout + proc.stderr

@@ -110,7 +110,12 @@ def test_importing_the_serving_slice_loads_no_jax():
             "lightctr_tpu_torch.utils, lightctr_tpu_torch.utils.profiling, "
             "lightctr_tpu_torch.online, lightctr_tpu_torch.online.trainer, "
             "lightctr_tpu_torch.online.swap, "
-            "lightctr_tpu_torch.online.freshness; "
+            "lightctr_tpu_torch.online.freshness, "
+            "lightctr_tpu_torch.embed, lightctr_tpu_torch.embed.tiered, "
+            "lightctr_tpu_torch.embed.ledger, "
+            "lightctr_tpu_torch.embed.mmap_store, "
+            "lightctr_tpu_torch.embed.shm_ps, "
+            "lightctr_tpu_torch.utils.system; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

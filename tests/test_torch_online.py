@@ -14,8 +14,8 @@ the PS rows within rtol 1e-4 / atol 2e-5 (XLA's ``logistic``/``exp`` and
 torch's ``sigmoid`` differ in the last place, as recorded for the quality
 plane).
 
-The tiered store's subscription case waits for the tiered store's port
-(ROADMAP §A.9)."""
+The tiered store's subscription case runs on the port's
+``TieredEmbeddingStore`` (numpy mode) behind the port's service."""
 
 import ast
 import json
@@ -167,6 +167,76 @@ def test_subscribe_floor_overflow_reports_uncovered():
     finally:
         cli.close()
         svc.close()
+
+
+def test_tiered_store_serves_subscriptions(tmp_path, rng):
+    """MSG_SUBSCRIBE long-polls a tiered shard instead of being rejected
+    into the stats-polling degrade — pushes, preloads and evictions all
+    land in the delta, and a live FreshnessSubscriber stays in
+    ``subscribe`` mode against it."""
+    from lightctr_tpu_torch.embed.tiered import TieredEmbeddingStore
+
+    store = TieredEmbeddingStore(
+        dim=ROW_DIM, hot_rows=16, path=str(tmp_path / "sub" / "store"),
+        updater="adagrad", n_workers=1, seed=0, device_hot=False,
+    )
+    svc = ParamServerService(store)
+    cli = PSClient(svc.address, ROW_DIM, timeout=10.0)
+    try:
+        rep = cli.subscribe_deltas(1 << 62, timeout_ms=0)  # arm: no wait
+        assert rep["covered"] and rep["entries"] == []
+        assert "server_time" in rep
+        since = rep["write_version"]
+        cli.push_arrays(0, np.array([7, 9], np.int64),
+                        np.ones((2, ROW_DIM), np.float32), worker_epoch=0)
+        rep = cli.subscribe_deltas(since, timeout_ms=2000)
+        assert rep["covered"]
+        (ver, uids, _ts), = [e for e in rep["entries"] if e[0] > since]
+        assert uids == [7, 9] and ver == since + 1
+        # eviction invalidates through the same log (a migrated-away key
+        # must not survive as a stale cached row)
+        store.evict_batch(np.array([7], np.int64))
+        rep = cli.subscribe_deltas(ver, timeout_ms=2000)
+        assert [7] in [e[1] for e in rep["entries"]]
+        # the stats record carries the same shape (the poll degrade path)
+        wd = cli.stats()["write_delta"]
+        assert wd["entries"] and "server_time" in wd
+
+        # a live subscriber against the tiered shard: arms, stays in
+        # subscribe mode, applies per-key deltas — no stats_poll degrade
+        keys, rows = serve.fused_fm_rows(
+            {k: v.numpy() for k, v in _fm_params().items()})
+        cli.preload_arrays(keys, rows)
+        srv = _ps_backed_server(svc)
+        sub = online.FreshnessSubscriber(
+            srv, [svc.address], ROW_DIM, slo_s=30.0, poll_ms=300,
+        ).start()
+        pc = None
+        try:
+            _wait(lambda: sub.stats()["versions"][0] >= 0, 5,
+                  "subscriber arm on tiered shard")
+            assert sub.stats()["modes"][0] == "subscribe"
+            pc = serve.PredictClient(srv.address)
+            b = _batch(rng, n=4)
+            pc.predict(b)
+            n0 = len(srv.cache)
+            assert n0 > 1
+            victim = int(np.unique(b["fids"])[0])
+            cli.push_arrays(0, np.array([victim], np.int64),
+                            np.zeros((1, ROW_DIM), np.float32),
+                            worker_epoch=1)
+            _wait(lambda: len(srv.cache) == n0 - 1, 5,
+                  "tiered push-based delta drop")
+            assert sub.stats()["modes"][0] == "subscribe"
+        finally:
+            if pc is not None:
+                pc.close()
+            sub.stop()
+            srv.close()
+    finally:
+        cli.close()
+        svc.close()
+        store.close()
 
 
 def test_apply_age_is_server_relative_under_clock_skew():

@@ -4,7 +4,8 @@ semantics, the no-op-safe ``annotate`` (also a span emitter), ``trace``'s
 ``trace_capture`` event and its Chrome trace on disk, its degradation when
 the profiler is unavailable or refuses to start (another capture active),
 and ``profiler_available``'s contract.  The package exports the names the
-JAX package's ``utils`` exports from its profiling module."""
+JAX package's ``utils`` exports (its profiling and system modules'), and
+the system readers agree with the JAX package's on the CPU."""
 
 import json
 import logging
@@ -29,9 +30,25 @@ def test_utils_exports_the_jax_packages_profiling_names():
     jnames = {n for n in jutils.__all__
               if getattr(jutils, n).__module__ == jprof.__name__}
     assert jnames == {"annotate", "trace", "wall_clock"}
-    assert set(tutils.__all__) == jnames
+    # the package exports every name the JAX package's does (the
+    # profiling names and utils.system's), each from the matching module
+    assert set(tutils.__all__) == set(jutils.__all__)
+    for n in jutils.__all__:
+        assert getattr(tutils, n).__module__ == getattr(
+            jutils, n).__module__.replace("lightctr_tpu.", "lightctr_tpu_torch.")
     for n in ("trace", "wall_clock", "profiler_available"):
         assert callable(getattr(profiling, n))
+
+
+def test_system_readers_match_the_jax_packages():
+    from lightctr_tpu.utils import system as jsys
+    from lightctr_tpu_torch.utils import system as tsys
+
+    mem = tsys.host_memory_usage()
+    assert set(mem) == set(jsys.host_memory_usage()) and mem["MemTotal"] > 0
+    assert tsys.device_memory_stats("cpu") is None
+    if not torch.cuda.is_available():
+        assert tsys.device_memory_stats() is None
 
 
 def test_wall_clock_counts_elapsed():

@@ -11,8 +11,9 @@ unarmed one in every single-device step variant), the storm acceptance
 while a pow2-padded control stays ok), the serve queue saturating before
 it sheds, and ``metrics_report --resources`` on the port's dump.
 
-The tiered store's prefetch queue and the reduce shard's memory source
-wait for their modules' port (ROADMAP §A.9, §A.8)."""
+The tiered store's prefetch queue and memory source run on the port's
+store in both modes; the reduce shard's memory source waits for its
+module's port (ROADMAP §A.8)."""
 
 import ast
 import json
@@ -354,6 +355,37 @@ def test_memory_sampler_sources_budgets_and_detector():
     finally:
         ms.close()
         hm.close()
+
+
+@pytest.mark.parametrize("device_hot", [False, True])
+def test_tiered_store_prefetch_queue_and_memory_source(rng, device_hot):
+    from lightctr_tpu_torch.embed.tiered import TieredEmbeddingStore
+
+    store = TieredEmbeddingStore(dim=8, hot_rows=16, device_hot=device_hot,
+                                 device="cpu")
+    try:
+        keys = rng.integers(0, 1000, size=32).astype(np.int64)
+        with obs.override(True):
+            t = store.dispatch_prefetch(keys)
+            assert t > 0 and store.prefetch_wait(t, timeout=10.0)
+        p = store._pf_iq.payload()
+        assert p["enqueued"] >= 1 and p["waits"] >= 1
+        snap = store.registry.snapshot()
+        assert obs.labeled("resource_queue_capacity",
+                           queue="tiered_prefetch") in snap["gauges"]
+        mb = store.memory_bytes()
+        assert mb["hot"] == 16 * 8 * 8 and "warm" in mb and "cold" in mb
+        assert ("device_block" in mb) == device_hot
+        # the store is a one-call MemorySampler source
+        ms = resources.MemorySampler(registry=obs.MetricsRegistry(),
+                                     include_host=False, register=False)
+        ms.add_source("tiered", store.memory_bytes)
+        with obs.override(True):
+            flat = ms.sample()
+        assert flat["tiered_hot"] == mb["hot"]
+        ms.close()
+    finally:
+        store.close()
 
 
 def test_device_sources_read_the_cuda_allocator(monkeypatch):
