@@ -6,7 +6,10 @@ through the PS-backed ``PredictionServer`` and checks the scores, trains FM
 at Criteo width with ``SparseTableCTRTrainer`` and
 ``CTRTrainer(fused_adagrad=True)``, then trains it data-parallel over two
 ranks on the one card (the allgather exchange) and over eight (the
-reduce-scatter exchange), and checks the training; trains it from a libFFM
+reduce-scatter exchange), and over two hosts of two ranks each through the
+two-level exchange's reduce shards, and checks the training; runs the
+elastic master over tiered PS shards on the card through a shard's
+SIGKILL; trains it from a libFFM
 file through the streaming reader and the prefetch stage, and under the
 ftrl and adam optimizers; serves the Wide&Deep family (Wide&Deep, DeepFM,
 DCN) at Criteo width from compressed artifacts through the same PS-backed
@@ -272,6 +275,40 @@ Phases, one JSON line each:
            the first 3 losses the online phase's (rtol 1e-4); pull, step
            and push ms beside the online phase's.  Counts reset before
            each part, held to ``tiered_expected_launches``.
+  cluster  multi-host training.  (a) FM at Criteo width (the train
+           phase's init, lr 0.05) on one 4,096-row batch split between 2
+           hosts, each host a world of 2 gloo ranks on the card spawned
+           in a thread of this process, through 2 ``SparseReduceShard``s
+           this process serves (``hier_exchange=``, the fp32 wire), 10
+           steps: every rank of both hosts bit-identical, the losses and
+           tables within rtol 1e-4 / atol 1e-6 and 1e-5 of the one-device
+           trainer on the whole batch, the policy ``hier`` for w and v,
+           the launches ``hier_expected_launches`` on every rank, only
+           local rank 0 of a host on the wire; both links probed
+           (``measure_ici_bw``, ``probe_bw``, ``link_bandwidth``'s source
+           ``probe``); ms a step as local merge / wire / apply, and rank
+           0's device idle share over 2 profiled steps.  (a3) from (a)'s
+           state, 5 steps on the q8_ef wire within atol 2e-3 of 5 more on
+           the fp32 wire, under 0.4 of its socket bytes a step, every
+           rank alike; (a4) 3 steps with host 1 0.5 s late in the last,
+           a ``MasterService`` scraping that run's reduce shards:
+           ``/stragglerz`` on an ``OpsServer`` ranks host "1" first; (a2)
+           one rank a host, 3 steps: the socket bytes a step within 10 %
+           of (a)'s.  (b) an elastic ``MasterService`` over 3 PS-shard
+           processes (spawn; started before (a)), each a tiered store on
+           the card (hot pair 2^16 rows, adagrad, lr 0.5) holding its ring
+           share of a 2^20 x 33 table, beating to the master and writing
+           state snapshots every 2 s; 2 worker threads run the chaos
+           harness's teaching loop (pull their data shards, push ``w -
+           target``) for 6 passes, pause after 3 until every shard has
+           snapshotted since, then shard 1 is SIGKILLed: the master
+           declares it dead, migrates every row and accumulator of its
+           last snapshot to the ring successors (checksums verified, no
+           row lost), ``/metrics`` labels every shard's member series and
+           marks the dead one down, a full-vocabulary pull succeeds, and
+           the final MSE is within 5e-3 (relative) of an unperturbed run
+           of the same schedule beside it; every surviving shard reports
+           its gather_rows launches over its pipe.
   serve_deep  the Wide&Deep family at the serve phase's width (39
            fields, vocabulary 2^20, factor dim 32, hidden 50; DCN's fc1
            [50, 1248], crosses [3, 1248], out [1, 1298]), parameters from
@@ -431,7 +468,8 @@ least a launch of that shape takes).  Then a ``{"kernels": [...]}``
 line: each kernel at its main path's shape,
 its launches on that path, its device time (``ms``, CUDA graph of
 back-to-back calls), the plain version's, one PyTorch library call's where
-one computes the same function (the yardstick; the port never calls it),
+one computes the same function (the yardstick; the port never calls it;
+each plain version of a shape timed in one eager call),
 the eager per-call time with the host (``call_ms``) and the bound: bytes at
 3.35 TB/s, or for flash_attention the larger of that and its FLOPs at 989
 TFLOP/s (its ``per_shape`` adds the path shape non-causal and (2, 4096, 8,
@@ -447,9 +485,10 @@ row's ``launches_dp_rs`` counts rank 0's launches in dp_rs and
 ``launches_ingest`` the ingest phase's; ``launches_serve_deep`` and
 ``launches_train_deep``, ``launches_dp_deep`` (rank 0) and
 ``launches_cli`` count the Wide&Deep family's paths and the CLI's,
-``launches_online`` the online phase's (B3 and B4), and
+``launches_online`` the online phase's (B3 and B4),
 ``launches_tiered`` the tiered phase's (B3, B4 and B5), and
-are added into ``launches``; merge_rows' ``launches`` are the train
+``launches_cluster`` the cluster phase's (B2, B4 and B5 on rank 0 of host
+0 in (a), B3 in (b)'s surviving shards), and are added into ``launches``; merge_rows' ``launches`` are the train
 phase's (and those), and its ``per_shape_train`` times it as the gathers'
 backward (159,744 slots into the 2^20-row table and into the sparse
 trainer's 159,744 rows, d = 32 and 1, and into the table at FFM's d =
@@ -4595,6 +4634,864 @@ def phase_tiered(np, torch, sk, seed, path, requests, flat) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase: cluster -----------------------------------------------------------
+
+CLUSTER_HOSTS = 2
+CLUSTER_LOCAL = 2           # gloo ranks a host, every one on the one card
+CLUSTER_STEPS = 10          # (a), fp32 wire
+CLUSTER_FLAT_STEPS = 3      # (a2), one rank a host
+CLUSTER_CODED_STEPS = 5     # (a3), q8_ef wire, and (a) continued
+CLUSTER_STRAGGLE_STEPS = 3  # (a4), host 1 late in the last
+CLUSTER_STRAGGLE_S = 0.5
+CLUSTER_PROFILE_STEPS = 2
+CLUSTER_DEADLINE_S = 300.0
+#: tests/test_hier_exchange.py's bounds against the one-device trainer
+HIER_LOSS_TOL = dict(rtol=1e-4, atol=1e-6)
+HIER_TABLE_TOL = dict(rtol=1e-4, atol=1e-5)
+HIER_CODED_ATOL = 2e-3      # q8_ef's losses against the fp32 wire's,
+                            # both from (a)'s state
+HIER_CODED_BYTES = 0.4      # q8_ef's socket bytes against the fp32 wire's
+HIER_FLAT_BAND = 0.1        # (a2)'s socket bytes a step against (a)'s
+
+#: (b): three PS-shard processes, each a tiered store on the card holding
+#: its share of the serve cell's 2^20 x 33 table, hot pair 2^16 rows
+ELASTIC_SHARDS = 3
+ELASTIC_WORKERS = 2
+ELASTIC_VOCAB = VOCAB
+ELASTIC_HOT_ROWS = 1 << 16
+ELASTIC_PASSES = 6
+ELASTIC_KILL_AFTER = 3      # SIGKILL shard 1 after this many passes
+ELASTIC_VICTIM = 1
+ELASTIC_LR = 0.5            # tools/chaos_harness.py's shard learning rate
+#: liveness at the reference's 1:2:4 ratio (master.h:202), slower than
+#: the harness's demo speed: a shard busy with a 10^5-row push must not
+#: miss its beats into a false death
+ELASTIC_BEAT_S = 0.25
+ELASTIC_STALE_S = 2.0
+ELASTIC_DEAD_S = 4.0
+#: the snapshot cadence: a full state snapshot of a shard's ~350,000 rows
+#: (every tier, rows and accumulators) takes about a second
+ELASTIC_CKPT_S = 2.0
+#: tools/chaos_harness.py's parity tolerance, held relative to the
+#: unperturbed run's MSE
+ELASTIC_PARITY = 5e-3
+ELASTIC_DEADLINE_S = 60.0
+#: (b)'s two runs, side by side: (name, SIGKILL shard ELASTIC_VICTIM)
+ELASTIC_RUNS = (("unperturbed", False), ("killed", True))
+
+
+def hier_expected_launches(sk, steps) -> dict:
+    """Launches one rank makes in ``steps`` steps of the two-level
+    exchange on FM: the rank's id stream deduped, and the host's union of
+    the gathered streams (the local allgather's, or the reduce-scatter
+    owner's cut); per table (w, v) the gather's backward and the local
+    merge (merge_rows) and the apply of the pre-merged global mean
+    (merge_apply's apply mode)."""
+    want = dict.fromkeys(sk.KERNELS, 0)
+    want.update(dedup_ids=2 * steps, merge_rows=4 * steps,
+                merge_apply=2 * steps)
+    return want
+
+
+def same_launches(got, want) -> bool:
+    """A spawned rank's launch counts equal ``want``: its registry holds
+    the kernels its process imported, so a kernel missing from either side
+    counts zero."""
+    return all(got.get(k, 0) == want.get(k, 0) for k in set(got) | set(want))
+
+
+def cluster_batch(np, seed) -> dict:
+    """The criteo_rows batch the two hosts split (host h its h-th half)."""
+    return criteo_rows(np, np.random.default_rng(seed + 71), TRAIN_BATCH)
+
+
+def host_half(batch, host_id) -> dict:
+    n = len(batch["labels"]) // CLUSTER_HOSTS
+    return {k: v[host_id * n:(host_id + 1) * n] for k, v in batch.items()}
+
+
+def hier_run(np, torch, sk, tr, batch, steps, device, sleep_last=0.0):
+    """``steps`` steps of a hierarchical trainer on this rank, each timed
+    as local merge (A) / wire hop (B) / apply (C) on the host clock
+    between device synchronisations; launches counted from just before
+    the first step to just after the last."""
+    on_card = torch.device(device).type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    wire = tr._hier_wire
+    marks = {}
+
+    def timed_wire(*a):
+        sync()
+        marks["b0"] = time.perf_counter()
+        out = wire(*a)
+        sync()
+        marks["b1"] = time.perf_counter()
+        return out
+
+    tr._hier_wire = timed_wire
+    sync()
+    sk.reset_launches()
+    losses, split = [], []
+    try:
+        for i in range(steps):
+            if sleep_last and i == steps - 1:
+                time.sleep(sleep_last)
+            sync()
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_step(batch)))
+            sync()
+            t1 = time.perf_counter()
+            split.append((1e3 * (marks["b0"] - t0),
+                          1e3 * (marks["b1"] - marks["b0"]),
+                          1e3 * (t1 - marks["b1"])))
+    finally:
+        tr._hier_wire = wire
+    return losses, split, sk.launches()
+
+
+def cluster_rank(rank, world, host_id, out_dir, seed, device, addrs):
+    """One rank of host ``host_id`` (a world of CLUSTER_LOCAL gloo ranks):
+    the link probes, then (a) the fp32 wire, (a3) q8_ef, (a4) the
+    straggler rounds and (a2) one rank a host, each run a fresh trainer
+    from the seed's init on this host's half of the batch, against the
+    reduce shards ``addrs[run]``; writes ``host<h>_rank<r>.json``."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from lightctr_tpu_torch.dist import collectives
+    from lightctr_tpu_torch.dist.hier import HierExchangeClient
+    from lightctr_tpu_torch.ops import sparse_kernels as sk
+    from lightctr_tpu_torch.optim.updaters import tree_map
+
+    mesh = make_mesh(MeshSpec(data=world), device=device)
+    on_card = mesh.device.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(mesh.device)
+    params = train_params(np, seed)
+    batch = host_half(cluster_batch(np, seed), host_id)
+
+    def client(run):
+        return HierExchangeClient([tuple(a) for a in addrs[run]],
+                                  host_id=host_id, n_hosts=CLUSTER_HOSTS,
+                                  codec="q8_ef" if run == "coded" else "f32",
+                                  pull_timeout_s=60.0)
+
+    def trainer(c, m=mesh):
+        return deep_trainer("fm", "sparse", params, device, LR, mesh=m,
+                            hier_exchange=c)
+
+    out = {"device": str(mesh.device), "backend": mesh.backend}
+    # the two links: the host group's all-gather (every rank), the wire's
+    # round trip through a reduce shard (local rank 0); a probe that
+    # fails fails the phase
+    ici = collectives.measure_ici_bw(mesh)
+    out["ici_bps"] = ici
+    if rank == 0:
+        c = client("probe")
+        try:
+            dcn = c.probe_bw()
+        finally:
+            c.close()
+        bw = collectives.link_bandwidth(probe_ici=lambda: ici,
+                                        probe_dcn=lambda: dcn, refresh=True)
+        k = TRAIN_BATCH // CLUSTER_HOSTS // world * N_FIELDS
+        out["link"] = {"ici_bps": bw.ici_bps, "dcn_bps": bw.dcn_bps,
+                       "source": bw.source, "dcn_probe_bps": dcn,
+                       "pick": {str(d): collectives.pick_exchange_algo(
+                           world * CLUSTER_HOSTS, k, VOCAB, d,
+                           local_n=world, bw=bw)[0] for d in (1, DIM)}}
+
+    # (a) the fp32 wire
+    c = client("exact")
+    tr = trainer(c)
+    losses, split, launches = hier_run(np, torch, sk, tr, batch,
+                                       CLUSTER_STEPS, device)
+    rec = {"losses": losses, "split_ms": split, "launches": launches,
+           "policy": dict(tr.exchange_policy),
+           "local_policy": dict(tr.hier_local_policy),
+           "bytes_per_step": dict(tr.exchange_bytes_per_step),
+           "socket_bytes": c.bytes_sent + c.bytes_received,
+           "connected": c.connected, "digest": state_digest(tr)}
+    if rank == 0 and host_id == 0:
+        for k in ("w", "v"):
+            np.save(os.path.join(out_dir, f"table_{k}.npy"),
+                    tr.params[k].detach().cpu().numpy())
+    # the device's idle share over a few more steps, rank 0 of host 0
+    # under the profiler, every other rank stepping alongside
+    if on_card and rank == 0 and host_id == 0:
+        rec["profile"] = profile_calls(
+            torch, [lambda: tr.train_step(batch)] * CLUSTER_PROFILE_STEPS)
+    else:
+        for _ in range(CLUSTER_PROFILE_STEPS):
+            tr.train_step(batch)
+    # (a3) from the state reached here (Adagrad's accumulators warm): a
+    # few more steps on the fp32 wire, then as many on the q8_ef wire
+    # from the same state.  From a fresh init the first Adagrad step moves
+    # every touched weight by lr * sign(g), so codes that round a small g
+    # to zero part the runs by far more than the EF bound (ROADMAP §C)
+    saved = tree_map(torch.clone, (tr.params, tr.opt_state))
+    rec["continued_losses"], _, _ = hier_run(np, torch, sk, tr, batch,
+                                             CLUSTER_CODED_STEPS, device)
+    c.close()
+    del tr
+    out["exact"] = rec
+    c = client("coded")
+    tr = trainer(c)
+    tr.params, tr.opt_state = saved
+    del saved
+    losses, split, launches = hier_run(np, torch, sk, tr, batch,
+                                       CLUSTER_CODED_STEPS, device)
+    out["coded"] = {"losses": losses, "split_ms": split,
+                    "launches": launches,
+                    "policy": dict(tr.exchange_policy),
+                    "socket_bytes": c.bytes_sent + c.bytes_received,
+                    "carry_mass": c.carry_mass(),
+                    "digest": state_digest(tr)}
+    c.close()
+    del tr
+
+    # (a4) host 1 pushes CLUSTER_STRAGGLE_S late in the last round
+    c = client("straggle")
+    tr = trainer(c)
+    losses, split, launches = hier_run(
+        np, torch, sk, tr, batch, CLUSTER_STRAGGLE_STEPS, device,
+        sleep_last=CLUSTER_STRAGGLE_S if host_id == 1 else 0.0)
+    out["straggle"] = {"losses": losses, "split_ms": split}
+    c.close()
+    del tr
+
+    # (a2) one rank a host: the same batch on local rank 0 alone
+    group = dist.new_group([0])
+    if rank == 0:
+        solo = make_mesh(MeshSpec(data=1), device=device, group=group)
+        c = client("flat")
+        tr = trainer(c, solo)
+        losses, split, launches = hier_run(np, torch, sk, tr, batch,
+                                           CLUSTER_FLAT_STEPS, device)
+        out["flat"] = {"losses": losses, "split_ms": split,
+                       "launches": launches,
+                       "socket_bytes": c.bytes_sent + c.bytes_received,
+                       "policy": dict(tr.exchange_policy)}
+        c.close()
+        del tr
+    dist.barrier()
+    with open(os.path.join(out_dir, f"host{host_id}_rank{rank}.json"),
+              "w") as f:
+        json.dump(out, f)
+
+
+def hier_oracle(np, torch, seed, steps) -> tuple:
+    """The one-device SparseTableCTRTrainer on the hosts' whole batch:
+    losses and the tables after ``steps`` steps."""
+    tr = deep_trainer("fm", "sparse", train_params(np, seed), "cuda", LR)
+    batch = cluster_batch(np, seed)
+    losses = [float(tr.train_step(batch)) for _ in range(steps)]
+    return losses, {k: tr.params[k].detach().cpu().numpy()
+                    for k in ("w", "v")}
+
+
+def cluster_hier(np, torch, sk, seed, root) -> dict:
+    """(a)-(a4): two hosts of CLUSTER_LOCAL gloo ranks on the card, each
+    world spawned in a thread of this process, against reduce shards this
+    process serves; a master scraping the straggler run's shards."""
+    from lightctr_tpu_torch.core.mesh import spawn_world
+    from lightctr_tpu_torch.dist.hier import SparseReduceShard
+    from lightctr_tpu_torch.dist.master import MasterService
+    from lightctr_tpu_torch.dist.ps_server import ParamServerService
+    from lightctr_tpu_torch.embed.async_ps import AsyncParamServer
+    from lightctr_tpu_torch.obs import exporter
+
+    runs = ("probe", "exact", "coded", "straggle", "flat")
+    shards = {r: [SparseReduceShard(n_hosts=CLUSTER_HOSTS)
+                  for _ in range(2)] for r in runs}
+    addrs = {r: [list(s.address) for s in ss] for r, ss in shards.items()}
+    # the master of (a4): one PS shard as its member, the straggler run's
+    # reduce shards as scrape targets
+    ps = ParamServerService(AsyncParamServer(dim=2, n_workers=1))
+    master = MasterService(
+        [ps.address], period_s=1.0, scrape_period_s=30.0,
+        scrape_targets=[(f"rendezvous_{i}", s.address)
+                        for i, s in enumerate(shards["straggle"])])
+    ops = exporter.OpsServer(port=0)
+    errors = []
+
+    def host(h):
+        try:
+            spawn_world(cluster_rank, CLUSTER_LOCAL, "gloo",
+                        deadline_s=CLUSTER_DEADLINE_S,
+                        args=(h, root, seed, "cuda", addrs))
+        except BaseException as e:  # raised below, after the join
+            errors.append((h, repr(e)))
+
+    try:
+        t = time.perf_counter()
+        threads = [threading.Thread(target=host, args=(h,))
+                   for h in range(CLUSTER_HOSTS)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        worlds_s = time.perf_counter() - t
+        if errors:
+            raise AssertionError(f"cluster: a host world failed: {errors}")
+        master.scrape_once()
+        status, verdict = http_json(
+            f"http://127.0.0.1:{ops.address[1]}/stragglerz")
+        shard_stats = {r: [s.stats() for s in ss] for r, ss in shards.items()}
+    finally:
+        ops.close()
+        master.close()
+        ps.close()
+        for ss in shards.values():
+            for s in ss:
+                s.close()
+    ranks = {(h, r): json.load(open(os.path.join(
+        root, f"host{h}_rank{r}.json")))
+        for h in range(CLUSTER_HOSTS) for r in range(CLUSTER_LOCAL)}
+    lead = ranks[(0, 0)]
+
+    link = lead["link"]
+    if link["source"] != "probe" or not all(
+            link[k] > 0 for k in ("ici_bps", "dcn_probe_bps")):
+        raise AssertionError(f"cluster: the link probes did not measure "
+                             f"both links: {link}")
+    # (a): every rank of both hosts bit-identical, the oracle's
+    # trajectory and tables, the policy, the launches on every rank
+    digests = {k: v["exact"]["digest"] for k, v in ranks.items()}
+    if len({json.dumps(d, sort_keys=True) for d in digests.values()}) != 1:
+        raise AssertionError("cluster (a): the ranks' states differ")
+    o_losses, o_tables = hier_oracle(np, torch, seed, CLUSTER_STEPS)
+    got = lead["exact"]["losses"]
+    if not np.allclose(got, o_losses, **HIER_LOSS_TOL):
+        raise AssertionError(f"cluster (a): losses {got} against the "
+                             f"one-device trainer's {o_losses}")
+    table_err = {}
+    for k in ("w", "v"):
+        t = np.load(os.path.join(root, f"table_{k}.npy"))
+        if not np.allclose(t, o_tables[k], **HIER_TABLE_TOL):
+            raise AssertionError(f"cluster (a): table {k} differs from the "
+                                 f"one-device trainer's, max abs "
+                                 f"{float(np.abs(t - o_tables[k]).max())}")
+        table_err[k] = float(np.abs(t - o_tables[k]).max())
+    want = hier_expected_launches(sk, CLUSTER_STEPS)
+    for key, rec in ranks.items():
+        if set(rec["exact"]["policy"].values()) != {"hier"}:
+            raise AssertionError(f"cluster (a): rank {key} policy "
+                                 f"{rec['exact']['policy']}")
+        if not same_launches(rec["exact"]["launches"], want):
+            raise AssertionError(f"cluster (a): rank {key} launches "
+                                 f"{rec['exact']['launches']} != {want}")
+        if rec["exact"]["connected"] != (key[1] == 0):
+            raise AssertionError(f"cluster (a): rank {key} wire sockets "
+                                 f"{rec['exact']['connected']}")
+    exact_b = [ranks[(h, 0)]["exact"]["socket_bytes"] / CLUSTER_STEPS
+               for h in range(CLUSTER_HOSTS)]
+    # (a2) one rank a host: the same wire bytes a step
+    flat_b = [ranks[(h, 0)]["flat"]["socket_bytes"] / CLUSTER_FLAT_STEPS
+              for h in range(CLUSTER_HOSTS)]
+    for h in range(CLUSTER_HOSTS):
+        if abs(flat_b[h] - exact_b[h]) > HIER_FLAT_BAND * exact_b[h]:
+            raise AssertionError(f"cluster (a2): host {h} moved "
+                                 f"{flat_b[h]} wire bytes a step at one "
+                                 f"rank against {exact_b[h]} at "
+                                 f"{CLUSTER_LOCAL}")
+        if not same_launches(ranks[(h, 0)]["flat"]["launches"],
+                             hier_expected_launches(sk, CLUSTER_FLAT_STEPS)):
+            raise AssertionError(f"cluster (a2): host {h} launches "
+                                 f"{ranks[(h, 0)]['flat']['launches']}")
+    # (a3) q8_ef: the ranks alike, within the EF bound of the fp32 wire,
+    # under 0.4 of its socket bytes
+    if len({json.dumps(v["coded"]["digest"], sort_keys=True)
+            for v in ranks.values()}) != 1:
+        raise AssertionError("cluster (a3): the ranks' states differ")
+    coded = lead["coded"]["losses"]
+    cont = lead["exact"]["continued_losses"]
+    if not np.allclose(coded, cont, rtol=0, atol=HIER_CODED_ATOL):
+        raise AssertionError(f"cluster (a3): q8_ef losses {coded} against "
+                             f"the fp32 wire's {cont} from one state")
+    coded_b = [ranks[(h, 0)]["coded"]["socket_bytes"] / CLUSTER_CODED_STEPS
+               for h in range(CLUSTER_HOSTS)]
+    for h in range(CLUSTER_HOSTS):
+        if coded_b[h] >= HIER_CODED_BYTES * exact_b[h]:
+            raise AssertionError(f"cluster (a3): host {h} q8_ef moved "
+                                 f"{coded_b[h]} bytes a step against the "
+                                 f"fp32 wire's {exact_b[h]}")
+    # (a4) /stragglerz names host 1 first
+    if status != 200 or verdict["verdict"]["slowest_host"] != "1" \
+            or verdict["hosts"][0]["host"] != "1":
+        raise AssertionError(f"cluster (a4): /stragglerz {status} "
+                             f"{verdict}")
+    split = np.asarray(lead["exact"]["split_ms"][WARMUP_STEPS:])
+    prof = lead["exact"].get("profile")
+    step_ms = float(split.sum(axis=1).mean())
+    return {
+        "hosts": CLUSTER_HOSTS, "local_ranks": CLUSTER_LOCAL,
+        "steps": CLUSTER_STEPS, "worlds_s": worlds_s,
+        "backend": lead["backend"], "link": link,
+        "losses": got, "oracle_losses": o_losses,
+        "max_loss_err": float(np.abs(np.asarray(got)
+                                     - np.asarray(o_losses)).max()),
+        "max_table_err": table_err, "ranks_bit_identical": True,
+        "local_policy": lead["exact"]["local_policy"],
+        "wire_model_bytes_per_step": lead["exact"]["bytes_per_step"],
+        "ms_per_step": {"local": float(split[:, 0].mean()),
+                        "wire": float(split[:, 1].mean()),
+                        "apply": float(split[:, 2].mean()),
+                        "total": step_ms},
+        "profile_rank0": prof,
+        # against the timed steps (the profiler's own wall is inflated)
+        "device_idle_share": (None if prof is None else
+                              1.0 - prof["device_ms_per_step"] / step_ms),
+        "socket_bytes_per_step": {"exact": exact_b, "flat": flat_b,
+                                  "coded": coded_b},
+        "coded_losses": coded, "continued_losses": cont,
+        "coded_carry_mass": lead["coded"]["carry_mass"],
+        "flat_losses": lead["flat"]["losses"],
+        "stragglerz": {"slowest_host": verdict["verdict"]["slowest_host"],
+                       "hosts": verdict["hosts"]},
+        "straggle_split_ms": {f"host{h}": ranks[(h, 0)]["straggle"]
+                              ["split_ms"] for h in range(CLUSTER_HOSTS)},
+        "shard_coded_rounds": sum(s["coded_rounds"]
+                                  for s in shard_stats["coded"]),
+        "launches": lead["exact"]["launches"],
+        "launches_expected": want}
+
+
+# -- (b) the elastic master over tiered PS shards on the card ------------------
+
+
+def elastic_target(np, seed):
+    """The teaching target every process derives alike (the chaos
+    harness's ``target_rows``)."""
+    return np.random.default_rng(seed + 81).normal(
+        size=(ELASTIC_VOCAB, ROW_DIM)).astype(np.float32)
+
+
+def elastic_shard_main(conn, shard_id, root, seed):
+    """One PS-shard process (tools/chaos_harness.py's ``_shard_main``):
+    a tiered store on the card behind ``ParamServerService``, beating to
+    the master and writing state snapshots (rows and accumulators of
+    every tier) on a cadence.  On "stop" it answers its kernel launches
+    and exits.  A process that cannot take the card raises."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from lightctr_tpu_torch.ckpt import checkpoint as ckpt_mod
+    from lightctr_tpu_torch.dist.master import SHARD_ID_BASE
+    from lightctr_tpu_torch.dist.ps_server import ParamServerService, PSClient
+    from lightctr_tpu_torch.ops import sparse_kernels as sk
+
+    if not torch.cuda.is_available():
+        raise RuntimeError(f"elastic shard {shard_id}: no CUDA device")
+    store = tiered_store(root, f"tier_{shard_id}", True,
+                         hot_rows=ELASTIC_HOT_ROWS, updater="adagrad",
+                         learning_rate=ELASTIC_LR,
+                         n_workers=ELASTIC_WORKERS,
+                         staleness_threshold=1 << 20, seed=100 + shard_id)
+    svc = ParamServerService(store)
+    conn.send(list(svc.address))
+    master_addr = tuple(conn.recv())
+    state = {"stop": False, "snapshots": 0}
+
+    def beat_loop():
+        client = None
+        while not state["stop"]:
+            try:
+                if client is None:
+                    client = PSClient(master_addr, 1, timeout=2.0)
+                client.beat(SHARD_ID_BASE + shard_id)
+            except (ConnectionError, OSError, RuntimeError):
+                client = None
+            time.sleep(ELASTIC_BEAT_S)
+
+    def ckpt_loop():
+        d = os.path.join(root, "ckpt", f"shard_{shard_id}")
+        step = 0
+        while not state["stop"]:
+            time.sleep(ELASTIC_CKPT_S)
+            step += 1
+            k, r, a = store.snapshot_state_arrays()
+            ckpt_mod.save_arrays(d, step, k, r, accums=a)
+            ckpt_mod.gc_array_snapshots(d, keep=2)
+            state["snapshots"] += 1
+
+    threading.Thread(target=beat_loop, daemon=True).start()
+    threading.Thread(target=ckpt_loop, daemon=True).start()
+    try:
+        conn.recv()
+    except EOFError:
+        pass
+    state["stop"] = True
+    svc.close()
+    conn.send({"launches": sk.launches(), "snapshots": state["snapshots"],
+               "device_hot": store.device_hot,
+               "device": str(store.device)})
+    store.close()
+
+
+def elastic_worker(np, wid, master_addr, addresses, target, passes,
+                   gates, progress, errors):
+    """The chaos harness's teaching loop (``_worker_loop``): each pass
+    re-derives this worker's data shards from the routing table, pulls
+    their rows and pushes ``w - target``; a pull that fails (a dead shard
+    mid-rebalance) retries after refreshing the route.  The worker joins
+    and beats from a thread of its own (a pass over a data shard of 2^18
+    rows outlasts the beat period), then waits on ``gates[0]`` (every
+    worker in the table, so every pass deals each data shard to one
+    worker) and, after ELASTIC_KILL_AFTER passes, on ``gates[1]``."""
+    from lightctr_tpu_torch.dist.elastic import shards_of_worker
+    from lightctr_tpu_torch.dist.ps_server import PSClient, ShardedPSClient
+
+    n_data = 2 * ELASTIC_WORKERS
+    master = PSClient(tuple(master_addr), 1, timeout=5.0)
+    client = ShardedPSClient(addresses, ROW_DIM, partition="ring")
+    client.attach_route_source(master.route)
+    beating = threading.Event()
+
+    def beat_loop():
+        beater = PSClient(tuple(master_addr), 1, timeout=5.0)
+        try:
+            while not beating.wait(ELASTIC_BEAT_S):
+                beater.beat(wid)
+        finally:
+            beater.close()
+
+    def hold(gate):
+        gate.wait()
+        client.refresh_route()
+
+    master.beat(wid)
+    beat_thread = threading.Thread(target=beat_loop, daemon=True)
+    beat_thread.start()
+    try:
+        hold(gates[0])
+        done = 0
+        while done < passes:
+            if done == ELASTIC_KILL_AFTER:
+                progress[wid] = done
+                hold(gates[1])
+            table = client.routing
+            if wid not in table.workers:
+                client.refresh_route()
+                time.sleep(ELASTIC_BEAT_S)
+                continue
+            for s in shards_of_worker(wid, table.workers, n_data,
+                                      table.epoch):
+                keys = np.arange(ELASTIC_VOCAB, dtype=np.int64)[s::n_data]
+                out = None
+                deadline = time.monotonic() + ELASTIC_DEADLINE_S
+                while out is None:
+                    out = client.pull_arrays(keys, worker_epoch=done,
+                                             worker_id=wid)
+                    if out is None:
+                        if time.monotonic() > deadline:
+                            raise TimeoutError(f"worker {wid}: data shard "
+                                               f"{s} never served")
+                        client.refresh_route()
+                        time.sleep(0.1)
+                if not client.push_arrays(wid, keys, out[1] - target[keys],
+                                          worker_epoch=done):
+                    raise AssertionError(f"worker {wid}: a push of data "
+                                         f"shard {s} was lost")
+            done += 1
+            progress[wid] = done
+    except BaseException as e:  # raised by elastic_run
+        errors.append((wid, repr(e)))
+    finally:
+        beating.set()
+        beat_thread.join(timeout=10)
+        try:
+            master.farewell(wid)
+        except (ConnectionError, OSError, RuntimeError):
+            pass
+        master.close()
+        client.close()
+
+
+def elastic_spawn(root, seed) -> list:
+    """Start one run's ELASTIC_SHARDS shard processes, [(process, pipe)]
+    (spawn: this process holds a CUDA context).  Each takes the card and
+    builds its store while the caller goes on, then waits for its
+    master's address."""
+    import multiprocessing as mp
+
+    ctx = mp.get_context("spawn")
+    os.makedirs(os.path.join(root, "ckpt"), exist_ok=True)
+    procs = []
+    for i in range(ELASTIC_SHARDS):
+        parent, child = ctx.Pipe()
+        p = ctx.Process(target=elastic_shard_main,
+                        args=(child, i, root, seed), daemon=True)
+        p.start()
+        procs.append((p, parent))
+    return procs
+
+
+def elastic_run(np, seed, root, kill, procs) -> dict:
+    """One run of the drill over ``procs`` (:func:`elastic_spawn`): an
+    elastic master, ELASTIC_WORKERS worker threads over ELASTIC_PASSES
+    passes; after ELASTIC_KILL_AFTER passes the workers wait for a
+    snapshot of every shard taken since, and with ``kill`` shard
+    ELASTIC_VICTIM is SIGKILLed, its rows migrate and the master's scrape
+    (``/metrics``, the one scrape-armed master of the process) marks it
+    down before they go on.  The unperturbed run (``kill=False``) takes
+    the same pause."""
+    import signal
+    import urllib.request
+
+    from lightctr_tpu_torch.ckpt import checkpoint as ckpt_mod
+    from lightctr_tpu_torch.dist.master import MasterService
+    from lightctr_tpu_torch.dist.ps_server import PSClient, ShardedPSClient
+    from lightctr_tpu_torch.obs import exporter
+    from lightctr_tpu_torch.obs.registry import labeled
+
+    master = ops = None
+    info = {"kill": kill}
+    t_run = time.perf_counter()
+    try:
+        addrs = [tuple(pipe.recv()) for _, pipe in procs]
+        info["spawn_s"] = time.perf_counter() - t_run
+        master = MasterService(
+            addrs, stale_after_s=ELASTIC_STALE_S,
+            dead_after_s=ELASTIC_DEAD_S, period_s=ELASTIC_BEAT_S / 2,
+            shard_rpc_timeout_s=30.0, elastic=True, partition="ring",
+            dim=ROW_DIM, ckpt_dir=os.path.join(root, "ckpt"),
+            grace_factor=3.0, scrape_period_s=30.0 if kill else None)
+        if kill:
+            ops = exporter.OpsServer(port=0)
+        for _, pipe in procs:
+            pipe.send(list(master.address))
+        keys = np.arange(ELASTIC_VOCAB, dtype=np.int64)
+        t = time.perf_counter()
+        c = ShardedPSClient(list(addrs), ROW_DIM, partition="ring")
+        for lo in range(0, ELASTIC_VOCAB, PRELOAD_CHUNK):
+            c.preload_arrays(keys[lo:lo + PRELOAD_CHUNK],
+                             np.zeros((min(PRELOAD_CHUNK,
+                                           ELASTIC_VOCAB - lo), ROW_DIM),
+                                      np.float32))
+        c.close()
+        info["preload_s"] = time.perf_counter() - t
+        target = elastic_target(np, seed)
+        gates, progress, errors = (threading.Event(), threading.Event()), \
+            {}, []
+        workers = [threading.Thread(
+            target=elastic_worker,
+            args=(np, wid, master.address, list(addrs), target,
+                  ELASTIC_PASSES, gates, progress, errors))
+            for wid in range(ELASTIC_WORKERS)]
+        t = time.perf_counter()
+        for w in workers:
+            w.start()
+        wait_for(lambda: errors or sorted(master.routing.workers)
+                 == list(range(ELASTIC_WORKERS)), 60.0,
+                 "elastic: the workers' joins")
+        gates[0].set()
+        wait_for(lambda: errors or all(
+            progress.get(w, 0) >= ELASTIC_KILL_AFTER
+            for w in range(ELASTIC_WORKERS)), 120.0, "elastic: first passes")
+        if errors:
+            raise AssertionError(f"elastic: a worker failed: {errors}")
+        info["first_passes_s"] = time.perf_counter() - t
+        # the second snapshot of a shard written after the pause began
+        # was taken after it: it holds every update of the first passes
+        def last_step(i):
+            d = os.path.join(root, "ckpt", f"shard_{i}")
+            steps = [int(n[5:-4]) for n in (os.listdir(d) if os.path.isdir(d)
+                                           else ())
+                     if n.startswith("rows_") and n.endswith(".npz")]
+            return max(steps, default=0)
+
+        at_pause = [last_step(i) for i in range(ELASTIC_SHARDS)]
+        wait_for(lambda: all(last_step(i) >= at_pause[i] + 2
+                             for i in range(ELASTIC_SHARDS)),
+                 60.0, "elastic: snapshots after the pause")
+        info["pause_s"] = time.perf_counter() - t - info["first_passes_s"]
+        if kill:
+            victim, _ = procs[ELASTIC_VICTIM]
+            t = time.perf_counter()
+            os.kill(victim.pid, signal.SIGKILL)
+            victim.join(timeout=10)
+            drop = [m for m in range(ELASTIC_SHARDS) if m != ELASTIC_VICTIM]
+            wait_for(lambda: sorted(master.routing.members) == drop
+                     and not master.routing.rebalancing, 120.0,
+                     "elastic: the master's drop rebalance")
+            info["rebalance_s"] = time.perf_counter() - t
+            src = ckpt_mod.load_latest_state(
+                os.path.join(root, "ckpt", f"shard_{ELASTIC_VICTIM}"))
+            recs = [m for m in master.migrations
+                    if m["reason"] == "shard_death"]
+            info["migrations"] = [{k: v for k, v in m.items()
+                                   if k != "src_fnv"} for m in recs]
+            info["dead_shard_ckpt_rows"] = len(src[1])
+            info["migrated_rows"] = int(sum(m["n"] for m in recs))
+            if not recs or not all(m["verified"] for m in recs):
+                raise AssertionError(f"elastic: migrations not verified: "
+                                     f"{info['migrations']}")
+            if not all(m.get("accums") for m in recs):
+                raise AssertionError("elastic: accumulators did not ride "
+                                     "the migration")
+            if info["migrated_rows"] != len(src[1]):
+                raise AssertionError(
+                    f"elastic: {info['migrated_rows']} rows migrated of the "
+                    f"dead shard's {len(src[1])}")
+            # the scrape marks the dead shard down, every shard keeps its
+            # member label on /metrics
+            master.scrape_once()
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{ops.address[1]}/metrics",
+                    timeout=10) as r:
+                metrics = r.read().decode()
+            for i in range(ELASTIC_SHARDS):
+                up = 0 if i == ELASTIC_VICTIM else 1
+                line = (f"lightctr_{labeled('cluster_member_up', member=f'shard_{i}')}"
+                        f" {up}")
+                if line not in metrics:
+                    raise AssertionError(f"elastic: /metrics lacks {line!r}")
+            if not master.rollup.members()[
+                    f"shard_{ELASTIC_VICTIM}"]["scrape_down"]:
+                raise AssertionError("elastic: the dead shard is not "
+                                     "scrape_down")
+            info["metrics_member_lines"] = ELASTIC_SHARDS
+        gates[1].set()
+        for w in workers:
+            w.join(timeout=240)
+        if errors or any(w.is_alive() for w in workers):
+            raise AssertionError(f"elastic: workers failed: {errors}")
+        info["passes_s"] = time.perf_counter() - t
+        # a full-vocabulary pull through a fresh routed client
+        t = time.perf_counter()
+        admin = PSClient(tuple(master.address), 1, timeout=5.0)
+        c = ShardedPSClient(list(addrs), ROW_DIM, partition="ring")
+        c.attach_route_source(admin.route)
+        c.refresh_route()
+        out = None
+        deadline = time.monotonic() + ELASTIC_DEADLINE_S
+        while out is None and time.monotonic() < deadline:
+            out = c.pull_arrays(keys, worker_epoch=ELASTIC_PASSES)
+            if out is None:
+                c.refresh_route()
+                time.sleep(0.1)
+        admin.close()
+        c.close()
+        if out is None:
+            raise AssertionError("elastic: a full-vocabulary pull failed")
+        info["mse"] = float(np.mean((out[1] - target) ** 2))
+        info["eval_s"] = time.perf_counter() - t
+        info["final_members"] = list(master.routing.members)
+        info["final_epoch"] = master.routing.epoch
+        # the master goes first, so no stopping shard reads as a death;
+        # then each surviving shard answers its launches
+        if ops is not None:
+            ops.close()
+        master.close()
+        ops = master = None
+        t = time.perf_counter()
+        shards = {}
+        for i, (p, pipe) in enumerate(procs):
+            if p.is_alive():
+                pipe.send("stop")
+        for i, (p, pipe) in enumerate(procs):
+            if p.is_alive():
+                shards[i] = pipe.recv()
+        info["stop_s"] = time.perf_counter() - t
+        info["shards"] = shards
+        for i, rep in shards.items():
+            if rep["launches"]["gather_rows"] == 0 or not rep["device_hot"]:
+                raise AssertionError(f"elastic: shard {i} launched no "
+                                     f"gather_rows on the card: {rep}")
+        return info
+    finally:
+        if ops is not None:
+            ops.close()
+        if master is not None:
+            master.close()
+        elastic_stop(procs)
+
+
+def elastic_stop(procs) -> None:
+    """End every shard process of a run: a few seconds to exit after its
+    reply (a snapshot in flight holds the store's close), then SIGKILL."""
+    for p, _ in procs:
+        p.join(timeout=3)
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=10)
+
+
+def cluster_elastic(np, seed, root, procs) -> dict:
+    """(b): the drill with the SIGKILL and the unperturbed run of the same
+    schedule, side by side (each its own shards ``procs[run]``, master
+    and workers); the final MSEs within ELASTIC_PARITY of each other
+    (relative)."""
+    runs, errors = {}, []
+
+    def run(name, kill):
+        t = time.perf_counter()
+        try:
+            runs[name] = elastic_run(np, seed, os.path.join(root, name),
+                                     kill, procs[name])
+            runs[name]["run_s"] = time.perf_counter() - t
+        except BaseException as e:  # raised below, after the join
+            errors.append((name, repr(e)))
+
+    threads = [threading.Thread(target=run, args=a) for a in ELASTIC_RUNS]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise AssertionError(f"elastic: {errors}")
+    m, b = runs["killed"]["mse"], runs["unperturbed"]["mse"]
+    if not abs(m - b) <= ELASTIC_PARITY * b:
+        raise AssertionError(f"elastic: final MSE {m} against the "
+                             f"unperturbed run's {b}")
+    b3 = sum(r["launches"]["gather_rows"]
+             for r in runs["killed"]["shards"].values())
+    return {"shards": ELASTIC_SHARDS, "workers": ELASTIC_WORKERS,
+            "vocab": ELASTIC_VOCAB, "hot_rows": ELASTIC_HOT_ROWS,
+            "passes": ELASTIC_PASSES, "runs": runs,
+            "mse_gap_relative": abs(m - b) / b,
+            "launches": {"gather_rows": b3}}
+
+
+def phase_cluster(np, torch, sk, seed) -> dict:
+    """Multi-host training on the card: (a) the two-level exchange, FM at
+    Criteo width over 2 hosts x 2 gloo ranks against the one-device
+    trainer (and (a2) one rank a host, (a3) the q8_ef wire, (a4) a
+    straggler named by ``/stragglerz``); (b) the elastic master over
+    tiered PS shards on the card through a SIGKILL."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    procs = {}
+    try:
+        # (b)'s shard processes start first: they take the card and build
+        # their stores while (a) runs
+        for name, _ in ELASTIC_RUNS:
+            procs[name] = elastic_spawn(os.path.join(root, "elastic", name),
+                                        seed)
+        t = time.perf_counter()
+        os.makedirs(os.path.join(root, "hier"))
+        hier = cluster_hier(np, torch, sk, seed, os.path.join(root, "hier"))
+        hier["part_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        elastic = cluster_elastic(np, seed, os.path.join(root, "elastic"),
+                                  procs)
+        elastic["part_s"] = time.perf_counter() - t
+        launches = dict(hier["launches"])
+        launches["gather_rows"] = elastic["launches"]["gather_rows"]
+        return {"phase": "cluster", "hier": hier, "elastic": elastic,
+                "launches": launches}
+    finally:
+        for ps in procs.values():
+            elastic_stop(ps)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 # -- phase: serve_deep --------------------------------------------------------
 
 DEEP_KINDS = ("widedeep", "deepfm", "dcn")
@@ -6798,6 +7695,14 @@ def call_ms(torch, fn, reps: int = 200, warmup: int = 10) -> float:
     return a.elapsed_time(b) / reps
 
 
+def plain_once_ms(torch, fn) -> float:
+    """One eager call of a plain version between CUDA events, host
+    included, without a warm-up: ``plain_ms`` is reported beside the
+    kernel's time and held against nothing, so one call does (the
+    slowest plain versions take seconds a call)."""
+    return call_ms(torch, fn, reps=1, warmup=0)
+
+
 def kernel_row(sk, name, **fields) -> dict:
     kd = sk.KERNELS[name]
     return {"name": name, "route": "cuda",
@@ -7030,9 +7935,11 @@ def dp_timing(np, torch, sk, qz, seed, launches, kern):
                 "ms": graph_ms(torch, lambda: sk.merge_apply(
                     table, accum, uniq, rows_d, inv, lr=LR, eps=EPS,
                     denom=float(DP_WORLD))),
-                "plain_ms": call_ms(torch, lambda: sk.merge_apply_plain(
-                    table, accum, uniq, rows_d, inv, LR, EPS,
-                    float(DP_WORLD)), reps=3),
+                "plain_ms": plain_once_ms(torch, lambda:
+                                          sk.merge_apply_plain(
+                                              table, accum, uniq, rows_d,
+                                              inv, LR, EPS,
+                                              float(DP_WORLD))),
                 "call_ms": call_ms(torch, lambda: sk.merge_apply(
                     table, accum, uniq, rows_d, inv, lr=LR, eps=EPS,
                     denom=float(DP_WORLD))),
@@ -7163,9 +8070,9 @@ def lookup_timing(np, torch, sk, seed) -> list:
     deduped rows, at d = 32 (v) and d = 1 (w); and into the whole table at
     d = 312 (FFM's v in the cli phase, 1.3 GB out: fewer calls a graph).
     Each shape's kernel is first held bit for bit to its plain version.
-    ``ms`` and ``library_ms`` are medians of LOOKUP_REPEATS graph replays,
-    ``plain_ms`` the median of as many timed eager runs; the ``*_min_max``
-    keys give each one's spread."""
+    ``ms`` and ``library_ms`` are medians of LOOKUP_REPEATS graph replays
+    (the ``*_min_max`` keys give each one's spread), ``plain_ms`` one
+    timed eager run."""
     rng = np.random.default_rng(seed + 13)
     ids = torch.from_numpy(criteo_fids(np, rng, TRAIN_BATCH).reshape(-1)) \
         .cuda()
@@ -7191,9 +8098,8 @@ def lookup_timing(np, torch, sk, seed) -> list:
             reps = 5 if big else 100
             ms = graph_times(torch, lambda: sk.merge_rows(grad, seg, nseg),
                              reps=reps, repeats=LOOKUP_REPEATS)
-            plain = [call_ms(torch, lambda: sk.merge_rows_plain(
-                grad, seg, nseg), reps=1, warmup=1)
-                for _ in range(LOOKUP_REPEATS)]
+            plain = plain_once_ms(torch, lambda: sk.merge_rows_plain(
+                grad, seg, nseg))
             lib = graph_times(torch, lambda: torch.zeros(
                 (nseg, d), device="cuda").index_add_(0, seg64, grad),
                 reps=reps, repeats=LOOKUP_REPEATS)
@@ -7204,8 +8110,7 @@ def lookup_timing(np, torch, sk, seed) -> list:
                 "bit_exact_vs_plain": True,
                 "ms": statistics.median(ms),
                 "ms_min_max": [min(ms), max(ms)],
-                "plain_ms": statistics.median(plain),
-                "plain_ms_min_max": [min(plain), max(plain)],
+                "plain_ms": plain,
                 "library_ms": statistics.median(lib),
                 "library_ms_min_max": [min(lib), max(lib)],
                 "library_call": "torch.zeros(...).index_add_, the backward "
@@ -7259,8 +8164,8 @@ def check_merge_rows_zoo(np, torch, sk, seed) -> dict:
 def zoo_merge_timing(np, torch, sk, seed) -> list:
     """merge_rows at the zoo's shapes beside ``index_add_`` into zeros:
     ``ms`` and ``library_ms`` medians of LOOKUP_REPEATS graph replays,
-    ``plain_ms`` of as many eager runs; the bound is the bytes (rows and
-    ids read once, the output written once)."""
+    ``plain_ms`` one eager run; the bound is the bytes (rows and ids read
+    once, the output written once)."""
     out = []
     for what, rows, seg, nseg in zoo_merge_inputs(np, torch, seed):
         m, d = rows.shape
@@ -7268,8 +8173,8 @@ def zoo_merge_timing(np, torch, sk, seed) -> list:
         reps = 10 if m > (1 << 20) else 100
         ms = graph_times(torch, lambda: sk.merge_rows(rows, seg, nseg),
                          reps=reps, repeats=LOOKUP_REPEATS)
-        plain = [call_ms(torch, lambda: sk.merge_rows_plain(rows, seg, nseg),
-                         reps=1, warmup=1) for _ in range(LOOKUP_REPEATS)]
+        plain = plain_once_ms(torch, lambda: sk.merge_rows_plain(rows, seg,
+                                                                 nseg))
         lib = graph_times(torch, lambda: torch.zeros(
             (nseg, d), device="cuda").index_add_(0, seg64, rows),
             reps=reps, repeats=LOOKUP_REPEATS)
@@ -7279,8 +8184,7 @@ def zoo_merge_timing(np, torch, sk, seed) -> list:
             "workspace_bytes": sk.load("merge_rows")
             .merge_rows_workspace_bytes(m, nseg, d),
             "ms": statistics.median(ms), "ms_min_max": [min(ms), max(ms)],
-            "plain_ms": statistics.median(plain),
-            "plain_ms_min_max": [min(plain), max(plain)],
+            "plain_ms": plain,
             "library_ms": statistics.median(lib),
             "library_ms_min_max": [min(lib), max(lib)],
             "library_call": "torch.zeros(...).index_add_",
@@ -7335,9 +8239,8 @@ def quality_merge_timing(np, torch, sk, seed) -> list:
     idx64 = idx.to(torch.int64)
     ms = graph_times(torch, lambda: sk.merge_rows(rows, idx, QUALITY_BINS),
                      repeats=LOOKUP_REPEATS)
-    plain = [call_ms(torch, lambda: sk.merge_rows_plain(rows, idx,
-                                                        QUALITY_BINS),
-                     reps=1, warmup=1) for _ in range(LOOKUP_REPEATS)]
+    plain = plain_once_ms(torch, lambda: sk.merge_rows_plain(
+        rows, idx, QUALITY_BINS))
     lib = graph_times(torch, lambda: torch.zeros(
         (QUALITY_BINS, d), device="cuda").index_add_(0, idx64, rows),
         repeats=LOOKUP_REPEATS)
@@ -7347,8 +8250,7 @@ def quality_merge_timing(np, torch, sk, seed) -> list:
         "workspace_bytes": sk.load("merge_rows")
         .merge_rows_workspace_bytes(m, QUALITY_BINS, d),
         "ms": statistics.median(ms), "ms_min_max": [min(ms), max(ms)],
-        "plain_ms": statistics.median(plain),
-        "plain_ms_min_max": [min(plain), max(plain)],
+        "plain_ms": plain,
         "library_ms": statistics.median(lib),
         "library_ms_min_max": [min(lib), max(lib)],
         "library_call": "torch.zeros(...).index_add_",
@@ -7564,6 +8466,8 @@ def main(argv=None) -> int:
         emit(tiered_info | {"nvidia_smi": smi})
     finally:
         shutil.rmtree(online_root, ignore_errors=True)
+    cluster_info = timed(phase_cluster, np, torch, sk, args.seed)
+    emit(cluster_info | {"nvidia_smi": smi})
     serve_deep_info = timed(phase_serve_deep, np, torch, sk, args.seed,
                             requests)
     emit(serve_deep_info | {"nvidia_smi": smi})
@@ -7641,6 +8545,8 @@ def main(argv=None) -> int:
         # in the online phase (the server's cache, the online steps'
         # lookups' backward), and B3, B4 and B5 in the tiered phase (the
         # store's pair, the fast path's apply, the online shard's steps),
+        # and B2, B4 and B5 (rank 0 of host 0 of the two-level exchange)
+        # and B3 (the surviving tiered PS shards) in the cluster phase,
         # counted into each row's launches
         deep = {"launches_serve_deep":
                 serve_deep_info["launches"].get(name, 0),
@@ -7651,7 +8557,8 @@ def main(argv=None) -> int:
                 "launches_cli": cli_info["launches"].get(name, 0),
                 "launches_zoo": zoo_info["launches"].get(name, 0),
                 "launches_online": online_info["launches"].get(name, 0),
-                "launches_tiered": tiered_info["launches"].get(name, 0)}
+                "launches_tiered": tiered_info["launches"].get(name, 0),
+                "launches_cluster": cluster_info["launches"].get(name, 0)}
         row.update(deep, launches=row["launches"] + sum(deep.values()))
     emit({"timing_s": time.perf_counter() - t_timing})
     emit({"kernels": rows})

@@ -1,18 +1,105 @@
-"""Host-side liveness — the port's copy of the JAX package's control plane
-minus ``initialize_multihost`` (which joins the JAX distributed runtime).
+"""Multi-host bootstrap + liveness — the control plane.
 
-``HeartbeatMonitor`` is reference-equivalent liveness bookkeeping for the
-host-side async components (the AsyncParamServer workers, data-feeder
-threads): ``beat(worker)``, stale at 10s, dead at 20s (master.h:202-262),
-and :func:`wire_heartbeat` routes its death/recovery events into a
-parameter server's unroute/readmit.
+The reference runs its own control plane: a Master process assigns node ids,
+broadcasts the topology, runs a 5s-period heartbeat with exponential backoff
+(10s stale -> re-ping, 20s -> declared dead and unrouted, master.h:202-262),
+and coordinates FIN shutdown barriers.  For the port's synchronous
+data-parallel ranks that role is played by ``torch.distributed``:
+:func:`initialize_multihost` joins every process to the rendezvous (the
+Master's handshake, master.h:66-120), the world's ranks replace the
+topology broadcast, and a rank that dies fails the collectives of the
+others rather than being silently unrouted, which is the correct
+semantic for synchronous SPMD.
+
+``HeartbeatMonitor`` remains for the host-side async components (the
+AsyncParamServer workers, data-feeder threads): reference-equivalent
+liveness bookkeeping with backoff and a dead-callback, and
+:func:`wire_heartbeat` routes its death/recovery events into a parameter
+server's unroute/readmit.
 """
 
 from __future__ import annotations
 
+import datetime
+import os
 import threading
 import time
 from typing import Callable, Dict, Optional
+
+#: the launcher's environment (``torch.distributed.run`` sets all four):
+#: the counterpart of the cluster auto-detection of JAX's initialize
+LAUNCH_ENV = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
+
+
+def initialize_multihost(
+    coordinator_address: Optional[str] = None,
+    num_processes: Optional[int] = None,
+    process_id: Optional[int] = None,
+    backend: Optional[str] = None,
+    timeout_s: float = 300.0,
+) -> None:
+    """Join the cluster's ``torch.distributed`` world: the default process
+    group, initialised from the arguments, each one missing taken from the
+    launcher's environment (:data:`LAUNCH_ENV`: ``coordinator_address`` is
+    ``MASTER_ADDR:MASTER_PORT``, ``num_processes`` ``WORLD_SIZE``,
+    ``process_id`` ``RANK``).  ``backend`` defaults to ``"nccl"`` where
+    CUDA is available (one card a process) and ``"gloo"`` elsewhere.
+
+    The JAX function's contract: ``num_processes <= 1`` is a no-op, and so
+    is the bare call (no arguments) when the environment names no cluster
+    or the world is already joined.  Anything else that fails to join —
+    a coordinator that does not answer within ``timeout_s``, a missing
+    rank, a second join with arguments — raises: silent per-host forks
+    would train divergent models and clobber checkpoints."""
+    import torch
+    import torch.distributed as dist
+
+    if num_processes is not None and num_processes <= 1:
+        return
+    bare = (coordinator_address is None and num_processes is None
+            and process_id is None)
+    if dist.is_initialized():
+        if bare:
+            return  # the world is already up: no-op
+        raise RuntimeError("initialize_multihost: torch.distributed is "
+                           "already initialised")
+    env = os.environ
+    if bare and not all(env.get(k) for k in LAUNCH_ENV):
+        return  # no cluster configured: single host
+    # the launcher's coordinator is joined through its env:// rendezvous
+    # (under torch.distributed.run the agent already serves the store on
+    # MASTER_PORT, and env:// connects to it rather than binding it)
+    init_method = None
+    if coordinator_address is None and env.get("MASTER_ADDR") \
+            and env.get("MASTER_PORT"):
+        coordinator_address = f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}"
+        init_method = "env://"
+    if num_processes is None and env.get("WORLD_SIZE"):
+        num_processes = int(env["WORLD_SIZE"])
+    if process_id is None and env.get("RANK"):
+        process_id = int(env["RANK"])
+    missing = [name for name, v in (
+        ("coordinator_address", coordinator_address),
+        ("num_processes", num_processes), ("process_id", process_id))
+        if v is None]
+    if missing:
+        raise ValueError(f"initialize_multihost: {', '.join(missing)} given "
+                         "neither as an argument nor by the launcher's "
+                         f"environment ({', '.join(LAUNCH_ENV)})")
+    if num_processes <= 1:
+        return
+    if not 0 <= process_id < num_processes:
+        raise ValueError(f"process_id {process_id} is not a rank of a "
+                         f"{num_processes}-process world")
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if init_method is None:
+        init_method = f"tcp://{coordinator_address}"
+    dist.init_process_group(
+        backend, init_method=init_method,
+        world_size=int(num_processes), rank=int(process_id),
+        timeout=datetime.timedelta(seconds=timeout_s))
+
 
 HEARTBEAT_PERIOD_S = 5.0   # master.h:202 (5 s period)
 STALE_AFTER_S = 10.0       # master.h: 10 s -> immediate re-ping
@@ -104,13 +191,30 @@ class HeartbeatMonitor:
 
     def beat(self, worker: str) -> None:
         with self._lock:
-            joined = worker not in self._last
-            self._last[worker] = self._clock()
+            now = self._clock()
+            prev = self._last.get(worker)
+            joined = prev is None
+            self._last[worker] = now
             if joined:
                 # first-ever beat: a join event (clean departures forget()
                 # the worker, so a later return is a fresh join again)
                 self._events.append(("join", worker))
-            if worker in self._stale:
+            if (not joined and worker not in self._dead
+                    and now - prev >= self.dead_after_s):
+                # silent past the dead line and back before a sweep
+                # declared it (peek() already reads it dead): the death
+                # the sweep would have declared, then the return below.
+                # A fresh incarnation that lost every routing decision
+                # must get its recover (the master's dead-set resync)
+                # whichever of the sweep and its first beat comes first
+                self._stale.discard(worker)
+                self._events = [
+                    e for e in self._events
+                    if not (e[0] == "stale" and e[1] == worker)
+                ]
+                self._dead.add(worker)
+                self._events.append(("dead", worker))
+            elif worker in self._stale:
                 # returned before the dead line: clear the degraded
                 # stage, drop any queued-but-undispatched stale event,
                 # and tell listeners the degraded set SHRANK — a health

@@ -30,7 +30,10 @@ N-1 reduce-scatter steps and N-1 all-gather steps around the ring.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import logging
+import os
+import time
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -413,6 +416,181 @@ def sparse_rs_bytes(n: int, bucket_cap: int, shard_cap: int, dim: int,
     return int((n - 1) * (int(bucket_cap) + int(shard_cap)) * per_entry)
 
 
+# -- the two-fabric cost model (pure Python, the JAX package's) ---------------
+#
+# A multi-host deployment has two fabrics: the fast link inside a host (the
+# host's own process group, which the collectives above run on; ``ici`` in
+# the names, the JAX package's word for it) and the slower network between
+# hosts (the socket wire of ``dist/hier.py``; ``dcn`` in the names).  A flat
+# collective spanning both runs at the slowest link's speed: every ring or
+# permute schedule above moves one segment a hop, so the hop that crosses
+# hosts gates the whole exchange.  The hierarchical exchange aggregates
+# where the data crosses the slow link (the in-network-aggregation
+# argument, arXiv:2205.05243, on SparCML-style sparse payloads): ranks
+# merge inside the host first, then exactly ONE merged (uids, rows)
+# payload per host rides the network, so cross-host bytes stay
+# O(touched-per-host) whatever the number of local ranks.  The pick
+# between the flat algorithms and the hierarchy is therefore a TIME
+# comparison over measured link bandwidths, not a byte comparison on one
+# fabric.
+
+#: fallback link speeds (bytes/s) when neither the env override nor a probe
+#: supplied a measurement: the JAX package's defaults, kept so both packages
+#: pick alike unprobed.  They are no claim about any machine the port runs
+#: on: measure with :func:`measure_ici_bw` and ``HierExchangeClient.probe_bw``
+DEFAULT_ICI_BPS = 4.0e9
+DEFAULT_DCN_BPS = 2.5e8
+
+#: env override: ``LIGHTCTR_LINK_BW="<ici_bytes_per_s>:<dcn_bytes_per_s>"``
+LINK_BW_ENV = "LIGHTCTR_LINK_BW"
+
+
+class LinkBandwidth(NamedTuple):
+    """Measured (or configured) fabric speeds the cost model prices with.
+    ``source``: "env" | "probe" | "default" — artifacts record where the
+    numbers came from, so a defaulted model can't masquerade as measured."""
+
+    ici_bps: float
+    dcn_bps: float
+    source: str = "default"
+
+
+_link_bw_cache: Optional[LinkBandwidth] = None
+
+
+def link_bandwidth(probe_ici=None, probe_dcn=None,
+                   refresh: bool = False) -> LinkBandwidth:
+    """The process's link-bandwidth estimate, resolved once and cached
+    (re-probing every step would make the pick flap with probe noise;
+    ``refresh=True`` re-resolves).  Priority: :data:`LINK_BW_ENV`
+    override, then the probe callables (zero-arg -> bytes/s; e.g.
+    :func:`measure_ici_bw` / ``HierExchangeClient.probe_bw``), then the
+    defaults.  A probe that raises is logged and its link takes the
+    default (``source`` stays "probe" if the other probe answered, so a
+    caller that needs both measured checks each figure).  A cached
+    DEFAULT resolution never shadows a later call that brings probes."""
+    global _link_bw_cache
+    if _link_bw_cache is not None and not refresh:
+        if _link_bw_cache.source != "default" or (
+                probe_ici is None and probe_dcn is None):
+            return _link_bw_cache
+    env = os.environ.get(LINK_BW_ENV, "").strip()
+    if env:
+        ici_s, _, dcn_s = env.partition(":")
+        bw = LinkBandwidth(float(ici_s), float(dcn_s or ici_s), "env")
+    else:
+        ici = dcn = None
+        try:
+            ici = float(probe_ici()) if probe_ici is not None else None
+        except Exception:  # a failed probe degrades to the default, loudly
+            logging.getLogger(__name__).warning(
+                "ICI bandwidth probe failed; using default", exc_info=True)
+        try:
+            dcn = float(probe_dcn()) if probe_dcn is not None else None
+        except Exception:
+            logging.getLogger(__name__).warning(
+                "DCN bandwidth probe failed; using default", exc_info=True)
+        source = "probe" if (ici is not None or dcn is not None) else "default"
+        bw = LinkBandwidth(ici or DEFAULT_ICI_BPS, dcn or DEFAULT_DCN_BPS,
+                           source)
+    if bw.ici_bps <= 0 or bw.dcn_bps <= 0:
+        raise ValueError(f"link bandwidths must be positive, got {bw}")
+    _link_bw_cache = bw
+    return bw
+
+
+def measure_ici_bw(mesh, axis: str = "data", payload_bytes: int = 1 << 22,
+                   reps: int = 3) -> float:
+    """Startup probe of the host's own link: the median wall time of one
+    tiled :func:`all_gather` of a ``payload_bytes`` float32 vector over
+    the mesh's process group (after one warm-up call) -> bytes each rank
+    transmitted per second ((n-1)/n of the gathered array leaves through
+    this rank).  Every rank of the group must call it.  The vector lives
+    on the mesh's device; on a gloo group a CUDA vector is staged through
+    host memory, so ranks that share one card measure gloo through host
+    memory, not a device link."""
+    mesh.require_axis(axis, "measure_ici_bw")
+    n = mesh.size
+    if n < 2:
+        return DEFAULT_ICI_BPS
+    per = max(1, payload_bytes // 4 // n)
+    x = torch.zeros(per, dtype=torch.float32, device=mesh.device)
+
+    def once():
+        out = all_gather(mesh, x)
+        if out.is_cuda:
+            torch.cuda.synchronize(out.device)
+
+    once()  # warm-up: the group's first collective sets up its buffers
+    ts = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        once()
+        ts.append(time.perf_counter() - t0)
+    moved = (n - 1) * per * 4  # bytes through one member's outgoing link
+    return moved / max(float(np.median(ts)), 1e-9)
+
+
+def expected_union(k: int, vocab: int, members: int) -> int:
+    """Expected unique-id union of ``members`` independent K-id streams
+    over ``vocab`` rows (the same uniform-id estimator
+    :func:`rs_default_caps` sizes its shards with)."""
+    density = min(max(int(k), 1) / float(max(int(vocab), 1)), 1.0)
+    u = float(vocab) * (1.0 - (1.0 - density) ** max(int(members), 1))
+    return max(1, min(int(u) + 1, int(vocab), int(members) * int(k)))
+
+
+def hier_wire_bytes(k_out: int, k_in: int, dim: int,
+                    wire_bits: Optional[int] = None,
+                    include_ids: bool = True) -> int:
+    """Bytes ONE HOST moves over the network per hierarchical exchange of
+    one table: push its ``k_out`` locally-merged entries + pull the
+    ``k_in``-entry cross-host union, each entry an id plus ``dim`` values
+    (``wire_bits`` None = the exact fp32 codec, 16 = the fp16 codec,
+    5..8 = 1-byte codes — the client's ``q8_ef`` frame, <= 4 = nibble
+    codes at two per byte — its ``q4_ef`` frame).  Flat in local rank
+    count by construction: the ranks merged before the wire."""
+    idb = 4 if include_ids else 0
+    per = idb + _wire_row_bytes(dim, wire_bits)
+    return int((int(k_out) + int(k_in)) * per)
+
+
+def hier_exchange_bytes(local_n: int, n_hosts: int, k_padded: int,
+                        vocab: int, dim: int,
+                        sparse_bits: Optional[int] = None,
+                        wire_bits: Optional[int] = None,
+                        slack: float = RS_SLACK) -> Tuple[str, int, int]:
+    """Static-shape byte model of the two-level exchange ->
+    ``(local_algo, local_bytes, wire_bytes)``: the intra-host merge rides
+    the cheaper of the two sparse collectives over the ``local_n``-rank
+    host group (``local_algo``), then one merged payload per host (the
+    expected union of the local streams) is pushed and the expected
+    cross-host union pulled over the network.  ``k_padded`` is the
+    PER-RANK padded id count, as everywhere in this module."""
+    ag_b = sparse_exchange_bytes(local_n, k_padded, dim, sparse_bits)
+    bucket, shard = rs_default_caps(local_n, k_padded, vocab, slack)
+    rs_b = sparse_rs_bytes(local_n, bucket, shard, dim, sparse_bits)
+    local_algo, local_b = (("sparse", ag_b) if ag_b <= rs_b
+                           else ("sparse_rs", rs_b))
+    if local_n <= 1:
+        local_algo, local_b = "none", 0
+    k_out = expected_union(k_padded, vocab, local_n)
+    k_in = expected_union(k_padded, vocab, local_n * n_hosts)
+    return local_algo, local_b, hier_wire_bytes(k_out, k_in, dim, wire_bits)
+
+
+#: hysteresis the HIERARCHICAL pick must clear against the best flat
+#: algorithm's modeled time: the wire stage pays a push+pull round trip,
+#: host staging and the rendezvous barrier that a bytes/bandwidth model
+#: does not see — a near-tie stays on the flat path
+HIER_DCN_MARGIN = 0.9
+
+#: switch-away hysteresis when a previous pick is supplied: the challenger
+#: must beat the incumbent's modeled time by this factor before the pick
+#: moves (bandwidth re-probes jitter a few percent run to run)
+PICK_FLAP_MARGIN = 0.8
+
+
 def pick_exchange_algo(
     n: int,
     k_padded: int,
@@ -424,27 +602,87 @@ def pick_exchange_algo(
     slack: float = RS_SLACK,
     rs_margin: float = RS_DENSE_MARGIN,
     local_n: Optional[int] = None,
+    bw: Optional[LinkBandwidth] = None,
+    wire_bits: Optional[int] = None,
+    prev: Optional[str] = None,
+    hier_margin: float = HIER_DCN_MARGIN,
+    stripes: int = 1,
+    overlap_push: bool = False,
 ) -> Tuple[str, int]:
-    """The single-fabric exchange pick -> ``(algo, bytes)``: ``"dense" |
+    """The exchange pick -> ``(algo, bytes)``.
+
+    SINGLE-FABRIC form (``local_n`` None or >= ``n``): ``"dense" |
     "sparse" | "sparse_rs"`` from static shapes.  The cheaper sparse
     variant must beat ``margin`` times the dense ring, the reduce-scatter
-    variant additionally ``rs_margin`` times it.  The two-fabric form
-    (``local_n`` < ``n``, the hierarchical exchange) is not ported."""
-    if local_n is not None and local_n < n:
-        raise ValueError("pick_exchange_algo: the two-fabric form (local_n < "
-                         "n, the hierarchical exchange) not yet ported to "
-                         "lightctr_tpu_torch (see ROADMAP.md §A)")
+    variant additionally ``rs_margin`` times it; otherwise the dense path
+    wins.
+
+    TWO-FABRIC form (``local_n`` < ``n``: ``n / local_n`` hosts of
+    ``local_n`` ranks): a bandwidth-aware cost model.  Of each member's
+    ``B`` flat bytes the off-host share ``(n - local_n)/(n - 1)`` crosses
+    a host boundary, and the host's ``local_n`` members share one uplink,
+    so a flat algorithm takes ``local_n * B * cross / dcn_bps + B * (1 -
+    cross) / ici_bps``.  ``"hier"`` takes ``local_bytes / ici_bps +
+    wire_bytes / dcn_bps`` (:func:`hier_exchange_bytes`).  ``bw``
+    defaults to :func:`link_bandwidth`.  ``hier`` must beat the best flat
+    candidate by ``hier_margin``, and with ``prev`` the incumbent keeps
+    the pick unless the challenger wins by :data:`PICK_FLAP_MARGIN`.  For
+    ``hier`` the returned bytes are the wire bytes per host; ``wire_bits``
+    prices the wire codec (:func:`hier_wire_bytes`).  ``stripes``
+    reduce shards multiply the wire rate; ``overlap_push=True`` prices a
+    push hidden under the next step's local merge:
+    ``max(local_t, push_t) + pull_t``."""
     dense_b = dense_ring_bytes(vocab, dim, n, dense_bits)
     ag_b = sparse_exchange_bytes(n, k_padded, dim, sparse_bits)
     bucket, shard = rs_default_caps(n, k_padded, vocab, slack)
     rs_b = sparse_rs_bytes(n, bucket, shard, dim, sparse_bits)
-    algo, sb = ("sparse", ag_b) if ag_b <= rs_b else ("sparse_rs", rs_b)
-    eff = margin * (rs_margin if algo == "sparse_rs" else 1.0)
-    if sb <= eff * dense_b:
-        return algo, sb
-    if algo == "sparse_rs" and ag_b <= margin * dense_b:
-        return "sparse", ag_b
-    return "dense", dense_b
+
+    def flat_pick() -> Tuple[str, int]:
+        algo, sb = ("sparse", ag_b) if ag_b <= rs_b else ("sparse_rs", rs_b)
+        eff = margin * (rs_margin if algo == "sparse_rs" else 1.0)
+        if sb <= eff * dense_b:
+            return algo, sb
+        if algo == "sparse_rs" and ag_b <= margin * dense_b:
+            return "sparse", ag_b
+        return "dense", dense_b
+
+    if local_n is None or local_n >= n:
+        return flat_pick()
+    if n % local_n:
+        raise ValueError(
+            f"world {n} is not a whole number of {local_n}-replica hosts")
+    if bw is None:
+        bw = link_bandwidth()
+    n_hosts = n // local_n
+    _, hier_local_b, hier_wire_b = hier_exchange_bytes(
+        local_n, n_hosts, k_padded, vocab, dim, sparse_bits=sparse_bits,
+        wire_bits=wire_bits, slack=slack)
+    flat_algo, flat_b = flat_pick()
+    cross = (n - local_n) / (n - 1)  # off-host share of per-peer traffic
+
+    def flat_time(b: int) -> float:
+        return (local_n * b * cross / bw.dcn_bps
+                + b * (1.0 - cross) / bw.ici_bps)
+
+    dcn_eff = bw.dcn_bps * max(1, int(stripes))
+    local_t = hier_local_b / bw.ici_bps
+    if overlap_push:
+        k_out = expected_union(k_padded, vocab, local_n)
+        k_in = expected_union(k_padded, vocab, local_n * n_hosts)
+        push_t = hier_wire_bytes(k_out, 0, dim, wire_bits) / dcn_eff
+        pull_t = hier_wire_bytes(0, k_in, dim, wire_bits) / dcn_eff
+        hier_t = max(local_t, push_t) + pull_t
+    else:
+        hier_t = local_t + hier_wire_b / dcn_eff
+    times = {flat_algo: flat_time(flat_b), "hier": hier_t}
+    bytes_of = {flat_algo: flat_b, "hier": hier_wire_b}
+    best = min(times, key=times.get)
+    if best == "hier" and times["hier"] > hier_margin * times[flat_algo]:
+        best = flat_algo  # near-tie: stay on the flat path
+    if prev is not None and prev in times and best != prev:
+        if times[best] > PICK_FLAP_MARGIN * times[prev]:
+            best = prev  # incumbent keeps a contested pick
+    return best, bytes_of[best]
 
 
 # -- the allgather sparse exchange -------------------------------------------

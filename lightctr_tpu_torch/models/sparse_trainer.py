@@ -72,14 +72,41 @@ reduce-scatter and its fallback) carries the model-quality sketch when
 mesh, summed over the ranks.  ``fit`` takes a compiled shard cache or its
 directory.
 
-Not yet ported: ``param_shardings`` and ``hier_exchange``; giving one
-raises ``ValueError``.
+MULTI-HOST replicated data parallelism (``hier_exchange`` given — a
+:class:`~lightctr_tpu_torch.dist.hier.HierExchangeClient`) runs the JAX
+trainer's two-level exchange.  A host is one ``torch.distributed`` group
+of ``local_n`` ranks (the mesh), each its own process; every rank of
+every host is built with the same constructor call and handed its host's
+batch:
+
+  - program A, on every rank: per-rank grads, then the LOCAL merge over
+    the host's group — a SUM (the global denominator comes after the
+    wire), per id stream on the cheaper of the allgather (``dedup_ids``
+    on the gathered ids, ``merge_rows``) and the reduce-scatter
+    (``_hier_local_algo``); the dense leaves and the loss are summed in
+    one flat all-reduce.  Local reduce-scatter capacities are checked on
+    the host batch first and a batch that would overflow runs the
+    allgather instead;
+  - hop B, on local rank 0 only: one merged payload per host is pushed
+    to the reduce shards and the cross-host union pulled (tables sharing
+    an id stream ride one grouped frame), then broadcast to the host's
+    other ranks, sizes first, then the payload.  A failed hop (a shard
+    that will not answer, a pull withheld past ``pull_timeout_s``) is
+    broadcast too, and every rank raises: none carries on with a stale
+    union;
+  - program C, on every rank: the global mean applied — the tables by
+    ``merge_apply``'s apply mode on the pre-merged rows, the dense leaves
+    by the optimizer.  Identical inputs everywhere, so every rank of
+    every host ends identical.
+
+Not yet ported: ``param_shardings``; giving it raises ``ValueError``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import time
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -92,13 +119,33 @@ from lightctr_tpu_torch.models.ctr_trainer import (
     _health_pack,
     _host,
     global_norm,
-    not_yet_ported,
     sum_squares,
 )
 from lightctr_tpu_torch.obs import health as health_mod
 from lightctr_tpu_torch.ops import sparse_kernels
 from lightctr_tpu_torch.optim.updaters import apply_updates, tree_map
 from lightctr_tpu_torch.utils.profiling import annotate
+
+
+def _hier_local_algo(n: int, kpad: int, vocab: int, dims,
+                     force_ag: bool = False):
+    """The ONE local ag-vs-rs comparison of the hierarchical exchange's
+    in-host merge -> ``(algo, rs_caps, per_table_bytes)``.  Both the
+    step and its host-side plan mirror call this, so the capacities the
+    step uses and the ones ``_rs_batch_fits`` checks cannot drift.  The
+    dense ring is not a candidate: the wire needs a sparse union.  Ids
+    are priced once per stream (``include_ids`` on the first table
+    only)."""
+    ag = [collectives.sparse_exchange_bytes(n, kpad, d, include_ids=(i == 0))
+          for i, d in enumerate(dims)]
+    caps = collectives.rs_default_caps(n, kpad, vocab)
+    rs = [collectives.sparse_rs_bytes(n, caps[0], caps[1], d,
+                                      include_ids=(i == 0))
+          for i, d in enumerate(dims)]
+    if force_ag or sum(ag) <= sum(rs):
+        return "sparse", None, ag
+    return "sparse_rs", caps, rs
+
 
 #: every ``trainer_*`` exchange series this module emits (the JAX module's
 #: EXCHANGE_SERIES, as far as the ported branches emit them)
@@ -108,6 +155,19 @@ EXCHANGE_SERIES = (
     "trainer_sparse_exchange_bytes_total",
     "trainer_sparse_rs_bytes_total",
     "trainer_dense_ring_bytes_total",
+    "trainer_hier_wire_bytes_total",     # hierarchical: the wire hop, a host
+    "trainer_hier_local_bytes_total",    # hierarchical: the in-host merge
+    "trainer_hier_wire_packed_bytes_total",   # measured socket bytes/step
+    "trainer_hier_wire_fp32_bytes_total",     # fp32 equiv of same payload
+    "trainer_hier_wire_id_saved_bytes_total",  # shared-stream id savings
+    "trainer_hier_wire_ef_mass",         # gauge: member EF residual mass
+    # the streaming rendezvous: chunk fill is rows/capacity, the overlap
+    # ratio 1 - blocked/push
+    "trainer_hier_chunk_pushes_total",    # chunk frames dispatched
+    "trainer_hier_chunk_rows_total",      # rows those chunks carried
+    "trainer_hier_chunk_capacity_rows_total",  # rows the windows could hold
+    "trainer_hier_overlap_push_seconds_total",   # dispatch->commit wall
+    "trainer_hier_overlap_blocked_seconds_total",  # of which commit blocked
     "trainer_rs_fallback_total",
     "trainer_rs_overflow_total",
     # tiered device fast path (TieredDeviceEmbedding)
@@ -119,7 +179,8 @@ EXCHANGE_SERIES = (
 
 #: the byte counter of each sparse policy (the rest are the dense ring's)
 _POLICY_BYTES = {"sparse": "trainer_sparse_exchange_bytes_total",
-                 "sparse_rs": "trainer_sparse_rs_bytes_total"}
+                 "sparse_rs": "trainer_sparse_rs_bytes_total",
+                 "hier": "trainer_hier_wire_bytes_total"}
 
 
 class SparseTableCTRTrainer(CTRTrainer):
@@ -140,6 +201,11 @@ class SparseTableCTRTrainer(CTRTrainer):
     dense_switch_margin: scale on the SparCML density switch — a table
         takes the sparse exchange only while its sparse bytes stay under
         ``margin * dense_ring_bytes``.
+    hier_exchange: a :class:`~lightctr_tpu_torch.dist.hier.
+        HierExchangeClient` (the same call on every rank; only local rank
+        0's opens sockets) — arms the two-level exchange (module
+        docstring).  Requires a mesh (the host's ranks), replicated params
+        and ``compress_bits=None`` (the wire codec is the client's knob).
     resources / device_telemetry / quality_bins: CTRTrainer's planes, on
         every step variant (the fallback step included).
     """
@@ -188,12 +254,25 @@ class SparseTableCTRTrainer(CTRTrainer):
                         "the position rewrite would be ambiguous"
                     )
                 owner[f] = k
-        not_yet_ported(type(self).__name__, hier_exchange=hier_exchange)
         self._eps = eps
         self._dense_margin = dense_switch_margin
         # mesh WITHOUT explicit shardings = replicated data parallelism:
         # the explicit hybrid exchange
         self._hybrid_dp = mesh is not None and param_shardings is None
+        # hierarchical mode: the hybrid step is replaced by the local
+        # merge, the wire hop and the apply (module docstring)
+        self._hier = hier_exchange is not None
+        if self._hier:
+            if mesh is None or param_shardings is not None:
+                raise ValueError(
+                    "hier_exchange needs a mesh of replicated local "
+                    "replicas (no param_shardings)")
+            if compress_bits is not None:
+                raise ValueError(
+                    "hier_exchange owns its wire codec via the "
+                    "HierExchangeClient knob (codec='f16'/'q8_ef'/"
+                    "'q4_ef'); compress_bits must stay None")
+            self._hybrid_dp = False
         # {table: "sparse" | "sparse_rs" | "dense"} — the pick each table
         # leaf got, and {table: bytes each rank transmits per step under
         # it}, written by the step with the accounting helpers of
@@ -211,6 +290,29 @@ class SparseTableCTRTrainer(CTRTrainer):
         self._last_step_fallback = False
         self._fallback_logged = False
         self._plan_cache: Dict = {}
+        # hierarchical-exchange state: the wire client, the per-step round
+        # counter (every host's trainer steps in lockstep, so the counter
+        # IS the round id), the fixed table-id order the rendezvous keys
+        # rounds by, and the local-merge decisions (the allgather
+        # fallback records separately); the wire's numbers of the last
+        # step are local rank 0's, broadcast to the host's ranks
+        self._hier_client = hier_exchange
+        self._hier_epoch = 0
+        self._hier_tables = list(self._spec)
+        self.hier_local_policy: Dict[str, str] = {}
+        self.hier_local_bytes_per_step: Dict[str, int] = {}
+        self._hier_fb_local_policy: Dict[str, str] = {}
+        self._hier_fb_local_bytes: Dict[str, int] = {}
+        self._hier_last_local = False  # last step ran the ag fallback
+        self._hier_wire_dense_bytes = 0
+        self._hier_wire_packed_bytes = 0
+        self._hier_wire_fp32_bytes = 0
+        self._hier_wire_id_saved = 0
+        self._hier_chunk_pushes = 0
+        self._hier_chunk_rows = 0
+        self._hier_chunk_capacity = 0
+        self._hier_push_seconds = 0.0
+        self._hier_blocked_seconds = 0.0
         super().__init__(
             params, logits_fn, cfg, l2_fn=l2_fn, fused_fn=fused_fn, mesh=mesh,
             param_shardings=param_shardings, compress_bits=compress_bits,
@@ -263,8 +365,11 @@ class SparseTableCTRTrainer(CTRTrainer):
         return state
 
     def _build_step(self):
-        """Replicated data parallelism takes the explicit hybrid exchange;
-        one device keeps the O(touched) step."""
+        """The two-level exchange with ``hier_exchange``; replicated data
+        parallelism takes the explicit hybrid exchange; one device keeps
+        the O(touched) step."""
+        if self._hier:
+            return self._make_hier_step()
         if self._hybrid_dp:
             return self._make_hybrid_dp_step()
         return self._make_step()
@@ -570,6 +675,365 @@ class SparseTableCTRTrainer(CTRTrainer):
 
         return step
 
+    # -- the hierarchical two-level exchange -------------------------------
+
+    #: wire table id of the dense-leaf stream: dense gradients flatten to
+    #: one [L] vector and ride the same rendezvous as dim-1 rows keyed by
+    #: position, with the ranks' summed loss appended as the last entry
+    #: (the cross-host loss mean needs a wire hop anyway — it shares this
+    #: one).  Real tables use ids 0..len(spec)-1 in spec order.
+    _HIER_DENSE_TABLE = 1 << 20
+
+    def _make_hier_step(self, force_ag: bool = False):
+        """The two-level step (module docstring): program A (per-rank
+        grads, the in-host SUM merge per id stream on the cheaper of the
+        allgather and the reduce-scatter, dense leaves and loss in one
+        flat all-reduce), hop B (:meth:`_hier_wire`, local rank 0 then a
+        broadcast), program C (the global mean applied by ``merge_apply``
+        and the optimizer).  ``force_ag`` builds the overflow fallback:
+        every local merge takes the allgather."""
+        grad_fn = self._make_grad_fn()
+        tx = self.tx
+        spec = self._spec
+        lr, eps = self.cfg.learning_rate, self._eps
+        dedup_and_gather = self._dedup_and_gather
+        groups = self._field_groups(spec)
+        mesh = self.mesh
+        n = mesh.size
+        if force_ag:
+            policy, xbytes = self._hier_fb_local_policy, \
+                self._hier_fb_local_bytes
+        else:
+            policy, xbytes = self.hier_local_policy, \
+                self.hier_local_bytes_per_step
+
+        def step(params, opt_state, batch):
+            # -- program A: this rank's rows of the host batch ----------
+            tables, dense, batch2, uids, rows = dedup_and_gather(
+                spec, params, batch)
+            loss, probs, grads = grad_fn({**dense, **rows}, batch2)
+            g_rows, g_dense = self._split_grads(grads)
+            accum = opt_state["accum"]
+            with torch.no_grad():
+                # dense grads + the rank's mean loss ride ONE flat sum:
+                # [sum over local ranks of grads..., sum of losses]
+                flat, unravel = collectives.ravel_tree(g_dense,
+                                                       device=self.device)
+                dense_flat = collectives.all_reduce(mesh, torch.cat(
+                    [flat.to(torch.float32),
+                     loss.reshape(1).to(torch.float32)]))
+                over_total = torch.zeros((), dtype=torch.int32,
+                                         device=self.device)
+                out_ids: Dict = {}
+                out_rows: Dict = {}
+                for fields, keys in groups.items():
+                    u = uids[keys[0]]
+                    kpad = u.shape[0]
+                    vocab = max(tables[k].shape[0] for k in keys)
+                    dims = [math.prod(tables[k].shape[1:]) for k in keys]
+                    # the SAME comparison the host-side plan mirror makes
+                    algo, caps, per_bytes = _hier_local_algo(
+                        n, kpad, vocab, dims, force_ag=force_ag)
+                    if algo == "sparse":
+                        with annotate("sparse_tables/hier_local",
+                                      algo="sparse", tables=len(keys)):
+                            _, uniq, inv = collectives._ag_gather_ids(u, mesh)
+                            for i, k in enumerate(keys):
+                                policy[k] = "sparse"
+                                xbytes[k] = per_bytes[i]
+                                all_rows, _ = collectives._ag_exchange_rows(
+                                    g_rows[k], mesh)
+                                out_ids[k] = uniq
+                                out_rows[k] = sparse_kernels.merge_rows(
+                                    all_rows, inv, uniq.shape[0])
+                    else:
+                        bucket_cap, shard_cap = caps
+                        with annotate("sparse_tables/hier_local",
+                                      algo="sparse_rs", tables=len(keys)):
+                            dest, order, _, inv, ids_g, over = \
+                                collectives._rs_ids(u, mesh, n, bucket_cap,
+                                                    shard_cap)
+                            over_total = over_total + over
+                            for i, k in enumerate(keys):
+                                policy[k] = "sparse_rs"
+                                xbytes[k] = per_bytes[i]
+                                out_ids[k] = ids_g
+                                out_rows[k] = collectives._rs_gather_rows(
+                                    g_rows[k], dest, order, inv, mesh, n,
+                                    bucket_cap, shard_cap, average=False)
+                over = collectives.all_reduce(mesh, over_total)
+
+                # -- hop B: one merged payload per host ------------------
+                payload, dsum = self._hier_wire(out_ids, out_rows,
+                                                dense_flat)
+                loss_v = float(dsum[-1])
+                dense_mean = torch.from_numpy(
+                    np.ascontiguousarray(dsum[:-1])).to(self.device)
+
+                # -- program C: apply the global mean --------------------
+                g_dense = unravel(dense_mean)
+                gn2 = sum_squares(g_dense, device=self.device)
+                updates, new_dense_state = tx.update(
+                    g_dense, opt_state["dense"], dense)
+                dense = apply_updates(dense, updates)
+                with annotate("sparse_tables/apply"):
+                    for k in spec:
+                        gu, grows = payload[k]
+                        # rows arrive merged: the apply mode, in place
+                        _, _, ssq = sparse_kernels.merge_apply(
+                            tables[k], accum[k], gu, grows, None,
+                            lr=lr, eps=eps)
+                        gn2 = gn2 + ssq
+                loss_t = torch.tensor(loss_v, dtype=torch.float32,
+                                      device=self.device)
+                health = torch.cat([_health_pack(loss_t, torch.sqrt(gn2)),
+                                    over.to(torch.float32).reshape(1)])
+                # the quality sketch of the HOST's batch (summed over its
+                # ranks); the wire never carries it
+                health = self._append_sketch(health, probs, batch2, mesh)
+            return ({**dense, **tables},
+                    {"dense": new_dense_state, "accum": accum},
+                    loss_t, health)
+
+        return step
+
+    def _hier_local_plan(self, batch) -> Dict[str, tuple]:
+        """Host-side mirror of the step's per-stream local algo choice —
+        the same :func:`_hier_local_algo` call, cached per batch-shape
+        signature, shaped like :meth:`_exchange_plan` so
+        :meth:`_rs_batch_fits` (over the host's ranks) can consume it."""
+        n = self.mesh.size
+        groups = self._field_groups(self._spec)
+        sig = ("hier",) + tuple(
+            (fields, tuple(tuple(np.shape(batch[f])) for f in fields))
+            for fields in groups)
+        plan = self._plan_cache.get(sig)
+        if plan is not None:
+            return plan
+        plan = {}
+        for fields, keys in groups.items():
+            kpad = sum(int(np.prod(np.shape(batch[f]))) for f in fields) // n
+            vocab = max(int(self.params[k].shape[0]) for k in keys)
+            dims = [math.prod(self.params[k].shape[1:]) for k in keys]
+            algo, caps, _ = _hier_local_algo(n, kpad, vocab, dims)
+            for k in keys:
+                plan[k] = (fields, algo, caps)
+        self._plan_cache[sig] = plan
+        return plan
+
+    @staticmethod
+    def _hier_strip_plan(uids: np.ndarray):
+        """The ONE copy of the wire-facing pad-strip convention ->
+        ``(real mask, sort order over the real entries)``: drop id-0
+        repeats beyond slot 0 — slot 0 survives whether id 0 is real or
+        the conventional fill (a zero row there is a no-op on both the
+        wire merge and the apply) — then sort globally (the
+        reduce-scatter local merge emits per-owner-sorted shards).
+        Tables sharing one id stream apply the same plan to each of
+        their row payloads."""
+        real = ~((uids == 0) & (np.arange(len(uids)) > 0))
+        order = np.argsort(uids[real], kind="stable")
+        return real, order
+
+    @staticmethod
+    def _hier_strip_pads(uids: np.ndarray, rows: np.ndarray):
+        """Collapse a dedup-convention (uids, rows) pair to its real
+        entries, globally sorted (:meth:`_hier_strip_plan`)."""
+        real, order = SparseTableCTRTrainer._hier_strip_plan(uids)
+        return uids[real][order], rows[real][order]
+
+    @staticmethod
+    def _hier_pad(uids: np.ndarray, rows: np.ndarray):
+        """Pad a sorted-unique wire result back into the dedup convention
+        at the next power of two (a bounded shape family for the apply):
+        id-0 fill, zero rows."""
+        m = len(uids)
+        size = 1 << max(3, (max(m, 1) - 1).bit_length())
+        u = np.zeros(size, np.int32)
+        u[:m] = uids.astype(np.int32)
+        r = np.zeros((size,) + rows.shape[1:], np.float32)
+        r[:m] = rows
+        return u, r
+
+    #: the int64 header local rank 0 broadcasts after the wire hop:
+    #: [ok, dense entries, socket bytes, fp32-equivalent bytes, saved id
+    #: bytes, chunk pushes, chunk rows, chunk capacity, push us, blocked
+    #: us], then (pushed entries, pulled union) per id stream
+    _HIER_HEAD = 10
+
+    def _hier_wire(self, out_ids, out_rows, dense_flat):
+        """Hop B of one step -> ``(payload, dsum)``: ``payload`` {table:
+        (uids, rows)} the cross-host union padded into the dedup
+        convention, rows divided by the global rank count, on this rank's
+        device; ``dsum`` the float32 [L + 1] dense mean with the mean
+        loss last.  Local rank 0 pushes and pulls (:meth:`_hier_hop`);
+        it then broadcasts a header (sizes, or the failure), then the
+        pulled ids and values, over the host's group, and every rank
+        builds the same payload from them."""
+        from lightctr_tpu_torch.dist.collectives import hier_wire_bytes
+
+        client = self._hier_client
+        mesh = self.mesh
+        total = mesh.size * client.n_hosts
+        wire_bits = {"f32": None, "f16": 16, "q8_ef": 8,
+                     "q4_ef": 4}[client.codec]
+        epoch = self._hier_epoch
+        self._hier_epoch += 1
+        groups = list(self._field_groups(self._spec).items())
+        dims = {k: math.prod(self.params[k].shape[1:]) for k in self._spec}
+        sw = self.stepwatch
+        if sw is not None:
+            # the phase a stalled rendezvous wedges in
+            sw.mark("exchange")
+        head = np.zeros(self._HIER_HEAD + 2 * len(groups), np.int64)
+        pulled = err = None
+        if mesh.rank == 0:
+            try:
+                pulled = self._hier_hop(out_ids, out_rows, dense_flat, epoch,
+                                        groups, head)
+                head[0] = 1
+            except Exception as e:  # carried to the host's other ranks
+                err = e
+        head_t = self._hier_bcast(torch.from_numpy(head))
+        head = head_t.numpy()
+        if not head[0]:
+            if err is not None:
+                raise err
+            raise RuntimeError(
+                f"hierarchical exchange round {epoch}: the wire hop failed "
+                "on local rank 0 of this host")
+        n_dense = int(head[1])
+        sizes = head[self._HIER_HEAD:].reshape(-1, 2)
+        n_ids = int(sizes[:, 1].sum())
+        n_vals = n_dense + sum(
+            int(sizes[g, 1]) * sum(dims[k] for k in keys)
+            for g, (_, keys) in enumerate(groups))
+        if mesh.rank == 0:
+            g_parts, d_r = pulled
+            ids = np.concatenate([gu for gu, _ in g_parts] + [
+                np.zeros(0, np.int64)]).astype(np.int64)
+            vals = np.concatenate(
+                [r.reshape(-1) for _, rs in g_parts for r in rs]
+                + [d_r.reshape(-1)]).astype(np.float32)
+        else:
+            ids = np.zeros(n_ids, np.int64)
+            vals = np.zeros(n_vals, np.float32)
+        ids = self._hier_bcast(torch.from_numpy(ids)).numpy()
+        vals = self._hier_bcast(torch.from_numpy(vals)).numpy()
+        payload = {}
+        io = vo = 0
+        for g, (_, keys) in enumerate(groups):
+            k_out, k_in = int(sizes[g, 0]), int(sizes[g, 1])
+            g_u = ids[io:io + k_in]
+            io += k_in
+            for i, k in enumerate(keys):
+                d = dims[k]
+                r = vals[vo:vo + k_in * d]
+                vo += k_in * d
+                self.exchange_policy[k] = "hier"
+                # the byte model prices the codec at its wire_bits and the
+                # shared stream's ids ONCE per group
+                self.exchange_bytes_per_step[k] = hier_wire_bytes(
+                    k_out, k_in, d, wire_bits, include_ids=(i == 0))
+                pu, pr = self._hier_pad(
+                    g_u, r.reshape((k_in,) + tuple(self.params[k].shape[1:]))
+                    / total)
+                payload[k] = (torch.from_numpy(pu).to(self.device),
+                              torch.from_numpy(pr).to(self.device))
+        dsum = vals[vo:vo + n_dense] / total
+        self._hier_wire_dense_bytes = hier_wire_bytes(n_dense, n_dense, 1,
+                                                      None)
+        (self._hier_wire_packed_bytes, self._hier_wire_fp32_bytes,
+         self._hier_wire_id_saved, self._hier_chunk_pushes,
+         self._hier_chunk_rows, self._hier_chunk_capacity) = (
+            int(v) for v in head[2:8])
+        self._hier_push_seconds = float(head[8]) * 1e-6
+        self._hier_blocked_seconds = float(head[9]) * 1e-6
+        if sw is not None:
+            sw.mark("apply")
+        return payload, dsum
+
+    def _hier_bcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Local rank 0's ``t`` (a CPU tensor) on every rank of the host's
+        group: staged on the card for an NCCL group, as it is for gloo."""
+        mesh = self.mesh
+        if mesh.size == 1:
+            return t
+        buf = t.to(mesh.device) if mesh.backend == "nccl" else t
+        torch.distributed.broadcast(buf, src=mesh.global_rank(0),
+                                    group=mesh.group)
+        return buf.cpu()
+
+    def _hier_hop(self, out_ids, out_rows, dense_flat, epoch, groups,
+                  head):
+        """The wire half on local rank 0: push the host's merged payload
+        (tables sharing an id stream as one grouped frame, the dense+loss
+        stream exact fp32 whatever the codec), commit, pull the unions.
+        Returns ``([(union uids, [rows per table]) per group], dense
+        sums)`` and fills ``head`` with the sizes and the step's wire
+        numbers."""
+        from lightctr_tpu_torch.dist.collectives import hier_wire_bytes
+
+        client = self._hier_client
+        table_id = {k: ti for ti, k in enumerate(self._hier_tables)}
+        sock0 = client.bytes_sent + client.bytes_received
+        saved0 = client.shared_id_saved_bytes
+        chunk0 = (client.chunk_pushes_total, client.chunk_rows_total,
+                  client.chunk_capacity_rows_total)
+        fp32_equiv = 0
+        out = []
+        with annotate("sparse_tables/hier_wire", tables=len(self._spec),
+                      epoch=epoch):
+            # every group's push is DISPATCHED to its stripe pipelines,
+            # and one commit joins them right before the first pull
+            t_dispatch0 = time.perf_counter()
+            pushed = []
+            for fields, keys in groups:
+                u = out_ids[keys[0]].cpu().numpy()
+                real, order = self._hier_strip_plan(u)
+                su = u[real][order]
+                rows_g = [out_rows[k].cpu().numpy().reshape(len(u), -1)
+                          [real][order] for k in keys]
+                tids = [table_id[k] for k in keys]
+                dims = [r.shape[1] for r in rows_g]
+                if len(keys) == 1:
+                    client.push_async(tids[0], su, rows_g[0], epoch)
+                else:
+                    client.push_group_async(tids, su, rows_g, epoch)
+                pushed.append((tids, dims, len(su)))
+            dvec = dense_flat.cpu().numpy().astype(np.float32).reshape(-1, 1)
+            client.push_async(self._HIER_DENSE_TABLE,
+                              np.arange(len(dvec), dtype=np.int64), dvec,
+                              epoch, exact=True)
+            t_commit0 = time.perf_counter()
+            client.commit()
+            t_done = time.perf_counter()
+            for g, (tids, dims, k_out) in enumerate(pushed):
+                if len(tids) == 1:
+                    g_u, r = client.pull(tids[0], epoch, dims[0])
+                    rows_out = [r]
+                else:
+                    g_u, rows_out = client.pull_group(tids, epoch, dims)
+                for d in dims:
+                    fp32_equiv += hier_wire_bytes(k_out, len(g_u), d)
+                head[self._HIER_HEAD + 2 * g] = k_out
+                head[self._HIER_HEAD + 2 * g + 1] = len(g_u)
+                out.append((np.asarray(g_u, np.int64),
+                            [np.asarray(x, np.float32) for x in rows_out]))
+            d_u, d_r = client.pull(self._HIER_DENSE_TABLE, epoch, 1,
+                                   exact=True)
+            fp32_equiv += hier_wire_bytes(len(dvec), len(d_u), 1, None)
+        head[1] = len(d_u)
+        head[2] = client.bytes_sent + client.bytes_received - sock0
+        head[3] = fp32_equiv
+        head[4] = client.shared_id_saved_bytes - saved0
+        head[5] = client.chunk_pushes_total - chunk0[0]
+        head[6] = client.chunk_rows_total - chunk0[1]
+        head[7] = client.chunk_capacity_rows_total - chunk0[2]
+        head[8] = int((t_done - t_dispatch0) * 1e6)
+        head[9] = int((t_done - t_commit0) * 1e6)
+        return out, np.asarray(d_r, np.float32)
+
     # -- the reduce-scatter's capacity plan and overflow fallback --------
 
     def _exchange_plan(self, batch) -> Dict[str, tuple]:
@@ -624,10 +1088,19 @@ class SparseTableCTRTrainer(CTRTrainer):
         return True
 
     def _needs_fallback(self, batch) -> bool:
-        """True when the global batch would overflow a reduce-scatter
-        table's capacities, counted in ``trainer_rs_fallback_total``."""
-        if not self._hybrid_dp or self._rs_batch_fits(
-                batch, self._exchange_plan(batch)):
+        """True when the batch would overflow a reduce-scatter table's
+        capacities, counted in ``trainer_rs_fallback_total``: the global
+        batch of the hybrid exchange, the host's batch of the two-level
+        exchange's local merge (hosts need not agree: the wire payload is
+        the same either way)."""
+        if self._hier:
+            fits = self._rs_batch_fits(batch, self._hier_local_plan(batch))
+            self._hier_last_local = not fits
+        elif self._hybrid_dp:
+            fits = self._rs_batch_fits(batch, self._exchange_plan(batch))
+        else:
+            return False
+        if fits:
             return False
         self.telemetry.inc("trainer_rs_fallback_total")
         return True
@@ -637,7 +1110,9 @@ class SparseTableCTRTrainer(CTRTrainer):
         """Run the steps inside with the fallback step (``sparse_rs``
         tables on the allgather), built at its first use."""
         if self._step_ag is None:
-            self._step_ag = self._make_hybrid_dp_step(force_ag=True)
+            self._step_ag = (self._make_hier_step(force_ag=True)
+                             if self._hier else
+                             self._make_hybrid_dp_step(force_ag=True))
         primary, self._step = self._step, self._step_ag
         try:
             yield
@@ -676,6 +1151,10 @@ class SparseTableCTRTrainer(CTRTrainer):
         return super().fit(arrays, **kw)
 
     def fit_fullbatch_scan(self, arrays, epochs):
+        if self._hier:
+            raise ValueError(
+                "the hierarchical exchange steps through a host wire hop "
+                "and cannot ride lax.scan; use fit()/train_step()")
         arrays = self._resolve_arrays(arrays)
         if self._needs_fallback(arrays):
             with self._fallback_step():
@@ -712,7 +1191,7 @@ class SparseTableCTRTrainer(CTRTrainer):
         vals = health.numpy()
         if hm is not None:
             hm.observe(loss=float(vals[0]), grad_norm=float(vals[1]))
-        head = 3 if self._hybrid_dp else 2
+        head = 3 if (self._hybrid_dp or self._hier) else 2
         if head == 3 and vals.shape[0] > 2 and vals[2] > 0:
             self.telemetry.inc("trainer_rs_overflow_total", int(vals[2]))
             obs.emit_event("rs_overflow", count=int(vals[2]))
@@ -724,11 +1203,13 @@ class SparseTableCTRTrainer(CTRTrainer):
         own dicts after a fallback step) and one ``exchange`` event per
         table the first time each of the two steps runs."""
         super()._record_step(dt, batch, health=health)
-        fallback = self._last_step_fallback
+        # the two-level exchange's wire policy is "hier" whichever local
+        # merge ran (its fallback records the local dicts only)
+        fallback = self._last_step_fallback and not self._hier
         policy, xbytes = ((self._fallback_policy, self._fallback_bytes)
                           if fallback else
                           (self.exchange_policy, self.exchange_bytes_per_step))
-        if not (self._hybrid_dp and policy):
+        if not ((self._hybrid_dp or self._hier) and policy):
             return
         reg = self.telemetry
         for k, pol in policy.items():
@@ -739,6 +1220,35 @@ class SparseTableCTRTrainer(CTRTrainer):
                                 algo=pol))
             reg.inc(_POLICY_BYTES.get(pol, "trainer_dense_ring_bytes_total"),
                     b)
+        if self._hier:
+            # the dense+loss stream rides the wire once a step too, and
+            # the in-host merge has its own counter (the local merge that
+            # ran records its own dicts); then the wire's measured socket
+            # bytes against the fp32 equivalent of the same payload, the
+            # id bytes the shared streams saved, the member EF mass, and
+            # the streaming rendezvous' chunk fill and overlap
+            reg.inc("trainer_hier_wire_bytes_total",
+                    self._hier_wire_dense_bytes)
+            lb = (self._hier_fb_local_bytes if self._hier_last_local
+                  else self.hier_local_bytes_per_step)
+            reg.inc("trainer_hier_local_bytes_total", sum(lb.values()))
+            reg.inc("trainer_hier_wire_packed_bytes_total",
+                    self._hier_wire_packed_bytes)
+            reg.inc("trainer_hier_wire_fp32_bytes_total",
+                    self._hier_wire_fp32_bytes)
+            reg.inc("trainer_hier_wire_id_saved_bytes_total",
+                    self._hier_wire_id_saved)
+            reg.gauge_set("trainer_hier_wire_ef_mass",
+                          self._hier_client.carry_mass())
+            reg.inc("trainer_hier_chunk_pushes_total",
+                    self._hier_chunk_pushes)
+            reg.inc("trainer_hier_chunk_rows_total", self._hier_chunk_rows)
+            reg.inc("trainer_hier_chunk_capacity_rows_total",
+                    self._hier_chunk_capacity)
+            reg.inc("trainer_hier_overlap_push_seconds_total",
+                    self._hier_push_seconds)
+            reg.inc("trainer_hier_overlap_blocked_seconds_total",
+                    self._hier_blocked_seconds)
         flag = "_fallback_logged" if fallback else "_exchange_logged"
         if not getattr(self, flag):
             setattr(self, flag, True)

@@ -71,8 +71,107 @@ def test_pick_for_fm_at_criteo_width_is_the_allgather():
         assert tcoll.pick_exchange_algo(n, k, 1 << 20, dim, bits,
                                         bits) == want
         assert want[0] == "sparse"
-    with pytest.raises(ValueError, match="two-fabric"):
-        tcoll.pick_exchange_algo(4, 16, 1024, 8, local_n=2)
+    # the two-fabric form is the JAX package's too (held over a grid in
+    # test_two_fabric_pick_matches_jax)
+    bw = (tcoll.LinkBandwidth(4e9, 2.5e8), jcoll.LinkBandwidth(4e9, 2.5e8))
+    assert tcoll.pick_exchange_algo(4, 16, 1024, 8, local_n=2, bw=bw[0]) \
+        == jcoll.pick_exchange_algo(4, 16, 1024, 8, local_n=2, bw=bw[1])
+
+
+# -- the two-fabric cost model ---------------------------------------------------
+
+#: (ici_bps, dcn_bps) of the parity grid: both fabrics alike, the JAX
+#: package's defaults, a slow wire, a slower local link
+BWS = ((1e9, 1e9), (4e9, 2.5e8), (2e10, 1e7), (1e8, 1e9))
+
+TWO_FABRIC_GRID = [
+    (n, local_n, k, vocab, dim, bw)
+    for n, local_n in ((4, 1), (4, 2), (8, 2), (8, 4), (16, 4), (16, 8))
+    for k in (1, 512, 79_872)
+    for vocab in (4096, 1 << 20)
+    for dim in (1, 32)
+    for bw in BWS
+]
+
+
+@pytest.mark.parametrize("wire_bits", [None, 16, 8, 4])
+def test_two_fabric_pick_matches_jax(wire_bits):
+    """The two-fabric pick (``local_n`` < ``n``) equals the JAX package's
+    over (n, local_n, k, vocab, dim, bw), with and without a previous
+    pick, stripes and an overlapped push; every candidate is reached."""
+    seen = set()
+    for n, local_n, k, vocab, dim, (ici, dcn) in TWO_FABRIC_GRID:
+        tbw = tcoll.LinkBandwidth(ici, dcn, "env")
+        jbw = jcoll.LinkBandwidth(ici, dcn, "env")
+        for bits, prev, stripes, overlap in (
+                (None, None, 1, False), (8, "hier", 1, False),
+                (None, "sparse", 2, True), (None, "dense", 4, False)):
+            kw = dict(local_n=local_n, wire_bits=wire_bits, prev=prev,
+                      stripes=stripes, overlap_push=overlap)
+            got = tcoll.pick_exchange_algo(n, k, vocab, dim, bits, bits,
+                                           bw=tbw, **kw)
+            want = jcoll.pick_exchange_algo(n, k, vocab, dim, bits, bits,
+                                            bw=jbw, **kw)
+            assert got == want, (n, local_n, k, vocab, dim, ici, dcn, kw)
+            seen.add(got[0])
+    assert {"hier", "sparse", "dense"} <= seen, seen
+    with pytest.raises(ValueError, match="whole number"):
+        tcoll.pick_exchange_algo(6, 16, 1024, 8, local_n=4,
+                                 bw=tcoll.LinkBandwidth(1e9, 1e9))
+
+
+def test_cost_model_helpers_match_jax():
+    for k, vocab, members in itertools.product(
+            (1, 7, 512, 79_872), (32, 4096, 1 << 20), (1, 2, 3, 8, 64)):
+        assert tcoll.expected_union(k, vocab, members) == \
+            jcoll.expected_union(k, vocab, members)
+    for k_out, k_in, dim, bits, ids in itertools.product(
+            (0, 5, 4096), (0, 9, 60_000), (1, 3, 32, 33),
+            (None, 16, 8, 5, 4, 2), (True, False)):
+        assert tcoll.hier_wire_bytes(k_out, k_in, dim, bits, ids) == \
+            jcoll.hier_wire_bytes(k_out, k_in, dim, bits, ids)
+    for local_n, hosts, k, vocab, dim, sb, wb in itertools.product(
+            (1, 2, 4), (1, 2, 8), (16, 79_872), (4096, 1 << 20), (1, 32),
+            (None, 8), (None, 8, 4)):
+        assert tcoll.hier_exchange_bytes(local_n, hosts, k, vocab, dim,
+                                         sb, wb) == \
+            jcoll.hier_exchange_bytes(local_n, hosts, k, vocab, dim, sb, wb)
+
+
+@pytest.mark.parametrize("mod", [tcoll, jcoll], ids=["port", "jax"])
+def test_link_bandwidth_resolution(mod, monkeypatch):
+    """The env override, then the probes, then the defaults; a probe that
+    raises leaves its link on the default; a cached default never shadows
+    a later call that brings probes.  Both packages alike."""
+    monkeypatch.setattr(mod, "_link_bw_cache", None)
+    monkeypatch.delenv(mod.LINK_BW_ENV, raising=False)
+    d = mod.link_bandwidth(refresh=True)
+    assert tuple(d) == (mod.DEFAULT_ICI_BPS, mod.DEFAULT_DCN_BPS, "default")
+    p = mod.link_bandwidth(probe_ici=lambda: 3e9, probe_dcn=lambda: 1e8)
+    assert tuple(p) == (3e9, 1e8, "probe")
+    assert mod.link_bandwidth() is p  # sticky
+
+    def boom():
+        raise OSError("no peer")
+
+    half = mod.link_bandwidth(probe_ici=boom, probe_dcn=lambda: 5e7,
+                              refresh=True)
+    assert tuple(half) == (mod.DEFAULT_ICI_BPS, 5e7, "probe")
+    monkeypatch.setenv(mod.LINK_BW_ENV, "2e9:3e7")
+    assert tuple(mod.link_bandwidth(refresh=True)) == (2e9, 3e7, "env")
+    monkeypatch.setenv(mod.LINK_BW_ENV, "-1:1")
+    with pytest.raises(ValueError, match="positive"):
+        mod.link_bandwidth(refresh=True)
+    assert (tcoll.DEFAULT_ICI_BPS, tcoll.DEFAULT_DCN_BPS) == \
+        (jcoll.DEFAULT_ICI_BPS, jcoll.DEFAULT_DCN_BPS)
+
+
+def test_measure_ici_bw_over_the_worlds_group(world):
+    """Every rank of the world measured its group's all-gather: a finite
+    rate above zero."""
+    _, _, ranks = world
+    for r in ranks:
+        assert np.isfinite(r["ici_bw"]) and r["ici_bw"] > 0
 
 
 # -- the spawned worlds -------------------------------------------------------

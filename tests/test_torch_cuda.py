@@ -1002,6 +1002,32 @@ def test_coded_hybrid_step_twice_is_bit_identical(dev, tmp_path):
             np.testing.assert_array_equal(runs[0][0][k], v, err_msg=k)
 
 
+def test_hier_step_twice_is_bit_identical(dev, tmp_path):
+    """One step of the two-level exchange (a host of 2 gloo ranks on the
+    card, the fp32 wire through reduce shards in this process) run twice
+    from the same state: every rank's tables and accumulators
+    bit-identical across the two runs and across the ranks."""
+    import torch_hier_worlds
+
+    from lightctr_tpu_torch.core.mesh import spawn_world
+    from lightctr_tpu_torch.dist.hier import SparseReduceShard
+
+    shards = [SparseReduceShard(n_hosts=1) for _ in range(2)]
+    try:
+        spawn_world(torch_hier_worlds.hier_repeat_step_rank, 2, "gloo",
+                    deadline_s=300,
+                    args=(str(tmp_path), [s.address for s in shards]))
+    finally:
+        for s in shards:
+            s.close()
+    runs = [torch.load(tmp_path / f"host0_rank{r}.pt", weights_only=False)
+            for r in range(2)]
+    for rank_runs in runs:
+        for k, v in rank_runs[0].items():
+            np.testing.assert_array_equal(rank_runs[1][k], v, err_msg=k)
+            np.testing.assert_array_equal(runs[0][0][k], v, err_msg=k)
+
+
 def test_prefetch_with_a_cuda_prepare_matches_the_synchronous_batches(dev):
     """``prefetch_batches`` with the dense trainer's staging (pinned host
     copies and a side stream) delivers, once claimed on the step's

@@ -27,7 +27,8 @@ def _port_sources():
     # re-import the module of the program they run
     return files + [os.path.join(REPO_ROOT, "chip_smoke.py"),
                     os.path.join(REPO_ROOT, "tests", "test_torch_cuda.py"),
-                    os.path.join(REPO_ROOT, "tests", "torch_dp_worlds.py")]
+                    os.path.join(REPO_ROOT, "tests", "torch_dp_worlds.py"),
+                    os.path.join(REPO_ROOT, "tests", "torch_hier_worlds.py")]
 
 
 def _imported_roots(path):
@@ -115,7 +116,11 @@ def test_importing_the_serving_slice_loads_no_jax():
             "lightctr_tpu_torch.embed.ledger, "
             "lightctr_tpu_torch.embed.mmap_store, "
             "lightctr_tpu_torch.embed.shm_ps, "
-            "lightctr_tpu_torch.utils.system; "
+            "lightctr_tpu_torch.utils.system, "
+            "lightctr_tpu_torch.dist, lightctr_tpu_torch.dist.hier, "
+            "lightctr_tpu_torch.dist.master, "
+            "lightctr_tpu_torch.dist.bootstrap, "
+            "lightctr_tpu_torch.obs.cluster; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT,

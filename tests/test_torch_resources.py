@@ -388,6 +388,28 @@ def test_tiered_store_prefetch_queue_and_memory_source(rng, device_hot):
         store.close()
 
 
+def test_reduce_shard_peak_round_is_a_memory_source():
+    """The hierarchical exchange's reduce shard reports its peak round
+    bytes as a memory source, as the JAX shard does."""
+    from lightctr_tpu.dist.hier import SparseReduceShard as JShard
+    from lightctr_tpu_torch.dist.hier import SparseReduceShard
+
+    shard, jshard = SparseReduceShard(n_hosts=1), JShard(n_hosts=1)
+    try:
+        mb = shard.memory_bytes()
+        assert mb == jshard.memory_bytes() == {"peak_round": 0}
+        assert mb["peak_round"] == shard.stats()["peak_round_bytes"]
+        ms = resources.MemorySampler(registry=obs.MetricsRegistry(),
+                                     include_host=False, register=False)
+        ms.add_source("shard", shard.memory_bytes)
+        with obs.override(True):
+            assert ms.sample()["shard_peak_round"] == 0
+        ms.close()
+    finally:
+        shard.close()
+        jshard.close()
+
+
 def test_device_sources_read_the_cuda_allocator(monkeypatch):
     """On a card the sampler's ``hbm_devN`` kinds are the allocator's
     current bytes, and ``budget_devices`` a fraction of each device's

@@ -334,12 +334,13 @@ def test_train_step_returns_loss_tensor_and_feeds_health():
 
 
 #: what each of the JAX trainers' multi-device and telemetry arguments
-#: meets in the port when given alone: ``mesh`` and ``compress_bits`` are
-#: ported (a mesh must be a port Mesh; compress_bits needs one),
-#: ``quality_bins`` is ported and arms the quality sketch, the rest are not
-#: yet ported
+#: meets in the port when given alone: ``mesh``, ``compress_bits`` and
+#: ``hier_exchange`` are ported (a mesh must be a port Mesh; compress_bits
+#: and the two-level exchange need one), ``quality_bins`` is ported and
+#: arms the quality sketch, the rest are not yet ported
 REFUSALS = {"mesh": "mesh must be a lightctr_tpu_torch",
-            "compress_bits": "compress_bits requires a mesh"}
+            "compress_bits": "compress_bits requires a mesh",
+            "hier_exchange": "hier_exchange needs a mesh"}
 
 
 def _build_or_refuse(arg, build):

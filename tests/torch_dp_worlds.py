@@ -269,6 +269,8 @@ def collectives_rank(rank, world, out_dir):
             calls.append(({k: _np(v) for k, v in red.items()}, _np(res)))
         out[f"ring_ef_{mode}"] = calls
     out["rs"] = _rs_rank(mesh, rank, world)
+    out["ici_bw"] = tcoll.measure_ici_bw(mesh, payload_bytes=1 << 16,
+                                         reps=2)
     _save(out_dir, rank, out)
 
 
