@@ -36,7 +36,9 @@ Phases, one JSON line each:
            R = 65536, int64 ids at d 33, and the hot-row shape (R = 2^20,
            d 32, n = 159,744), with negative and >= R indices that
            exercise the clip, and at the tiered store's pair (R = 2^16,
-           d 33, n = 8 ... 2^17 in pow2 steps of 4); dedup_ids bit-exact (uids, inv, count) at K in {1, 1000,
+           d 33, n = 8 ... 2^17 in pow2 steps of 4), and at the sharded
+           phase's owner ([2^19, 32], 2 x 39,936 local indices); dedup_ids
+           bit-exact (uids, inv, count) at K in {1, 1000,
            159744} on Criteo id streams, negative ids and int32's limits,
            all-equal and all-zero streams, ids that differ only in the
            lowest digit or only in the sign bit, and with size < count, and
@@ -50,7 +52,10 @@ Phases, one JSON line each:
            merge_rows); merge_rows bit-exact at 159,744 rows, d in {1,
            32}, with heavy duplicates and out-of-range segments, with
            segments whose rows are all +-0, and at nseg = 2^24 + 77 (all
-           four radix digits move); quantize_pack bit-exact on the
+           four radix digits move), and at the sharded lookup's backward
+           (39,936 rows of 32 into a 2^19-row block at local indices,
+           half of them foreign: negative or past the block); quantize_pack
+           bit-exact on the
            [79872, 32] payload at 1, 4, 8 (uniform, normal, fixed and
            measured range) and 16 bits with +-inf and NaN, one float past
            16 bytes (n = 3 mod 4) at 8 and 16 bits, and at 16 bits on
@@ -309,6 +314,39 @@ Phases, one JSON line each:
            the final MSE is within 5e-3 (relative) of an unperturbed run
            of the same schedule beside it; every surviving shard reports
            its gather_rows launches over its pipe.
+  sharded  parameters sharded over ranks: Wide&Deep at Criteo width
+           (tools/criteo_scale.py: 39 fields, vocabulary 2^20, dim 32,
+           hidden 64, lr 0.05) on the train phase's seeded rows over
+           ``MeshSpec(data=4, embed=2)``, 8 gloo ranks spawned on the card
+           (a rank steps 1,024 rows, 39,936 ids a stream; its blocks are
+           2^19 rows).  (a) ``SparseTableCTRTrainer(param_shardings=...)``,
+           one pass of 50 steps (the rows pulled from their owners over
+           the embed axis, the owned row gradients averaged over the data
+           axis and applied to the block): the first 10 losses, the
+           blocks and their accumulators within rtol 1e-4 / atol 1e-5 of
+           the one-device sparse trainer run here first from the same
+           init and batches, every data replica of a block bit-identical,
+           each rank's table and accumulator 2^19 rows, held-out AUC on
+           20,480 rows above 0.55; ms a step as pull / compute / owner sum
+           + apply, and rank 0's device time over 3 profiled steps
+           against a timed step (its idle share).
+           (b) ``CTRTrainer(param_shardings=...)``, 5 steps against the
+           one-device ``CTRTrainer`` at the same bound, ``evaluate``'s AUC
+           within 1e-4; ``ckpt.save`` of the sharded state (the whole
+           tables, rank 0 writing) and a restore into a fresh sharded
+           trainer: AUC within 1e-6, then 3 steps whose last loss is no
+           higher than their first.  (c) ``CTRTrainer(zero_sharded=True)``
+           over ``MeshSpec(data=8)`` of the same world, 3 steps, against
+           the replicated mesh ``CTRTrainer``: losses and params at the
+           same bound, every rank alike, each rank's optimizer state 1/8
+           of the padded flat state's bytes.  (d) ``all_to_all_exchange``
+           over the embed axis at (a)'s pull shape ([2, 39936] ids and
+           [2, 39936, 32] rows), bit for bit the block transpose, and the
+           rows at 8 and 16 bits (``quantize_pack``) within
+           tests/test_all_to_all.py's bounds; ``ring_broadcast`` of rank
+           0's params over the 8 ranks, bit for bit on every rank.
+           Counts reset before each part: B2, B3, B4 and B5 launch in (a),
+           B4 in (b) and B6 in (d), summed over the ranks.
   serve_deep  the Wide&Deep family at the serve phase's width (39
            fields, vocabulary 2^20, factor dim 32, hidden 50; DCN's fc1
            [50, 1248], crosses [3, 1248], out [1, 1298]), parameters from
@@ -488,7 +526,13 @@ row's ``launches_dp_rs`` counts rank 0's launches in dp_rs and
 ``launches_online`` the online phase's (B3 and B4),
 ``launches_tiered`` the tiered phase's (B3, B4 and B5), and
 ``launches_cluster`` the cluster phase's (B2, B4 and B5 on rank 0 of host
-0 in (a), B3 in (b)'s surviving shards), and are added into ``launches``; merge_rows' ``launches`` are the train
+0 in (a), B3 in (b)'s surviving shards), ``launches_sharded`` the sharded
+phase's over all its ranks, and are added into ``launches``;
+gather_rows' and merge_rows' ``per_shape_sharded`` time them at the
+sharded phase's shapes (the owner serving 2 x 39,936 rows of its [2^19,
+32] block, beside ``index_select``; 39,936 slot rows merged into the block
+at local indices, half of them foreign, beside ``index_add_``), each held
+bit for bit to its plain version in ``kernels``; merge_rows' ``launches`` are the train
 phase's (and those), and its ``per_shape_train`` times it as the gathers'
 backward (159,744 slots into the 2^20-row table and into the sparse
 trainer's 159,744 rows, d = 32 and 1, and into the table at FFM's d =
@@ -5492,6 +5536,612 @@ def phase_cluster(np, torch, sk, seed) -> dict:
         shutil.rmtree(root, ignore_errors=True)
 
 
+# -- phase: sharded -------------------------------------------------------------
+
+SHARDED_DATA, SHARDED_EMBED = 4, 2
+SHARDED_WORLD = SHARDED_DATA * SHARDED_EMBED   # 8 gloo ranks on the card
+SHARDED_HIDDEN = 64         # tools/criteo_scale.py's Wide&Deep
+SHARDED_ROWS = VOCAB // SHARDED_EMBED   # a block: 2^19 rows
+SHARDED_LOCAL_K = TRAIN_BATCH // SHARDED_DATA * N_FIELDS  # 39,936 ids
+SHARDED_STEPS = SPARSE_STEPS        # (a): one pass, 204,800 rows
+SHARDED_PARITY_STEPS = 10           # (a)'s losses held over these
+SHARDED_PROFILE_STEPS = 3           # (a)'s last steps under the profiler
+SHARDED_DENSE_STEPS = 5             # (b)
+SHARDED_RESUME_STEPS = 3            # (b) after the restore
+SHARDED_ZERO_STEPS = 3              # (c)
+SHARDED_EVAL_BATCH = TRAIN_BATCH
+SHARDED_TOL = dict(rtol=1e-4, atol=1e-5)    # tests/test_sparse_trainer.py
+SHARDED_DEADLINE_S = 600.0
+SHARDED_TABLES = {"w": ["fids"], "embed": ["rep_fids"]}
+
+
+def sharded_params(np, seed):
+    """Wide&Deep at Criteo width (tools/criteo_scale.py: vocabulary 2^20,
+    dim 32, hidden 64) from a seed: W zero, the embedding N(0, 1/32), the
+    MLP as ``deep_layer``."""
+    rng = np.random.default_rng(seed + 80)
+    embed = rng.standard_normal((VOCAB, DIM), dtype=np.float32)
+    return {"w": np.zeros(VOCAB, np.float32),
+            "embed": embed * np.float32(1.0 / np.sqrt(DIM)),
+            "fc1": deep_layer(np, rng, N_FIELDS * DIM, SHARDED_HIDDEN),
+            "fc2": deep_layer(np, rng, SHARDED_HIDDEN, 1)}
+
+
+def sharded_data(np, seed):
+    """The train phase's seeded rows (its 50 batches and its 20,480
+    held-out rows) with the field-representative pair (slot j is field
+    j)."""
+    rng = np.random.default_rng(seed + 2)
+    data = criteo_rows(np, rng, SHARDED_STEPS * TRAIN_BATCH)
+    held = criteo_rows(np, rng, EVAL_ROWS)
+    for d in (data, held):
+        d["rep_fids"] = d["fids"]
+        d["rep_mask"] = d["mask"]
+    batches = [{k: v[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+                for k, v in data.items()} for i in range(SHARDED_STEPS)]
+    return batches, held
+
+
+def sharded_trainer(kind, params, mesh=None, placements=None, **kw):
+    """Wide&Deep's ``kind`` trainer (``sparse``: SparseTableCTRTrainer,
+    ``dense``: CTRTrainer) at lr 0.05, the health feed off: on ``mesh``
+    with ``placements``, or on the card alone."""
+    from lightctr_tpu_torch.core.config import TrainConfig
+    from lightctr_tpu_torch.models import _common, widedeep
+    from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
+    from lightctr_tpu_torch.models.sparse_trainer import \
+        SparseTableCTRTrainer
+
+    cfg = TrainConfig(learning_rate=LR)
+    if mesh is not None:
+        kw["mesh"] = mesh
+        if placements is not None:
+            kw["param_shardings"] = placements
+    else:
+        kw["device"] = "cuda"
+    # blocks are cut on the host, so no rank holds a whole table on the card
+    p = _common.params_from_numpy(params, "cpu", placements=placements)
+    if kind == "sparse":
+        tr = SparseTableCTRTrainer(p, widedeep.logits, cfg,
+                                   sparse_tables=SHARDED_TABLES, **kw)
+    else:
+        tr = CTRTrainer(p, widedeep.logits, cfg, **kw)
+    tr.health = None
+    return tr
+
+
+def sharded_placements(mesh):
+    from lightctr_tpu_torch.core.mesh import embed_sharding, replicated
+
+    rep = {"w": replicated(mesh), "b": replicated(mesh)}
+    return {"w": embed_sharding(mesh), "embed": embed_sharding(mesh),
+            "fc1": dict(rep), "fc2": dict(rep)}
+
+
+def sharded_oracle(np, torch, seed, root, batches, held) -> dict:
+    """The one-device trainers on the card from the same init and batches:
+    (a)'s sparse pass and (b)'s dense steps, their losses and AUC, and
+    their tables (and (a)'s accumulators) saved as .npy under ``root`` for
+    the ranks to read their blocks from."""
+    params = sharded_params(np, seed)
+    out = {}
+    tr = sharded_trainer("sparse", params)
+    out["sparse_loss"] = [float(tr.train_step(b)) for b in batches]
+    for k in ("w", "embed"):
+        np.save(os.path.join(root, f"sparse_{k}.npy"),
+                tr.params[k].cpu().numpy())
+        np.save(os.path.join(root, f"sparse_acc_{k}.npy"),
+                tr.opt_state["accum"][k].cpu().numpy())
+    out["sparse_auc"] = tr.evaluate(held, batch_size=SHARDED_EVAL_BATCH)[
+        "auc"]
+    del tr
+    tr = sharded_trainer("dense", params)
+    out["dense_loss"] = [float(tr.train_step(b))
+                         for b in batches[:SHARDED_DENSE_STEPS]]
+    for k in ("w", "embed"):
+        np.save(os.path.join(root, f"dense_{k}.npy"),
+                tr.params[k].cpu().numpy())
+    out["dense_auc"] = tr.evaluate(held, batch_size=SHARDED_EVAL_BATCH)[
+        "auc"]
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_check(np, torch, table, path, what) -> float:
+    """A rank's block against its rows of the one-device table saved at
+    ``path`` within SHARDED_TOL; returns the max abs error."""
+    want = torch.from_numpy(np.array(np.load(path, mmap_mode="r")[
+        table.offset:table.offset + table.local.shape[0]]))
+    got = table.local.cpu()
+    if not torch.allclose(got, want, **SHARDED_TOL):
+        raise AssertionError(f"sharded {what}: the block at "
+                             f"{table.offset} differs from the one-device "
+                             f"table, max abs "
+                             f"{float((got - want).abs().max())}")
+    return float((got - want).abs().max())
+
+
+def digest(torch, t) -> str:
+    import hashlib
+
+    return hashlib.sha256(t.detach().cpu().contiguous().numpy()
+                          .tobytes()).hexdigest()
+
+
+def sharded_pass(np, torch, sk, tr, batches, profile) -> dict:
+    """(a)'s pass on this rank: every step timed as pull / compute / owner
+    sum + apply on the host clock between device synchronisations (the
+    pull wrapped from the first id stream's dedup to the last table's
+    rows; the owner sum from the first ``sparse_all_reduce``), launches
+    counted from just before the first step to just after the last; the
+    last SHARDED_PROFILE_STEPS steps run unwrapped, under the profiler on
+    rank 0 (``profile``)."""
+    from lightctr_tpu_torch.dist import collectives
+    from lightctr_tpu_torch.embed import table as table_mod
+
+    pull, push = table_mod.pull_rows, collectives.sparse_all_reduce
+    marks = {}
+
+    def timed_pull(*a, **kw):
+        out = pull(*a, **kw)
+        torch.cuda.synchronize()
+        marks["pulled"] = time.perf_counter()
+        return out
+
+    def timed_push(*a, **kw):
+        if "push" not in marks:
+            torch.cuda.synchronize()
+            marks["push"] = time.perf_counter()
+        return push(*a, **kw)
+
+    timed = SHARDED_STEPS - SHARDED_PROFILE_STEPS
+    losses, split = [], []
+    table_mod.pull_rows, collectives.sparse_all_reduce = (timed_pull,
+                                                          timed_push)
+    torch.cuda.synchronize()
+    sk.reset_launches()
+    try:
+        for b in batches[:timed]:
+            marks.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(float(tr.train_step(b)))
+            t1 = time.perf_counter()
+            split.append((1e3 * (marks["pulled"] - t0),
+                          1e3 * (marks["push"] - marks["pulled"]),
+                          1e3 * (t1 - marks["push"])))
+    finally:
+        table_mod.pull_rows, collectives.sparse_all_reduce = pull, push
+    rest = batches[timed:]
+    prof = None
+    if profile:
+        box = []
+        prof = profile_calls(torch, [
+            lambda b=b: box.append(float(tr.train_step(b))) for b in rest])
+        losses += box
+    else:
+        losses += [float(tr.train_step(b)) for b in rest]
+    torch.cuda.synchronize()
+    return {"losses": losses, "split": split, "launches": sk.launches(),
+            "profile": prof}
+
+
+def sharded_a2a(np, torch, sk, mesh, seed) -> dict:
+    """(d) on this rank: ``all_to_all_exchange`` over the embed view at
+    (a)'s pull shape, the [2, K] requests and the [2, K, 32] rows, exact
+    (each received block the sender's block for this rank, bit for bit,
+    the sender's payload rebuilt from its seed), then the rows at 8 and 16
+    bits on a uniform table over [-1, 1] within
+    tests/test_all_to_all.py's bounds."""
+    from lightctr_tpu_torch.dist import collectives
+
+    emb = mesh.view("embed")
+    k, s = SHARDED_LOCAL_K, emb.size
+
+    def payload(owner):
+        gen = torch.Generator(device="cuda").manual_seed(
+            seed * 1009 + emb.global_rank(owner))
+        ids = torch.randint(0, SHARDED_ROWS, (s, k), generator=gen,
+                            device="cuda", dtype=torch.int32)
+        rows = (0.2 * torch.randn((s, k, DIM), generator=gen,
+                                  device="cuda")).clamp(-1, 1)
+        return ids, rows
+
+    mine = payload(emb.rank)
+    sk.reset_launches()
+    got = [collectives.all_to_all_exchange(emb, x, axis="embed")
+           for x in mine]
+    want = [torch.stack([payload(i)[j][emb.rank] for i in range(s)])
+            for j in range(2)]
+    exact = all(torch.equal(g, w) for g, w in zip(got, want))
+    coded = {}
+    for bits in (8, 16):
+        out = collectives.all_to_all_exchange(emb, mine[1], axis="embed",
+                                              compress_bits=bits)
+        err = float((out - want[1]).abs().max())
+        coded[bits] = {"max_abs_err": err,
+                       "bound": 2 * 2.0 / (1 << bits)}
+    torch.cuda.synchronize()
+    return {"exact": exact, "coded": coded, "launches": sk.launches(),
+            "shape": [s, k, DIM]}
+
+
+def sharded_rank(rank, world, root, seed):
+    """One of the sharded phase's 8 gloo ranks on the card: (a) the sparse
+    trainer's pass, (b) CTRTrainer's steps, checkpoint and restore, (c)
+    ``zero_sharded`` against the replicated mesh trainer, (d) the
+    exchanges; its record written as ``rank<r>.json``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, REPO)
+    torch.cuda.set_device(0)
+    from lightctr_tpu_torch import ckpt
+    from lightctr_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from lightctr_tpu_torch.dist import collectives
+    from lightctr_tpu_torch.embed.table import ShardedTable
+    from lightctr_tpu_torch.ops import sparse_kernels as sk
+    from lightctr_tpu_torch.optim.updaters import tree_leaves
+
+    mesh = make_mesh(MeshSpec(data=SHARDED_DATA, embed=SHARDED_EMBED),
+                     device="cuda")
+    zmesh = make_mesh(MeshSpec(data=SHARDED_WORLD), device="cuda")
+    pl = sharded_placements(mesh)
+    params = sharded_params(np, seed)
+    batches, held = sharded_data(np, seed)
+    rec = {"coords": mesh.coords()}
+
+    # (a) the sparse trainer, one pass
+    t = time.perf_counter()
+    tr = sharded_trainer("sparse", params, mesh, pl)
+    a = sharded_pass(np, torch, sk, tr, batches, profile=rank == 0)
+    a["rows"] = {k: [tr.params[k].local.shape[0],
+                     tr.opt_state["accum"][k].local.shape[0]]
+                 for k in SHARDED_TABLES}
+    a["err"] = {}
+    a["digest"] = {}
+    for k in SHARDED_TABLES:
+        for what, tab in (("", tr.params[k]),
+                          ("acc_", tr.opt_state["accum"][k])):
+            a["err"][what + k] = block_check(
+                np, torch, tab, os.path.join(root, f"sparse_{what}{k}.npy"),
+                f"(a) {what}{k}")
+            a["digest"][what + k] = digest(torch, tab.local)
+    a["offset"] = tr.params["embed"].offset
+    a["auc"] = tr.evaluate(held, batch_size=SHARDED_EVAL_BATCH)["auc"]
+    a["part_s"] = time.perf_counter() - t
+    rec["a"] = a
+    del tr
+    torch.cuda.empty_cache()
+
+    # (b) CTRTrainer with the tables row-sharded, its checkpoint
+    t = time.perf_counter()
+    tr = sharded_trainer("dense", params, mesh, pl)
+    sk.reset_launches()
+    b = {"losses": [float(tr.train_step(x))
+                    for x in batches[:SHARDED_DENSE_STEPS]]}
+    torch.cuda.synchronize()
+    b["launches"] = sk.launches()
+    b["err"] = {k: block_check(np, torch, tr.params[k],
+                               os.path.join(root, f"dense_{k}.npy"),
+                               f"(b) {k}") for k in SHARDED_TABLES}
+    b["digest"] = {k: digest(torch, tr.params[k].local)
+                   for k in SHARDED_TABLES}
+    b["auc"] = tr.evaluate(held, batch_size=SHARDED_EVAL_BATCH)["auc"]
+    ck = os.path.join(root, "ckpt")
+    t_ck = time.perf_counter()
+    ckpt.save(ck, SHARDED_DENSE_STEPS, {"params": tr.params,
+                                        "opt_state": tr.opt_state})
+    b["save_s"] = time.perf_counter() - t_ck
+    del tr
+    tr = sharded_trainer("dense", params, mesh, pl)
+    t_ck = time.perf_counter()
+    state = ckpt.restore(ck, like={"params": tr.params,
+                                   "opt_state": tr.opt_state})
+    b["restore_s"] = time.perf_counter() - t_ck
+    tr.params, tr.opt_state = state["params"], state["opt_state"]
+    del state
+    b["restored_sharded"] = isinstance(tr.params["embed"], ShardedTable)
+    b["restored_auc"] = tr.evaluate(held, batch_size=SHARDED_EVAL_BATCH)[
+        "auc"]
+    b["resumed"] = [float(tr.train_step(batches[SHARDED_DENSE_STEPS]))
+                    for _ in range(SHARDED_RESUME_STEPS)]
+    b["part_s"] = time.perf_counter() - t
+    rec["b"] = b
+    del tr
+    torch.cuda.empty_cache()
+
+    # (c) zero_sharded over the data axis of all 8 ranks
+    t = time.perf_counter()
+    zero = sharded_trainer("dense", params, zmesh, zero_sharded=True)
+    rep = sharded_trainer("dense", params, zmesh)
+    c = {"zero": [float(zero.train_step(x))
+                  for x in batches[:SHARDED_ZERO_STEPS]],
+         "replicated": [float(rep.train_step(x))
+                        for x in batches[:SHARDED_ZERO_STEPS]]}
+    flat_z, _ = collectives.ravel_tree(zero.params)
+    flat_r, _ = collectives.ravel_tree(rep.params)
+    c["params_ok"] = bool(torch.allclose(flat_z, flat_r, **SHARDED_TOL))
+    c["params_err"] = float((flat_z - flat_r).abs().max())
+    c["digest"] = digest(torch, flat_z)
+    c["state_bytes"] = sum(x.numel() * x.element_size()
+                           for x in tree_leaves(zero.opt_state))
+    c["replicated_state_bytes"] = sum(x.numel() * x.element_size()
+                                      for x in tree_leaves(rep.opt_state))
+    c["zero_pad"], c["zero_len"] = zero._zero_pad, zero._zero_len
+    c["part_s"] = time.perf_counter() - t
+    rec["c"] = c
+    del zero, rep, flat_z, flat_r
+    torch.cuda.empty_cache()
+
+    # (d) the exchanges at (a)'s pull shape, then ring_broadcast of rank
+    # 0's params (each rank's own, moved by its rank, before)
+    t = time.perf_counter()
+    d = sharded_a2a(np, torch, sk, mesh, seed)
+    mine = {k: v for k, v in flat_leaves(params).items()}
+    mine = {k: torch.from_numpy(v + np.float32(rank)).cuda()
+            for k, v in mine.items()}
+    got = collectives.ring_broadcast(zmesh, mine)
+    torch.cuda.synchronize()
+    d["broadcast"] = {k: digest(torch, v) for k, v in got.items()}
+    d["own"] = {k: digest(torch, v) for k, v in mine.items()}
+    d["part_s"] = time.perf_counter() - t
+    rec["d"] = d
+    with open(os.path.join(root, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+#: the kernels each part must launch over the union of the ranks (their
+#: counts summed): (a) B2, B3, B4 and B5; (b) B4; (d) B6
+SHARDED_EXPECTED = {"a": ("dedup_ids", "gather_rows", "merge_rows",
+                          "merge_apply"),
+                    "b": ("merge_rows",), "d": ("quantize_pack",)}
+
+
+def phase_sharded(np, torch, sk, seed) -> dict:
+    """Parameters sharded over ranks: Wide&Deep at Criteo width over
+    ``MeshSpec(data=4, embed=2)``, 8 gloo ranks on the card (module
+    docstring), against the one-device trainers run here first."""
+    from lightctr_tpu_torch.core.mesh import spawn_world
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        t = time.perf_counter()
+        batches, held = sharded_data(np, seed)
+        oracle = sharded_oracle(np, torch, seed, root, batches, held)
+        oracle_s = time.perf_counter() - t
+        del batches, held
+        t = time.perf_counter()
+        spawn_world(sharded_rank, SHARDED_WORLD, "gloo",
+                    deadline_s=SHARDED_DEADLINE_S, args=(root, seed))
+        world_s = time.perf_counter() - t
+        ranks = [json.load(open(os.path.join(root, f"rank{r}.json")))
+                 for r in range(SHARDED_WORLD)]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    lead = ranks[0]
+    # every data replica of a block bit-identical, every rank F/2 rows
+    for r, rec in enumerate(ranks):
+        twin = ranks[rec["coords"]["embed"]]
+        for part in ("a", "b"):
+            if rec[part]["digest"] != twin[part]["digest"]:
+                raise AssertionError(f"sharded ({part}): rank {r}'s blocks "
+                                     f"differ from its data replica's")
+        for k, rows in rec["a"]["rows"].items():
+            if rows != [SHARDED_ROWS, SHARDED_ROWS]:
+                raise AssertionError(f"sharded (a): rank {r} holds {rows} "
+                                     f"rows of {k} and its accumulator")
+        if rec["a"]["offset"] != rec["coords"]["embed"] * SHARDED_ROWS:
+            raise AssertionError(f"sharded (a): rank {r}'s block offset")
+    n = SHARDED_PARITY_STEPS
+    got, want = lead["a"]["losses"][:n], oracle["sparse_loss"][:n]
+    if not np.allclose(got, want, **SHARDED_TOL):
+        raise AssertionError(f"sharded (a): losses {got} against the "
+                             f"one-device trainer's {want}")
+    for rec in ranks:
+        if rec["a"]["losses"] != lead["a"]["losses"]:
+            raise AssertionError("sharded (a): the ranks' losses differ")
+    if not lead["a"]["auc"] > MIN_AUC:
+        raise AssertionError(f"sharded (a): held-out AUC "
+                             f"{lead['a']['auc']} <= {MIN_AUC}")
+    got, want = lead["b"]["losses"], oracle["dense_loss"]
+    if not np.allclose(got, want, **SHARDED_TOL):
+        raise AssertionError(f"sharded (b): losses {got} against the "
+                             f"one-device trainer's {want}")
+    if abs(lead["b"]["auc"] - oracle["dense_auc"]) > 1e-4:
+        raise AssertionError(f"sharded (b): AUC {lead['b']['auc']} against "
+                             f"the one-device trainer's "
+                             f"{oracle['dense_auc']}")
+    if abs(lead["b"]["restored_auc"] - lead["b"]["auc"]) > 1e-6:
+        raise AssertionError(f"sharded (b): the restored state's AUC "
+                             f"{lead['b']['restored_auc']} against "
+                             f"{lead['b']['auc']}")
+    res = lead["b"]["resumed"]
+    if not (lead["b"]["restored_sharded"] and res[-1] <= res[0]):
+        raise AssertionError(f"sharded (b): resumed losses {res}")
+    c = lead["c"]
+    if not (np.allclose(c["zero"], c["replicated"], **SHARDED_TOL)
+            and c["params_ok"]):
+        raise AssertionError(f"sharded (c): zero_sharded {c['zero']} "
+                             f"against replicated {c['replicated']}, "
+                             f"params max abs {c['params_err']}")
+    for rec in ranks:
+        rc = rec["c"]
+        if rc["digest"] != c["digest"]:
+            raise AssertionError("sharded (c): the ranks' params differ")
+        if rc["state_bytes"] * SHARDED_WORLD != rc["zero_pad"] * 4 or \
+                rc["replicated_state_bytes"] != rc["zero_len"] * 4:
+            raise AssertionError(f"sharded (c): state bytes "
+                                 f"{rc['state_bytes']} of "
+                                 f"{rc['replicated_state_bytes']}")
+        d = rec["d"]
+        if not d["exact"]:
+            raise AssertionError("sharded (d): the exchange is not the "
+                                 "block transpose")
+        for bits, e in d["coded"].items():
+            if not e["max_abs_err"] <= e["bound"]:
+                raise AssertionError(f"sharded (d): {bits}-bit exchange "
+                                     f"error {e}")
+        if d["broadcast"] != ranks[0]["d"]["own"]:
+            raise AssertionError("sharded (d): ring_broadcast did not give "
+                                 "rank 0's params bit for bit")
+    launches = {}
+    for part, names in SHARDED_EXPECTED.items():
+        total = {}
+        for rec in ranks:
+            for k, v in rec[part]["launches"].items():
+                total[k] = total.get(k, 0) + v
+        missing = [k for k in names if not total.get(k)]
+        if missing:
+            raise AssertionError(f"sharded ({part}): no launch of "
+                                 f"{missing} in {total}")
+        launches[part] = total
+    split = np.asarray([s for rec in ranks for s in rec["a"]["split"]
+                        [WARMUP_STEPS:]])
+    prof = lead["a"]["profile"]
+    # rank 0's device time a profiled step against a timed step's wall:
+    # the profiler itself slows the profiled steps' host several times
+    step_ms = float(np.median(split.sum(1)))
+    union = {}
+    for part in launches.values():
+        for k, v in part.items():
+            union[k] = union.get(k, 0) + v
+    return {
+        "phase": "sharded", "oracle_s": oracle_s, "world_s": world_s,
+        "layout": f"data {SHARDED_DATA} x embed {SHARDED_EMBED}, "
+                  f"{SHARDED_WORLD} gloo ranks on one card",
+        "a": {"loss_first": lead["a"]["losses"][:n],
+              "loss_oracle": oracle["sparse_loss"][:n],
+              "loss_last": lead["a"]["losses"][-1],
+              "table_err": {k: max(r["a"]["err"][k] for r in ranks)
+                            for k in lead["a"]["err"]},
+              "auc": lead["a"]["auc"], "auc_oracle": oracle["sparse_auc"],
+              "ms_per_step": {
+                  "pull": float(np.median(split[:, 0])),
+                  "compute": float(np.median(split[:, 1])),
+                  "owner_sum_apply": float(np.median(split[:, 2])),
+                  "total": step_ms},
+              "profile": prof,
+              "idle_share_rank0": 1.0 - prof["device_ms_per_step"] / step_ms,
+              "part_s": max(r["a"]["part_s"] for r in ranks),
+              "launches": launches["a"]},
+        "b": {"losses": lead["b"]["losses"],
+              "loss_oracle": oracle["dense_loss"],
+              "table_err": {k: max(r["b"]["err"][k] for r in ranks)
+                            for k in lead["b"]["err"]},
+              "auc": lead["b"]["auc"], "auc_oracle": oracle["dense_auc"],
+              "restored_auc": lead["b"]["restored_auc"],
+              "resumed": lead["b"]["resumed"],
+              "save_s": lead["b"]["save_s"],
+              "restore_s": max(r["b"]["restore_s"] for r in ranks),
+              "part_s": max(r["b"]["part_s"] for r in ranks),
+              "launches": launches["b"]},
+        "c": {"zero": c["zero"], "replicated": c["replicated"],
+              "params_err": c["params_err"],
+              "state_bytes": c["state_bytes"],
+              "replicated_state_bytes": c["replicated_state_bytes"],
+              "part_s": max(r["c"]["part_s"] for r in ranks)},
+        "d": {"shape": lead["d"]["shape"], "coded": lead["d"]["coded"],
+              "part_s": max(r["d"]["part_s"] for r in ranks),
+              "launches": launches["d"]},
+        "launches": union}
+
+
+def sharded_kernel_inputs(torch, seed):
+    """B3 at the owner's serve shape (its [2^19, 32] block, the 2 x K
+    local indices its embed line asks) and B4 at the sharded lookup's
+    backward (K slot rows of 32 into the 2^19-row block, half the ids
+    foreign: negative or >= 2^19)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + 91)
+    block = torch.randn((SHARDED_ROWS, DIM), generator=gen, device="cuda")
+    idx = torch.randint(0, SHARDED_ROWS, (SHARDED_EMBED * SHARDED_LOCAL_K,),
+                        generator=gen, device="cuda", dtype=torch.int32)
+    rows = torch.randn((SHARDED_LOCAL_K, DIM), generator=gen, device="cuda")
+    ids = (torch.rand(SHARDED_LOCAL_K, generator=gen, device="cuda")
+           ** 4 * VOCAB).to(torch.int32)
+    # this block at offset 2^19: the ids below it land negative, the ids
+    # of the next block's range at or past its end
+    seg = ids - SHARDED_ROWS // 2
+    half = torch.rand(SHARDED_LOCAL_K, generator=gen, device="cuda") < 0.5
+    seg = torch.where(half, seg.remainder(SHARDED_ROWS), seg)
+    return block, idx, rows, seg
+
+
+def check_sharded_kernels(torch, sk, seed) -> dict:
+    """B3 and B4 at the sharded phase's shapes against their plain
+    versions, bit for bit."""
+    block, idx, rows, seg = sharded_kernel_inputs(torch, seed)
+    if not torch.equal(sk.gather_rows(block, idx),
+                       sk.gather_rows_plain(block, idx)):
+        raise AssertionError("gather_rows kernel != plain at the owner's "
+                             "serve shape")
+    got = sk.merge_rows(rows, seg, SHARDED_ROWS)
+    torch.cuda.synchronize()
+    want = sk.merge_rows_plain(rows, seg, SHARDED_ROWS)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        raise AssertionError("merge_rows kernel != plain at the local-index "
+                             "merge")
+    foreign = int(((seg < 0) | (seg >= SHARDED_ROWS)).sum())
+    return {"gather_rows": {"bit_exact": True, "max_abs_err": 0.0,
+                            "block": [SHARDED_ROWS, DIM], "n": idx.numel()},
+            "merge_rows": {"bit_exact": True, "max_abs_err": 0.0,
+                           "m": rows.shape[0], "nseg": SHARDED_ROWS,
+                           "d": DIM, "foreign": foreign}}
+
+
+def sharded_kernel_timing(torch, sk, seed) -> dict:
+    """{kernel: its timing at the sharded shape}: B3 beside
+    ``index_select`` and B4 beside ``index_add_`` into zeros over the
+    in-range slots (picked outside the timing), each ``ms`` and
+    ``library_ms`` medians of LOOKUP_REPEATS graph replays (warm: B3's
+    20 MB working set stays in the L2), ``cold_ms`` after a read that
+    empties the L2, ``plain_ms`` one eager run; the bound is the bytes
+    (B3 the distinct rows read, the indices and the rows written; B4 the
+    rows and ids read once, the block written once)."""
+    block, idx, rows, seg = sharded_kernel_inputs(torch, seed)
+    out = {}
+    idx64 = idx.to(torch.int64)
+    ms = graph_times(torch, lambda: sk.gather_rows(block, idx),
+                     repeats=LOOKUP_REPEATS)
+    lib = graph_times(torch, lambda: block.index_select(0, idx64),
+                      repeats=LOOKUP_REPEATS)
+    n = idx.numel()
+    nbytes = int(torch.unique(idx).numel()) * DIM * 4 + n * 4 + n * DIM * 4
+    out["gather_rows"] = {
+        "shape": "sharded_owner", "rows": SHARDED_ROWS, "d": DIM, "n": n,
+        "ms": statistics.median(ms), "ms_min_max": [min(ms), max(ms)],
+        "cold_ms": cold_ms(torch, lambda: sk.gather_rows(block, idx)),
+        "plain_ms": plain_once_ms(torch, lambda: sk.gather_rows_plain(
+            block, idx)),
+        "library_ms": statistics.median(lib),
+        "library_call": "torch.index_select",
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes}
+    keep = ((seg >= 0) & (seg < SHARDED_ROWS)).nonzero().reshape(-1)
+    seg_in, rows_in = seg.index_select(0, keep).to(torch.int64), \
+        rows.index_select(0, keep)
+    m = rows.shape[0]
+    ms = graph_times(torch, lambda: sk.merge_rows(rows, seg, SHARDED_ROWS),
+                     repeats=LOOKUP_REPEATS)
+    lib = graph_times(torch, lambda: torch.zeros(
+        (SHARDED_ROWS, DIM), device="cuda").index_add_(0, seg_in, rows_in),
+        repeats=LOOKUP_REPEATS)
+    nbytes = m * DIM * 4 + m * 4 + SHARDED_ROWS * DIM * 4
+    out["merge_rows"] = {
+        "shape": "sharded_local_index", "m": m, "nseg": SHARDED_ROWS,
+        "d": DIM, "foreign": m - keep.numel(),
+        "ms": statistics.median(ms), "ms_min_max": [min(ms), max(ms)],
+        "cold_ms": cold_ms(torch, lambda: sk.merge_rows(rows, seg,
+                                                        SHARDED_ROWS)),
+        "plain_ms": plain_once_ms(torch, lambda: sk.merge_rows_plain(
+            rows, seg, SHARDED_ROWS)),
+        "library_ms": statistics.median(lib),
+        "library_call": "torch.zeros(...).index_add_ over the in-range "
+                        "slots",
+        "bound_ms": bound_ms(nbytes), "bound_by": "bytes", "bytes": nbytes}
+    return out
+
+
 # -- phase: serve_deep --------------------------------------------------------
 
 DEEP_KINDS = ("widedeep", "deepfm", "dcn")
@@ -8442,6 +9092,7 @@ def main(argv=None) -> int:
     kern["merge_rows_quality"] = check_merge_rows_quality(np, torch, sk,
                                                           args.seed)
     kern["gather_rows_tiered"] = check_gather_tiered(torch, sk)
+    kern["sharded"] = check_sharded_kernels(torch, sk, args.seed)
     emit(kern | {"phase_s": time.perf_counter() - t_kern})
     serve_info = timed(phase_serve, np, torch, sk, args.seed, requests)
     emit(serve_info | {"serve_gather_ns": serve_ns, "nvidia_smi": smi})
@@ -8468,6 +9119,8 @@ def main(argv=None) -> int:
         shutil.rmtree(online_root, ignore_errors=True)
     cluster_info = timed(phase_cluster, np, torch, sk, args.seed)
     emit(cluster_info | {"nvidia_smi": smi})
+    sharded_info = timed(phase_sharded, np, torch, sk, args.seed)
+    emit(sharded_info | {"nvidia_smi": smi})
     serve_deep_info = timed(phase_serve_deep, np, torch, sk, args.seed,
                             requests)
     emit(serve_deep_info | {"nvidia_smi": smi})
@@ -8514,6 +9167,7 @@ def main(argv=None) -> int:
     train_merge = lookup_timing(np, torch, sk, args.seed)
     zoo_merge = zoo_merge_timing(np, torch, sk, args.seed)
     quality_merge = quality_merge_timing(np, torch, sk, args.seed)
+    sharded_extra = sharded_kernel_timing(torch, sk, args.seed)
     for row in rows:
         name = row["name"]
         row["launches_bench"] = bench_info["launches"].get(name, 0)
@@ -8521,6 +9175,8 @@ def main(argv=None) -> int:
         row["launches_ingest"] = ingest_info["launches"].get(name, 0)
         if name in rs_extra:
             row["dp_rs"] = rs_extra[name]
+        if name in sharded_extra:
+            row["per_shape_sharded"] = sharded_extra[name]
         if name == "merge_rows":
             # its main path since it became the gather's backward: every
             # training path, two launches a step (w and v)
@@ -8547,7 +9203,8 @@ def main(argv=None) -> int:
         # store's pair, the fast path's apply, the online shard's steps),
         # and B2, B4 and B5 (rank 0 of host 0 of the two-level exchange)
         # and B3 (the surviving tiered PS shards) in the cluster phase,
-        # counted into each row's launches
+        # and B2, B3, B4, B5 and B6 over every rank of the sharded phase's
+        # (a), (b) and (d), counted into each row's launches
         deep = {"launches_serve_deep":
                 serve_deep_info["launches"].get(name, 0),
                 "launches_train_deep":
@@ -8558,7 +9215,8 @@ def main(argv=None) -> int:
                 "launches_zoo": zoo_info["launches"].get(name, 0),
                 "launches_online": online_info["launches"].get(name, 0),
                 "launches_tiered": tiered_info["launches"].get(name, 0),
-                "launches_cluster": cluster_info["launches"].get(name, 0)}
+                "launches_cluster": cluster_info["launches"].get(name, 0),
+                "launches_sharded": sharded_info["launches"].get(name, 0)}
         row.update(deep, launches=row["launches"] + sum(deep.values()))
     emit({"timing_s": time.perf_counter() - t_timing})
     emit({"kernels": rows})

@@ -23,6 +23,15 @@ included) and puts each leaf on ``like``'s leaf's device and dtype.  The
 ``rows_N.npz`` snapshots stay plain npz with the JAX package's members, so
 either package reads the other's.
 
+Sharded state (``param_shardings``): a tree holding
+``embed.table.ShardedTable`` leaves is written as the whole tables, the
+same files a one-device trainer writes.  Every rank calls :func:`save`
+(each block is all-gathered over its mesh's ``embed`` axis), the mesh's
+rank 0 writes, and the mesh's ranks wait for the write before returning.
+:func:`restore` with such a tree as ``like`` gives each rank its block
+again, so a sharded checkpoint restores into a one-device trainer and
+back.
+
 Crash safety: every write lands in a same-directory tmp path (``.step_N.
 tmp-<pid>``, ``.rows_N.tmp-<pid>.npz``), is fsynced, and is renamed into
 place, so a writer killed mid-save leaves a ``*.tmp-*`` turd, never a
@@ -43,6 +52,9 @@ from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
+
+from lightctr_tpu_torch.embed import table as table_mod
+from lightctr_tpu_torch.optim.updaters import tree_map
 
 _LOG = logging.getLogger(__name__)
 
@@ -196,6 +208,14 @@ def _like(node, like, leaves, where="state"):
         return type(like)(node["value"]) if isinstance(
             like, (bool, int, float, str)) else node["value"]
     t = leaves[node["leaf"]]
+    if isinstance(like, table_mod.ShardedTable):
+        # the whole table was saved: this rank takes its block
+        if tuple(t.shape) != tuple(like.shape):
+            raise ValueError(f"restore: {where} has shape {tuple(t.shape)}, "
+                             f"the template {tuple(like.shape)}")
+        rows = like.local.shape[0]
+        return like.with_local(t[like.offset:like.offset + rows].to(
+            device=like.device, dtype=like.dtype).clone())
     if isinstance(like, torch.Tensor):
         if tuple(t.shape) != tuple(like.shape):
             raise ValueError(f"restore: {where} has shape {tuple(t.shape)}, "
@@ -211,11 +231,42 @@ def _like(node, like, leaves, where="state"):
 # -- step checkpoints ----------------------------------------------------------
 
 
+def _unshard(state):
+    """(``state`` with every ShardedTable gathered whole, the mesh of the
+    first one or None).  Every rank of the mesh gathers in the same
+    order: the tree's."""
+    meshes = []
+
+    def whole(x):
+        if isinstance(x, table_mod.ShardedTable):
+            meshes.append(x.mesh)
+            return table_mod.gather_table(x)
+        return x
+
+    out = tree_map(whole, state)
+    return out, (meshes[0] if meshes else None)
+
+
 def save(directory: str, step: int, state: Any) -> str:
     """Write one checkpoint under ``directory/step_N``; returns the path.
     Crash-safe: stages into ``.step_N.tmp-<pid>``, fsyncs, and renames
-    into place, so readers never observe a torn ``step_N``."""
+    into place, so readers never observe a torn ``step_N``.  A state with
+    sharded tables is saved by every rank of their mesh together (module
+    docstring)."""
     path = os.path.join(directory, f"step_{step}")
+    state, mesh = _unshard(state)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if mesh.rank == 0:
+            _write(directory, step, state, path)
+        dist.barrier(group=mesh.group)
+        return path
+    _write(directory, step, state, path)
+    return path
+
+
+def _write(directory: str, step: int, state: Any, path: str) -> None:
     os.makedirs(directory, exist_ok=True)
     tmp = os.path.join(directory, f".step_{step}.tmp-{os.getpid()}")
     shutil.rmtree(tmp, ignore_errors=True)
@@ -226,7 +277,6 @@ def save(directory: str, step: int, state: Any) -> str:
     with open(os.path.join(tmp, TREE_FILE), "w") as f:
         json.dump({"format": FORMAT, "step": int(step), "tree": desc}, f)
     _commit_dir(tmp, path)
-    return path
 
 
 def _writer_is_dead(pid_str: str) -> bool:

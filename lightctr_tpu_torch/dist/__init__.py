@@ -6,6 +6,7 @@ hierarchical exchange's reduce shards (``hier``) and the master
 each other."""
 
 from lightctr_tpu_torch.dist.collectives import (
+    all_to_all_exchange,
     dense_ring_bytes,
     ef_residual_init,
     expected_union,
@@ -17,6 +18,7 @@ from lightctr_tpu_torch.dist.collectives import (
     pick_exchange_algo,
     prefer_sparse_exchange,
     ring_all_reduce,
+    ring_broadcast,
     psum_all_reduce,
     rs_default_caps,
     rs_fits,
@@ -32,6 +34,7 @@ from lightctr_tpu_torch.dist.bootstrap import (
 )
 
 __all__ = [
+    "all_to_all_exchange",
     "dense_ring_bytes",
     "ef_residual_init",
     "expected_union",
@@ -43,6 +46,7 @@ __all__ = [
     "pick_exchange_algo",
     "prefer_sparse_exchange",
     "ring_all_reduce",
+    "ring_broadcast",
     "psum_all_reduce",
     "rs_default_caps",
     "rs_fits",

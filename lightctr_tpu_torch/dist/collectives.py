@@ -61,6 +61,8 @@ def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
     """Tiled all-gather: every rank's ``x`` [K, ...] concatenated in rank
     order along dim 0 -> [n*K, ...], on ``x``'s device."""
     n = mesh.size
+    if mesh.group is None:
+        return x.clone()
     src = _staged(mesh, x)
     as_bytes = src.dtype in _AS_BYTES
     if as_bytes:
@@ -76,6 +78,8 @@ def all_gather(mesh, x: torch.Tensor) -> torch.Tensor:
 def all_reduce(mesh, x: torch.Tensor, op=dist.ReduceOp.SUM) -> torch.Tensor:
     """``psum`` / ``pmax`` of ``x`` over the mesh (a new tensor on ``x``'s
     device)."""
+    if mesh.group is None:
+        return x.clone()
     buf = _staged(mesh, x).clone()
     dist.all_reduce(buf, op=op, group=mesh.group)
     return buf.to(x.device)
@@ -130,6 +134,90 @@ def permute(mesh, xs, shift) -> list:
     return [x.clone() if recv is None else
             (recv.view(x.dtype) if x.dtype in _AS_BYTES else recv)
             .to(x.device) for recv, x in zip(recvs, xs)]
+
+
+def all_to_all_exchange(mesh, x: torch.Tensor, axis: str = "data",
+                        compress_bits: Optional[int] = None,
+                        compress_range=1.0) -> torch.Tensor:
+    """All-to-all block exchange over the mesh's ``axis`` — the collective
+    under the sharded table's pull (the reference's DHT-routed per-PS key
+    batches, SURVEY.md §2.7).
+
+    ``x`` [n, ...]: block ``j`` is what this rank sends rank ``j``.
+    Returns [n, ...] whose block ``i`` is what rank ``i`` sent this rank:
+    this rank's slice of the JAX function's transpose of the first two
+    axes.  The blocks ride one ``permute`` of n-1 rotations.
+
+    ``compress_bits`` (8 or 16) codes every float block before the
+    exchange with ``quantize_pack`` on one uniform table (``compress_range``
+    or, for ``"dynamic"``, 1.05 x the axis-global max magnitude, floored at
+    1e-12), so only the codes travel; the receiver decodes.  Integer
+    payloads are refused there."""
+    mesh = mesh.require_axis(axis, "all_to_all_exchange")
+    n = mesh.size
+    if x.ndim < 1 or x.shape[0] != n:
+        raise ValueError(f"expected leading dims [{n}, ...], got "
+                         f"{tuple(x.shape)}")
+    if compress_bits is None:
+        return _all_to_all(mesh, x)
+    if not x.is_floating_point():
+        raise ValueError(f"compress_bits needs a float payload, got {x.dtype}")
+    if compress_range == "dynamic":
+        mag = x.abs().max() if x.numel() else x.new_zeros(())
+        rng = torch.clamp(1.05 * all_reduce(mesh, mag, dist.ReduceOp.MAX),
+                          min=1e-12)
+    else:
+        rng = compress_range
+    # every sender shares the table (the max is axis-global), so every
+    # receiver decodes exactly what was encoded
+    table = quantize.build_table(-rng, rng, bits=compress_bits,
+                                 mode="uniform", device=x.device)
+    return quantize.extract(
+        table, _all_to_all(mesh, sparse_kernels.quantize_pack(table, x)))
+
+
+def _all_to_all(mesh, x: torch.Tensor) -> torch.Tensor:
+    """Block ``(r + s) % n`` of ``x`` to rank ``(r + s) % n`` for every
+    shift s, in one batch; block ``(r - s) % n`` of the result from there."""
+    n, r = mesh.size, mesh.rank
+    shifts = list(range(1, n))
+    got = permute(mesh, [x[(r + s) % n] for s in shifts], shifts)
+    out = torch.empty_like(x)
+    out[r] = x[r]
+    for s, block in zip(shifts, got):
+        out[(r - s) % n] = block
+    return out
+
+
+def ring_broadcast(mesh, tree, axis: str = "data"):
+    """Rank 0's values of ``tree`` (a tensor or a nested dict/list of
+    them, the same structure and shapes on every rank) on every rank of
+    the mesh's ``axis``, bit for bit — ``syncInitializer`` parity
+    (ring_collect.h:74-79).  n-1 hops round the ring: at hop i every rank
+    sends its values on, and rank i+1 adopts what rank i sent."""
+    from lightctr_tpu_torch.optim.updaters import tree_leaves, tree_map
+
+    mesh = mesh.require_axis(axis, "ring_broadcast")
+    leaves = tree_leaves(tree)
+    for i in range(mesh.size - 1):
+        got = permute(mesh, leaves, 1)
+        if mesh.rank == i + 1:
+            leaves = got
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
+def reduce_scatter_mean(mesh, flat: torch.Tensor) -> torch.Tensor:
+    """``psum_scatter(flat, tiled=True) / n`` over the mesh: ``flat`` [L]
+    (L a multiple of n) cut into n chunks, chunk ``j`` summed over the
+    ranks onto rank ``j``, in rank order, and divided by n.  The chunks
+    ride :func:`all_to_all_exchange`'s rotations."""
+    n = mesh.size
+    parts = _all_to_all(mesh, flat.reshape(n, -1))
+    out = parts[0].clone()
+    for i in range(1, n):
+        out += parts[i]
+    return out / n
 
 
 # -- the ring all-reduce -----------------------------------------------------
@@ -509,7 +597,7 @@ def measure_ici_bw(mesh, axis: str = "data", payload_bytes: int = 1 << 22,
     on the mesh's device; on a gloo group a CUDA vector is staged through
     host memory, so ranks that share one card measure gloo through host
     memory, not a device link."""
-    mesh.require_axis(axis, "measure_ici_bw")
+    mesh = mesh.require_axis(axis, "measure_ici_bw")
     n = mesh.size
     if n < 2:
         return DEFAULT_ICI_BPS

@@ -14,8 +14,27 @@ The port's counterpart of the single-device half of
 Sparse Adagrad is the plain chain that ``merge_apply``'s plain version
 runs.  The JAX functions return new arrays (their trainer donates the old
 ones); here every update is **in place** on ``table`` and its state, as
-the CUDA kernel's is, with the same values.  A row-sharded table (the JAX
-``mesh=`` of :func:`init_table`) is not ported (ROADMAP.md §A.8).
+the CUDA kernel's is, with the same values.
+
+A row-sharded table (the JAX ``mesh=`` of :func:`init_table`, rows
+``P("embed", None)``) is a :class:`ShardedTable`: this rank's block of
+rows, its offset, the table's row count and the mesh.  :func:`lookup`
+pulls its rows the way the reference's worker pulls from the PS shards
+(pull.h:43-99), over the mesh's ``embed`` view:
+
+  1. the ids deduped (``dedup_ids``);
+  2. the unique ids bucketed by the block that owns them, each bucket
+     padded to the deduped length (no bucket can overflow);
+  3. the buckets routed to their owners (``all_to_all_exchange``);
+  4. each owner serves its rows from its block (``gather_rows``);
+  5. the rows routed back (``all_to_all_exchange``);
+  6. expanded by the dedup's inverse.
+
+Its gradient is the block's: each slot's row gradient merged into the
+block at ``id - offset`` (``merge_rows``, slot order), the other blocks'
+ids falling outside it and dropped.  No push crosses the embed axis: the
+members of an embed line hold the same batch rows, compute the same slot
+gradients, and each keeps the rows it owns.
 """
 
 from __future__ import annotations
@@ -26,17 +45,246 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 
+class ShardedTable:
+    """A table of ``num_rows`` rows, row-sharded over ``mesh``'s ``embed``
+    axis, as this rank holds it: ``local``, its block of rows ``[offset,
+    offset + local.shape[0])``.  The JAX package's table under
+    ``embed_sharding``; :func:`lookup` reads it, and the trainers step
+    ``local`` in place."""
+
+    __slots__ = ("local", "offset", "num_rows", "mesh")
+
+    def __init__(self, local: torch.Tensor, offset: int, num_rows: int,
+                 mesh):
+        self.local = local
+        self.offset = int(offset)
+        self.num_rows = int(num_rows)
+        self.mesh = mesh
+
+    @property
+    def shape(self) -> tuple:
+        """The whole table's shape."""
+        return (self.num_rows,) + tuple(self.local.shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.local.dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self.local.device
+
+    def with_local(self, local: torch.Tensor) -> "ShardedTable":
+        """The same placement over another block (an update's result)."""
+        return ShardedTable(local, self.offset, self.num_rows, self.mesh)
+
+    def detach(self) -> "ShardedTable":
+        return self.with_local(self.local.detach())
+
+    def clone(self) -> "ShardedTable":
+        return self.with_local(self.local.clone())
+
+    def __repr__(self) -> str:
+        return (f"ShardedTable(shape={self.shape}, rows=[{self.offset}, "
+                f"{self.offset + self.local.shape[0]}), "
+                f"device={self.device})")
+
+
+def shard_rows(full, mesh, device=None) -> ShardedTable:
+    """This rank's block of a whole table ``full`` (a tensor or an array)
+    under ``embed_sharding(mesh)``: rows ``[e*F/S, (e+1)*F/S)`` for embed
+    index ``e`` of ``S``, copied onto ``device`` (``mesh.device`` by
+    default).  ``F`` must divide by ``S``, as the JAX ``device_put``
+    requires."""
+    full = torch.as_tensor(full)
+    emb = mesh.view("embed")
+    s, e = emb.size, emb.rank
+    f = full.shape[0]
+    if f % s:
+        raise ValueError(f"embed_sharding: the global size of dimension 0 "
+                         f"should be divisible by {s}, but it is equal to "
+                         f"{f} (full shape: {tuple(full.shape)})")
+    rows = f // s
+    dev = mesh.device if device is None else device
+    return ShardedTable(full[e * rows:(e + 1) * rows].to(dev).clone(),
+                        e * rows, f, mesh)
+
+
+def gather_table(table: ShardedTable) -> torch.Tensor:
+    """The whole table on every member of the embed line (one all-gather
+    of the blocks over the ``embed`` view)."""
+    from lightctr_tpu_torch.dist import collectives
+
+    return collectives.all_gather(table.mesh.view("embed"), table.local)
+
+
 def init_table(generator: torch.Generator, num_rows: int, dim: int,
-               mesh=None, scale: Optional[float] = None) -> torch.Tensor:
+               mesh=None, scale: Optional[float] = None):
     """N(0, 1/dim) rows (the PS lazy-init draws gaussian*sqrt(1/dim),
     paramserver.h:315-339 check_and_find), drawn from ``generator`` on its
-    device."""
-    if mesh is not None:
-        raise ValueError("init_table: mesh= (a row-sharded table) not yet "
-                         "ported to lightctr_tpu_torch (see ROADMAP.md §A)")
+    device.  With ``mesh`` the whole table is drawn as without one and
+    this rank keeps its block, a :class:`ShardedTable` on the mesh's
+    device: a sharded table holds the same numbers as the unsharded one."""
     scale = scale if scale is not None else 1.0 / math.sqrt(float(dim))
-    return torch.randn((num_rows, dim), generator=generator,
-                       dtype=torch.float32, device=generator.device) * scale
+    t = torch.randn((num_rows, dim), generator=generator,
+                    dtype=torch.float32, device=generator.device) * scale
+    if mesh is not None:
+        return shard_rows(t, mesh)
+    return t
+
+
+def pull_rows(table: ShardedTable, uids: torch.Tensor,
+              count: torch.Tensor, local: Optional[torch.Tensor] = None
+              ) -> torch.Tensor:
+    """Steps 2-5 of the pull (module docstring): the rows of deduped
+    ``uids`` [K] (sorted, the first ``count`` real, the rest pads) from
+    their owners over the ``embed`` view -> [K, ...], zero at the pads.
+    ``local`` stands in for ``table.local`` (an autograd leaf over it).
+    Every member of the embed line must pull together."""
+    from lightctr_tpu_torch.dist import collectives
+    from lightctr_tpu_torch.ops import sparse_kernels
+
+    block = table.local if local is None else local
+    emb = table.mesh.view("embed")
+    s, k, rows = emb.size, uids.shape[0], block.shape[0]
+    dev = uids.device
+    slot = torch.arange(k, device=dev)
+    # pads are masked by the count, never by their value: id 0 is a real
+    # row of block 0 and B2's pad
+    valid = slot < count
+    key = torch.where(valid, uids.to(torch.int64), table.num_rows)
+    owner = torch.where(valid, key // rows, s)
+    # the uids are sorted, so each owner's are one run of slots: a slot's
+    # place in its bucket is its distance from the run's start (the pads
+    # fill the trash bucket s)
+    starts = torch.searchsorted(
+        key, torch.arange(s + 1, device=dev, dtype=torch.int64) * rows)
+    pos = slot - starts.index_select(0, owner)
+    req = torch.zeros((s + 1, k), dtype=torch.int32, device=dev)
+    req[owner, pos] = torch.where(valid, key - owner * rows, 0).to(
+        torch.int32)
+    asked = collectives.all_to_all_exchange(emb, req[:s], axis="embed")
+    served = sparse_kernels.gather_rows(
+        block.detach(), asked.reshape(-1)).reshape(
+            (s, k) + tuple(block.shape[1:]))
+    back = collectives.all_to_all_exchange(emb, served, axis="embed")
+    got = back[owner.clamp(max=s - 1), pos]
+    return got * valid.to(got.dtype).reshape(
+        (-1,) + (1,) * (got.ndim - 1))
+
+
+def _tree_map(f, *trees):
+    from lightctr_tpu_torch.optim.updaters import tree_map
+
+    return tree_map(f, *trees)
+
+
+def local_view(tree):
+    """``tree`` with each :class:`ShardedTable` replaced by its block."""
+    return _tree_map(
+        lambda x: x.local if isinstance(x, ShardedTable) else x, tree)
+
+
+def rewrap(tree, like):
+    """``tree`` (blocks) with each leaf where ``like`` holds a
+    :class:`ShardedTable` put back under that table's placement."""
+    return _tree_map(
+        lambda x, t: t.with_local(x) if isinstance(t, ShardedTable) else x,
+        tree, like)
+
+
+def has_sharded(tree) -> bool:
+    """Whether any leaf of ``tree`` is a :class:`ShardedTable`."""
+    from lightctr_tpu_torch.optim.updaters import tree_leaves
+
+    return any(isinstance(x, ShardedTable) for x in tree_leaves(tree))
+
+
+def place(tree, placements, device=None):
+    """``tree`` under a matching tree of ``core.mesh.Placement``: each leaf
+    under ``embed_sharding`` this rank's :class:`ShardedTable` block
+    (:func:`shard_rows`; a leaf that already is one stays), each
+    replicated leaf as it is.  Any other placement is refused: nothing
+    else shards a parameter in the JAX package."""
+    def one(x, p):
+        axis = getattr(p, "row_axis", None)
+        if not hasattr(p, "spec") or (p.spec and any(
+                a is not None for a in p.spec[1:])):
+            raise ValueError(f"param_shardings: unsupported placement {p!r}")
+        if axis is None:
+            return x
+        if axis != "embed":
+            raise ValueError(f"param_shardings: a parameter's rows shard "
+                             f"over 'embed' only, got {axis!r}")
+        if isinstance(x, ShardedTable):
+            return x
+        return shard_rows(x, p.mesh, device)
+
+    return _tree_map(one, tree, placements)
+
+
+def _per_param(state, like, fn):
+    """``state`` with ``fn(subtree, like[k])`` in place of each subtree
+    under a dict whose keys are all names of ``like`` (a per-parameter
+    tree of an optimizer state: Adagrad's ``accum``, Adam's moments, the
+    sparse trainer's table accumulators)."""
+    if isinstance(state, dict) and isinstance(like, dict) and state \
+            and set(state) <= set(like):
+        return {k: fn(v, like[k]) for k, v in state.items()}
+    if isinstance(state, dict):
+        return {k: _per_param(v, like, fn) for k, v in state.items()}
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(_per_param(v, like, fn) for v in state))
+    if isinstance(state, (tuple, list)):
+        return type(state)(_per_param(v, like, fn) for v in state)
+    return state
+
+
+def place_state(state, placements, device=None):
+    """An optimizer state of whole tables under the params' ``placements``
+    (the carry-over of a JAX state): each per-parameter leaf placed as
+    its parameter is."""
+    return _per_param(state, placements,
+                      lambda v, p: place(v, p, device))
+
+
+def place_like(state, params):
+    """An optimizer state of ``params``' blocks under ``params``'
+    placements, as the JAX optimizer state inherits its params'
+    shardings."""
+    return _per_param(state, params, rewrap)
+
+
+class _ShardedLookup(torch.autograd.Function):
+    """The pull of a :class:`ShardedTable`'s rows at ``ids``, whose
+    backward is the slot-order merge into this rank's block."""
+
+    @staticmethod
+    def forward(ctx, local, ids, table):
+        from lightctr_tpu_torch.ops import sparse_kernels
+
+        flat = ids.reshape(-1).to(torch.int32)
+        uids, inv, count = sparse_kernels.dedup_ids(flat)
+        rows = pull_rows(table, uids, count, local=local)
+        ctx.save_for_backward(flat)
+        ctx.offset = table.offset
+        ctx.local_shape = local.shape
+        return rows.index_select(0, inv).reshape(
+            tuple(ids.shape) + tuple(local.shape[1:]))
+
+    @staticmethod
+    def backward(ctx, grad):
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        from lightctr_tpu_torch.ops import sparse_kernels
+
+        (flat,) = ctx.saved_tensors
+        shape = ctx.local_shape
+        m = flat.numel()
+        # ids of the other blocks land outside [0, rows) and are dropped
+        merged = sparse_kernels.merge_rows(
+            grad.reshape(m, -1).contiguous(), flat - ctx.offset, shape[0])
+        return merged.reshape(shape), None, None
 
 
 class _Lookup(torch.autograd.Function):
@@ -64,9 +312,11 @@ class _Lookup(torch.autograd.Function):
         return merged.reshape(shape), None
 
 
-def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+def lookup(table, ids: torch.Tensor) -> torch.Tensor:
     """Pull: the rows of ``table`` at ``ids`` (``jnp.take(table, ids,
-    axis=0)``), shaped ``ids.shape + table.shape[1:]``.
+    axis=0)``), shaped ``ids.shape + table.shape[1:]``.  A
+    :class:`ShardedTable` is pulled from its owners (module docstring);
+    its gradient reaches this rank's block only.
 
     Its gradient is ``merge_rows(grad, ids, rows)``: each row's slots
     summed in increasing slot order from +0, the order of XLA's
@@ -74,6 +324,8 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     tables; ``index_select``'s own backward sums with atomics in an order
     that varies run to run), on a CPU tensor its plain version
     (``index_add_`` in index order)."""
+    if isinstance(table, ShardedTable):
+        return _ShardedLookup.apply(table.local, ids, table)
     return _Lookup.apply(table, ids)
 
 

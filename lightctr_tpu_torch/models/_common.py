@@ -40,7 +40,7 @@ def _port_tuple(name: str):
     return getattr(mod, name)
 
 
-def params_from_numpy(np_params, device):
+def params_from_numpy(np_params, device, placements=None):
     """A (nested) dict or list of numpy arrays — e.g. the JAX package's
     params through ``np.asarray``: FM's ``{"w", "v"}``, the Wide&Deep
     family's and NFM's ``{"w", ..., "fc1": {"w", "b"}, ...}``, the sequence
@@ -48,7 +48,14 @@ def params_from_numpy(np_params, device):
     zoo's conv/LSTM/attention dicts, or one of the NamedTuples
     ``GMMParams``, ``PLSAParams``, ``Word2VecParams`` and GBM's ``Tree``
     (as the port's NamedTuple of that name) — as tensors on ``device``,
-    the same tree."""
+    the same tree.  ``placements`` (a trainer's ``param_shardings``) gives
+    this rank's blocks of the leaves it row-shards
+    (``embed.table.ShardedTable``)."""
+    if placements is not None:
+        from lightctr_tpu_torch.embed import table as table_mod
+
+        return table_mod.place(params_from_numpy(np_params, device),
+                               placements, device)
     if _is_namedtuple(np_params):
         cls = _port_tuple(type(np_params).__name__)
         return cls(*(params_from_numpy(v, device) for v in np_params))
@@ -61,7 +68,8 @@ def params_from_numpy(np_params, device):
     return _tensor(np_params, device)
 
 
-def opt_state_from_numpy(np_state, device, rank: int = 0):
+def opt_state_from_numpy(np_state, device, rank: int = 0,
+                         placements=None):
     """The JAX trainers' optimizer state (as numpy) -> the port's: an
     ``AdagradState`` (anything with an ``accum`` tree, ``CTRTrainer``'s
     state), an ``AdamState`` (``count``, ``mu``, ``nu``), the compressed ring's ``CompressedRingState`` (``inner`` and
@@ -72,7 +80,14 @@ def opt_state_from_numpy(np_state, device, rank: int = 0):
     the same name and fields (``FTRLState``, ``RMSpropState``, ...).
     Accumulator trees may nest (a model's dense sub-layers).
     The JAX mesh state stacks one EF residual per rank (``[n, ...]``);
-    rank ``rank`` takes its slice."""
+    rank ``rank`` takes its slice.  ``placements`` (the params'
+    ``param_shardings``) gives this rank's blocks of the state of the
+    row-sharded params, as the JAX state inherits its params' shardings."""
+    if placements is not None:
+        from lightctr_tpu_torch.embed import table as table_mod
+
+        return table_mod.place_state(
+            opt_state_from_numpy(np_state, device, rank), placements, device)
     if isinstance(np_state, tuple) and not _is_namedtuple(np_state):
         return tuple(opt_state_from_numpy(s, device, rank)
                      for s in np_state)

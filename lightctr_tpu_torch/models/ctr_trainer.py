@@ -43,8 +43,18 @@ Differences from the JAX trainer, by design:
     live-buffer census with the trainer state tagged, and the process
     donation watch's binding (``obs/device.py``).  Neither changes what a
     step computes.
-  - ``param_shardings`` and ``zero_sharded`` are not ported yet: passing
-    one raises ``ValueError``.
+  - ``param_shardings`` (a tree of ``core.mesh.Placement``) row-shards the
+    leaves under ``embed_sharding`` over the mesh's ``embed`` axis: each
+    such leaf is an ``embed.table.ShardedTable`` (this rank's block), the
+    models pull its rows through ``embed.table.lookup`` from their owners,
+    and its gradient reaches the block only.  The optimizer state takes
+    the params' placements and steps on the blocks (every optimizer of the
+    registry is elementwise); gradients are averaged over the ``data``
+    axis only, since the members of an embed line hold the same rows.
+  - ``zero_sharded`` (the JAX step's shard_map, arXiv:2004.13336) runs
+    per rank: the flat gradient mean-reduce-scattered over the ``data``
+    axis, the optimizer stepped on this rank's 1/n slice with its 1/n of
+    the state, the parameters all-gathered.
 """
 
 from __future__ import annotations
@@ -65,6 +75,7 @@ from lightctr_tpu_torch.core.mesh import Mesh, shard_batch
 from lightctr_tpu_torch.data import ingest as ingest_mod
 from lightctr_tpu_torch.data.batching import minibatches
 from lightctr_tpu_torch.dist import collectives
+from lightctr_tpu_torch.embed import table as table_mod
 from lightctr_tpu_torch.models._common import tree_copy
 from lightctr_tpu_torch.obs import device as device_mod
 from lightctr_tpu_torch.obs import health as health_mod
@@ -79,14 +90,6 @@ from lightctr_tpu_torch.optim.updaters import tree_leaves, tree_map
 from lightctr_tpu_torch.utils.profiling import annotate
 
 _LOG = logging.getLogger(__name__)
-
-
-def not_yet_ported(owner: str, **args) -> None:
-    """Raise ``ValueError`` naming each of ``args`` that was given."""
-    given = [k for k, v in args.items() if v is not None and v is not False]
-    if given:
-        raise ValueError(f"{owner}: {', '.join(given)} not yet ported to "
-                         "lightctr_tpu_torch (see ROADMAP.md §A)")
 
 
 def _health_pack(loss: torch.Tensor, grad_norm: torch.Tensor) -> torch.Tensor:
@@ -169,8 +172,14 @@ class CTRTrainer:
     fused_adagrad: apply Adagrad with the one-pass ``fused_adagrad`` kernel
         per parameter leaf, in place, instead of the optimizer transform.
     mesh: a :class:`~lightctr_tpu_torch.core.mesh.Mesh` for data-parallel
-        execution: each rank steps on its rows of the global batch and the
-        gradients are averaged over the mesh; params are replicated.
+        execution: each rank steps on its rows of the global batch (its
+        ``data`` index's rows on a mesh of several axes) and the
+        gradients are averaged over the ``data`` axis; params are
+        replicated unless ``param_shardings`` says otherwise.
+    param_shardings: a tree of :class:`~lightctr_tpu_torch.core.mesh.
+        Placement` matching ``params`` — e.g. embedding tables under
+        ``embed_sharding(mesh)`` (the PS layout), the rest ``replicated``;
+        the optimizer state takes the same placements.
     compress_bits: when set (8 or 16) with a mesh, the gradient exchange
         runs as an explicit ring all-reduce whose every hop is
         quantile-coded to that width (``dist.collectives``).
@@ -195,8 +204,12 @@ class CTRTrainer:
         the JAX trainer's ``device=`` switch.
     device: the torch device of params, state and batches (default
         ``"cuda"``, or the mesh's device).
-    param_shardings, zero_sharded: the JAX trainer's sharded-parameter
-        options, not yet ported; giving one raises ``ValueError``.
+    zero_sharded: cross-replica weight-update sharding (Xu et al. 2020,
+        arXiv:2004.13336): the gradient is reduce-scattered over the
+        ``data`` axis, each rank updates its 1/n shard of the flattened
+        parameters with its 1/n shard of optimizer state, and the new
+        parameters are all-gathered.  Same trajectory as replicated data
+        parallelism; the optimizer state per rank drops to 1/n.
     """
 
     def __init__(
@@ -220,22 +233,42 @@ class CTRTrainer:
         device_telemetry: Optional[bool] = None,
         device=None,
     ):
-        not_yet_ported(type(self).__name__, param_shardings=param_shardings,
-                       zero_sharded=zero_sharded)
         if fused_adagrad and optimizer is not None:
             raise ValueError("fused_adagrad replaces the optimizer argument")
         if fused_adagrad and compress_bits is not None:
             raise ValueError(
                 "fused_adagrad is not supported with compress_bits (the "
                 "compressed ring step applies the optimizer transform)")
+        if fused_adagrad and param_shardings is not None:
+            raise ValueError(
+                "fused_adagrad is not supported with param_shardings: the "
+                "fused kernel steps whole replicated leaves; use the "
+                "optimizer path for sharded params")
+        if zero_sharded:
+            if mesh is None:
+                raise ValueError("zero_sharded requires a mesh (it shards the "
+                                 "update over the data axis)")
+            if param_shardings is not None or compress_bits is not None \
+                    or fused_adagrad:
+                raise ValueError(
+                    "zero_sharded composes with replicated params and the "
+                    "plain optax path only")
+        if param_shardings is not None and mesh is None:
+            raise ValueError("param_shardings requires a mesh")
         if mesh is not None and not isinstance(mesh, Mesh):
             raise ValueError(f"mesh must be a lightctr_tpu_torch.core.mesh."
                              f"Mesh (make_mesh), got {type(mesh).__name__}")
+        #: the mesh as given (of several axes, for a sharded layout)
+        self.full_mesh = mesh
         if mesh is not None:
-            mesh.require_axis("data", type(self).__name__)
+            # the trainer's own collectives run over the data axis
+            mesh = mesh.require_axis("data", type(self).__name__)
         if compress_bits is not None and mesh is None:
             raise ValueError("compress_bits requires a mesh (it compresses "
                              "the cross-device gradient exchange)")
+        if compress_bits is not None and param_shardings is not None:
+            raise ValueError("compress_bits assumes replicated params "
+                             "(ring-exchanged data-parallel gradients)")
         self.error_feedback = (
             error_feedback if error_feedback is not None
             else (compress_bits is not None and compress_bits <= 8))
@@ -252,6 +285,8 @@ class CTRTrainer:
         self.mesh = mesh
         self.compress_bits = compress_bits
         self.compress_range = compress_range
+        self.zero_sharded = zero_sharded
+        self.param_shardings = param_shardings
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device!r} is not the mesh's "
@@ -266,6 +301,13 @@ class CTRTrainer:
         self.fused_adagrad = fused_adagrad
         self.tx = optimizer or optim_lib.adagrad(cfg.learning_rate)
         self.params = self._own(params)
+        if zero_sharded:
+            # the flat parameter vector, padded to a multiple of the data
+            # axis: each rank updates one 1/n slice of it
+            n = mesh.size
+            length = collectives.ravel_tree(self.params)[0].numel()
+            self._zero_len = length
+            self._zero_pad = ((length + n - 1) // n) * n
         if compress_bits is not None:
             # the compressed ring flattens the leaves _ring_tree keeps on it
             # (hybrid subclasses exchange their table leaves sparsely) and
@@ -344,10 +386,13 @@ class CTRTrainer:
 
     def _build_step(self):
         """The training step: the compressed-ring data-parallel step when
-        ``compress_bits`` is set, else the plain one (with a mesh, its
-        gradients averaged over the mesh)."""
+        ``compress_bits`` is set, the sharded-weight-update step when
+        ``zero_sharded`` is, else the plain one (with a mesh, its
+        gradients averaged over the data axis)."""
         if self.compress_bits is not None:
             return self._make_compressed_step()
+        if self.zero_sharded:
+            return self._make_zero_step()
         return self._make_step()
 
     def _ring_tree(self, params):
@@ -357,11 +402,18 @@ class CTRTrainer:
         return params
 
     def _own(self, params):
-        """The trainer's own copy of ``params`` on its device: steps update
-        in place, so the caller's tree (which may seed several trainers)
-        must stay untouched."""
-        return tree_copy(tree_map(
-            lambda x: torch.as_tensor(x).to(self.device), params))
+        """The trainer's own copy of ``params`` on its device, under
+        ``param_shardings``: steps update in place, so the caller's tree
+        (which may seed several trainers) must stay untouched."""
+        own = tree_copy(tree_map(
+            lambda x: (x.with_local(x.local.to(self.device))
+                       if isinstance(x, table_mod.ShardedTable)
+                       else torch.as_tensor(x).to(self.device)), params))
+        if self.param_shardings is None:
+            if table_mod.has_sharded(own):
+                raise ValueError("sharded tables need param_shardings")
+            return own
+        return table_mod.place(own, self.param_shardings, self.device)
 
     def _make_loss_fn(self, with_probs: bool = False):
         lambda_l2 = self.cfg.lambda_l2
@@ -397,8 +449,10 @@ class CTRTrainer:
         loss_fn = self._make_loss_fn(with_probs=armed)
 
         def grad_fn(params, batch):
-            leaves = leaves_requiring_grad(params)
-            out = loss_fn(leaves, batch)
+            # a sharded table's autograd leaf is its block: the forward
+            # sees the table, the gradient is the block's
+            leaves = leaves_requiring_grad(table_mod.local_view(params))
+            out = loss_fn(table_mod.rewrap(leaves, params), batch)
             loss, probs = out if armed else (out, None)
             loss.backward()
             return loss.detach(), probs, grads_of(leaves)
@@ -460,6 +514,27 @@ class CTRTrainer:
 
             return step
 
+        if self.param_shardings is not None:
+            view, rewrap = table_mod.local_view, table_mod.rewrap
+
+            def step(params, opt_state, batch):
+                loss, probs, grads = grad_fn(params, batch)
+                with torch.no_grad():
+                    health = self._append_sketch(
+                        _health_pack(loss, torch.sqrt(
+                            self._sharded_sumsq(grads, params))),
+                        probs, batch, mesh)
+                    # the optimizer steps on the blocks, elementwise
+                    local = view(params)
+                    updates, opt_state = tx.update(grads, view(opt_state),
+                                                   local)
+                    params = rewrap(optim_lib.apply_updates(local, updates),
+                                    params)
+                    opt_state = table_mod.place_like(opt_state, params)
+                return params, opt_state, loss, health
+
+            return step
+
         def step(params, opt_state, batch):
             loss, probs, grads = grad_fn(params, batch)
             with torch.no_grad():
@@ -469,6 +544,57 @@ class CTRTrainer:
                 updates, opt_state = tx.update(grads, opt_state, params)
                 params = optim_lib.apply_updates(params, updates)
             return params, opt_state, loss, health
+
+        return step
+
+    def _sharded_sumsq(self, grads, params) -> torch.Tensor:
+        """The square sum of a gradient whose sharded leaves are this
+        rank's blocks: theirs summed over the ``embed`` axis, the
+        replicated leaves' counted once."""
+        rep, own = [], []
+        for g, p in zip(tree_leaves(grads), tree_leaves(params)):
+            (own if isinstance(p, table_mod.ShardedTable) else rep).append(g)
+        own2 = sum_squares(own, device=self.device)
+        emb = self.full_mesh.view("embed")
+        return (sum_squares(rep, device=self.device)
+                + collectives.all_reduce(emb, own2))
+
+    def _make_zero_step(self):
+        """Cross-replica sharded weight update (arXiv:2004.13336 / ZeRO-1),
+        per rank: the local gradient flattened (``ravel_tree``, JAX's
+        ``ravel_pytree`` order) and padded, its mean reduce-scattered over
+        the data axis, the optimizer applied to this rank's 1/n slice of
+        the flat parameters with its 1/n slice of state, and the new
+        slices all-gathered."""
+        grad_fn = self._make_grad_fn()
+        tx = self.tx
+        mesh = self.mesh
+        n = mesh.size
+        length, padded = self._zero_len, self._zero_pad
+        shard = padded // n
+        lo = mesh.rank * shard
+
+        def step(params, opt_state, batch):
+            loss, probs, grads = grad_fn(params, batch)
+            with torch.no_grad():
+                flat_g, _ = collectives.ravel_tree(grads, device=self.device)
+                flat_g = torch.nn.functional.pad(flat_g, (0, padded - length))
+                g_shard = collectives.reduce_scatter_mean(mesh, flat_g)
+                # ||mean grad|| from the disjoint shards: one sum of the
+                # shards' square sums, the same on every rank
+                gnorm = torch.sqrt(collectives.all_reduce(
+                    mesh, torch.sum(g_shard * g_shard)))
+                flat_p, unravel = collectives.ravel_tree(params,
+                                                         device=self.device)
+                flat_p = torch.nn.functional.pad(flat_p, (0, padded - length))
+                p_shard = flat_p[lo:lo + shard]
+                updates, opt_state = tx.update(g_shard, opt_state, p_shard)
+                p_shard = optim_lib.apply_updates(p_shard, updates)
+                full = collectives.all_gather(mesh, p_shard)[:length]
+                loss = collectives.pmean(mesh, loss)
+                health = self._append_sketch(_health_pack(loss, gnorm),
+                                             probs, batch, mesh)
+            return unravel(full), opt_state, loss, health
 
         return step
 
@@ -530,7 +656,27 @@ class CTRTrainer:
         """Optimizer-state factory — subclasses with their own table state
         override this.  The compressed ring adds this rank's EF residual
         (a 1-element placeholder without error feedback, as in the JAX
-        trainer)."""
+        trainer); ``zero_sharded`` keeps this rank's 1/n slice of the
+        state of the flat parameters, and refuses an optimizer whose state
+        is not elementwise; sharded params give their placements to their
+        state."""
+        if self.zero_sharded:
+            state = self.tx.init(torch.zeros(self._zero_pad,
+                                             device=self.device))
+            for leaf in tree_leaves(state):
+                if tuple(getattr(leaf, "shape", ())) != (self._zero_pad,):
+                    raise ValueError(
+                        "zero_sharded needs an optimizer whose state is "
+                        "elementwise over the parameters (adagrad/rmsprop/"
+                        f"sgd-style); got a state leaf of shape "
+                        f"{tuple(getattr(leaf, 'shape', ()))}")
+            shard = self._zero_pad // self.mesh.size
+            lo = self.mesh.rank * shard
+            # 1/n of the flattened state lives on each data rank
+            return tree_map(lambda x: x[lo:lo + shard].clone(), state)
+        if self.param_shardings is not None:
+            return table_mod.place_like(
+                self.tx.init(table_mod.local_view(params)), params)
         if self.compress_bits is not None:
             return CompressedRingState(
                 inner=self.tx.init(params),
@@ -757,6 +903,21 @@ class CTRTrainer:
                 ev.synchronize()
             self._observe_scalars(hm if on else None, vec)
 
+    def arm_stepwatch(self, **kw) -> "stepwatch_mod.StepWatch":
+        """Arm (or return) the step stall watchdog against this trainer's
+        health monitor — the programmatic twin of ``LIGHTCTR_STALL=1``.
+        Keyword arguments forward to
+        :class:`~lightctr_tpu_torch.obs.stepwatch.StepWatch`; passing any
+        when a watch is already armed (e.g. from the env) replaces it, so
+        a caller's explicit deadline/registry always wins."""
+        if self.stepwatch is not None and kw:
+            self.stepwatch.close()
+            self.stepwatch = None
+        if self.stepwatch is None:
+            self.stepwatch = stepwatch_mod.StepWatch(monitor=self.health,
+                                                     **kw)
+        return self.stepwatch
+
     def _health_signals(self, batch) -> Dict:
         """Extra health signals subclasses contribute per step (the sparse
         trainer reports per-table touched-uid counts here)."""
@@ -884,6 +1045,19 @@ class CTRTrainer:
                 self.params, self.opt_state, batch)
             losses.append(loss)
         return torch.stack(losses).cpu().numpy()
+
+    def warmup_fullbatch_scan(self, arrays: Dict[str, np.ndarray],
+                              epochs: int) -> None:
+        """Run one throwaway :meth:`fit_fullbatch_scan` of ``epochs`` steps
+        on copies of (params, opt_state), leaving the trainer's state as it
+        was — benchmark warm-up (the kernels built and loaded, the caching
+        allocator grown, the first launches paid) before a timed run."""
+        batch = self._put(self._resolve_arrays(arrays))
+        params, state = tree_copy(self.params), tree_copy(self.opt_state)
+        for _ in range(epochs):
+            params, state, _, _ = self._step(params, state, batch)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     def predict_proba(self, arrays: Dict[str, np.ndarray]) -> np.ndarray:
         with torch.no_grad():

@@ -99,7 +99,26 @@ batch:
     by the optimizer.  Identical inputs everywhere, so every rank of
     every host ends identical.
 
-Not yet ported: ``param_shardings``; giving it raises ``ValueError``.
+PS-style ``param_shardings`` (tables row-sharded over the mesh's
+``embed`` axis, ``embed.table.ShardedTable``; the JAX trainer's
+single-program step under GSPMD) runs, one rank per process, the
+reference's worker-to-PS-shard pull and push (pull.h:50-99,
+distributed_algo_abst.h:176-280):
+
+  - each rank dedups its data index's rows' ids once per id stream
+    (``dedup_ids``) and pulls the touched rows from their owners over
+    the embed axis (``embed.table.pull_rows``: the buckets and the rows
+    routed by ``all_to_all_exchange``, each owner serving from its block
+    with ``gather_rows``);
+  - gradients are taken on the rows; the dense leaves are averaged over
+    the ``data`` axis;
+  - each table's row gradients for the ids this rank's block owns (the
+    others' and the pads zeroed) are averaged over the ``data`` axis by
+    ``sparse_all_reduce`` (``dedup_ids`` on the gathered ids, then
+    ``merge_rows``), and applied to the block at local indices by
+    ``merge_apply``'s apply mode.  No push crosses the embed axis: the
+    members of an embed line hold the same rows, so each computes the
+    same gradients and keeps the rows it owns.
 """
 
 from __future__ import annotations
@@ -114,6 +133,7 @@ import torch
 
 from lightctr_tpu_torch import obs
 from lightctr_tpu_torch.dist import collectives
+from lightctr_tpu_torch.embed import table as table_mod
 from lightctr_tpu_torch.models.ctr_trainer import (
     CTRTrainer,
     _health_pack,
@@ -349,10 +369,11 @@ class SparseTableCTRTrainer(CTRTrainer):
         stack holds one per rank): n x table size in all, a deliberate
         bandwidth/memory trade."""
         dense = {k: v for k, v in params.items() if k not in self._spec}
-        state = {
-            "dense": self.tx.init(dense),
-            "accum": {k: torch.zeros_like(params[k]) for k in self._spec},
-        }
+        local = table_mod.local_view(params)
+        state = table_mod.place_like({
+            "dense": self.tx.init({k: local[k] for k in dense}),
+            "accum": {k: torch.zeros_like(local[k]) for k in self._spec},
+        }, params)
         if self.compress_bits is not None:
             state["residual"] = torch.zeros(
                 self._ring_pad if self.error_feedback else 1,
@@ -372,6 +393,8 @@ class SparseTableCTRTrainer(CTRTrainer):
             return self._make_hier_step()
         if self._hybrid_dp:
             return self._make_hybrid_dp_step()
+        if self.param_shardings is not None:
+            return self._make_sharded_step()
         return self._make_step()
 
     # -- step --------------------------------------------------------------
@@ -672,6 +695,95 @@ class SparseTableCTRTrainer(CTRTrainer):
                 # summed over the ranks
                 health = self._append_sketch(health, probs, batch2, mesh)
             return params, new_state, loss, health
+
+        return step
+
+    def _make_sharded_step(self):
+        """The step of ``param_shardings`` (module docstring): per id
+        stream one dedup; each table's touched rows pulled from their
+        owners (a replicated table gathered locally); grads on the rows;
+        the dense leaves and the loss averaged over the data axis; each
+        table's owned row gradients averaged over the data axis by
+        ``sparse_all_reduce`` and applied to this rank's block by
+        ``merge_apply``'s apply mode at local indices."""
+        grad_fn = self._make_grad_fn()
+        tx = self.tx
+        spec = self._spec
+        lr, eps = self.cfg.learning_rate, self._eps
+        groups = self._field_groups(spec)
+        mesh = self.mesh
+        emb = self.full_mesh.view("embed")
+        view, rewrap = table_mod.local_view, table_mod.rewrap
+
+        def step(params, opt_state, batch):
+            tables = {k: params[k] for k in spec}
+            dense = {k: v for k, v in params.items() if k not in spec}
+            accum = opt_state["accum"]
+            batch2 = dict(batch)
+            uids, counts, rows = {}, {}, {}
+            with annotate("sparse_tables/sharded_pull", tables=len(spec),
+                          id_streams=len(groups)):
+                for fields, keys in groups.items():
+                    ids = torch.cat([batch[f].reshape(-1)
+                                     for f in fields]).to(torch.int32)
+                    u, inv, count = sparse_kernels.dedup_ids(ids)
+                    ofs = 0
+                    for f in fields:
+                        m = batch[f].numel()
+                        batch2[f] = inv[ofs:ofs + m].reshape(batch[f].shape)
+                        ofs += m
+                    for k in keys:
+                        uids[k], counts[k] = u, count
+                        t = tables[k]
+                        rows[k] = (table_mod.pull_rows(t, u, count)
+                                   if isinstance(t, table_mod.ShardedTable)
+                                   else t.index_select(0, u))
+            loss, probs, grads = grad_fn({**dense, **rows}, batch2)
+            g_rows, g_dense = self._split_grads(grads)
+            with torch.no_grad():
+                loss = collectives.pmean(mesh, loss)
+                g_dense = tree_map(lambda g: collectives.pmean(mesh, g),
+                                   g_dense)
+                gn2 = self._sharded_sumsq(g_dense, dense)
+                updates, new_dense_state = tx.update(
+                    g_dense, view(opt_state["dense"]), view(dense))
+                dense = rewrap(apply_updates(view(dense), updates), dense)
+                new_dense_state = table_mod.place_like(new_dense_state,
+                                                       params)
+                for k in spec:
+                    t, a, u = tables[k], accum[k], uids[k]
+                    sharded = isinstance(t, table_mod.ShardedTable)
+                    block = t.local if sharded else t
+                    lo = t.offset if sharded else 0
+                    hi = lo + block.shape[0]
+                    slot = torch.arange(u.shape[0], device=u.device)
+                    owned = (slot < counts[k]) & (u >= lo) & (u < hi)
+                    g = g_rows[k] * owned.to(g_rows[k].dtype).reshape(
+                        (-1,) + (1,) * (g_rows[k].ndim - 1))
+                    with annotate("sparse_tables/sharded_push", table=k):
+                        union, merged = collectives.sparse_all_reduce(
+                            mesh, u, g, average=True)
+                    # the union's ids of this block at their local index,
+                    # the rest (other blocks, the id-0 pads past slot 0)
+                    # past the block, where the apply drops them; sorted,
+                    # so a local 0 sits at slot 0 (the apply's pad rule)
+                    pad = (union == 0) & (torch.arange(
+                        union.shape[0], device=u.device) > 0)
+                    mine = (union >= lo) & (union < hi) & ~pad
+                    local, order = torch.sort(torch.where(
+                        mine, union - lo, block.shape[0]).to(torch.int32))
+                    with annotate("sparse_tables/apply", table=k):
+                        _, _, ssq = sparse_kernels.merge_apply(
+                            block, a.local if sharded else a, local,
+                            merged.index_select(0, order), None, lr=lr,
+                            eps=eps)
+                    gn2 = gn2 + (collectives.all_reduce(emb, ssq)
+                                 if sharded else ssq)
+                params = {**dense, **tables}
+                health = self._append_sketch(
+                    _health_pack(loss, torch.sqrt(gn2)), probs, batch2, mesh)
+            return (params, {"dense": new_dense_state, "accum": accum},
+                    loss, health)
 
         return step
 

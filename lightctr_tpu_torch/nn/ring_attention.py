@@ -143,7 +143,7 @@ def ring_self_attention(mesh, q: torch.Tensor, k: torch.Tensor,
     mesh's ``axis`` ring.  Every rank passes the same global ``q``, ``k``,
     ``v`` [B, T, H, D], keeps block ``[r*T/n, (r+1)*T/n)``, and gets the
     full [B, T, H, D] result back, differentiable in q, k and v."""
-    mesh.require_axis(axis, "ring_self_attention")
+    mesh = mesh.require_axis(axis, "ring_self_attention")
     n = mesh.size
     t = q.shape[1]
     if t % n != 0:

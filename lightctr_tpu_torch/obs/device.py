@@ -235,12 +235,17 @@ def unregister_provider(name: str) -> None:
 
 
 def tensor_leaves(tree) -> List[torch.Tensor]:
-    """The tensors of a (nested) dict / list / tuple / NamedTuple."""
+    """The tensors of a (nested) dict / list / tuple / NamedTuple; a
+    sharded table's block (``embed.table.ShardedTable``)."""
+    from lightctr_tpu_torch.embed.table import ShardedTable
+
     out: List[torch.Tensor] = []
 
     def walk(x):
         if isinstance(x, torch.Tensor):
             out.append(x)
+        elif isinstance(x, ShardedTable):
+            out.append(x.local)
         elif isinstance(x, dict):
             for v in x.values():
                 walk(v)

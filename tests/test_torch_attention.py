@@ -290,11 +290,17 @@ def test_make_mesh_defaults_to_cuda(one_rank_world):
 
 
 def test_make_mesh_axes_and_refusals(one_rank_world):
+    """A spec must fit the world: on one rank a seq, a data x seq, a model
+    and an embed spec fail on the world's size (meshes of several axes are
+    held in tests/test_torch_sharded.py); a one-axis mesh serves only its
+    axis."""
     with pytest.raises(ValueError, match="seq=2 but the process group has 1"):
         make_mesh(MeshSpec(seq=2), device="cpu")
-    for spec in (MeshSpec(data=2, seq=2), MeshSpec(model=2),
-                 MeshSpec(embed=2)):
-        with pytest.raises(ValueError, match="not yet ported"):
+    for spec, shape in ((MeshSpec(data=2, seq=2), "data=2 x seq=2"),
+                        (MeshSpec(model=2), "model=2"),
+                        (MeshSpec(embed=2), "embed=2")):
+        with pytest.raises(ValueError, match=f"{shape} but the process "
+                                             f"group has 1 ranks"):
             make_mesh(spec, device="cpu")
     cpu = torch.device("cpu")
     seq = Mesh(group=dist.group.WORLD, rank=0, device=cpu, axis="seq")

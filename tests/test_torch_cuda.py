@@ -1868,3 +1868,57 @@ def test_tiered_store_defaults_to_cuda_and_raises_without_it(dev):
                           cwd=os.path.dirname(os.path.dirname(
                               os.path.abspath(__file__))))
     assert proc.stdout.startswith("raised"), proc.stdout + proc.stderr
+
+
+# -- parameters sharded over ranks ------------------------------------------
+
+
+def test_sharded_lookup_on_the_card_matches_the_cpu(dev):
+    """A sharded table's pull and its block gradient on the card (an embed
+    axis of one rank: the dedup, the routed exchange, the owner's gather,
+    the slot-order merge into the block) equal the CPU's plain versions
+    bit for bit, with one launch each of B2, B3 and B4."""
+    from lightctr_tpu_torch.core.mesh import Mesh
+    from lightctr_tpu_torch.embed import table as ttable
+
+    rng = np.random.default_rng(7)
+    full = rng.normal(size=(4096, 32)).astype(np.float32)
+    ids = (rng.random((256, 39)) ** 4 * 4096).astype(np.int32)
+    ids[:, :3] = 0
+    w = rng.normal(size=ids.shape + (32,)).astype(np.float32)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        mesh = Mesh(group=None, rank=0, device=d, axis="embed")
+        t = ttable.shard_rows(full, mesh)
+        leaf = t.local.clone().requires_grad_(True)
+        names = ("dedup_ids", "gather_rows", "merge_rows")
+        before = {k: sk.launches(k) for k in names}
+        out = ttable.lookup(t.with_local(leaf), torch.from_numpy(ids).to(d))
+        (out * torch.from_numpy(w).to(d)).sum().backward()
+        if d.type == "cuda":
+            assert {k: sk.launches(k) - before[k] for k in names} == \
+                dict.fromkeys(names, 1)
+        got[d.type] = (out.detach().cpu(), leaf.grad.cpu())
+    assert torch.equal(got["cuda"][0], got["cpu"][0])
+    assert torch.equal(got["cuda"][0], torch.from_numpy(full[ids]))
+    assert torch.equal(got["cuda"][1], got["cpu"][1])
+
+
+def test_merge_rows_at_local_indices_drops_the_foreign_ids(dev):
+    """B4 as the sharded lookup's backward: slot rows merged into a block
+    at ``id - offset``, half the ids another block's (negative, or at and
+    past the block's end), bit for bit the plain version on the card and
+    on the CPU."""
+    rng = np.random.default_rng(8)
+    rows_n, block, d = 39936, 1 << 16, 32
+    ids = (rng.random(rows_n) ** 4 * 4 * block).astype(np.int32)
+    seg = torch.from_numpy(ids - block)
+    assert bool((seg < 0).any()) and bool((seg >= block).any())
+    rows = torch.from_numpy(rng.normal(size=(rows_n, d)).astype(np.float32))
+    before = sk.launches("merge_rows")
+    got = sk.merge_rows(rows.to(dev), seg.to(dev), block)
+    assert sk.launches("merge_rows") == before + 1
+    want = sk.merge_rows_plain(rows.to(dev), seg.to(dev), block)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    cpu = sk.merge_rows_plain(rows, seg, block)
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))

@@ -14,6 +14,7 @@ import torch
 
 from lightctr_tpu import embed as jembed
 from lightctr_tpu.embed import table as jtable
+from lightctr_tpu_torch.core.mesh import Mesh
 from lightctr_tpu_torch.embed import table as ttable
 from lightctr_tpu_torch.ops import sparse_kernels as tsk
 
@@ -145,7 +146,9 @@ def test_filter_preferred_grads_matches_jax():
 
 def test_init_table_contract():
     """N(0, 1/dim) rows from the generator, deterministic per seed; an
-    explicit scale; a mesh refused (row-sharded tables are not ported)."""
+    explicit scale; with a mesh, this rank's block of the same draw (an
+    embed axis of one rank holds the whole table; larger axes are held in
+    tests/test_torch_sharded.py)."""
     t = ttable.init_table(torch.Generator().manual_seed(0), 4096, 16)
     assert t.shape == (4096, 16) and t.dtype == torch.float32
     assert abs(float(t.std()) - 0.25) < 0.01
@@ -153,8 +156,12 @@ def test_init_table_contract():
                                             4096, 16))
     s = ttable.init_table(torch.Generator().manual_seed(0), 8, 2, scale=2.0)
     assert s.shape == (8, 2)
-    with pytest.raises(ValueError, match="not yet ported"):
-        ttable.init_table(torch.Generator(), 8, 2, mesh=object())
+    one = Mesh(group=None, rank=0, device=torch.device("cpu"), axis="embed")
+    sharded = ttable.init_table(torch.Generator().manual_seed(0), 4096, 16,
+                                mesh=one)
+    assert isinstance(sharded, ttable.ShardedTable)
+    assert sharded.shape == (4096, 16) and sharded.offset == 0
+    assert torch.equal(sharded.local, t)
     # the JAX function's statistics at the same shape
     j = np.asarray(jembed.init_table(jax.random.PRNGKey(0), 4096, 16))
     assert abs(float(j.std()) - float(t.std())) < 0.01

@@ -334,13 +334,15 @@ def test_train_step_returns_loss_tensor_and_feeds_health():
 
 
 #: what each of the JAX trainers' multi-device and telemetry arguments
-#: meets in the port when given alone: ``mesh``, ``compress_bits`` and
-#: ``hier_exchange`` are ported (a mesh must be a port Mesh; compress_bits
-#: and the two-level exchange need one), ``quality_bins`` is ported and
-#: arms the quality sketch, the rest are not yet ported
+#: meets in the port when given alone: every one is ported (a mesh must be
+#: a port Mesh; compress_bits, the two-level exchange, param_shardings and
+#: zero_sharded need one, with the JAX messages), ``quality_bins`` arms
+#: the quality sketch
 REFUSALS = {"mesh": "mesh must be a lightctr_tpu_torch",
             "compress_bits": "compress_bits requires a mesh",
-            "hier_exchange": "hier_exchange needs a mesh"}
+            "hier_exchange": "hier_exchange needs a mesh",
+            "param_shardings": "param_shardings requires a mesh",
+            "zero_sharded": "zero_sharded requires a mesh"}
 
 
 def _build_or_refuse(arg, build):
@@ -360,7 +362,7 @@ def _build_or_refuse(arg, build):
         tr.resources.close()
         return
     with pytest.raises(ValueError,
-                       match=REFUSALS.get(arg, f"{arg} not yet ported")):
+                       match=REFUSALS[arg]):
         build()
 
 
