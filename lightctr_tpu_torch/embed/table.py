@@ -277,13 +277,16 @@ class _ShardedLookup(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None, None
         from lightctr_tpu_torch.ops import sparse_kernels
+        from lightctr_tpu_torch.utils.profiling import annotate
 
         (flat,) = ctx.saved_tensors
         shape = ctx.local_shape
         m = flat.numel()
-        # ids of the other blocks land outside [0, rows) and are dropped
-        merged = sparse_kernels.merge_rows(
-            grad.reshape(m, -1).contiguous(), flat - ctx.offset, shape[0])
+        with annotate("embed/lookup_backward"):
+            # ids of the other blocks land outside [0, rows) and are dropped
+            merged = sparse_kernels.merge_rows(
+                grad.reshape(m, -1).contiguous(), flat - ctx.offset,
+                shape[0])
         return merged.reshape(shape), None, None
 
 
@@ -303,12 +306,15 @@ class _Lookup(torch.autograd.Function):
         if not ctx.needs_input_grad[0]:
             return None, None
         from lightctr_tpu_torch.ops import sparse_kernels
+        from lightctr_tpu_torch.utils.profiling import annotate
 
         (flat,) = ctx.saved_tensors
         shape = ctx.table_shape
         m = flat.numel()
-        merged = sparse_kernels.merge_rows(
-            grad.reshape(m, -1).contiguous(), flat.to(torch.int32), shape[0])
+        with annotate("embed/lookup_backward"):
+            merged = sparse_kernels.merge_rows(
+                grad.reshape(m, -1).contiguous(), flat.to(torch.int32),
+                shape[0])
         return merged.reshape(shape), None
 
 

@@ -82,12 +82,11 @@ from lightctr_tpu_torch.obs import health as health_mod
 from lightctr_tpu_torch.obs import quality as quality_mod
 from lightctr_tpu_torch.obs import resources as resources_mod
 from lightctr_tpu_torch.obs import stepwatch as stepwatch_mod
-from lightctr_tpu_torch.obs import trace as trace_mod
 from lightctr_tpu_torch.ops import losses as losses_lib
 from lightctr_tpu_torch.ops import metrics as metrics_lib
 from lightctr_tpu_torch.ops.activations import sigmoid
 from lightctr_tpu_torch.optim.updaters import tree_leaves, tree_map
-from lightctr_tpu_torch.utils.profiling import annotate
+from lightctr_tpu_torch.utils.profiling import annotate, spans_on
 
 _LOG = logging.getLogger(__name__)
 
@@ -371,6 +370,8 @@ class CTRTrainer:
             device_mod.default_donation_watch().bind(
                 registry=self.telemetry, monitor=self.health)
         self._steps_seen = 0
+        # the card's clock of the catalog's step time, made at first use
+        self._step_clock: Optional[device_mod.StepClock] = None
         # the prefetch worker's copy stream on a card, made at first use
         self._stage_stream = None
         self.opt_state = self._init_opt_state(self.params)
@@ -449,12 +450,14 @@ class CTRTrainer:
         loss_fn = self._make_loss_fn(with_probs=armed)
 
         def grad_fn(params, batch):
-            # a sharded table's autograd leaf is its block: the forward
-            # sees the table, the gradient is the block's
-            leaves = leaves_requiring_grad(table_mod.local_view(params))
-            out = loss_fn(table_mod.rewrap(leaves, params), batch)
-            loss, probs = out if armed else (out, None)
-            loss.backward()
+            with annotate("trainer/forward"):
+                # a sharded table's autograd leaf is its block: the forward
+                # sees the table, the gradient is the block's
+                leaves = leaves_requiring_grad(table_mod.local_view(params))
+                out = loss_fn(table_mod.rewrap(leaves, params), batch)
+                loss, probs = out if armed else (out, None)
+            with annotate("trainer/backward"):
+                loss.backward()
             return loss.detach(), probs, grads_of(leaves)
 
         return grad_fn
@@ -476,22 +479,21 @@ class CTRTrainer:
     def _make_step(self):
         """The training step ``(params, opt_state, batch) -> (params,
         opt_state, loss, health)``; ``health`` is one f32[2] device vector
-        ``[loss, grad_norm]``, so the health feed costs one fetch."""
-        local_grad_fn = self._make_grad_fn()
+        ``[loss, grad_norm]``, so the health feed costs one fetch.  Every
+        step variant spans its update (the exchange, the gradient norm,
+        the optimizer and the health vector) as ``trainer/optimizer``."""
+        grad_fn = self._make_grad_fn()
         tx = self.tx
         mesh = self.mesh
 
-        def grad_fn(params, batch):
-            loss, probs, grads = local_grad_fn(params, batch)
-            if mesh is not None:
-                # the replicas' local means averaged: the global batch's
-                # mean loss and gradient (what XLA's psum gives the JAX
-                # trainer over a sharded batch)
-                with torch.no_grad():
-                    loss = collectives.pmean(mesh, loss)
-                    grads = tree_map(lambda g: collectives.pmean(mesh, g),
-                                     grads)
-            return loss, probs, grads
+        def exchange(loss, grads):
+            if mesh is None:
+                return loss, grads
+            # the replicas' local means averaged: the global batch's mean
+            # loss and gradient (what XLA's psum gives the JAX trainer over
+            # a sharded batch)
+            return (collectives.pmean(mesh, loss),
+                    tree_map(lambda g: collectives.pmean(mesh, g), grads))
 
         if self.fused_adagrad:
             from lightctr_tpu_torch.optim.fused_adagrad import \
@@ -501,7 +503,8 @@ class CTRTrainer:
 
             def step(params, opt_state, batch):
                 loss, probs, grads = grad_fn(params, batch)
-                with torch.no_grad():
+                with annotate("trainer/optimizer"), torch.no_grad():
+                    loss, grads = exchange(loss, grads)
                     health = self._append_sketch(
                         _health_pack(loss, global_norm(grads)), probs,
                         batch, mesh)
@@ -519,7 +522,8 @@ class CTRTrainer:
 
             def step(params, opt_state, batch):
                 loss, probs, grads = grad_fn(params, batch)
-                with torch.no_grad():
+                with annotate("trainer/optimizer"), torch.no_grad():
+                    loss, grads = exchange(loss, grads)
                     health = self._append_sketch(
                         _health_pack(loss, torch.sqrt(
                             self._sharded_sumsq(grads, params))),
@@ -537,7 +541,8 @@ class CTRTrainer:
 
         def step(params, opt_state, batch):
             loss, probs, grads = grad_fn(params, batch)
-            with torch.no_grad():
+            with annotate("trainer/optimizer"), torch.no_grad():
+                loss, grads = exchange(loss, grads)
                 health = self._append_sketch(
                     _health_pack(loss, global_norm(grads)), probs, batch,
                     mesh)
@@ -576,7 +581,7 @@ class CTRTrainer:
 
         def step(params, opt_state, batch):
             loss, probs, grads = grad_fn(params, batch)
-            with torch.no_grad():
+            with annotate("trainer/optimizer"), torch.no_grad():
                 flat_g, _ = collectives.ravel_tree(grads, device=self.device)
                 flat_g = torch.nn.functional.pad(flat_g, (0, padded - length))
                 g_shard = collectives.reduce_scatter_mean(mesh, flat_g)
@@ -615,7 +620,7 @@ class CTRTrainer:
 
         def step(params, state, batch):
             loss, probs, grads = grad_fn(params, batch)
-            with torch.no_grad():
+            with annotate("trainer/optimizer"), torch.no_grad():
                 flat, unravel = collectives.ravel_tree(grads,
                                                        device=self.device)
                 length = flat.shape[0]
@@ -746,51 +751,63 @@ class CTRTrainer:
         (reading it synchronises, as reading the JAX device scalar does).
         ``device_ready=True`` says the batch already went through the
         prefetch stage's :meth:`_stage` (or :meth:`_put`), so the step
-        skips the transfer."""
+        skips the transfer.
+
+        With telemetry on, the step's phases are spans (``annotate``: the
+        same names on the PyTorch profiler's timeline and in the obs
+        tracer), recorded only while a profiler session records or the
+        tracer samples: ``trainer/step`` around ``trainer/input``
+        (``trainer/input_wait`` inside it before a pageable put),
+        ``trainer/exec`` (the step's own spans: ``trainer/forward``,
+        ``trainer/backward``, ``trainer/optimizer``) and
+        ``trainer/record``."""
         if not obs.enabled():
             dev_batch = (self._claim(batch) if device_ready
                          else self._put(batch))
             self.params, self.opt_state, loss, _ = self._step(
                 self.params, self.opt_state, dev_batch)
             return loss
-        if trace_mod.enabled():
-            # separate path so the default (tracing-off) step pays exactly
-            # one extra branch
-            return self._train_step_traced(batch, device_ready=device_ready)
-        t0 = time.perf_counter()
-        sw = self.stepwatch
-        if sw is not None:
-            sw.mark("input")
-        dev_batch = self._claim(batch) if device_ready else self._put(batch)
-        if sw is not None:
-            sw.mark("exec")
-        self.params, self.opt_state, loss, health = self._run_step(dev_batch)
-        self._record_step(time.perf_counter() - t0,
-                          dev_batch if device_ready else batch,
-                          health=health)
-        return loss
-
-    def _train_step_traced(self, batch, *, device_ready: bool = False
-                           ) -> torch.Tensor:
-        """Phase-spanned step: ``annotate`` puts the same names on the
-        PyTorch profiler's timeline and the wire trace (obs/trace.py)."""
         t0 = time.perf_counter()
         sw = self.stepwatch
         with annotate("trainer/step", step=self._steps_seen + 1):
             with annotate("trainer/input"):
                 if sw is not None:
                     sw.mark("input")
-                dev_batch = (self._claim(batch) if device_ready
-                             else self._put(batch))
+                if device_ready:
+                    dev_batch = self._claim(batch)
+                else:
+                    if spans_on() and self._put_waits(batch):
+                        # the pageable copy waits for the stream anyway:
+                        # waiting first puts that wait in a span of its own
+                        with annotate("trainer/input_wait"):
+                            self._wait_stream()
+                    dev_batch = self._put(batch)
             with annotate("trainer/exec"):
                 if sw is not None:
                     sw.mark("exec")
                 self.params, self.opt_state, loss, health = self._run_step(
                     dev_batch)
-        self._record_step(time.perf_counter() - t0,
-                          dev_batch if device_ready else batch,
-                          health=health)
+            with annotate("trainer/record"):
+                self._record_step(time.perf_counter() - t0,
+                                  dev_batch if device_ready else batch,
+                                  health=health)
         return loss
+
+    def _put_waits(self, batch) -> bool:
+        """Whether :meth:`_put` of ``batch`` copies pageable host memory to
+        a card, a copy that first waits for the step's stream."""
+        if self.device.type != "cuda":
+            return False
+        for v in batch.values():
+            if isinstance(v, torch.Tensor):
+                if v.device.type == "cpu" and not v.is_pinned():
+                    return True
+            elif isinstance(v, np.ndarray):
+                return True
+        return False
+
+    def _wait_stream(self) -> None:
+        torch.cuda.current_stream(self.device).synchronize()
 
     def _run_step(self, dev_batch):
         """``self._step`` on the trainer state; with the device plane
@@ -807,10 +824,11 @@ class CTRTrainer:
     def _record_step(self, dt: float, batch, health=None) -> None:
         """Per-step metrics + one JSONL ``step`` event + the health feed.
         ``trainer_step_seconds`` measures the host's launch of the step on
-        the card (the caller's loss read is what synchronises).  ``batch``
-        is the caller's host batch (the device batch after a prefetch
-        stage put it there), so the health signals read ids without a
-        device round trip where they can."""
+        the card (the caller's loss read is what synchronises); the
+        program catalog's step time is the card's (:meth:`_note_catalog`).
+        ``batch`` is the caller's host batch (the device batch after a
+        prefetch stage put it there), so the health signals read ids
+        without a device round trip where they can."""
         reg = self.telemetry
         self._steps_seen += 1
         n = int(len(batch["labels"])) if "labels" in batch else 0
@@ -820,13 +838,14 @@ class CTRTrainer:
         reg.observe("trainer_step_seconds", dt)
         obs.emit_event("step", step=self._steps_seen,
                        duration_s=round(dt, 6), examples=n)
-        self._feed_health(batch, health)
+        with annotate("trainer/feed_health"):
+            self._feed_health(batch, health)
         if self.resources is not None:
             self.resources.note_step()
         if self.device_catalog is not None:
             # EWMA time fold and the census counter — the analysis was
             # recorded from the step's first armed call
-            self.device_catalog.note_step(dt, "trainer_step")
+            self._note_catalog(dt)
             self.device_census.maybe_sample()
         # armed profiler captures advance at step boundaries (one global
         # + one flag read when idle)
@@ -851,7 +870,8 @@ class CTRTrainer:
         hm = self.health
         on = hm is not None and health_mod.enabled()
         if on:
-            sig = self._health_signals(batch)
+            with annotate("trainer/health_signals"):
+                sig = self._health_signals(batch)
             if sig:
                 hm.observe(**sig)
         want = (on and hm.wants("loss", "grad_norm")) \
@@ -876,6 +896,20 @@ class CTRTrainer:
                 ev.synchronize()  # backpressure: the device fell behind
             pend.pop(0)
             self._observe_scalars(hm if on else None, vec)
+
+    def _note_catalog(self, dt: float) -> None:
+        """The program catalog's step time: on a card the interval between
+        the completion events of consecutive steps (:class:`~lightctr_tpu_
+        torch.obs.device.StepClock`, drained without a sync, as the health
+        feed drains), so its utilization divides by the card's time; on
+        the CPU the host's ``dt``."""
+        if self._step_clock is None:
+            if self.device.type != "cuda":
+                self.device_catalog.note_step(dt, "trainer_step")
+                return
+            self._step_clock = device_mod.StepClock(self._HEALTH_MAX_LAG)
+        for seconds in self._step_clock.mark():
+            self.device_catalog.note_step(seconds, "trainer_step")
 
     def _observe_scalars(self, hm, health) -> None:
         vals = health.numpy()  # a host tensor whose copy has completed

@@ -409,19 +409,19 @@ class SparseTableCTRTrainer(CTRTrainer):
         return groups
 
     @staticmethod
-    def _dedup_and_gather(spec, params, batch):
+    def _dedup_and_gather(spec, groups, params, batch):
         """Steps 1-3 of the module recipe: per-stream batch-id dedup,
         position rewrite, and the O(touched) row gather.  Tables listing
-        the IDENTICAL field tuple run the dedup once and share the
-        resulting ``(uids, inv)``, so dedup work is paid per distinct id
-        stream, not per table."""
-        tables = {k: params[k] for k in spec}
-        dense = {k: v for k, v in params.items() if k not in spec}
-        batch2 = dict(batch)
-        uids = {}
-        groups = SparseTableCTRTrainer._field_groups(spec)
+        the IDENTICAL field tuple (``groups``, :meth:`_field_groups` of
+        ``spec``) run the dedup once and share the resulting ``(uids,
+        inv)``, so dedup work is paid per distinct id stream, not per
+        table."""
         with annotate("sparse_tables/dedup_gather", tables=len(spec),
                       id_streams=len(groups)):
+            tables = {k: params[k] for k in spec}
+            dense = {k: v for k, v in params.items() if k not in spec}
+            batch2 = dict(batch)
+            uids = {}
             for fields, keys in groups.items():
                 ids = torch.cat(
                     [batch[f].reshape(-1) for f in fields]
@@ -448,13 +448,14 @@ class SparseTableCTRTrainer(CTRTrainer):
         spec = self._spec
         lr, eps = self.cfg.learning_rate, self._eps
         dedup_and_gather = self._dedup_and_gather
+        groups = self._field_groups(spec)
 
         def step(params, opt_state, batch):
             tables, dense, batch2, uids, rows = dedup_and_gather(
-                spec, params, batch)
+                spec, groups, params, batch)
             loss, probs, grads = grad_fn({**dense, **rows}, batch2)
             g_rows, g_dense = self._split_grads(grads)
-            with torch.no_grad():
+            with annotate("trainer/optimizer"), torch.no_grad():
                 # grad global norm over touched rows + dense leaves: the
                 # health scalar (one reduction; fetched only when read)
                 gnorm = global_norm({"rows": g_rows, "dense": g_dense})
@@ -469,9 +470,9 @@ class SparseTableCTRTrainer(CTRTrainer):
                         sparse_kernels.merge_apply(
                             tables[k], opt_state["accum"][k], uids[k],
                             g_rows[k], None, lr=lr, eps=eps)
-            params = {**dense, **tables}
-            health = self._append_sketch(_health_pack(loss, gnorm), probs,
-                                         batch2)
+                params = {**dense, **tables}
+                health = self._append_sketch(_health_pack(loss, gnorm),
+                                             probs, batch2)
             return (params, {"dense": new_dense_state,
                              "accum": opt_state["accum"]},
                     loss, health)
@@ -538,12 +539,12 @@ class SparseTableCTRTrainer(CTRTrainer):
         def step(params, opt_state, batch):
             # batch arrives as this rank's rows: the dedup is per rank
             tables, dense, batch2, uids, rows = dedup_and_gather(
-                spec, params, batch)
+                spec, groups, params, batch)
             picks = {k: pick(uids[k].shape[0], tables[k]) for k in spec}
             loss, probs, grads = grad_fn({**dense, **rows}, batch2)
             g_rows, g_dense = self._split_grads(grads)
             accum = opt_state["accum"]
-            with torch.no_grad():
+            with annotate("trainer/optimizer"), torch.no_grad():
                 # replica losses are local means; their mean is the global
                 loss = collectives.pmean(mesh, loss)
 
@@ -740,7 +741,7 @@ class SparseTableCTRTrainer(CTRTrainer):
                                    else t.index_select(0, u))
             loss, probs, grads = grad_fn({**dense, **rows}, batch2)
             g_rows, g_dense = self._split_grads(grads)
-            with torch.no_grad():
+            with annotate("trainer/optimizer"), torch.no_grad():
                 loss = collectives.pmean(mesh, loss)
                 g_dense = tree_map(lambda g: collectives.pmean(mesh, g),
                                    g_dense)
@@ -822,11 +823,11 @@ class SparseTableCTRTrainer(CTRTrainer):
         def step(params, opt_state, batch):
             # -- program A: this rank's rows of the host batch ----------
             tables, dense, batch2, uids, rows = dedup_and_gather(
-                spec, params, batch)
+                spec, groups, params, batch)
             loss, probs, grads = grad_fn({**dense, **rows}, batch2)
             g_rows, g_dense = self._split_grads(grads)
             accum = opt_state["accum"]
-            with torch.no_grad():
+            with annotate("trainer/optimizer"), torch.no_grad():
                 # dense grads + the rank's mean loss ride ONE flat sum:
                 # [sum over local ranks of grads..., sum of losses]
                 flat, unravel = collectives.ravel_tree(g_dense,

@@ -396,6 +396,41 @@ def _backend_kind(device=None) -> Tuple[Optional[str], Optional[str]]:
         return None, None
 
 
+class StepClock:
+    """A card's time per step, read without a sync: :meth:`mark` records a
+    CUDA event on the current stream after a step, and returns the
+    intervals (seconds) between consecutive events that have completed by
+    then, oldest first.  Events still in flight wait for a later mark;
+    more than ``max_lag`` of them and the oldest is waited for
+    (backpressure, as the trainers' health feed drains).  ``event`` makes
+    the events (a timing ``torch.cuda.Event`` by default)."""
+
+    def __init__(self, max_lag: int = 8, event: Optional[Callable] = None):
+        self.max_lag = int(max_lag)
+        self._event = event or (
+            lambda: torch.cuda.Event(enable_timing=True))
+        self._pending: List = []
+        self._last = None
+
+    def mark(self) -> List[float]:
+        ev = self._event()
+        ev.record()
+        pend = self._pending
+        pend.append(ev)
+        out: List[float] = []
+        while pend:
+            head = pend[0]
+            if not head.query():
+                if len(pend) <= self.max_lag:
+                    break
+                head.synchronize()
+            pend.pop(0)
+            if self._last is not None:
+                out.append(1e-3 * self._last.elapsed_time(head))
+            self._last = head
+        return out
+
+
 class ProgramCatalog:
     """Cost/memory analytics for registered programs.
 
@@ -405,9 +440,10 @@ class ProgramCatalog:
     ``offer(name, fn, args)`` registers a program's arg specs without
     calling it (the JAX package's registration): a program never run
     armed analyzes as ``"unavailable"``.  ``note_step(dt, program)`` folds
-    observed wall time into an EWMA so utilization (achieved FLOP/s vs
-    :func:`peak_spec`) stays live; on a device with no peak spec (the CPU)
-    utilization is ``None`` — unavailable, not fake.
+    an observed step time into an EWMA so utilization (achieved FLOP/s vs
+    :func:`peak_spec`) stays live (the trainers feed the card's time, from
+    a :class:`StepClock`, and the host's on the CPU); on a device with no
+    peak spec (the CPU) utilization is ``None`` — unavailable, not fake.
 
     Registers as a ``device:<component>`` flight registry and a
     ``/devicez`` provider; ``close()`` unregisters both.
@@ -514,7 +550,7 @@ class ProgramCatalog:
     # -- feed ----------------------------------------------------------------
 
     def note_step(self, seconds: float, program: str) -> None:
-        """Per-step hook: fold one observed wall time for ``program``
+        """Per-step hook: fold one observed step time for ``program``
         into its EWMA + histogram; refresh the utilization gauge every
         ``poll_every`` steps from the recorded analysis (plain
         arithmetic)."""

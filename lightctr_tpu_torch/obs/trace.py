@@ -30,13 +30,16 @@ Design points:
     multi-process traces with it); ``dur_s`` is a ``perf_counter`` delta.
 
 ``tools/trace_report.py`` summarizes span files (and flight bundles) and
-exports Chrome-trace/Perfetto JSON.  See docs/OBSERVABILITY.md.
+exports Chrome-trace/Perfetto JSON; :func:`merge_profiler_trace` puts
+span records into a ``torch.profiler`` Chrome trace, on its clock.  See
+docs/OBSERVABILITY.md.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import json
 import os
 import random
 import threading
@@ -86,6 +89,17 @@ class _Ctx(threading.local):
 
 _ctx = _Ctx()
 _NULL = contextlib.nullcontext()
+#: this process's id, read once (a system call on every span costs more
+#: than the rest of the span) and again in a forked child
+_pid = os.getpid()
+
+
+def _after_fork() -> None:
+    global _pid
+    _pid = os.getpid()
+
+
+os.register_at_fork(after_in_child=_after_fork)
 
 
 def _new_id() -> int:
@@ -116,6 +130,17 @@ def override_rate(rate: float):
         set_rate(prev)
 
 
+def live() -> bool:
+    """Whether :func:`span` (without ``remote``) would record a span opened
+    now on this thread: under a live sampled span, or as a new root while
+    the process samples.  The same test :func:`span` makes, for callers
+    that skip their own work when nothing records."""
+    stack = _ctx.stack
+    if stack:
+        return stack[-1] is not None and gate.enabled()
+    return _rate > 0.0 and gate.enabled()
+
+
 def current_context() -> Optional[Tuple[int, int]]:
     """(trace_id, span_id) of the innermost live sampled span on THIS
     thread, or None — the tuple a client packs into the wire trace
@@ -126,16 +151,41 @@ def current_context() -> Optional[Tuple[int, int]]:
     return stack[-1]  # may be None: unsampled head marker
 
 
-class _SpanCM:
-    """Context manager for one span.  Records on exit; never raises."""
+def _record(name, trace_id, span_id, parent, ts, pid, tid, attrs, dur,
+            error) -> Dict:
+    """A span's record, as :func:`finished` and the file sink give it."""
+    rec = {
+        "kind": "span",
+        "v": SPAN_SCHEMA_VERSION,
+        "trace": f"{trace_id:016x}",
+        "span": f"{span_id:016x}",
+        "name": name,
+        "ts": round(ts, 6),
+        "pid": pid,
+        "tid": tid,
+    }
+    if parent is not None:
+        rec["parent"] = f"{parent:016x}"
+    if attrs:
+        rec["attrs"] = attrs
+    rec["dur_s"] = round(dur, 9)
+    if error is not None:
+        rec["error"] = error
+    return rec
 
-    __slots__ = ("_name", "_attrs", "_remote", "_rec", "_t0")
+
+class _SpanCM:
+    """Context manager for one span.  Records on exit; never raises.  The
+    ring keeps each span as a tuple, made a record when read: a sampled
+    region costs its clocks, its ids and one append."""
+
+    __slots__ = ("_name", "_attrs", "_remote", "_ids", "_ts", "_t0")
 
     def __init__(self, name: str, remote: Optional[Tuple[int, int]], attrs):
         self._name = name
         self._attrs = attrs
         self._remote = remote
-        self._rec = None
+        self._ids = None
 
     def __enter__(self):
         stack = _ctx.stack
@@ -154,43 +204,31 @@ class _SpanCM:
                 return self
             trace_id, parent = _new_id(), None
         span_id = _new_id()
-        rec = {
-            "kind": "span",
-            "v": SPAN_SCHEMA_VERSION,
-            "trace": f"{trace_id:016x}",
-            "span": f"{span_id:016x}",
-            "name": self._name,
-            "ts": round(time.time(), 6),
-            "pid": os.getpid(),
-            "tid": threading.get_ident(),
-        }
-        if parent is not None:
-            rec["parent"] = f"{parent:016x}"
-        if self._attrs:
-            rec["attrs"] = self._attrs
-        self._rec = rec
+        self._ids = (trace_id, span_id, parent)
         stack.append((trace_id, span_id))
+        self._ts = time.time()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        dur = time.perf_counter() - self._t0 if self._rec is not None else 0.0
+        ids = self._ids
+        dur = time.perf_counter() - self._t0 if ids is not None else 0.0
         _ctx.stack.pop()
-        rec = self._rec
-        if rec is None:
+        if ids is None:
             return False
-        rec["dur_s"] = round(dur, 9)
-        if exc_type is not None:
-            rec["error"] = exc_type.__name__
+        span = (self._name, *ids, self._ts, _pid, threading.get_ident(),
+                self._attrs, dur,
+                exc_type.__name__ if exc_type is not None else None)
         with _lock:
-            _ring.append(rec)
+            _ring.append(span)
             sink = _sink
         if sink is not None:
             # outside the module lock: EventLog has its own lock, and its
             # periodic file flush must not serialize every thread's span
             # exits (PS connection threads all finish spans concurrently)
-            sink.emit("span", **{k: v for k, v in rec.items()
-                                 if k != "kind"})
+            rec = _record(*span)
+            del rec["kind"]
+            sink.emit("span", **rec)
         return False
 
 
@@ -230,7 +268,8 @@ def span(name: str, remote: Optional[Tuple[int, int]] = None, **attrs):
 def finished() -> List[Dict]:
     """The bounded ring of finished span records, oldest first."""
     with _lock:
-        return list(_ring)
+        spans = list(_ring)
+    return [_record(*s) for s in spans]
 
 
 def reset() -> None:
@@ -316,6 +355,40 @@ def to_chrome_trace(records) -> Dict:
             })
     events.sort(key=lambda e: e["ts"])
     return {"traceEvents": events, "displayTimeUnit": "ms"}
+
+
+def on_profiler_clock(records, base_ns: int) -> List[Dict]:
+    """Span records as Chrome trace events on a ``torch.profiler`` trace's
+    time base.  Kineto's Chrome trace places an event at
+    ``baseTimeNanoseconds`` plus its ``ts`` (us), on the wall clock that
+    a span's ``ts`` (``time.time()``) reads; so a span of any thread or
+    process lands beside the kernels and idle gaps of the same moment.
+    Each event keeps its span's pid and tid, under the category
+    ``lightctr``."""
+    base_us = int(base_ns) / 1e3
+    events = to_chrome_trace(records)["traceEvents"]
+    for e in events:
+        e["ts"] -= base_us
+    return events
+
+
+def merge_profiler_trace(profiler_trace, records,
+                         path: Optional[str] = None) -> Dict:
+    """One Chrome trace of a ``torch.profiler`` export (its dict, or the
+    path of its ``export_chrome_trace`` file) and span ``records`` placed
+    on its clock (:func:`on_profiler_clock`); written to ``path`` when
+    given."""
+    if isinstance(profiler_trace, (str, os.PathLike)):
+        with open(profiler_trace) as f:
+            profiler_trace = json.load(f)
+    merged = dict(profiler_trace)
+    merged["traceEvents"] = list(profiler_trace.get("traceEvents", [])) + \
+        on_profiler_clock(records, profiler_trace.get("baseTimeNanoseconds",
+                                                      0))
+    if path is not None:
+        with open(path, "w") as f:
+            json.dump(merged, f)
+    return merged
 
 
 # -- env wiring --------------------------------------------------------------

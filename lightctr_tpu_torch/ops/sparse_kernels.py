@@ -64,6 +64,7 @@ from lightctr_tpu_torch.embed.table import (
     sparse_adagrad_update,
 )
 from lightctr_tpu_torch.ops import quantize
+from lightctr_tpu_torch.utils import profiling
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -340,7 +341,10 @@ def build_all() -> Dict[str, str]:
 def dispatch(name: str, device: torch.device) -> Callable:
     """Kernel ``name``'s implementation for ``device``: the plain version
     on the CPU, the CUDA wrapper on a CUDA device (reporting its cost
-    while a recorder is set, :func:`record_costs`)."""
+    while a recorder is set, :func:`record_costs`).  While spans are on
+    (``utils.profiling.spans_on``) the call is the span ``kernel/<name>``:
+    a kernel launched through ``ctypes`` leaves no host operation in a
+    profiler trace of its own."""
     kd = KERNELS[name]
     if device.type == "cpu":
         fn = kd.plain
@@ -348,9 +352,16 @@ def dispatch(name: str, device: torch.device) -> Callable:
         fn = kd.cuda
     else:
         raise ValueError(f"{name}: no implementation for device {device}")
-    if _cost_sink is None:
-        return fn
-    return functools.partial(_recorded, name, fn)
+    if _cost_sink is not None:
+        fn = functools.partial(_recorded, name, fn)
+    if profiling.spans_on():
+        fn = functools.partial(_spanned, "kernel/" + name, fn)
+    return fn
+
+
+def _spanned(span: str, fn: Callable, *args, **kwargs):
+    with profiling.annotate(span):
+        return fn(*args, **kwargs)
 
 
 def run_kernel(name: str, device: torch.device, entry, *args,

@@ -11,7 +11,7 @@ in Perfetto.
 discoverable from telemetry; ``wall_clock()`` reproduces the reference's
 train-wall-clock counter pair; ``annotate(name)`` tags a sub-region on the
 profiler's timeline and in the obs span tracer (obs/trace.py) under one
-name.
+name, and costs one branch while neither records (:func:`spans_on`).
 
 One ``torch.profiler`` session runs in a process at a time:
 :func:`capture_active` says whether one is running (this module's, the
@@ -202,11 +202,60 @@ class wall_clock:
         self._t1 = time.perf_counter()
 
 
-@contextlib.contextmanager
-def annotate(name: str, **attrs) -> Iterator[None]:
+#: the module whose global ``_is_profiler_enabled`` every ``torch.profiler``
+#: session sets while it records (the flag :func:`capture_active` reads)
+_autograd_profiler = torch.autograd.profiler
+_NULL = contextlib.nullcontext()
+
+
+def spans_on() -> bool:
+    """Whether a phase span opened now would be recorded: a
+    ``torch.profiler`` session is recording in this process, or the obs
+    span tracer would record a span on this thread
+    (:func:`~lightctr_tpu_torch.obs.trace.live`)."""
+    return (getattr(_autograd_profiler, "_is_profiler_enabled", False)
+            or _trace.live())
+
+
+class _Annotation:
+    """One ``annotate`` region while spans are on: a profiler annotation
+    (a ``record_function`` region, ``user_annotation`` in the trace,
+    entered through the binding ``torch.profiler``'s own annotations use,
+    which skips the ``record_function`` class and the operator dispatch)
+    while a profiler session records, and the obs span (a null context
+    where the tracer does not sample)."""
+
+    __slots__ = ("_name", "_span", "_rf")
+
+    def __init__(self, name: str, attrs: dict):
+        self._name = name
+        self._span = _trace.span(name, **attrs)
+        self._rf = None
+
+    def __enter__(self) -> None:
+        if getattr(_autograd_profiler, "_is_profiler_enabled", False):
+            self._rf = torch.autograd._record_function_with_args_enter(
+                self._name)
+        self._span.__enter__()
+
+    def __exit__(self, *exc) -> bool:
+        self._span.__exit__(*exc)
+        if self._rf is not None:
+            torch.autograd._record_function_with_args_exit(self._rf)
+        return False
+
+
+def annotate(name: str, **attrs):
     """Named sub-region for traces: one name on the PyTorch profiler's
-    timeline (``torch.profiler.record_function``, so the region shows
-    around its kernels in a device trace) and in the obs span tracer (a
-    span when tracing is sampled, ``attrs`` attached)."""
-    with torch.profiler.record_function(name), _trace.span(name, **attrs):
-        yield
+    timeline (a ``record_function`` region, so the region shows around
+    its kernels in a device trace) and in the obs span tracer (a span
+    when tracing is sampled, ``attrs`` attached).
+
+    Spans are on while a ``torch.profiler`` session records (this
+    module's :func:`trace`, ``POST /profilez``, or any other caller's) or
+    while the obs tracer samples (:func:`spans_on`).  Otherwise this
+    returns a shared null context after one branch: no profiler
+    annotation is entered."""
+    if not spans_on():
+        return _NULL
+    return _Annotation(name, attrs)

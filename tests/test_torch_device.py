@@ -599,6 +599,90 @@ def test_trainer_arms_device_plane_by_ctor_and_env(monkeypatch, rng):
     tr3.device_census.close()
 
 
+class _StubEvent:
+    """A CUDA event's surface for :class:`device.StepClock`: recorded at
+    the next of ``times`` (ms), complete once ``done`` is set."""
+
+    def __init__(self, times, log):
+        self.t = times.pop(0)
+        self.done = False
+        self.log = log
+
+    def record(self):
+        self.log.append(("record", self.t))
+
+    def query(self):
+        return self.done
+
+    def synchronize(self):
+        self.log.append(("sync", self.t))
+        self.done = True
+
+    def elapsed_time(self, end):
+        return end.t - self.t
+
+
+def test_step_clock_drains_completed_intervals_without_a_sync():
+    log, made = [], []
+
+    def event():
+        made.append(_StubEvent(times, log))
+        return made[-1]
+
+    times = [0.0, 10.0, 25.0, 45.0, 70.0]
+    clock = device.StepClock(max_lag=2, event=event)
+    assert clock.mark() == []  # in flight: nothing waits for it
+    made[0].done = True
+    assert clock.mark() == []  # the first completed event has no interval
+    made[1].done = True
+    assert clock.mark() == [0.010]
+    assert not any(k == "sync" for k, _ in log)
+    # the card falls behind: past max_lag the oldest is waited for
+    assert clock.mark() == []
+    assert clock.mark() == [pytest.approx(0.015)]
+    assert ("sync", 25.0) in log
+
+
+def test_trainer_catalog_takes_the_cards_interval(rng):
+    """On a card the catalog's step time is the interval between the
+    completion events of consecutive steps (stubbed here), not the host's
+    launch time; on the CPU it is the host's."""
+    batch = _toy_batch(rng)
+    tr = _toy_trainer(device_telemetry=True)
+    times = [0.0, 10.0, 25.0, 45.0]
+    made = []
+
+    def event():
+        made.append(_StubEvent(times, []))
+        made[-1].done = True
+        return made[-1]
+
+    tr._step_clock = device.StepClock(event=event)
+    try:
+        with obs.override(True):
+            for _ in range(4):
+                tr.train_step(batch)
+        prog = tr.device_catalog.snapshot()["programs"]["trainer_step"]
+        assert len(made) == 4 and prog["steps"] == 3
+        want = 0.010
+        for dt in (0.015, 0.020):
+            want = 0.9 * want + 0.1 * dt
+        assert prog["ewma_seconds"] == pytest.approx(want)
+    finally:
+        tr.device_catalog.close()
+        tr.device_census.close()
+    cpu = _toy_trainer(device_telemetry=True)
+    try:
+        with obs.override(True):
+            cpu.train_step(batch)
+        assert cpu._step_clock is None
+        prog = cpu.device_catalog.snapshot()["programs"]["trainer_step"]
+        assert prog["steps"] == 1 and 0 < prog["ewma_seconds"] < 5
+    finally:
+        cpu.device_catalog.close()
+        cpu.device_census.close()
+
+
 def test_serving_model_records_its_scorer_when_armed(monkeypatch, rng):
     monkeypatch.setenv("LIGHTCTR_DEVICE", "1")
     device.reset_default_catalog()

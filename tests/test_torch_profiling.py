@@ -196,3 +196,99 @@ def test_session_refuses_a_second_capture(tmp_path):
     assert os.path.exists(path)
     b.start()
     assert b.stop() is not None
+
+
+def _count_record_functions(monkeypatch):
+    """Every profiler annotation entered: the ``record_function`` class and
+    the binding it shares with ``torch.profiler``'s own annotations."""
+    calls = []
+    real_rf = torch.profiler.record_function
+    real_enter = torch.autograd._record_function_with_args_enter
+
+    def counting_rf(name, *a, **kw):
+        calls.append(name)
+        return real_rf(name, *a, **kw)
+
+    def counting_enter(name, *a):
+        calls.append(name)
+        return real_enter(name, *a)
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting_rf)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function",
+                        counting_rf)
+    monkeypatch.setattr(torch.autograd, "_record_function_with_args_enter",
+                        counting_enter)
+    return calls
+
+
+def test_annotate_is_one_shared_null_context_when_nothing_records(
+        monkeypatch):
+    calls = _count_record_functions(monkeypatch)
+    obs_trace.reset()
+    with obs.override(True), obs_trace.override_rate(0.0):
+        assert not profiling.spans_on()
+        a, b = annotate("phase/a"), annotate("phase/b", step=1)
+        assert a is b
+        with a:
+            with annotate("phase/c"):
+                pass
+    assert calls == [] and obs_trace.finished() == []
+    # the tracer alone: obs spans, still no record_function
+    with obs.override(True), obs_trace.override_rate(1.0):
+        assert profiling.spans_on()
+        with annotate("phase/a"):
+            pass
+    assert calls == []
+    assert [s["name"] for s in obs_trace.finished()] == ["phase/a"]
+    obs_trace.reset()
+    # a profiler session alone: record_function, no obs span
+    with obs_trace.override_rate(0.0), torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        assert profiling.spans_on()
+        with annotate("phase/a"):
+            torch.ones(4).sum()
+    assert calls == ["phase/a"] and obs_trace.finished() == []
+    assert "phase/a" in {e.name for e in prof.events()}
+    assert not profiling.spans_on()
+
+
+def test_spans_land_on_the_profilers_clock(tmp_path):
+    """Spans recorded inside a profiler session, merged into its Chrome
+    trace, start within 50 us of their ``record_function`` twins (the
+    median over the regions: a thread preempted between the two clock
+    reads only delays the span) and lie inside them, to that margin."""
+    obs_trace.reset()
+    path = str(tmp_path / "trace.json")
+    n = 21
+    with obs.override(True), obs_trace.override_rate(1.0):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            # the process's first record_function takes a millisecond to
+            # enter, between its event's start and the span's
+            with annotate("warm"):
+                pass
+            for i in range(n):
+                with annotate(f"clock/{i}"):
+                    torch.ones(256).sum()
+        prof.export_chrome_trace(path)
+    recs = obs_trace.finished()
+    obs_trace.reset()
+    out = str(tmp_path / "merged.json")
+    merged = obs_trace.merge_profiler_trace(path, recs, path=out)
+    with open(out) as f:
+        assert json.load(f)["traceEvents"] == merged["traceEvents"]
+    with open(path) as f:
+        assert len(merged["traceEvents"]) == \
+            len(json.load(f)["traceEvents"]) + len(recs)
+    prof_ts, span_ts = {}, {}
+    for e in merged["traceEvents"]:
+        if e.get("ph") == "X" and e.get("name", "").startswith("clock/"):
+            d = span_ts if e.get("cat") == "lightctr" else prof_ts
+            d[e["name"]] = (e["ts"], e["dur"])
+    assert set(span_ts) == set(prof_ts) == {f"clock/{i}" for i in range(n)}
+    lags = []
+    for name, (ts, dur) in span_ts.items():
+        p_ts, p_dur = prof_ts[name]
+        lags.append(ts - p_ts)
+        assert ts > p_ts - 50.0 and ts + dur < p_ts + p_dur + 50.0, name
+    assert abs(sorted(lags)[n // 2]) < 50.0

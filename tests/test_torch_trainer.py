@@ -461,3 +461,112 @@ def test_traced_step_spans_and_stall_watch_from_env(monkeypatch):
     finally:
         tt.stepwatch.close()
         trace.reset()
+
+
+# -- the step's phase spans ---------------------------------------------------
+
+
+#: (span, its parent) of one step on the CPU, where autograd runs the
+#: backward on the step's thread: the kernels' spans sit in the phase that
+#: calls them
+STEP_TREE = {
+    ("trainer/step", None),
+    ("trainer/input", "trainer/step"),
+    ("trainer/exec", "trainer/step"),
+    ("trainer/forward", "trainer/exec"),
+    ("trainer/backward", "trainer/exec"),
+    ("embed/lookup_backward", "trainer/backward"),
+    ("kernel/merge_rows", "embed/lookup_backward"),
+    ("trainer/optimizer", "trainer/exec"),
+    ("trainer/record", "trainer/step"),
+    ("trainer/feed_health", "trainer/record"),
+    ("trainer/health_signals", "trainer/feed_health"),
+}
+SPARSE_TREE = STEP_TREE | {
+    ("sparse_tables/dedup_gather", "trainer/exec"),
+    ("kernel/dedup_ids", "sparse_tables/dedup_gather"),
+    ("sparse_tables/apply", "trainer/optimizer"),
+    ("kernel/merge_apply", "sparse_tables/apply"),
+}
+
+
+def _spans_trainer(kind):
+    p = tparams(init_params())
+    if kind == "sparse":
+        tr = SparseTableCTRTrainer(p, tfm.logits, TrainConfig(),
+                                   sparse_tables=TABLES, device="cpu")
+    else:
+        tr = CTRTrainer(p, tfm.logits, TrainConfig(), device="cpu")
+    tr.health = thealth.HealthMonitor()
+    thealth.ensure_trainer_detectors(tr.health, tables=kind == "sparse")
+    return tr
+
+
+@pytest.mark.parametrize("kind", ["sparse", "plain"])
+def test_one_step_is_one_tree_of_phase_spans(kind):
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.obs import trace as otrace
+
+    tr, b = _spans_trainer(kind), fm_batch(3)
+    otrace.reset()
+    with obs.override(True), otrace.override_rate(1.0):
+        tr.train_step(b)
+    recs = otrace.finished()
+    otrace.reset()
+    by_id = {r["span"]: r for r in recs}
+    edges = {(r["name"], by_id[r["parent"]]["name"] if "parent" in r
+              else None) for r in recs}
+    assert edges == (SPARSE_TREE if kind == "sparse" else STEP_TREE)
+    assert len({r["trace"] for r in recs}) == 1
+    # no pageable put to a card here: no wait before it
+    assert "trainer/input_wait" not in {r["name"] for r in recs}
+
+
+@pytest.mark.parametrize("kind", ["sparse", "plain"])
+def test_a_bare_profiler_session_records_the_same_names(kind):
+    """A profiler session alone (``POST /profilez``, ``profiling.trace``, a
+    caller's own) turns the spans on, with the obs tracer at rate 0."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.obs import trace as otrace
+
+    tr, b = _spans_trainer(kind), fm_batch(4)
+    otrace.reset()
+    with obs.override(True), otrace.override_rate(0.0):
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            tr.train_step(b)
+    names = {e.name for e in prof.events()}
+    want = {n for n, _ in (SPARSE_TREE if kind == "sparse" else STEP_TREE)}
+    assert want <= names
+    assert otrace.finished() == []
+
+
+def test_input_wait_only_on_the_pageable_put(monkeypatch):
+    """``trainer/input_wait`` (a wait for the step's stream) comes before a
+    put that copies pageable memory to a card, and only while spans are
+    on; a staged batch (``device_ready``) never waits."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.obs import trace as otrace
+
+    tr, b = _spans_trainer("plain"), fm_batch(5)
+    assert not tr._put_waits(b)  # the CPU: no copy to a card
+    waits = []
+    monkeypatch.setattr(tr, "_put_waits", lambda batch: True)
+    monkeypatch.setattr(tr, "_wait_stream", lambda: waits.append(1))
+    with obs.override(True):
+        tr.train_step(b)  # nothing records: no wait is added
+        assert waits == []
+        with otrace.override_rate(1.0):
+            otrace.reset()
+            tr.train_step(b)
+            assert waits == [1]
+            spans = {r["name"]: r for r in otrace.finished()}
+            assert spans["trainer/input_wait"]["parent"] == \
+                spans["trainer/input"]["span"]
+            otrace.reset()
+            tr.train_step(tr._stage(b), device_ready=True)
+            assert waits == [1]
+            names = {r["name"] for r in otrace.finished()}
+            assert "trainer/input" in names
+            assert "trainer/input_wait" not in names
+    otrace.reset()
