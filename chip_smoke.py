@@ -938,7 +938,8 @@ def check_merge_rows(np, torch, sk, rng) -> dict:
     all +-0 (left at +0); nseg = 2^24 + 77, so the radix sort moves all
     four digits; and as FFM's lookup backward in the cli phase: one
     batch's 159,744 Criteo ids as segments of the 2^20-row table, rows of
-    d = 312 (float4 lanes over 78 vectors a row)."""
+    d = 312 (float4 lanes over 78 vectors a row).  Each case reports its
+    long-run walk (``sk.long_run_stats``): every listed run walked."""
     m = DP_WORLD * DP_LOCAL_K
     cases = []
     for d, nseg, zeros in ((1, m, False), (DIM, m, False), (DIM, m, True),
@@ -955,15 +956,20 @@ def check_merge_rows(np, torch, sk, rng) -> dict:
             hit = (inv % 7) == 0
             rows[hit] = torch.where(torch.rand_like(rows[hit]) < 0.5, 0.0,
                                     -0.0)
-        got = sk.merge_rows(rows, inv, nseg)
-        torch.cuda.synchronize()
+        with sk.watch_long_runs():
+            got = sk.merge_rows(rows, inv, nseg)
+            long_runs = sk.long_run_stats("merge_rows")
         want = sk.merge_rows_plain(rows, inv, nseg)
         if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
             raise AssertionError(f"merge_rows kernel != plain at d={d}, "
                                  f"nseg={nseg}, zero segments {zeros}: "
                                  f"max {float((got - want).abs().max())}")
+        if long_runs is not None and (long_runs["walked"]
+                                      != long_runs["listed"]):
+            raise AssertionError(f"merge_rows walked {long_runs} long runs")
         cases.append({"m": m, "d": d, "nseg": nseg, "zero_segments": zeros,
-                      "dropped": int((inv < 0).sum() + (inv >= nseg).sum())})
+                      "dropped": int((inv < 0).sum() + (inv >= nseg).sum()),
+                      "long_runs": long_runs})
         del rows, got, want
         torch.cuda.empty_cache()
     return {"bit_exact": True, "max_abs_err": 0.0, "cases": cases}

@@ -63,8 +63,9 @@
 // card.  sumsq is accumulated in double per thread, reduced per block, and
 // the per-block sums are added by one block in a fixed order, so it is the
 // same from run to run (the apply mode's grid depends only on S, d and the
-// card, and each warp's tiles are fixed; in the merge mode on M, S and d,
-// and the stable sort fixes which thread adds what).
+// card, and each warp's tiles are fixed; in the merge mode the stable sort
+// fixes which thread of a walk_runs tile adds what, and a long run's
+// double, summed by whichever walker took the run, has a place of its own).
 //
 // Bound: bytes.  The touched rows' table and accumulator are read and
 // written once (4 * S_real * d * 4 bytes for S_real distinct ids), their
@@ -185,10 +186,20 @@ struct ApplyRows : ApplyArgs {
   }
 };
 
+// The sum of the n block partials in a fixed order.  With `long_runs`
+// (the merge mode: a walker tile's count of long runs), each tile's
+// partial is followed by its long runs' doubles in rank order, kept at
+// n + tile * kTileLongRuns (segment_runs.cuh's walk_partials).
 __global__ void sum_partials(const double* __restrict__ partials, int n,
+                             const unsigned char* __restrict__ long_runs,
                              float* __restrict__ out) {
   double x = 0.0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) x += partials[i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    x += partials[i];
+    if (long_runs)
+      for (int r = 0; r < long_runs[i]; ++r)
+        x += partials[n + (long long)i * lct::kTileLongRuns + r];
+  }
   x = block_sum(x);
   if (threadIdx.x == 0) *out = (float)x;
 }
@@ -221,7 +232,8 @@ cudaError_t launch_apply(const ApplyArgs& a, long long s, double* partials,
                                                               partials);
         const cudaError_t err = cudaGetLastError();
         if (err != cudaSuccess) return err;
-        sum_partials<<<1, kThreads, 0, stream>>>(partials, (int)grid, out);
+        sum_partials<<<1, kThreads, 0, stream>>>(partials, (int)grid, nullptr,
+                                                out);
         return cudaGetLastError();
       });
 }
@@ -277,8 +289,9 @@ struct ApplySums {
     return (double)g2;
   }
 
-  // the block's partial at `at` (segment_runs.cuh's walk_partials), which
-  // sum_partials adds in that fixed order
+  // the partial of a walk_runs tile or of a long run at `at`
+  // (segment_runs.cuh's walk_partials), which sum_partials adds in a fixed
+  // order
   __device__ void finish(double ssq, long long at) const {
     ssq = block_sum(ssq);
     if (threadIdx.x == 0) partials[at] = ssq;
@@ -317,7 +330,7 @@ extern "C" int merge_apply_f32(void* table, void* accum, const void* uids,
 
 // Bytes of device scratch merge_apply_merge_f32 needs for m gathered rows
 // of width d onto s slots: the sort's keys, slots and notes, the segment
-// and tile flags and the walkers' doubles.
+// flags, the long runs' list and the walkers' doubles.
 extern "C" long long merge_apply_merge_workspace_bytes(long long m,
                                                        long long s,
                                                        long long d) {
@@ -340,9 +353,10 @@ extern "C" int merge_apply_merge_f32(void* table, void* accum,
                                       static_cast<const int32_t*>(inv), m, d,
                                       s, ws, epi, stream);
   if (err != cudaSuccess) return (int)err;
-  // one partial a block of each walker: a wider block to add them
-  sum_partials<<<1, 1024, 0, stream>>>(ws.partials,
-                                       (int)lct::walk_partials(m, s, d),
-                                       static_cast<float*>(sumsq));
+  // a partial a walk_runs tile and one a long run: a wider block to add
+  // them
+  sum_partials<<<1, 1024, 0, stream>>>(
+      ws.partials, (int)lct::walk_blocks(m, s, d), ws.long_runs,
+      static_cast<float*>(sumsq));
   return (int)cudaGetLastError();
 }

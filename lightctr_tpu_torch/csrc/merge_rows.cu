@@ -53,7 +53,8 @@ struct StoreSums {
 }  // namespace
 
 // Bytes of device scratch merge_rows_f32 needs for m rows of width d onto
-// nseg segments: the sort's keys, slots and notes and the segment flags.
+// nseg segments: the sort's keys, slots and notes, the segment flags and
+// the long runs' list.
 extern "C" long long merge_rows_workspace_bytes(long long m, long long nseg,
                                                 long long d) {
   return (long long)lct::SegRunsWorkspace(nullptr, m, nseg, d, false).bytes;

@@ -33,19 +33,44 @@
 //      a column, never one lane of a warp alone.  A thread holds
 //      kWalkUnroll items' loads in flight together (the epilogue's and the
 //      first row's), since the walk is a chain of latency, not of bytes,
-//      and kWalkBatch rows ahead.  walk_long: a run longer than kWalkLong
-//      is the whole block's, chunk by chunk staged in shared memory by
-//      every thread (the next chunk's loads in flight during this chunk's
-//      adds) and added by one thread a column; its own launch, since its
-//      registers would cost walk_runs its occupancy.  Either way each
-//      column's adds stay serial in slot order: that order is the
-//      contract.  Long runs are real input: in the coded exchange the
-//      dedup padding decodes to rows that are not zero, one run of about
-//      half the gathered rows.  The epilogue (Epi) stores the sum (B4) or
+//      and kWalkBatch rows ahead.  A run longer than kWalkLong it leaves
+//      to walk_long and puts on the run list instead: (first sorted
+//      position, end, key, its rank among the long runs that start in the
+//      tile), in the bucket of its length's top bit, with a count a bucket
+//      (atomicAdd; the list's order within a bucket is any).  walk_long:
+//      kLongBlocks walker blocks each take a ticket (atomicAdd), which
+//      names the next unclaimed run, the longest buckets first, walk it,
+//      then take the next ticket, so no walker starts a second run while
+//      one is unclaimed, and the longest runs start first.  The walk of
+//      a run is the whole block's: chunk by chunk staged in shared memory
+//      by every thread (the next chunk's loads in flight during this
+//      chunk's adds) and added by one thread a column; its own launch,
+//      since its registers would cost walk_runs its occupancy.  Its
+//      critical path is about max(longest run, long-run slots / walkers):
+//      the Criteo layout's 13 numeric fields, one whole-batch run each,
+//      go to 13 walkers, where a fixed assignment of tiles to blocks had
+//      put several on one.  Either way each column's adds stay serial in
+//      slot order: that order is the contract, and the schedule changes no
+//      bit.  Long runs are real input: in the coded exchange the dedup
+//      padding decodes to rows that are not zero, one run of about half
+//      the gathered rows.  The epilogue (Epi) stores the sum (B4) or
 //      applies Adagrad with it (B5); walk_runs also hands it a +0 sum for
 //      each segment of its tile that received no kept row (the flags), so
 //      B4's output needs no memset and B5 gives such a segment the plain
 //      version's update.
+//
+// B5's sum of squares is a double a walk_runs tile (its place: the tile)
+// and a double a long run, at a place fixed by the run and not by the
+// walker that took it: after the tiles' doubles, kTileLongRuns places a
+// tile, the run's rank among the long runs that start in its tile.
+// walk_runs notes each tile's count of long runs; sum_partials then adds,
+// tile by tile, the tile's double and its long runs' in rank order, so the
+// sum is the same from call to call whatever walker took what.
+//
+// Each launch leaves in the workspace's first words the run list's bucket
+// counts, the ticket, and three counters: the long runs walked, the most
+// slots one walker took and the longest run's slots (kRunWords;
+// ops/sparse_kernels.py's long_run_stats reads them on request).
 //
 // Leaving out the all-zero rows changes no bit: a sum that starts at +0.0
 // and adds in round-to-nearest is never -0.0, and adding +-0 to any such
@@ -78,7 +103,23 @@ constexpr int kWalkLong = 2 * kWalkBatch;  // longer runs: walk_long's
 constexpr int kLongFloats = 8192;  // a long run's values staged at once
 constexpr int kLongPer = kLongFloats / kWalkThreads;  // a thread's share
 constexpr int kLongAdds = 8;  // a long run's values read ahead of their adds
-constexpr int kLongBlocks = 128;  // walk_long's blocks: tiles g, g + 128, ...
+constexpr int kLongBlocks = 128;  // walk_long's walkers
+// long runs that can start in one tile: all but the last lie in the tile
+constexpr int kTileLongRuns = (kWalkThreads - 1) / (kWalkLong + 1) + 1;
+// the run list's buckets, by the top bit of a run's length (from
+// kFirstBucket: a long run has more than kWalkLong slots)
+constexpr int kRunBuckets = 32;
+constexpr int kFirstBucket = 4;
+static_assert((1 << kFirstBucket) <= kWalkLong + 1 &&
+                  (2 << kFirstBucket) > kWalkLong + 1,
+              "a long run's length has its top bit at kFirstBucket or above");
+// the workspace's first words: a count a bucket, the ticket, then the
+// counters (long runs walked, most slots one walker took, longest run)
+constexpr int kRunTicket = kRunBuckets;
+constexpr int kRunsWalked = kRunBuckets + 1;
+constexpr int kBusiestWalker = kRunBuckets + 2;
+constexpr int kLongestRun = kRunBuckets + 3;
+constexpr int kRunWords = kRunBuckets + 4;
 
 // Sorted positions (and segments) a walker block takes at row width d.
 inline int walk_tile(long long d) {
@@ -95,29 +136,39 @@ inline long long walk_blocks(long long m, long long nseg, long long d) {
   return (n + tile - 1) / tile;
 }
 
-// The doubles the walkers' epilogue may sum into: one a walk_runs block,
-// then one a walk_long block, in that order.
+// The doubles the walkers' epilogue may sum into: one a walk_runs tile,
+// then kTileLongRuns a tile for its long runs.
 inline long long walk_partials(long long m, long long nseg, long long d) {
-  return walk_blocks(m, nseg, d) + kLongBlocks;
+  return walk_blocks(m, nseg, d) * (1 + kTileLongRuns);
 }
 
-// The workspace, in order: the radix sort's varying-bits words, digit
-// totals, look-back words and tile tickets, the segment flags and a flag a
-// walker tile that holds a long run (all zeroed together), then the two
-// key and the two slot buffers and, for an epilogue that sums a double (the
-// fused apply's sum of squares), a double a walk_runs tile and one a
-// walk_long block.
+// The run list's first entry of bucket k: the buckets below it hold at
+// most m >> j runs each, since a run there has at least 2^j slots.
+__host__ __device__ inline long long run_bucket_at(long long m, int k) {
+  long long at = 0;
+  for (int j = kFirstBucket; j < k; ++j) at += m >> j;
+  return at;
+}
+
+// The workspace, in order: the run list's words (kRunWords), the radix
+// sort's varying-bits words, digit totals, look-back words and tile
+// tickets, and the segment flags (all zeroed together); then a walker
+// tile's count of long runs, the run list, the two key and the two slot
+// buffers and, for an epilogue that sums a double (the fused apply's sum
+// of squares), the walkers' doubles (walk_partials).
 struct SegRunsWorkspace {
+  unsigned* runs;
   unsigned long long* bits;
   unsigned* totals;
   unsigned* status;
   unsigned* tickets;
   unsigned char* has_rows;
-  unsigned char* has_long;
+  unsigned char* long_runs;
+  uint4* run_list;
   uint32_t* keys[2];
   unsigned* vals[2];
   double* partials;
-  size_t zeroed;  // bytes from bits through has_long
+  size_t zeroed;  // bytes from runs through has_rows
   size_t bytes;
 
   SegRunsWorkspace(void* base, long long m, long long nseg, long long d,
@@ -130,6 +181,7 @@ struct SegRunsWorkspace {
       off += (n + 15) & ~(size_t)15;
       return at;
     };
+    runs = reinterpret_cast<unsigned*>(take(kRunWords * sizeof(unsigned)));
     bits = reinterpret_cast<unsigned long long*>(
         take(2 * sizeof(unsigned long long)));
     totals = reinterpret_cast<unsigned*>(
@@ -138,8 +190,10 @@ struct SegRunsWorkspace {
         take(kPasses * radix_tiles(m) * kRadixBins * sizeof(unsigned)));
     tickets = reinterpret_cast<unsigned*>(take(kPasses * sizeof(unsigned)));
     has_rows = reinterpret_cast<unsigned char*>(take(nseg));
-    has_long = reinterpret_cast<unsigned char*>(take(walk_blocks(m, nseg, d)));
     zeroed = off;
+    long_runs = reinterpret_cast<unsigned char*>(take(walk_blocks(m, nseg, d)));
+    run_list = reinterpret_cast<uint4*>(
+        take(run_bucket_at(m, kRunBuckets) * sizeof(uint4)));
     keys[0] = reinterpret_cast<uint32_t*>(take(m * sizeof(uint32_t)));
     keys[1] = reinterpret_cast<uint32_t*>(take(m * sizeof(uint32_t)));
     vals[0] = reinterpret_cast<unsigned*>(take(m * sizeof(unsigned)));
@@ -300,13 +354,26 @@ __device__ __forceinline__ bool long_run(const long long* bpos,
   return bkey[b] < nseg && bpos[b + 1] - bpos[b] > kWalkLong;
 }
 
+// Put the long run [start, end) of `key`, the rank-th long run of its
+// tile, on the run list, in the bucket of its length's top bit.
+__device__ __forceinline__ void push_run(unsigned* runs, uint4* run_list,
+                                         long long m, long long start,
+                                         long long end, uint32_t key,
+                                         int rank) {
+  const unsigned long long len = (unsigned long long)(end - start);
+  const int k = 63 - __clzll((long long)len);
+  const unsigned at = atomicAdd(runs + k, 1u);
+  run_list[run_bucket_at(m, k) + at] =
+      make_uint4((unsigned)start, (unsigned)end, key, (unsigned)rank);
+  atomicMax(runs + kLongestRun, (unsigned)len);
+}
+
 // 3a. the run walker.  Epi: skip(seg) is true for a segment the epilogue
 // leaves alone whatever its sum; begin(seg, c) loads what the epilogue
 // needs of (segment, column) before the sum; put(ctx, sum) finishes it and
-// returns its share of the block's double (0 when it has none); finish(x,
-// at) is called by every thread with its total, `at` the block's place
-// among walk_partials: blockIdx.x here, after every walk_runs block in
-// walk_long.
+// returns its share of the double (0 when it has none); finish(x, at) is
+// called by every thread with its total, `at` the double's place among
+// walk_partials: blockIdx.x here, a long run's own place in walk_long.
 template <class Epi>
 __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
     walk_runs(const uint32_t* keys0, const uint32_t* keys1,
@@ -314,7 +381,8 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
               const unsigned long long* bits, long long m, long long nseg,
               const float* __restrict__ rows, int d, int tile,
               const unsigned char* __restrict__ has_rows,
-              unsigned char* __restrict__ has_long, Epi epi) {
+              unsigned char* __restrict__ long_runs, unsigned* runs,
+              uint4* __restrict__ run_list, Epi epi) {
   typedef decltype(epi.begin(0ll, 0)) Ctx;
   __shared__ long long bpos[kWalkThreads + 1];
   __shared__ uint32_t bkey[kWalkThreads];
@@ -329,6 +397,23 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
   const long long t0 = (long long)blockIdx.x * tile;
   const int nb = tile_runs(keys, vals, m, nseg, tile, t0, bpos, bkey, tslot,
                            wcount);
+
+  // the tile's long runs onto the run list, each with its rank among them,
+  // and their count (the order sum_partials adds their doubles in)
+  {
+    const bool is_long = tid < nb && long_run(bpos, bkey, tid, nseg);
+    const unsigned bal = __ballot_sync(0xffffffffu, is_long);
+    if (lane == 0) wcount[warp] = __popc(bal);
+    __syncthreads();
+    int rank = __popc(bal & ((1u << lane) - 1u)), n_long = 0;
+    for (int w = 0; w < kWalkWarps; ++w) {
+      rank += w < warp ? wcount[w] : 0;
+      n_long += wcount[w];
+    }
+    if (tid == 0) long_runs[blockIdx.x] = (unsigned char)n_long;
+    if (is_long)
+      push_run(runs, run_list, m, bpos[tid], bpos[tid + 1], bkey[tid], rank);
+  }
 
   // each (run, column) item: the run's rows added in slot order from +0.
   // A thread takes kWalkUnroll items at once: their epilogue loads and
@@ -382,8 +467,6 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
       total += epi.put(ctx[u], acc);
     }
   }
-  if (tid < nb && long_run(bpos, bkey, tid, nseg)) has_long[blockIdx.x] = 1;
-
   // the tile's segments that received no kept row get a +0 sum, as the
   // plain merge leaves them: each warp scans 32 segments at once, then
   // hands out their (segment, column) items
@@ -408,144 +491,152 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
   epi.finish(total, blockIdx.x);
 }
 
-// 3b. the long runs, each by a whole block: kLongBlocks blocks, block g
-// taking the flagged tiles g, g + kLongBlocks, ... in order (a fixed
-// assignment, so its double is the same from run to run; the flags of 256
-// of its tiles read at once); in a tile, up to
-// kWalkThreads columns at a time, kLongFloats / columns rows a chunk
-// staged in shared memory by every thread (the next chunk's rows and the
-// slots after them in flight during this chunk's adds), one thread a
-// column adding in slot order.  A launch of its own, so that its registers
-// do not cost walk_runs its occupancy.
-template <class Epi>
-__global__ void __launch_bounds__(kWalkThreads, 1)
-    walk_long(const uint32_t* keys0, const uint32_t* keys1,
-              const unsigned* vals0, const unsigned* vals1,
-              const unsigned long long* bits, long long m, long long nseg,
-              const float* __restrict__ rows, int d, int tile,
-              const unsigned char* __restrict__ has_long, long long tiles,
-              Epi epi) {
-  typedef decltype(epi.begin(0ll, 0)) Ctx;
-  __shared__ long long bpos[kWalkThreads + 1];
-  __shared__ uint32_t bkey[kWalkThreads];
-  __shared__ unsigned tslot[kWalkThreads];
-  __shared__ int wcount[kWalkWarps];
-  __shared__ float lbuf[kLongFloats];  // a chunk, [rows][columns]
-  __shared__ unsigned char lflag[kWalkThreads];
-  const int buf = m > 0 ? radix_src_buffer(bits, RadixKey<uint32_t>::kPasses)
-                        : 0;
-  const uint32_t* keys = buf ? keys1 : keys0;
-  const unsigned* vals = buf ? vals1 : vals0;
-  const int tid = threadIdx.x;
-  double total = 0.0;
-  const long long step = (long long)gridDim.x * kWalkThreads;
-  for (long long base = blockIdx.x; base < tiles; base += step) {
-    // the flags of the block's next kWalkThreads tiles, read together
-    const long long mine = base + (long long)tid * gridDim.x;
-    lflag[tid] = mine < tiles ? has_long[mine] : 0;
-    if (!__syncthreads_or(lflag[tid])) continue;
-    for (int k = 0; k < kWalkThreads; ++k) {
-      if (!lflag[k]) continue;  // block-uniform
-      const long long t0 = (base + (long long)k * gridDim.x) * tile;
-      const int nb = tile_runs(keys, vals, m, nseg, tile, t0, bpos, bkey,
-                               tslot, wcount);
-      for (int b = 0; b < nb; ++b) {
-        if (!long_run(bpos, bkey, b, nseg)) continue;  // block-uniform
-        const long long j0 = bpos[b], j1 = bpos[b + 1];
-        for (int c0 = 0; c0 < d; c0 += kWalkThreads) {
-          const int cols = d - c0 < kWalkThreads ? d - c0 : kWalkThreads;
-          const int chunk = kLongFloats / cols;
-          // value e = tid + t * kWalkThreads of a chunk is row e / cols,
-          // column c0 + e % cols, stepped over t without a division
-          const int r_first = tid / cols, c_first = tid - r_first * cols;
-          const int rstep = kWalkThreads / cols, cstep = kWalkThreads % cols;
-          unsigned slot[kLongPer];
-          float v[kLongPer];
-          // the slots of the chunk at jc, then its rows
-          auto load_slots = [&](long long jc) {
-            const long long n = j1 - jc < chunk ? j1 - jc : chunk;
-            int r = r_first, c = c_first;
-#pragma unroll
-            for (int t = 0; t < kLongPer; ++t) {
-              const long long q = jc + r;
-              slot[t] = r < n ? (q - t0 < tile ? tslot[q - t0]
-                                               : __ldg(vals + q))
-                              : 0u;
-              r += rstep;
-              c += cstep;
-              if (c >= cols) {
-                c -= cols;
-                ++r;
-              }
-            }
-          };
-          auto load_rows = [&](long long jc) {
-            const long long n = j1 - jc < chunk ? j1 - jc : chunk;
-            int r = r_first, c = c_first;
-#pragma unroll
-            for (int t = 0; t < kLongPer; ++t) {
-              v[t] = r < n ? __ldg(rows + (long long)slot[t] * d + c0 + c)
-                           : 0.0f;
-              r += rstep;
-              c += cstep;
-              if (c >= cols) {
-                c -= cols;
-                ++r;
-              }
-            }
-          };
-          Ctx ctx;
-          if (tid < cols) ctx = epi.begin(bkey[b], c0 + tid);
-          float acc = 0.0f;
-          long long j = j0;
-          load_slots(j);
-          load_rows(j);
-          if (j + chunk < j1) load_slots(j + chunk);
-          for (;;) {
-            const int n = j1 - j < chunk ? (int)(j1 - j) : chunk;
-#pragma unroll
-            for (int t = 0; t < kLongPer; ++t) {
-              const int e = tid + t * kWalkThreads;
-              if (e < n * cols) lbuf[e] = v[t];
-            }
-            __syncthreads();
-            const long long jn = j + chunk;
-            if (jn < j1) {  // the next chunk's rows, and the slots after it
-              load_rows(jn);
-              if (jn + chunk < j1) load_slots(jn + chunk);
-            }
-            if (tid < cols) {
-              // kLongAdds loads issued before their adds: the chain waits on
-              // one shared-memory latency a batch, not one an add
-              int r = 0;
-              for (; r + kLongAdds <= n; r += kLongAdds) {
-                float x[kLongAdds];
-#pragma unroll
-                for (int t = 0; t < kLongAdds; ++t)
-                  x[t] = lbuf[(r + t) * cols + tid];
-#pragma unroll
-                for (int t = 0; t < kLongAdds; ++t)
-                  acc = __fadd_rn(acc, x[t]);
-              }
-              for (; r < n; ++r) acc = __fadd_rn(acc, lbuf[r * cols + tid]);
-            }
-            __syncthreads();
-            if (jn >= j1) break;
-            j = jn;
-          }
-          if (tid < cols) total += epi.put(ctx, acc);
-        }
-      }
-      __syncthreads();  // the next tile's runs overwrite this one's
-    }
-    __syncthreads();  // the next flags overwrite these
+// The next unclaimed long run for the ticket thread 0 takes: the longest
+// buckets first (`count` a bucket, in shared memory); an empty run once
+// every run is claimed.
+__device__ __forceinline__ uint4 claim_run(unsigned* runs,
+                                           const uint4* run_list,
+                                           long long m,
+                                           const unsigned* count) {
+  unsigned t = atomicAdd(runs + kRunTicket, 1u);
+  for (int k = kRunBuckets - 1; k >= kFirstBucket; --k) {
+    if (t < count[k]) return run_list[run_bucket_at(m, k) + t];
+    t -= count[k];
   }
-  epi.finish(total, tiles + blockIdx.x);
+  return make_uint4(0u, 0u, 0u, 0u);
 }
 
-// The merge on `stream`: zero the notes and flags, the key pass and the
-// sort (when there are rows), then the walkers with `epi`: the short runs
-// and the gaps, then the long runs.  `rows` [m, d] float32, `inv` [m]
+// 3b. the long runs, one at a time a walker: kLongBlocks blocks, each
+// taking the next unclaimed run of the run list by a ticket (claim_run)
+// until none is left, so the schedule follows the runs the keys hold and
+// no walker holds a second run while one waits.  A run is the whole
+// block's: up to kWalkThreads columns at a time, kLongFloats / columns
+// rows a chunk staged in shared memory by every thread (the next chunk's
+// rows and the slots after them in flight during this chunk's adds), one
+// thread a column adding in slot order.  Each run's double goes to its own
+// place (its tile's, then its rank there), which no schedule changes.  A
+// launch of its own, so that its registers do not cost walk_runs its
+// occupancy.  At the end each walker adds its runs and notes its slots in
+// the counters.
+template <class Epi>
+__global__ void __launch_bounds__(kWalkThreads, 1)
+    walk_long(const unsigned* vals0, const unsigned* vals1,
+              const unsigned long long* bits, long long m,
+              const float* __restrict__ rows, int d, int tile,
+              long long blocks, unsigned* runs,
+              const uint4* __restrict__ run_list, Epi epi) {
+  typedef decltype(epi.begin(0ll, 0)) Ctx;
+  __shared__ float lbuf[kLongFloats];  // a chunk, [rows][columns]
+  __shared__ unsigned count[kRunBuckets];
+  __shared__ uint4 job;
+  const int buf = m > 0 ? radix_src_buffer(bits, RadixKey<uint32_t>::kPasses)
+                        : 0;
+  const unsigned* vals = buf ? vals1 : vals0;
+  const int tid = threadIdx.x;
+  // the bucket counts are final: walk_runs has ended
+  if (tid < kRunBuckets) count[tid] = runs[tid];
+  unsigned walked = 0, slots = 0;
+  for (;;) {
+    __syncthreads();  // the counts are in; the last run's job read
+    if (tid == 0) job = claim_run(runs, run_list, m, count);
+    __syncthreads();
+    const long long j0 = job.x, j1 = job.y;
+    const uint32_t key = job.z;
+    if (j1 <= j0) break;  // block-uniform: nothing left
+    ++walked;
+    slots += (unsigned)(j1 - j0);
+    double total = 0.0;
+    for (int c0 = 0; c0 < d; c0 += kWalkThreads) {
+      const int cols = d - c0 < kWalkThreads ? d - c0 : kWalkThreads;
+      const int chunk = kLongFloats / cols;
+      // value e = tid + t * kWalkThreads of a chunk is row e / cols,
+      // column c0 + e % cols, stepped over t without a division
+      const int r_first = tid / cols, c_first = tid - r_first * cols;
+      const int rstep = kWalkThreads / cols, cstep = kWalkThreads % cols;
+      unsigned slot[kLongPer];
+      float v[kLongPer];
+      // the slots of the chunk at jc, then its rows
+      auto load_slots = [&](long long jc) {
+        const long long n = j1 - jc < chunk ? j1 - jc : chunk;
+        int r = r_first, c = c_first;
+#pragma unroll
+        for (int t = 0; t < kLongPer; ++t) {
+          slot[t] = r < n ? __ldg(vals + jc + r) : 0u;
+          r += rstep;
+          c += cstep;
+          if (c >= cols) {
+            c -= cols;
+            ++r;
+          }
+        }
+      };
+      auto load_rows = [&](long long jc) {
+        const long long n = j1 - jc < chunk ? j1 - jc : chunk;
+        int r = r_first, c = c_first;
+#pragma unroll
+        for (int t = 0; t < kLongPer; ++t) {
+          v[t] = r < n ? __ldg(rows + (long long)slot[t] * d + c0 + c)
+                       : 0.0f;
+          r += rstep;
+          c += cstep;
+          if (c >= cols) {
+            c -= cols;
+            ++r;
+          }
+        }
+      };
+      Ctx ctx;
+      if (tid < cols) ctx = epi.begin(key, c0 + tid);
+      float acc = 0.0f;
+      long long j = j0;
+      load_slots(j);
+      load_rows(j);
+      if (j + chunk < j1) load_slots(j + chunk);
+      for (;;) {
+        const int n = j1 - j < chunk ? (int)(j1 - j) : chunk;
+#pragma unroll
+        for (int t = 0; t < kLongPer; ++t) {
+          const int e = tid + t * kWalkThreads;
+          if (e < n * cols) lbuf[e] = v[t];
+        }
+        __syncthreads();
+        const long long jn = j + chunk;
+        if (jn < j1) {  // the next chunk's rows, and the slots after it
+          load_rows(jn);
+          if (jn + chunk < j1) load_slots(jn + chunk);
+        }
+        if (tid < cols) {
+          // kLongAdds loads issued before their adds: the chain waits on
+          // one shared-memory latency a batch, not one an add
+          int r = 0;
+          for (; r + kLongAdds <= n; r += kLongAdds) {
+            float x[kLongAdds];
+#pragma unroll
+            for (int t = 0; t < kLongAdds; ++t)
+              x[t] = lbuf[(r + t) * cols + tid];
+#pragma unroll
+            for (int t = 0; t < kLongAdds; ++t) acc = __fadd_rn(acc, x[t]);
+          }
+          for (; r < n; ++r) acc = __fadd_rn(acc, lbuf[r * cols + tid]);
+        }
+        __syncthreads();
+        if (jn >= j1) break;
+        j = jn;
+      }
+      if (tid < cols) total += epi.put(ctx, acc);
+    }
+    // the run's double at its own place: its tile's, then its rank there
+    epi.finish(total, blocks + j0 / tile * kTileLongRuns + job.w);
+  }
+  if (tid == 0 && walked > 0) {
+    atomicAdd(runs + kRunsWalked, walked);
+    atomicMax(runs + kBusiestWalker, slots);
+  }
+}
+
+// The merge on `stream`: zero the run list's words, the notes and the
+// flags, the key pass and the sort (when there are rows), then the walkers
+// with `epi`: the short runs and the gaps, then the long runs.  `rows` [m, d] float32, `inv` [m]
 // int32; the workspace as SegRunsWorkspace lays it out.  Returns the first
 // launch error.
 template <class Epi>
@@ -557,7 +648,7 @@ cudaError_t segment_runs(const float* rows, const int32_t* inv, long long m,
   if (m < 0 || nseg < 0 || m > 0xffffffffll || nseg > 0xffffffffll ||
       d < 1 || d > (1 << 20))
     return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(ws.bits, 0, ws.zeroed, stream);
+  cudaError_t err = cudaMemsetAsync(ws.runs, 0, ws.zeroed, stream);
   if (err != cudaSuccess) return err;
   if (m > 0) {
     long long kb = (m + kSegKeyThreads - 1) / kSegKeyThreads;
@@ -577,11 +668,12 @@ cudaError_t segment_runs(const float* rows, const int32_t* inv, long long m,
   if (blocks == 0) return cudaSuccess;
   walk_runs<Epi><<<(unsigned)blocks, kWalkThreads, 0, stream>>>(
       ws.keys[0], ws.keys[1], ws.vals[0], ws.vals[1], ws.bits, m, nseg, rows,
-      (int)d, walk_tile(d), ws.has_rows, ws.has_long, epi);
+      (int)d, walk_tile(d), ws.has_rows, ws.long_runs, ws.runs, ws.run_list,
+      epi);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   walk_long<Epi><<<kLongBlocks, kWalkThreads, 0, stream>>>(
-      ws.keys[0], ws.keys[1], ws.vals[0], ws.vals[1], ws.bits, m, nseg, rows,
-      (int)d, walk_tile(d), ws.has_long, blocks, epi);
+      ws.vals[0], ws.vals[1], ws.bits, m, rows, (int)d, walk_tile(d), blocks,
+      ws.runs, ws.run_list, epi);
   return cudaGetLastError();
 }
 

@@ -669,6 +669,70 @@ def add_in_rounds(out: torch.Tensor, seg: torch.Tensor,
     return out
 
 
+# The long-run walk's counters.  Each merge_rows launch, and each
+# merge_apply launch in merge mode, leaves in its workspace's first words
+# (csrc/segment_runs.cuh, kRunWords) the run list's count a bucket, the
+# walkers' ticket, and three counters: the long runs walked, the most slots
+# one walker took, the longest run's slots.  Reading them syncs, so no step
+# reads them: inside ``watch_long_runs()`` each wrapper keeps its last
+# launch's words (a view, which holds that launch's workspace until the
+# next launch or the block's end) for ``long_run_stats``.
+
+#: segment_runs.cuh: kRunBuckets, then the ticket, kRunsWalked,
+#: kBusiestWalker, kLongestRun
+_RUN_BUCKETS = 32
+_RUN_WORDS = _RUN_BUCKETS + 4
+_watching_long_runs = 0
+#: kernel name -> the run words of its last launch while watched
+_long_run_words: Dict[str, torch.Tensor] = {}
+
+
+@contextlib.contextmanager
+def watch_long_runs():
+    """Keep, for ``merge_rows`` and ``merge_apply`` (merge mode), the
+    long-run counters of the last launch in the block, which
+    :func:`long_run_stats` reads; they are dropped when the block ends."""
+    global _watching_long_runs
+    with _launch_lock:
+        _watching_long_runs += 1
+    try:
+        yield
+    finally:
+        with _launch_lock:
+            _watching_long_runs -= 1
+            if not _watching_long_runs:
+                _long_run_words.clear()
+
+
+def _keep_long_runs(name: str, work: Optional[torch.Tensor]) -> None:
+    """Keep ``work``'s run words as kernel ``name``'s last, while watched
+    (None: a launch that walked nothing, as merge_rows onto no segment)."""
+    if _watching_long_runs:
+        with _launch_lock:
+            if work is None:
+                _long_run_words.pop(name, None)
+            else:
+                _long_run_words[name] = work[:_RUN_WORDS * 4]
+
+
+def long_run_stats(name: str = "merge_rows") -> Optional[Dict[str, int]]:
+    """The long-run walk of kernel ``name``'s last launch inside
+    :func:`watch_long_runs` (None without one): ``listed`` and ``walked``,
+    the long runs (longer than 16 slots) put on the run list and walked;
+    ``busiest_walker_slots``, the most slots one walker took; and
+    ``longest_run_slots``.  Synchronises with the launch's stream."""
+    with _launch_lock:
+        words = _long_run_words.get(name)
+    if words is None:
+        return None
+    w = [v & 0xFFFFFFFF
+         for v in words.view(torch.int32).to(torch.int64).tolist()]
+    return {"listed": sum(w[:_RUN_BUCKETS]),
+            "walked": w[_RUN_BUCKETS + 1],
+            "busiest_walker_slots": w[_RUN_BUCKETS + 2],
+            "longest_run_slots": w[_RUN_BUCKETS + 3]}
+
+
 def _bind_merge_rows(lib: ctypes.CDLL) -> None:
     bind_entry(lib, "merge_rows_workspace_bytes", [_LL, _LL, _LL],
                restype=_LL)
@@ -698,6 +762,7 @@ def _merge_rows_cuda(rows: torch.Tensor, inv: torch.Tensor,
     run_kernel("merge_rows", dev, lib.merge_rows_f32, rows.data_ptr(),
                inv.data_ptr(), m, d, num_segments, out.data_ptr(),
                work.data_ptr())
+    _keep_long_runs("merge_rows", work if num_segments > 0 else None)
     return out
 
 
@@ -823,6 +888,7 @@ def _merge_apply_cuda(table, accum, uids, rows, inv, lr, eps, denom):
                    table.data_ptr(), accum.data_ptr(), uids.data_ptr(),
                    rows.data_ptr(), inv.data_ptr(), vocab, d, s, m, lr, eps,
                    denom, sumsq.data_ptr(), work.data_ptr(), variant="merge")
+        _keep_long_runs("merge_apply", work)
         return table, accum, sumsq
     if rows.numel() != s * d:
         raise ValueError(f"merge_apply: {rows.numel()} gradient values for "

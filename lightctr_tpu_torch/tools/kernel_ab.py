@@ -26,6 +26,14 @@ checkout's, so both roots are timed alike:
   ``merge_mode``  merge_apply's merge mode on the dp path's gathered rows
                   (M = 159,744, zero padding), d 32 and 1;
   ``merge_rows``  merge_rows on the same rows, d 32 and 1;
+  ``long_runs``   the long-run walk, warm only, with the root's
+                  ``long_run_stats`` where it has them: the merge mode on
+                  those rows with the coded padding (CODED_PAD, one run of
+                  about half the rows), d 32; merge_rows at GBM's root
+                  histogram (the zoo's shape) and as the lookup's backward
+                  of a 65,536-row Criteo batch (13 numeric ids in every
+                  row) into the 2^20-row table, d 1, 10 and 32; the merge
+                  mode on that batch's dedup, d 32;
   ``ef_update``   quantize_pack_ef_update, one dp rank's uids (S = 79,872),
                   range 1.0, 8 bits normal and 16 bits uniform, d 1 and 32;
   ``pack``        quantize_pack on one dp rank's [79,872, 32] payload, a
@@ -58,7 +66,7 @@ TIMER = os.path.join(
 #: what runs in each root's process (argv: root, TIMER), at chip_smoke's
 #: seed 0
 _CHILD = r"""
-import importlib.util, json, sys
+import importlib.util, json, statistics, sys
 from concurrent.futures import ThreadPoolExecutor
 root, seed = sys.argv[1], 0
 sys.path.insert(0, root)
@@ -78,7 +86,8 @@ with ThreadPoolExecutor(len(names)) as ex:
     list(ex.map(lambda n: sk.compile_source(sk.KERNELS[n].source), names))
 gen = torch.Generator(device="cuda").manual_seed(5)
 out = {"root": root, "gather": {}, "apply": {}, "merge_mode": {},
-       "merge_rows": {}, "ef_update": {}, "pack": {}, "pack_ef": {}}
+       "merge_rows": {}, "long_runs": {}, "ef_update": {}, "pack": {},
+       "pack_ef": {}}
 
 def timed(fn, nbytes):
     return {"ms": timer.graph_ms(torch, fn),
@@ -137,6 +146,43 @@ for d in (cs.DIM, 1):
         m * d * 4 + m * 4 + m * 4 + real * d * 4 * 4)
     del table, accum
 
+# the long-run walk, 10 calls a graph (a walk takes ms), with the counters
+# where the root has them
+watch = getattr(sk, "watch_long_runs", None)
+
+def walked(fn, name):
+    rec = {"ms": statistics.median(timer.graph_times(torch, fn, reps=10,
+                                                     repeats=5))}
+    if watch is not None:
+        with watch():
+            fn()
+            rec["long_runs"] = sk.long_run_stats(name)
+    return rec
+
+table = torch.randn((cs.VOCAB, cs.DIM), generator=gen, device="cuda")
+accum = torch.rand((cs.VOCAB, cs.DIM), generator=gen, device="cuda")
+coded = rows + cs.CODED_PAD * pad
+out["long_runs"]["coded_pad_merge_mode_d32"] = walked(
+    lambda: sk.merge_apply(table, accum, uniq, coded, inv, lr=cs.LR,
+                           eps=cs.EPS, denom=float(cs.DP_WORLD)),
+    "merge_apply")
+del coded
+_, gbm_rows, gbm_seg, gbm_nseg = timer.zoo_merge_inputs(np, torch, seed)[0]
+out["long_runs"]["gbm_root"] = walked(
+    lambda: sk.merge_rows(gbm_rows, gbm_seg, gbm_nseg), "merge_rows")
+del gbm_rows, gbm_seg
+batch = torch.from_numpy(cs.criteo_fids(
+    np, np.random.default_rng(seed + 7), 65536).reshape(-1)).cuda()
+for d in (1, 10, cs.DIM):
+    grad = torch.randn((batch.numel(), d), generator=gen, device="cuda")
+    out["long_runs"][f"criteo_d{d}"] = walked(
+        lambda: sk.merge_rows(grad, batch, cs.VOCAB), "merge_rows")
+b_uids, b_inv, _ = sk.dedup_ids(batch)
+out["long_runs"]["criteo_merge_mode_d32"] = walked(
+    lambda: sk.merge_apply(table, accum, b_uids, grad, b_inv, lr=cs.LR,
+                           eps=cs.EPS), "merge_apply")
+del grad, table, accum
+
 uids_l, _, count_l = per_rank[0]
 k, real_l = uids_l.numel(), int(count_l)
 mask = (~((uids_l == 0) & (torch.arange(k, device="cuda") > 0))) \
@@ -174,8 +220,8 @@ out["nvidia_smi"] = timer.nvidia_smi()
 print(json.dumps(out), flush=True)
 """
 
-KERNELS = ("gather", "apply", "merge_mode", "merge_rows", "ef_update",
-           "pack", "pack_ef")
+KERNELS = ("gather", "apply", "merge_mode", "merge_rows", "long_runs",
+           "ef_update", "pack", "pack_ef")
 
 
 def run_root(root: str) -> dict:

@@ -11,6 +11,8 @@ import numpy as np
 import pytest
 import torch
 
+import segment_runs_model as runs_model
+
 from lightctr_tpu_torch.core.config import TrainConfig
 from lightctr_tpu_torch.models import fm
 from lightctr_tpu_torch.models.ctr_trainer import CTRTrainer
@@ -508,6 +510,104 @@ def test_merge_long_runs_match_plain(dev, d):
     accum = torch.rand(shape, generator=gen, device=dev)
     check_merge_mode(uids, inv % nseg, table, accum,
                      rows.reshape(-1) if d == 1 else rows)
+
+
+def long_run_merges(dev, rows, inv, nseg, vocab, seed):
+    """merge_rows twice and merge_apply's merge mode twice on ``rows`` and
+    ``inv`` (segments ``nseg``, merge mode onto ``nseg`` sorted distinct
+    uids of a ``vocab``-row table), each watched: merge_rows equals
+    ``merge_rows_plain`` (the CPU's slot-order sums) and itself bit for
+    bit, the merge mode its plain version (``check_merge_mode``) and
+    itself (tables, accumulators and the sum of squares bit for bit).
+    Returns the two kernels' ``long_run_stats``."""
+    with sk.watch_long_runs():
+        got = [sk.merge_rows(rows, inv, nseg) for _ in range(2)]
+        stats = sk.long_run_stats("merge_rows")
+    assert torch.equal(got[0].view(torch.int32), got[1].view(torch.int32))
+    want = sk.merge_rows_plain(rows.cpu(), inv.cpu(), nseg)
+    assert torch.equal(got[0].cpu().view(torch.int32), want.view(torch.int32))
+    del got
+    d = rows[0].numel()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    uids = torch.randperm(vocab, generator=gen, device=dev)[:nseg].sort() \
+        .values.to(torch.int32)
+    shape = (vocab,) if d == 1 else (vocab, d)
+    table = torch.randn(shape, generator=gen, device=dev)
+    accum = torch.rand(shape, generator=gen, device=dev)
+    flat = rows.reshape(-1) if d == 1 else rows
+    with sk.watch_long_runs():
+        (t1, a1), _ = check_merge_mode(uids, inv, table, accum, flat)
+        merge_stats = sk.long_run_stats("merge_apply")
+    sums = []
+    for _ in range(2):
+        t, a = table.clone(), accum.clone()
+        sums.append((t, a, sk.merge_apply(t, a, uids, flat, inv, lr=0.05,
+                                          denom=2.0)[2]))
+    for t, a, ssq in sums:
+        assert torch.equal(t.view(torch.int32), t1.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), a1.view(torch.int32))
+        assert torch.equal(ssq.view(torch.int32),
+                           sums[0][2].view(torch.int32))
+    return stats, merge_stats
+
+
+def expected_long_runs(inv, nseg, d):
+    """The model's run list of ``inv``: (count, longest run)."""
+    starts, ends, _ = runs_model.runs_of(inv, nseg)
+    lst = runs_model.run_list(starts, ends, inv.size, nseg, d)
+    return lst["length"].size, int(lst["length"].max(initial=0))
+
+
+@pytest.mark.parametrize("d", [1, 10, 32])
+def test_long_run_walk_at_the_criteo_shape(dev, d):
+    """The benchmark's batch shape: 65,536 rows x 39 fields, 26 drawn
+    from power laws, 13 holding one id in every row (13 whole-batch runs).
+    merge_rows equals its plain version and itself bit for bit, and so
+    does B5's merge mode on the same ids; every long run is listed and
+    walked, and the busiest walker takes at most 1.3 times the longest
+    run's slots (the fixed assignment of tiles to walkers put several
+    whole-batch runs on one)."""
+    ids = runs_model.criteo_ids(65536, seed=d).reshape(-1)
+    nseg = runs_model.criteo_vocab()
+    gen = torch.Generator(device=dev).manual_seed(d)
+    rows = torch.randn((ids.size, d), generator=gen, device=dev)
+    inv = torch.from_numpy(ids).to(dev)
+    stats, merge_stats = long_run_merges(dev, rows, inv, nseg, 1 << 20, d)
+    count, longest = expected_long_runs(ids, nseg, d)
+    assert longest == 65536
+    for st in (stats, merge_stats):
+        assert st["listed"] == st["walked"] == count
+        assert st["longest_run_slots"] == longest
+        assert longest <= st["busiest_walker_slots"] <= 1.3 * longest
+
+
+@pytest.mark.parametrize("d", [1, 32])
+@pytest.mark.parametrize("case", runs_model.EDGE_CASES)
+def test_long_run_list_edge_cases(dev, case, d):
+    """A tile that starts several long runs, a run across many tiles, all
+    slots in one run (the coded padding), no long run, and segments left
+    without kept rows (+0 from merge_rows, the +0 update from the merge
+    mode): bit for bit as above, and the counters as the model lists
+    them."""
+    inv_np, nseg = runs_model.edge_case(case)
+    gen = torch.Generator(device=dev).manual_seed(d + 31)
+    rows = torch.randn((inv_np.size, d), generator=gen, device=dev)
+    inv = torch.from_numpy(inv_np).to(dev)
+    stats, merge_stats = long_run_merges(dev, rows, inv, nseg, 1 << 14,
+                                         d + 31)
+    count, longest = expected_long_runs(inv_np, nseg, d)
+    for st in (stats, merge_stats):
+        assert st["listed"] == st["walked"] == count
+        assert st["longest_run_slots"] == longest
+        assert (st["busiest_walker_slots"] >= longest if count
+                else st["busiest_walker_slots"] == 0)
+    if case == "one_run":
+        assert stats["busiest_walker_slots"] == inv_np.size
+    if case == "empty_segments":
+        empty = np.setdiff1d(np.arange(nseg), inv_np)
+        assert empty.size > nseg // 2
+        out = sk.merge_rows(rows, inv, nseg)[torch.from_numpy(empty).to(dev)]
+        assert not bool(out.view(torch.int32).any())  # +0, every bit
 
 
 GATHER_DS = (1, 4, 32, 33, 128)
