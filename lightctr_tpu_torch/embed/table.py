@@ -7,6 +7,9 @@ The port's counterpart of the single-device half of
   - :func:`lookup` gathers rows, and its gradient sums each row's
     duplicate slots in slot order (the ``merge_rows`` kernel on the card),
     as XLA's scatter-add orders the gradient of ``jnp.take``;
+  - :func:`pooled_lookup` is :func:`lookup` followed by a sum over each
+    feature's fixed bag of slots (multi-hot features, DLRM's sum-pooled
+    ``EmbeddingBag``), so its gradient is the same slot-order merge;
   - the SGD, Adagrad and DCASGD branches apply only at the rows a batch
     touched, so untouched rows keep their weights and their state (the
     sparse semantics of ``AdagradUpdater_Num``, gradientUpdater.h:143).
@@ -333,6 +336,77 @@ def lookup(table, ids: torch.Tensor) -> torch.Tensor:
     if isinstance(table, ShardedTable):
         return _ShardedLookup.apply(table.local, ids, table)
     return _Lookup.apply(table, ids)
+
+
+class _BagSum(torch.autograd.Function):
+    """``rows`` [B, S, ...] summed over consecutive slot ranges of fixed
+    ``lengths`` [B, F] -> [B, F, ...]: each output summed in slot order by
+    one thread of ``segment_reduce`` (no atomics, so the card repeats it
+    bit for bit); the backward hands each slot its feature's gradient
+    (``feature`` [S], the static slot -> feature map)."""
+
+    @staticmethod
+    def forward(ctx, rows, lengths, feature):
+        ctx.save_for_backward(feature)
+        # unsafe: the lengths are static and checked once (Bags); the
+        # check would read them back from the card every call
+        return torch.segment_reduce(rows, "sum", lengths=lengths, axis=1,
+                                    unsafe=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (feature,) = ctx.saved_tensors
+        return grad.index_select(1, feature), None, None
+
+
+class Bags:
+    """The fixed bag layout of multi-hot features: ``sizes[f]`` slots for
+    feature ``f``, the features' slot ranges in order.  Holds the static
+    maps the pool needs on each device it met (``lengths`` [F] and the
+    slot -> feature map [S]), made once: a map made from host data every
+    step would be a pageable copy, which waits for the card."""
+
+    def __init__(self, sizes: Tuple[int, ...]):
+        self.sizes = tuple(int(s) for s in sizes)
+        if not self.sizes or min(self.sizes) < 1:
+            raise ValueError(f"every bag needs at least one slot, got "
+                             f"{self.sizes}")
+        self.slots = sum(self.sizes)
+        self._maps: dict = {}
+
+    def maps(self, device: torch.device):
+        """``(lengths, feature)`` on ``device``."""
+        key = str(device)
+        if key not in self._maps:
+            sizes = torch.tensor(self.sizes, dtype=torch.int64)
+            feature = torch.repeat_interleave(
+                torch.arange(len(self.sizes)), sizes)
+            self._maps[key] = (sizes.to(device), feature.to(device))
+        return self._maps[key]
+
+
+def pooled_lookup(table, ids: torch.Tensor, bags: Bags) -> torch.Tensor:
+    """Sum-pooled bags: ``ids`` [B, S] holds each feature's bag in its
+    fixed range of slots (``bags``, ``S == bags.slots``) -> [B, F, ...],
+    each feature's rows of :func:`lookup` summed in slot order.  The
+    gradient of the table is :func:`lookup`'s (``merge_rows``, slot
+    order).
+
+    A span ``embed/bag_pool`` covers the lookup and the pool; with
+    telemetry on, ``embed_bag_slots_total`` counts the slots pooled."""
+    from lightctr_tpu_torch import obs
+    from lightctr_tpu_torch.utils.profiling import annotate
+
+    b, s = ids.shape
+    if s != bags.slots:
+        raise ValueError(f"ids have {s} slots a row, the bags {bags.slots}")
+    with annotate("embed/bag_pool", slots=b * s):
+        lengths, feature = bags.maps(ids.device)
+        rows = lookup(table, ids)
+        pooled = _BagSum.apply(rows, lengths.expand(b, -1), feature)
+    if obs.enabled():
+        obs.default_registry().inc("embed_bag_slots_total", b * s)
+    return pooled
 
 
 class SparseAdagradState(NamedTuple):

@@ -310,6 +310,10 @@ class SparseTableCTRTrainer(CTRTrainer):
         self._last_step_fallback = False
         self._fallback_logged = False
         self._plan_cache: Dict = {}
+        # {table: distinct rows touched, a running total on the device}
+        # and what of it the registry has (touched_rows, flush_health)
+        self._touched: Dict[str, torch.Tensor] = {}
+        self._touched_published: Dict[str, int] = {}
         # hierarchical-exchange state: the wire client, the per-step round
         # counter (every host's trainer steps in lockstep, so the counter
         # IS the round id), the fixed table-id order the rendezvous keys
@@ -409,13 +413,14 @@ class SparseTableCTRTrainer(CTRTrainer):
         return groups
 
     @staticmethod
-    def _dedup_and_gather(spec, groups, params, batch):
+    def _dedup_and_gather(spec, groups, params, batch, counts=None):
         """Steps 1-3 of the module recipe: per-stream batch-id dedup,
         position rewrite, and the O(touched) row gather.  Tables listing
         the IDENTICAL field tuple (``groups``, :meth:`_field_groups` of
         ``spec``) run the dedup once and share the resulting ``(uids,
         inv)``, so dedup work is paid per distinct id stream, not per
-        table."""
+        table.  A ``counts`` dict gets each table's distinct count (B2's,
+        a 0-d tensor on the device)."""
         with annotate("sparse_tables/dedup_gather", tables=len(spec),
                       id_streams=len(groups)):
             tables = {k: params[k] for k in spec}
@@ -426,9 +431,11 @@ class SparseTableCTRTrainer(CTRTrainer):
                 ids = torch.cat(
                     [batch[f].reshape(-1) for f in fields]
                 ).to(torch.int32)
-                u, inv, _ = sparse_kernels.dedup_ids(ids)
+                u, inv, n = sparse_kernels.dedup_ids(ids)
                 for k in keys:
                     uids[k] = u
+                    if counts is not None:
+                        counts[k] = n
                 ofs = 0
                 for f in fields:
                     m = batch[f].numel()
@@ -451,8 +458,11 @@ class SparseTableCTRTrainer(CTRTrainer):
         groups = self._field_groups(spec)
 
         def step(params, opt_state, batch):
+            counts = {} if obs.enabled() else None
             tables, dense, batch2, uids, rows = dedup_and_gather(
-                spec, groups, params, batch)
+                spec, groups, params, batch, counts)
+            if counts:
+                self._count_touched(counts)
             loss, probs, grads = grad_fn({**dense, **rows}, batch2)
             g_rows, g_dense = self._split_grads(grads)
             with annotate("trainer/optimizer"), torch.no_grad():
@@ -478,6 +488,34 @@ class SparseTableCTRTrainer(CTRTrainer):
                     loss, health)
 
         return step
+
+    def _count_touched(self, counts) -> None:
+        """Add each table's distinct count of the step to its running
+        total on the device (no read: the step is not synchronised)."""
+        with torch.no_grad():
+            for k, n in counts.items():
+                t = self._touched.get(k)
+                if t is None:
+                    self._touched[k] = n.to(torch.int64)
+                else:
+                    t.add_(n)
+
+    def touched_rows(self) -> Dict[str, int]:
+        """The distinct rows each table's steps touched, summed over the
+        single-device steps run with telemetry on (B2's count of each
+        step's id stream; reading it waits for the steps)."""
+        return {k: int(t) for k, t in self._touched.items()}
+
+    def flush_health(self) -> None:
+        """CTRTrainer's drain, then the touched-row totals into the
+        telemetry registry: ``embed_touched_rows_total{table=...}``."""
+        super().flush_health()
+        for k, n in self.touched_rows().items():
+            delta = n - self._touched_published.get(k, 0)
+            if delta:
+                self.telemetry.inc(
+                    obs.labeled("embed_touched_rows_total", table=k), delta)
+            self._touched_published[k] = n
 
     def _make_hybrid_dp_step(self, force_ag: bool = False):
         """Replicated data-parallel step with the hybrid explicit exchange

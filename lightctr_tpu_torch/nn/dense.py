@@ -11,12 +11,17 @@ The product is a plain ``torch.matmul``: the JAX package leaves it to XLA,
 outside any Pallas kernel.  On the card it runs in float32 as long as
 ``torch.backends.cuda.matmul.allow_tf32`` stays False (PyTorch's
 default).
+
+A stack of layers (an MLP) is a dict ``{"l0": layer, "l1": ...}``:
+:func:`init_stack` draws it over consecutive widths, :func:`apply_stack`
+runs it with one activation after every layer (or every layer but the
+last).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -26,15 +31,23 @@ def init(generator: torch.Generator, in_dim: int, out_dim: int,
     """weight [out, in] ~ U(-0.5, 0.5); bias zeros (fullyconnLayer.h:43-54),
     drawn from ``generator`` on its device and moved to ``device``.
 
-    ``scale="fan_in"`` divides by sqrt(in_dim), as in the JAX package."""
+    ``scale="fan_in"`` divides by sqrt(in_dim), as in the JAX package.
+    ``scale="linear"`` is ``torch.nn.Linear``'s default: weight, then bias,
+    ~ U(-1, 1) / sqrt(in_dim)."""
     w = torch.rand((out_dim, in_dim), generator=generator,
                    dtype=torch.float32, device=generator.device) - 0.5
+    b = torch.zeros((out_dim,), dtype=torch.float32, device=device)
     if scale == "fan_in":
         w = w / math.sqrt(float(in_dim))
+    elif scale == "linear":
+        bound = 1.0 / math.sqrt(float(in_dim))
+        w = w * (2.0 * bound)
+        b = ((torch.rand((out_dim,), generator=generator,
+                         dtype=torch.float32, device=generator.device)
+              * 2.0 - 1.0) * bound).to(device)
     elif scale is not None:
         raise ValueError(f"unknown scale {scale!r}")
-    return {"w": w.to(device),
-            "b": torch.zeros((out_dim,), dtype=torch.float32, device=device)}
+    return {"w": w.to(device), "b": b}
 
 
 def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -52,6 +65,28 @@ def apply(params: Dict[str, torch.Tensor], x: torch.Tensor,
     if dropout_mask is not None:
         y = y * dropout_mask / keep_prob
     return y
+
+
+def init_stack(generator: torch.Generator, widths: Sequence[int],
+               scale: Optional[str] = None, device="cpu") -> Dict[str, Dict]:
+    """An MLP over consecutive ``widths`` (``[in, h1, ..., out]``): layers
+    ``l0``, ``l1``, ... each as :func:`init`, drawn in that order."""
+    return {f"l{i}": init(generator, a, b, scale=scale, device=device)
+            for i, (a, b) in enumerate(zip(widths, widths[1:]))}
+
+
+def apply_stack(params: Dict[str, Dict], x: torch.Tensor,
+                activation: Callable = torch.relu,
+                activate_last: bool = True) -> torch.Tensor:
+    """The layers of :func:`init_stack` in order, ``activation`` after each
+    (after all but the last with ``activate_last=False``)."""
+    n = len(params)
+    for i in range(n):
+        last = i == n - 1
+        x = apply(params[f"l{i}"], x,
+                  activation=None if last and not activate_last
+                  else activation)
+    return x
 
 
 def sample_dropout_mask(generator: torch.Generator, out_dim: int,

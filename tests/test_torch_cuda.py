@@ -1300,6 +1300,70 @@ def test_family_serving_on_card_matches_cpu(dev, kind, tmp_path):
     np.testing.assert_allclose(got, cpu.score(b), atol=1e-5)
 
 
+# -- DLRM-DCNv2 ----------------------------------------------------------------
+
+
+def test_pooled_lookup_on_card_matches_cpu(dev):
+    """The pooled bags at tests/test_torch_dlrm.py's small size on the card
+    and on the CPU: each bag summed in slot order by one thread
+    (``segment_reduce``), the table's gradient B4's slot-order merge,
+    launched once and bit for bit the CPU's."""
+    import test_torch_dlrm as small
+    from lightctr_tpu_torch.embed import table as ttable
+
+    gen = torch.Generator().manual_seed(3)
+    t = torch.randn((sum(small.ROWS), small.DIM), generator=gen)
+    ids = small.make_batch(4, n=128)["bag_ids"]
+    g = torch.randn((128, len(small.BAGS), small.DIM), generator=gen)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        leaf = t.to(d).requires_grad_(True)
+        before = sk.launches("merge_rows")
+        out = ttable.pooled_lookup(leaf, ids.to(d), ttable.Bags(small.BAGS))
+        out.backward(g.to(d))
+        if d.type == "cuda":
+            assert sk.launches("merge_rows") == before + 1
+        got[d.type] = (out.detach().cpu(), leaf.grad.cpu())
+    torch.testing.assert_close(got["cuda"][0], got["cpu"][0], rtol=1e-6,
+                               atol=1e-6)
+    assert torch.equal(got["cuda"][1], got["cpu"][1])
+
+
+def test_dlrm_card_step_matches_the_reference(dev):
+    """One ``SparseTableCTRTrainer`` step of DLRM-DCNv2 on the card at
+    tests/test_torch_dlrm.py's small size against the plain reference on
+    the card (float32, TF32 off): B2, B4 and B5 launch once each, and the
+    loss, every leaf's change and every accumulator agree within that
+    file's tolerances."""
+    import dlrm_reference as ref
+    import test_torch_dlrm as small
+    from lightctr_tpu_torch.models import dlrm
+
+    params = small.make_params(6)
+    batch = small.make_batch(40)
+    tr = SparseTableCTRTrainer(
+        small.nest(params), dlrm.make_logits(small.BAGS),
+        TrainConfig(learning_rate=small.LR, lambda_l2=0.0),
+        sparse_tables={"embed": ["bag_ids"]}, eps=1e-7, device=dev)
+    tr.health = None
+    sk.reset_launches()
+    loss = float(tr.train_step(batch))
+    n = sk.launches()
+    assert (n["dedup_ids"], n["merge_rows"], n["merge_apply"]) == (1, 1, 1)
+    on_card = {k: v.to(dev) for k, v in params.items()}
+    want = ref.steps(on_card, [{k: v.to(dev) for k, v in batch.items()}],
+                     small.BAGS, small.LR)
+    assert abs(loss - want["losses"][0]) / abs(want["losses"][0]) \
+        < small.REL
+    got = small.flat(tr.params)
+    accum = {"embed": tr.opt_state["accum"]["embed"],
+             **small.flat(tr.opt_state["dense"].accum)}
+    for k, p in on_card.items():
+        assert small.rel(got[k] - p, want["params"][k] - p) \
+            < small.STEP_REL, k
+        assert small.rel(accum[k], want["accum"][k]) < small.STEP_REL, k
+
+
 def test_pq_on_the_card_matches_cpu(dev):
     """The k-means loop from one set of initial centroids on the card and
     on the CPU (the distances and the one-hot M step are matrix products,
