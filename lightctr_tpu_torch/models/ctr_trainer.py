@@ -29,7 +29,10 @@ Differences from the JAX trainer, by design:
     the prefetch worker: on a card, a pinned host copy and an asynchronous
     copy on a side stream, whose event the step waits on before it reads
     the batch (:class:`StagedBatch`).  Prefetch changes when a batch is
-    produced, never what is trained.
+    produced, never what is trained.  Without it, ``train_step`` on a card
+    stages a host batch itself, through two reused pinned slots and the
+    same side stream (:class:`StagingRing`), so the copy overlaps the
+    previous step.
   - ``fit`` and ``fit_fullbatch_scan`` take a compiled shard cache (a
     :class:`~lightctr_tpu_torch.data.ingest.ShardCache` or its directory)
     wherever they take an array dict.
@@ -120,6 +123,77 @@ class StagedBatch(NamedTuple):
 
     batch: Dict[str, torch.Tensor]
     ready: Optional[Any]
+
+
+class _Slot(NamedTuple):
+    """One slot of a :class:`StagingRing`: the batch signature its buffers
+    were made for, per key a pinned host buffer and a device buffer, and
+    its two events."""
+
+    signature: tuple
+    host: Dict[str, torch.Tensor]
+    dev: Dict[str, torch.Tensor]
+    free: Any
+    ready: Any
+
+
+class StagingRing:
+    """The two slots through which ``train_step`` puts host batches on a
+    card (:meth:`CTRTrainer._put_staged`).  Batches take the slots in
+    turn.  A slot's ``free`` event is recorded on the step's stream at the
+    next put, when the step that read the slot has been enqueued; before
+    the slot is filled again the host waits on it.  That wait keeps the
+    host at most one step ahead of the card's running step, and ensures
+    that neither of the slot's buffers is still in use.  A slot is made at
+    first use and made anew when a batch's keys, shapes, strides or dtypes
+    differ from those it holds (the shorter last batch of an epoch).
+
+    ``make_buffers(tensors)`` gives a slot's ``({key: pinned host
+    tensor}, {key: device tensor})`` for ``{key: CPU tensor}``, and
+    ``make_event()`` an event; the ring itself touches no device."""
+
+    SLOTS = 2
+
+    def __init__(self, make_buffers: Callable, make_event: Callable):
+        self._make_buffers = make_buffers
+        self._make_event = make_event
+        self._slots: list = [None] * self.SLOTS
+        self._next = 0
+        # the slot the last put filled, its free event not yet recorded
+        self._open: Optional[_Slot] = None
+
+    def wait(self, stream) -> None:
+        """Record the last filled slot's free event on ``stream``, then
+        wait on the host until the slot the next put fills is free."""
+        if self._open is not None:
+            self._open.free.record(stream)
+            self._open = None
+        slot = self._slots[self._next]
+        if slot is not None:
+            slot.free.synchronize()
+
+    def take(self, tensors: Dict[str, torch.Tensor], stream,
+             registry) -> _Slot:
+        """The next slot, free and fit for ``tensors``, after
+        :meth:`wait`.  Counts the batch in ``trainer_input_staged_total``
+        and a slot made in ``trainer_input_stage_allocs_total`` of
+        ``registry`` (None: telemetry off, nothing counted)."""
+        self.wait(stream)
+        i = self._next
+        self._next = (i + 1) % self.SLOTS
+        signature = tuple((k, tuple(t.shape), t.stride(), t.dtype)
+                          for k, t in sorted(tensors.items()))
+        slot = self._slots[i]
+        if slot is None or slot.signature != signature:
+            slot = self._slots[i] = _Slot(
+                signature, *self._make_buffers(tensors),
+                self._make_event(), self._make_event())
+            if registry is not None:
+                registry.inc("trainer_input_stage_allocs_total")
+        if registry is not None:
+            registry.inc("trainer_input_staged_total")
+        self._open = slot
+        return slot
 
 
 class CompressedRingState(NamedTuple):
@@ -372,8 +446,10 @@ class CTRTrainer:
         self._steps_seen = 0
         # the card's clock of the catalog's step time, made at first use
         self._step_clock: Optional[device_mod.StepClock] = None
-        # the prefetch worker's copy stream on a card, made at first use
+        # the copy stream on a card (the prefetch worker's staging and
+        # train_step's staged put), made at first use
         self._stage_stream = None
+        self._staging = StagingRing(self._stage_buffers, torch.cuda.Event)
         self.opt_state = self._init_opt_state(self.params)
         self._step = self._build_step()
         self._logits = self.logits_fn
@@ -690,12 +766,19 @@ class CTRTrainer:
                     dtype=torch.float32, device=self.device))
         return self.tx.init(params)
 
-    def _put(self, batch, non_blocking: bool = False
+    def _put(self, batch, non_blocking: bool = False, for_step: bool = False
              ) -> Dict[str, torch.Tensor]:
         """A training batch on this trainer's device: with a mesh, this
-        rank's rows of it."""
+        rank's rows of it.  ``for_step`` is :meth:`train_step`'s put, whose
+        tensors only that step reads: on a card without a mesh, a batch of
+        host memory that is not pinned (:meth:`_put_waits`) is then staged
+        through the two-slot ring (:meth:`_put_staged`), and the tensors
+        returned are the ring's, overwritten two puts later.  Every other
+        put copies on the step's stream."""
         if self.mesh is not None:
             return shard_batch(self.mesh, batch, non_blocking=non_blocking)
+        if for_step and self.device.type == "cuda" and self._put_waits(batch):
+            return self._put_staged(batch)
         return self._put_whole(batch, non_blocking=non_blocking)
 
     def _put_whole(self, batch, non_blocking: bool = False
@@ -703,6 +786,57 @@ class CTRTrainer:
         return {k: torch.as_tensor(v).to(self.device,
                                          non_blocking=non_blocking)
                 for k, v in batch.items()}
+
+    def _copy_stream(self):
+        if self._stage_stream is None:
+            self._stage_stream = torch.cuda.Stream(device=self.device)
+        return self._stage_stream
+
+    def _stage_buffers(self, tensors):
+        """A staging slot's buffers for ``tensors``: pinned host memory,
+        and device memory of the copy stream's pool, each laid out as
+        ``.to()`` would lay out the copy (so a step reads what the
+        pageable put gives it, bit for bit)."""
+        with torch.cuda.stream(self._copy_stream()):
+            dev = {k: torch.empty_like(t, device=self.device)
+                   for k, t in tensors.items()}
+        host = {k: torch.empty_like(t, pin_memory=True)
+                for k, t in tensors.items()}
+        return host, dev
+
+    def _put_staged(self, batch) -> Dict[str, torch.Tensor]:
+        """:meth:`train_step`'s put of host memory to a card: the host
+        copies each array into the next slot of :class:`StagingRing`'s
+        pinned buffers (span ``trainer/input_stage``; the caller's arrays
+        are free once this returns), the copy stream waits on the slot's
+        free event and copies them to the slot's device buffers, and the
+        step's stream waits on its ready event before the step's first
+        kernel.  The copy thus runs on the copy engine while the card
+        finishes the previous step; the only wait left at the put is the
+        ring's, for the step before that (:meth:`_wait_stream`)."""
+        stream = torch.cuda.current_stream(self.device)
+        tensors = {k: torch.as_tensor(v) for k, v in batch.items()}
+        host = {k: t for k, t in tensors.items() if t.device.type == "cpu"}
+        slot = self._staging.take(
+            host, stream, self.telemetry if obs.enabled() else None)
+        with annotate("trainer/input_stage"):
+            for k, t in host.items():
+                slot.host[k].copy_(t)
+        copy = self._copy_stream()
+        copy.wait_event(slot.free)
+        with torch.cuda.stream(copy):
+            for k in host:
+                slot.dev[k].copy_(slot.host[k], non_blocking=True)
+        slot.ready.record(copy)
+        stream.wait_event(slot.ready)
+        out = {}
+        for k, t in tensors.items():
+            if k in host:
+                t = slot.dev[k]
+                # the copy stream's memory, read on the step's stream
+                t.record_stream(stream)
+            out[k] = t.to(self.device)
+        return out
 
     def _prefetch_prepare(self) -> Optional[Callable]:
         """The per-batch transform a prefetch stage runs OFF the step's
@@ -720,14 +854,13 @@ class CTRTrainer:
         copies; :meth:`_claim` makes the step's stream wait on it."""
         if self.device.type != "cuda":
             return StagedBatch(self._put(batch), None)
-        if self._stage_stream is None:
-            self._stage_stream = torch.cuda.Stream(device=self.device)
-        with torch.cuda.stream(self._stage_stream):
+        copy = self._copy_stream()
+        with torch.cuda.stream(copy):
             pinned = {k: torch.as_tensor(v).pin_memory()
                       for k, v in batch.items()}
             dev = self._put(pinned, non_blocking=True)
             ready = torch.cuda.Event()
-            ready.record(self._stage_stream)
+            ready.record(copy)
         return StagedBatch(dev, ready)
 
     def _claim(self, batch) -> Dict[str, torch.Tensor]:
@@ -751,19 +884,24 @@ class CTRTrainer:
         (reading it synchronises, as reading the JAX device scalar does).
         ``device_ready=True`` says the batch already went through the
         prefetch stage's :meth:`_stage` (or :meth:`_put`), so the step
-        skips the transfer.
+        skips the transfer.  Otherwise, on a card without a mesh, a batch
+        of host memory that is not pinned goes through the staging ring
+        (:meth:`_put_staged`): copied into pinned memory by the host and
+        to the card on the copy stream, overlapping the previous step;
+        the caller may reuse its arrays once this returns.
 
         With telemetry on, the step's phases are spans (``annotate``: the
         same names on the PyTorch profiler's timeline and in the obs
         tracer), recorded only while a profiler session records or the
         tracer samples: ``trainer/step`` around ``trainer/input``
-        (``trainer/input_wait`` inside it before a pageable put),
+        (``trainer/input_wait`` inside it before a put that waits, then
+        ``trainer/input_stage`` for the staged put's host copy),
         ``trainer/exec`` (the step's own spans: ``trainer/forward``,
         ``trainer/backward``, ``trainer/optimizer``) and
         ``trainer/record``."""
         if not obs.enabled():
             dev_batch = (self._claim(batch) if device_ready
-                         else self._put(batch))
+                         else self._put(batch, for_step=True))
             self.params, self.opt_state, loss, _ = self._step(
                 self.params, self.opt_state, dev_batch)
             return loss
@@ -777,11 +915,11 @@ class CTRTrainer:
                     dev_batch = self._claim(batch)
                 else:
                     if spans_on() and self._put_waits(batch):
-                        # the pageable copy waits for the stream anyway:
-                        # waiting first puts that wait in a span of its own
+                        # the put waits anyway: waiting first puts that
+                        # wait in a span of its own
                         with annotate("trainer/input_wait"):
                             self._wait_stream()
-                    dev_batch = self._put(batch)
+                    dev_batch = self._put(batch, for_step=True)
             with annotate("trainer/exec"):
                 if sw is not None:
                     sw.mark("exec")
@@ -794,8 +932,10 @@ class CTRTrainer:
         return loss
 
     def _put_waits(self, batch) -> bool:
-        """Whether :meth:`_put` of ``batch`` copies pageable host memory to
-        a card, a copy that first waits for the step's stream."""
+        """Whether :meth:`train_step`'s put of ``batch`` copies host memory
+        that is not pinned to a card, a put that waits first: without a
+        mesh the staged put, for the staging ring's next slot; with one,
+        the pageable copy of this rank's rows, for the step's stream."""
         if self.device.type != "cuda":
             return False
         for v in batch.values():
@@ -807,7 +947,16 @@ class CTRTrainer:
         return False
 
     def _wait_stream(self) -> None:
-        torch.cuda.current_stream(self.device).synchronize()
+        """The wait of a put that :meth:`_put_waits` announces: without a
+        mesh, on the free event of the staging ring's next slot (the card
+        has finished the step before the previous one,
+        :meth:`StagingRing.wait`); with one, for the step's whole
+        stream."""
+        stream = torch.cuda.current_stream(self.device)
+        if self.mesh is None:
+            self._staging.wait(stream)
+        else:
+            stream.synchronize()
 
     def _run_step(self, dev_batch):
         """``self._step`` on the trainer state; with the device plane

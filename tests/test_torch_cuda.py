@@ -2086,3 +2086,150 @@ def test_merge_rows_at_local_indices_drops_the_foreign_ids(dev):
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     cpu = sk.merge_rows_plain(rows, seg, block)
     assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+
+
+# -- train_step's staged put ---------------------------------------------------
+
+
+def staged_trainer(kind, dev):
+    """A sparse trainer of ``kind`` (FM, Wide&Deep or DLRM shaped) at a
+    small vocabulary, its health feed off and a registry of its own."""
+    from lightctr_tpu_torch import obs
+
+    cfg = TrainConfig(learning_rate=0.05, lambda_l2=0.001)
+    if kind == "fm":
+        tr = SparseTableCTRTrainer(
+            fm.init(torch.Generator().manual_seed(0), 512, 8), fm.logits,
+            cfg, sparse_tables={"w": ["fids"], "v": ["fids"]},
+            fused_fn=fm.logits_with_l2, device=dev)
+    elif kind == "widedeep":
+        p, logits, _, tables = family("widedeep")
+        tr = SparseTableCTRTrainer(p, logits, cfg, sparse_tables=tables,
+                                   device=dev)
+    else:
+        import test_torch_dlrm as small
+        from lightctr_tpu_torch.models import dlrm
+
+        tr = SparseTableCTRTrainer(
+            small.nest(small.make_params(6)), dlrm.make_logits(small.BAGS),
+            TrainConfig(learning_rate=small.LR, lambda_l2=0.0),
+            sparse_tables={"embed": ["bag_ids"]}, eps=1e-7, device=dev)
+    tr.health = None
+    tr.telemetry = obs.MetricsRegistry()
+    return tr
+
+
+def staged_batch(kind, seed, n=None):
+    """FM's numpy batch of 39 ids a row, Wide&Deep's, or DLRM's CPU
+    tensors (214 bag ids a row)."""
+    if kind == "fm":
+        return fm_batch(seed, n=n or 4096, nnz=39)
+    if kind == "widedeep":
+        return family_batch(seed, n=n or 2048)
+    import test_torch_dlrm as small
+
+    return small.make_batch(seed, n=n or 256)
+
+
+def run_steps(tr, batches, overwrite=False):
+    """``train_step`` over ``batches``, the losses read once at the end;
+    with ``overwrite`` each batch's arrays are zeroed as soon as its step
+    returns."""
+    losses = []
+    for b in batches:
+        losses.append(tr.train_step(b))
+        if overwrite:
+            for v in b.values():
+                v[...] = 0
+    return torch.stack(losses)
+
+
+def assert_same_state(a, b):
+    from lightctr_tpu_torch.optim.updaters import tree_leaves
+
+    got = tree_leaves(a.params) + tree_leaves(a.opt_state)
+    want = tree_leaves(b.params) + tree_leaves(b.opt_state)
+    assert len(got) == len(want)
+    for x, y in zip(got, want):
+        assert torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+
+
+def stage_counts(tr):
+    c = tr.telemetry.snapshot()["counters"]
+    return (c.get("trainer_input_staged_total", 0),
+            c.get("trainer_input_stage_allocs_total", 0))
+
+
+def pageable(tr):
+    """``tr`` with train_step's put the plain pageable copy."""
+    tr._put_staged = tr._put_whole
+    return tr
+
+
+@pytest.mark.parametrize("overwrite", [False, True])
+@pytest.mark.parametrize("kind", ["fm", "widedeep", "dlrm"])
+def test_staged_put_trains_as_the_pageable_put_bit_for_bit(dev, kind,
+                                                           overwrite):
+    """20 steps whose batches go through the staging ring against the same
+    steps with the pageable put: losses, parameters and accumulators bit
+    for bit.  With ``overwrite`` the caller zeroes each batch as soon as
+    ``train_step`` returns, which the step must not see.  Every batch was
+    staged, through two slots made once: pinned host buffers, device
+    buffers on the card."""
+    staged = staged_trainer(kind, dev)
+    plain = pageable(staged_trainer(kind, dev))
+    got = run_steps(staged, [staged_batch(kind, s) for s in range(20)],
+                    overwrite)
+    want = run_steps(plain, [staged_batch(kind, s) for s in range(20)])
+    assert torch.equal(got, want)
+    assert_same_state(staged, plain)
+    assert stage_counts(staged) == (20, 2)
+    assert stage_counts(plain) == (0, 0)
+    for slot in staged._staging._slots:
+        assert all(t.is_pinned() for t in slot.host.values())
+        assert all(t.is_cuda for t in slot.dev.values())
+
+
+def test_staged_put_makes_one_slot_anew_for_a_shorter_last_batch(dev):
+    """Six full batches, then a shorter one (the last of an epoch): the
+    slot it takes is made anew, the other kept, and the steps stay the
+    pageable put's bit for bit."""
+    sizes = [4096] * 6 + [1000]
+    staged = staged_trainer("fm", dev)
+    plain = pageable(staged_trainer("fm", dev))
+    got = run_steps(staged, [staged_batch("fm", s, n)
+                             for s, n in enumerate(sizes)])
+    want = run_steps(plain, [staged_batch("fm", s, n)
+                             for s, n in enumerate(sizes)])
+    assert torch.equal(got, want)
+    assert_same_state(staged, plain)
+    assert stage_counts(staged) == (7, 3)
+    shapes = [s.host["labels"].shape[0] for s in staged._staging._slots]
+    assert shapes == [1000, 4096]
+
+
+SLEEP_CYCLES = 200_000_000  # about 0.1 s of the card's clock
+
+
+def test_staged_put_keeps_the_host_at_most_one_step_ahead(dev):
+    """Each step sleeps about 0.1 s on the card.  When ``train_step`` k
+    returns, step k - 2 has finished (its put waited on that slot's free
+    event) and step k - 1 has not (the put did not wait for it): the host
+    runs one step ahead of the card's running step, and no further."""
+    def slow_logits(params, batch):
+        torch.cuda._sleep(SLEEP_CYCLES)
+        return fm.logits(params, batch)
+
+    tr = CTRTrainer(fm.init(torch.Generator().manual_seed(0), 512, 8),
+                    slow_logits, TrainConfig(learning_rate=0.05), device=dev)
+    tr.health = None
+    done = []
+    for k in range(6):
+        tr.train_step(staged_batch("fm", k))
+        if k >= 2:
+            assert done[k - 2].query(), k
+            assert not done[k - 1].query(), k
+        ev = torch.cuda.Event()
+        ev.record()
+        done.append(ev)
+    torch.cuda.synchronize()

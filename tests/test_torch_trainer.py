@@ -570,3 +570,132 @@ def test_input_wait_only_on_the_pageable_put(monkeypatch):
             assert "trainer/input" in names
             assert "trainer/input_wait" not in names
     otrace.reset()
+
+
+class _StubEvent:
+    """A CUDA event's part in the staging ring, logged."""
+
+    def __init__(self, log):
+        self.log = log
+
+    def record(self, stream):
+        self.log.append(("record", self, stream))
+
+    def synchronize(self):
+        self.log.append(("sync", self))
+
+
+def _stub_ring():
+    """A :class:`StagingRing` over CPU buffers and logged events, and the
+    key lists its slots were made for."""
+    from lightctr_tpu_torch.models.ctr_trainer import StagingRing
+
+    log, made = [], []
+
+    def buffers(tensors):
+        made.append(sorted(tensors))
+        return ({k: torch.empty_like(t) for k, t in tensors.items()},
+                {k: torch.empty_like(t) for k, t in tensors.items()})
+
+    return StagingRing(buffers, lambda: _StubEvent(log)), log, made
+
+
+def _stage_counts(reg):
+    c = reg.snapshot()["counters"]
+    return (c.get("trainer_input_staged_total", 0),
+            c.get("trainer_input_stage_allocs_total", 0))
+
+
+def test_staging_ring_takes_its_slots_in_turn_and_waits_before_reuse():
+    """Batches of one signature alternate between two slots made once.
+    Each put records the previous slot's free event on the step's stream,
+    and the host synchronises on a slot's event before it fills the slot
+    again: the host runs at most one step ahead of the card.  The counters
+    count the puts and the slots made, and nothing without a registry."""
+    from lightctr_tpu_torch import obs
+
+    ring, log, made = _stub_ring()
+    reg = obs.MetricsRegistry()
+    b = {k: torch.as_tensor(v) for k, v in fm_batch(1).items()}
+    slots = [ring.take(b, "s", reg) for _ in range(5)]
+    a, c = slots[0], slots[1]
+    assert [s is a for s in slots] == [True, False, True, False, True]
+    assert made == [sorted(b)] * 2 and a is not c
+    assert log == [("record", a.free, "s"),
+                   ("record", c.free, "s"), ("sync", a.free),
+                   ("record", a.free, "s"), ("sync", c.free),
+                   ("record", c.free, "s"), ("sync", a.free)]
+    assert _stage_counts(reg) == (5, 2)
+    del log[:]
+    ring.wait("t")  # the span's wait: the same record, then the sync
+    assert log == [("record", a.free, "t"), ("sync", c.free)]
+    del log[:]
+    assert ring.take(b, "t", None) is c  # the wait again: nothing to record
+    assert log == [("sync", c.free)]
+    assert _stage_counts(reg) == (5, 2)
+
+
+@pytest.mark.parametrize("change", ["key", "shape", "dtype", "stride"])
+def test_staging_ring_makes_a_slot_anew_for_a_batch_that_differs(change):
+    """A batch whose keys, shapes (the shorter last batch of an epoch),
+    dtypes or strides differ from its slot's gets a slot made anew, after
+    the host has waited on the old slot's free event; the other slot
+    still serves the first signature."""
+    from lightctr_tpu_torch import obs
+
+    ring, log, made = _stub_ring()
+    reg = obs.MetricsRegistry()
+    b = {k: torch.as_tensor(v) for k, v in fm_batch(2).items()}
+    first = [ring.take(b, "s", reg) for _ in range(2)]
+    other = dict(b)
+    if change == "key":
+        other["weights"] = b["labels"].clone()
+    elif change == "shape":
+        other = {k: v[:-1] for k, v in b.items()}
+    elif change == "dtype":
+        other["labels"] = b["labels"].to(torch.float64)
+    else:
+        other["vals"] = b["vals"].t().contiguous().t()
+    new = ring.take(other, "s", reg)
+    assert new is not first[0] and new.signature != first[0].signature
+    assert log[-1] == ("sync", first[0].free)
+    assert len(made) == 3 and made[-1] == sorted(other)
+    assert new.host["vals"].stride() == other["vals"].stride()
+    assert ring.take(b, "s", reg) is first[1]
+    assert _stage_counts(reg) == (4, 3)
+
+
+def test_train_steps_put_stages_only_on_a_card_without_a_mesh(monkeypatch):
+    """``_put(for_step=True)`` is the plain put on the CPU, and under a
+    mesh this rank's rows (``shard_batch``), even for a batch whose put
+    waits; on a single card such a batch goes to the staging ring, and
+    only train_step's put does."""
+    from lightctr_tpu_torch.core.mesh import Mesh, shard_batch
+
+    b = fm_batch(6)
+    p = tparams(init_params())
+    tr = CTRTrainer(p, tfm.logits, TrainConfig(), device="cpu")
+    for got in (tr._put(b, for_step=True), tr._put(b)):
+        assert set(got) == set(b)
+        for k, v in b.items():
+            assert torch.equal(got[k], torch.as_tensor(v)), k
+    mesh = Mesh(group=None, rank=0, device=torch.device("cpu"))
+    trm = CTRTrainer(p, tfm.logits, TrainConfig(), mesh=mesh, device="cpu")
+    staged = []
+    for t in (tr, trm):
+        monkeypatch.setattr(t, "_put_waits", lambda batch: True)
+        monkeypatch.setattr(t, "_put_staged",
+                            lambda batch, t=t: staged.append(t) or {})
+    want = shard_batch(mesh, b)
+    got = trm._put(b, for_step=True)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for k, v in tr._put(b, for_step=True).items():  # the ring needs a card
+        assert torch.equal(v, torch.as_tensor(b[k])), k
+    assert staged == []
+    monkeypatch.setattr(tr, "device", torch.device("cuda"))
+    monkeypatch.setattr(tr, "_put_whole", lambda batch, **kw: "pageable")
+    assert tr._put(b) == "pageable" and staged == []
+    assert tr._put(b, for_step=True) == {} and staged == [tr]
+    assert tr._staging._slots == [None, None]
+    assert trm._staging._slots == [None, None]
